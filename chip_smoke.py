@@ -7,29 +7,38 @@ Phases, each failing the script (non-zero exit, no final line) when it
 fails; nothing is caught:
 
 1. card: the card's name and power limit, from nvidia-smi;
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc``, one nvcc
-   per source, started together, with each kernel's register report;
+2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   nvcc per source, started together, with each kernel's register report;
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
-   ragged shape;
-4. the slice at full width: SMP-PCA (``repro_torch.core.smppca.smppca``)
-   of a planted pair with d = 50,000, n1 = n2 = 100,000, k = 512, r = 5,
-   m = default_m(1e5, 1e5, 5) = 57,564,627, T = 10, through both kernels
-   (launch counters read around the run); per-stage times from a second,
+   ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
+   the SRHT pass's call shape (d = 50,000 padded to 65,536 on a column
+   slice), in float32 and bf16, in one pass (d <= 256) and on a ragged n;
+4. the Gaussian path at full width: SMP-PCA
+   (``repro_torch.core.smppca.smppca``) of a planted pair with d = 50,000,
+   n1 = n2 = 100,000, k = 512, r = 5, m = default_m(1e5, 1e5, 5) =
+   57,564,627, T = 10, through kernels 1 and 2 (launch counters set to 0
+   before the run and read after it); per-stage times from a second,
    staged run, with the cost of the sampler's host-side CDF; a
    probe-estimated relative residual against its threshold; and the same
    SMP-PCA on card and CPU at a small size, which must agree;
 5. kernel 2 (``sampled_rescaled_dot``) against its plain version on the
    first 2**20 of the slice's samples, with m = 0 and with duplicates;
-6. timings of each kernel at the slice's shapes beside its plain version,
-   one PyTorch library call where one computes the same function, and its
-   bound on an H100 SXM;
-7. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+6. timings of kernels 1 and 2 at the slice's shapes beside their plain
+   versions, one PyTorch library call where one computes the same
+   function, and their bounds on an H100 SXM;
+7. the SRHT path (``method='srht'``) at the same full width, through
+   kernels 3 and 2: launch counts, peak memory, probe residual, per-stage
+   times of a staged run, and card against CPU at the small size;
+8. the timing of kernel 3 at its call shape, beside its plain version and
+   its bound;
+9. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -64,6 +73,15 @@ PROBE_RESIDUAL_MAX = 0.2
 # Card against CPU at the small size: same keys, but float32 sums in other
 # orders and CUDA atomics in WAltMin move U V^T by ~1e-5 relative.
 SMALL_UVT_TOL = 1e-3
+# Kernel 3 against its plain version: the kernel does the plain butterfly's
+# float32 adds in the same order and should agree bit for bit; each column
+# is held to 1e-4 of its own largest entry, the JAX suite's tolerance for
+# the blocked FWHT against its butterfly.
+FWHT_TOL = 1e-4
+# Peak device memory of the SRHT path: A and B take 40 GB, the Gaussian
+# path peaked at 51.2 GB (PERF.md), and the SRHT pass must add no (dp, n)
+# copy of A or B (26.2 GB each).
+SRHT_PEAK_GB_MAX = 60.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -144,6 +162,86 @@ def sketch_check(ops, Pi, A, precision=None):
     return err
 
 
+def fwht_check(ops, X, signs, d_pad, label):
+    """Kernel 3 against its plain version; returns the max abs err. Fails
+    unless every column's error is within FWHT_TOL of that column's
+    largest entry."""
+    out = ops.blocked_fwht(X, signs, d_pad=d_pad)
+    ref = ops.KERNELS["blocked_fwht"].plain(X, signs, d_pad)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape, f"blocked_fwht {label} shape")
+    diff = (out - ref).abs()
+    err = float(diff.max())
+    col_err = float((diff.amax(dim=0)
+                     / ref.abs().amax(dim=0).clamp(min=1e-30)).max())
+    print(f"blocked_fwht check {label} d={X.shape[0]} d_pad={d_pad} "
+          f"n={X.shape[1]} {str(X.dtype).split('.')[-1]}: max_abs_err="
+          f"{err:.3e} column_err={col_err:.3e} (tol {FWHT_TOL:.0e})",
+          flush=True)
+    check(col_err <= FWHT_TOL, f"blocked_fwht {label}: column err {col_err}")
+    return err
+
+
+def staged_run(key, A, B, k, m, r, T, n, method, dev):
+    """The main path once more, stage by stage, timed with CUDA events.
+    Returns (stages_ms, summary, samples, values)."""
+    from repro_torch import prng
+    from repro_torch.core import estimation_engine, sampling, summary_engine
+    from repro_torch.core.waltmin import waltmin
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    k_sk, k_samp, _ = prng.split(key, 3)
+    k_omega, k_als = prng.split(prng.fold_in(k_samp, 0))
+    events[0].record()
+    summary = summary_engine.build_summary(k_sk, A, B, k, method=method,
+                                           backend="cuda", device=dev)
+    events[1].record()
+    samples = sampling.sample_entries(k_omega, summary.norm_A,
+                                      summary.norm_B, m)
+    events[2].record()
+    values = estimation_engine._cuda_values(summary, samples.rows,
+                                            samples.cols)
+    events[3].record()
+    waltmin(k_als, samples, values, n, n, r, T, norm_A=summary.norm_A,
+            use_splits=False)
+    events[4].record()
+    events[4].synchronize()
+    stages = {name: events[i].elapsed_time(events[i + 1]) for i, name in
+              enumerate(("sketch", "sample", "values", "waltmin"))}
+    return stages, summary, samples, values
+
+
+def small_pair_check(smppca, spectral_error_vs_optimal, seed, r, dev,
+                     method):
+    """The same SMP-PCA on card and CPU at d = 2000, n = 200: U V^T must
+    agree within SMALL_UVT_TOL, and the card's error meet the JAX suite's
+    3 opt + 0.05 bound."""
+    from repro_torch import prng
+    from repro_torch.core import estimation_engine
+    rng = np.random.default_rng(seed)
+    ds, ns = 2000, 200
+    Dn = (1.0 / np.arange(1, ns + 1)).astype(np.float32)
+    As_ = (rng.standard_normal((ds, ns)).astype(np.float32) * Dn)
+    Bs_ = As_ + 0.3 * rng.standard_normal((ds, ns)).astype(np.float32) * Dn
+    As_, Bs_ = torch.from_numpy(As_), torch.from_numpy(Bs_)
+    ms = estimation_engine.default_m(ns, ns, r)
+    small = {where: smppca(prng.PRNGKey(seed), As_, Bs_, r=r, k=512, m=ms,
+                           T=8, method=method, device=where).factors
+             for where in ("cuda", "cpu")}
+    uvt = {where: (f.U @ f.V.T).cpu() for where, f in small.items()}
+    rel = float(torch.linalg.norm(uvt["cuda"] - uvt["cpu"])
+                / torch.linalg.norm(uvt["cpu"]))
+    err, opt = spectral_error_vs_optimal(As_.to(dev), Bs_.to(dev), r,
+                                         small["cuda"])
+    print(f"small pair {method} d={ds} n={ns}: card vs CPU U V^T rel diff "
+          f"{rel:.2e} (tol {SMALL_UVT_TOL:.0e}); spectral err "
+          f"{float(err):.4f} vs 3*opt+0.05 = {3 * float(opt) + 0.05:.4f}",
+          flush=True)
+    check(rel < SMALL_UVT_TOL, f"{method} card vs CPU at the small size: "
+          f"{rel}")
+    check(float(err) < 3 * float(opt) + 0.05,
+          f"{method} small-size error bound")
+
+
 def sampled_check(ops, As, Bs, na, nb, rows, cols, label):
     out = ops.sampled_rescaled_dot(As, Bs, na, nb, rows, cols)
     ref = ops.KERNELS["sampled_rescaled_dot"].plain(As, Bs, na, nb, rows,
@@ -173,7 +271,6 @@ def main(argv=None) -> int:
     from repro_torch import prng
     from repro_torch.core import estimation_engine, sampling, summary_engine
     from repro_torch.core.smppca import smppca, spectral_error_vs_optimal
-    from repro_torch.core.waltmin import waltmin
     from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,6 +311,15 @@ def main(argv=None) -> int:
     sketch_check(ops, torch.randn(33, 517, generator=gen, device=dev),
                  torch.randn(517, 259, generator=gen, device=dev))
 
+    # kernel 3 against its plain version, at the SRHT pass's call shape
+    width = summary_engine.SRHT_COLUMN_BLOCK
+    signs, _, dp = summary_engine.srht_plan(k_sketch, d, k)
+    X3 = A[:, :width]                      # a column slice of A, row stride n
+    err_fwht = fwht_check(ops, X3, signs, dp, "call shape")
+    fwht_check(ops, X3.to(torch.bfloat16), signs, dp, "call shape")
+    fwht_check(ops, A[:200, :4096], signs[:200], 256, "one pass")
+    fwht_check(ops, A[:777, :1001], signs[:777], 1024, "ragged n")
+
     # 4. the slice at full width --------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -227,7 +333,8 @@ def main(argv=None) -> int:
     print(f"smppca d={d} n1=n2={n} k={k} r={r} m={m} T={T}: {wall_s:.3f} s "
           f"wall, launches {launches}, peak memory {peak_gb:.1f} GB",
           flush=True)
-    check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1},
+    check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
+                       "blocked_fwht": 0},
           f"launches per smppca call: {launches}")
     U, V = res.factors
     check(tuple(U.shape) == (n, r) and tuple(V.shape) == (n, r),
@@ -240,29 +347,10 @@ def main(argv=None) -> int:
     check(resid < PROBE_RESIDUAL_MAX, f"probe residual {resid}")
 
     # the same path again, stage by stage, timed with CUDA events
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    k_sk, k_samp, _ = prng.split(key, 3)
-    k_est = prng.fold_in(k_samp, 0)
-    k_omega, k_als = prng.split(k_est)
-    events[0].record()
-    summary = summary_engine.build_summary(k_sk, A, B, k, backend="cuda",
-                                           device=dev)
-    events[1].record()
-    samples = sampling.sample_entries(k_omega, summary.norm_A,
-                                      summary.norm_B, m)
-    events[2].record()
-    values = estimation_engine._cuda_values(summary, samples.rows,
-                                            samples.cols)
-    events[3].record()
-    staged = waltmin(k_als, samples, values, n, n, r, T,
-                     norm_A=summary.norm_A, use_splits=False)
-    events[4].record()
-    events[4].synchronize()
-    stages = {name: events[i].elapsed_time(events[i + 1]) for i, name in
-              enumerate(("sketch", "sample", "values", "waltmin"))}
+    stages, summary, samples, values = staged_run(key, A, B, k, m, r, T, n,
+                                                  "gaussian", dev)
     check(bool(torch.equal(samples.rows, res.samples.rows)),
           "staged run draws the main path's sample")
-    del staged
     print("stages_ms " + json.dumps(stages), flush=True)
 
     # the sampler sums its two CDFs on the host: their cost, and whether
@@ -278,26 +366,8 @@ def main(argv=None) -> int:
     print("sample_cdf " + json.dumps(cdf), flush=True)
 
     # card against CPU at a small size, and the test's error bound
-    rng = np.random.default_rng(args.seed)
-    ds, ns = 2000, 200
-    Dn = (1.0 / np.arange(1, ns + 1)).astype(np.float32)
-    As_ = (rng.standard_normal((ds, ns)).astype(np.float32) * Dn)
-    Bs_ = As_ + 0.3 * rng.standard_normal((ds, ns)).astype(np.float32) * Dn
-    As_, Bs_ = torch.from_numpy(As_), torch.from_numpy(Bs_)
-    ms = estimation_engine.default_m(ns, ns, r)
-    small = {where: smppca(prng.PRNGKey(args.seed), As_, Bs_, r=r, k=512,
-                           m=ms, T=8, device=where).factors
-             for where in ("cuda", "cpu")}
-    uvt = {where: (f.U @ f.V.T).cpu() for where, f in small.items()}
-    rel = float(torch.linalg.norm(uvt["cuda"] - uvt["cpu"])
-                / torch.linalg.norm(uvt["cpu"]))
-    err, opt = spectral_error_vs_optimal(As_.to(dev), Bs_.to(dev), r,
-                                         small["cuda"])
-    print(f"small pair d={ds} n={ns}: card vs CPU U V^T rel diff {rel:.2e} "
-          f"(tol {SMALL_UVT_TOL:.0e}); spectral err {float(err):.4f} vs "
-          f"3*opt+0.05 = {3 * float(opt) + 0.05:.4f}", flush=True)
-    check(rel < SMALL_UVT_TOL, f"card vs CPU at the small size: {rel}")
-    check(float(err) < 3 * float(opt) + 0.05, "small-size error bound")
+    small_pair_check(smppca, spectral_error_vs_optimal, args.seed, r, dev,
+                     "gaussian")
 
     # 5. kernel 2 against its plain version ---------------------------------
     As_rows = summary.A_sketch.T.contiguous()
@@ -340,16 +410,73 @@ def main(argv=None) -> int:
     }
     for name, t in timing.items():
         print(f"timing {name} " + json.dumps(t), flush=True)
+    del res, summary, samples, values, rows, cols, As_rows, Bs_rows, Pi
 
-    # 7. the kernels line and the last line ---------------------------------
-    errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled}
+    # 7. the SRHT path at full width ----------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = smppca(key, A, B, r=r, k=k, m=m, T=T, method="srht", device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches_srht = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    blocks = -(-n // width)
+    print(f"smppca srht d={d} (dp={dp}) n1=n2={n} k={k} r={r} m={m} T={T}: "
+          f"{wall_s:.3f} s wall, launches {launches_srht} ({blocks} column "
+          f"blocks of {width} per matrix), peak memory {peak_gb:.1f} GB",
+          flush=True)
+    check(launches_srht == {"sketch_fused": 0, "sampled_rescaled_dot": 1,
+                            "blocked_fwht": 2 * blocks},
+          f"launches per smppca(method='srht') call: {launches_srht}")
+    check(peak_gb < SRHT_PEAK_GB_MAX, f"srht peak memory {peak_gb} GB")
+    U, V = res.factors
+    check(tuple(U.shape) == (n, r) and tuple(V.shape) == (n, r),
+          "srht factor shapes")
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all()),
+          "srht factors finite")
+    resid = probe_residual(A, B, res.factors, gen)
+    print(f"srht probe residual: {resid:.4f} (threshold "
+          f"{PROBE_RESIDUAL_MAX})", flush=True)
+    check(resid < PROBE_RESIDUAL_MAX, f"srht probe residual {resid}")
+    stages, _, samples, _ = staged_run(key, A, B, k, m, r, T, n, "srht", dev)
+    check(bool(torch.equal(samples.rows, res.samples.rows)),
+          "staged srht run draws the main path's sample")
+    print("stages_ms_srht " + json.dumps(stages), flush=True)
+    del res, samples
+    small_pair_check(smppca, spectral_error_vs_optimal, args.seed, r, dev,
+                     "srht")
+
+    # 8. kernel 3's timing at its call shape --------------------------------
+    fw = ops.KERNELS["blocked_fwht"]
+    k3_ms, k3_plain = turns(lambda: fw.plain(X3, signs, dp),
+                            lambda: ops.blocked_fwht(X3, signs, d_pad=dp),
+                            reps=3)
+    # the function's least work: each valid input row and sign read once,
+    # the (dp, width) float32 output written once, dp log2(dp) adds a column
+    k3_bound, k3_by = bound(dp * math.log2(dp) * width,
+                            4.0 * (d * width + d + dp * width))
+    # no single PyTorch call computes a Walsh-Hadamard transform
+    timing["blocked_fwht"] = dict(kernel_ms=k3_ms, plain_ms=k3_plain,
+                                  library_ms=None, bound_ms=k3_bound,
+                                  bound_by=k3_by)
+    print("timing blocked_fwht " + json.dumps(timing["blocked_fwht"]),
+          flush=True)
+
+    # 9. the kernels line and the last line ---------------------------------
+    errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
+            "blocked_fwht": err_fwht}
+    # each kernel's launches on the path that runs it: the Gaussian path
+    # for kernels 1 and 2, the SRHT path for kernel 3
+    path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"])
     kernels = []
     for name, mod in ops.KERNELS.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{mod.SOURCE}",
-            "replaces": mod.REPLACES, "launches": launches[name],
+            "replaces": mod.REPLACES, "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

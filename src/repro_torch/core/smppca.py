@@ -21,20 +21,24 @@ from repro_torch.core.types import LowRankFactors, SketchSummary, SMPPCAResult
 
 
 def smppca(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, r: int,
-           k: int, m: int, T: int = 10, backend: str = "cuda",
+           k: int, m: int, T: int = 10, method: str = "gaussian",
+           backend: str = "cuda", block: int = 1024,
            est_backend: str = "cuda", precision: str | None = None,
            use_splits: bool = False, device="cuda") -> SMPPCAResult:
     """Single-pass rank-r PCA of A^T B. A: (d, n1), B: (d, n2).
 
-    ``backend`` runs step 1 ('cuda': the fused sketch kernel, 'reference':
-    plain PyTorch); ``est_backend`` computes the Eq. (2) values ('cuda': the
-    gather kernel, 'reference'). ``device`` is CUDA unless the caller asks
-    for the CPU, where the kernels' plain versions run."""
+    ``method`` picks the sketch ('gaussian' or 'srht'); ``backend`` runs
+    step 1 ('cuda': the fused sketch kernel or the blocked FWHT, 'scan',
+    'rows' or 'reference': plain PyTorch; ``block`` is the scan's row
+    block); ``est_backend`` computes the Eq. (2) values ('cuda': the gather
+    kernel, 'reference'). ``device`` is CUDA unless the caller asks for the
+    CPU, where the kernels' plain versions run."""
     dev = _device.resolve(device)
     key = key.to(dev)
     k_sketch, k_sample, _ = prng.split(key, 3)
     summary = summary_engine.build_summary(
-        k_sketch, A, B, k, backend=backend, precision=precision, device=dev)
+        k_sketch, A, B, k, method=method, backend=backend, block=block,
+        precision=precision, device=dev)
     return smppca_from_summary(prng.fold_in(k_sample, 0), summary, r=r, m=m,
                                T=T, est_backend=est_backend,
                                use_splits=use_splits, device=dev)

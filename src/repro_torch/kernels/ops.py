@@ -30,11 +30,15 @@ import subprocess
 
 import torch
 
+from repro_torch import prng
+from repro_torch.core.sketch import _next_pow2, _sqrt_f32
+from repro_torch.kernels import hadamard as _hadamard
 from repro_torch.kernels import sampled_dot as _sampled_dot
 from repro_torch.kernels import sketch_fused as _sketch_fused
 
 KERNELS = {"sketch_fused": _sketch_fused,
-           "sampled_rescaled_dot": _sampled_dot}
+           "sampled_rescaled_dot": _sampled_dot,
+           "blocked_fwht": _hadamard}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -207,3 +211,52 @@ def sampled_rescaled_dot(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
         rows.contiguous(), cols.contiguous())
     LAUNCHES["sampled_rescaled_dot"] += 1
     return out
+
+
+def blocked_fwht(X: torch.Tensor, signs: torch.Tensor, *,
+                 d_pad: int | None = None) -> torch.Tensor:
+    """Unnormalized Walsh-Hadamard transform ``H (signs * X)``, float32.
+
+    X (d, n) float32 or bfloat16, signs (d,). Without ``d_pad``, d must be
+    a power of two, as in the JAX wrapper. With it, X is read as if padded
+    with zero rows to ``d_pad`` (a power of two >= d) and the result is
+    (d_pad, n); on the card no padded copy is made, and X may be a column
+    slice of a wider matrix (unit column stride, any row stride)."""
+    if X.ndim != 2 or signs.shape != (X.shape[0],):
+        raise ValueError(f"blocked_fwht: X {tuple(X.shape)} and signs "
+                         f"{tuple(signs.shape)} disagree")
+    d, n = X.shape
+    if d_pad is None:
+        if _next_pow2(d) != d:
+            raise ValueError(
+                f"blocked_fwht: d must be a power of two (got d={d}); "
+                f"pad first or pass d_pad")
+        d_pad = d
+    elif _next_pow2(d_pad) != d_pad or d_pad < d:
+        raise ValueError(f"blocked_fwht: d_pad={d_pad} must be a power of "
+                         f"two >= d={d}")
+    if _on_cpu(X, signs):
+        return _hadamard.plain(X, signs, d_pad)
+    if d == 0 or n == 0:
+        return torch.zeros((d_pad, n), dtype=torch.float32, device=X.device)
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        X = X.float()
+    if X.stride(1) != 1:
+        X = X.contiguous()
+    lib = _library("blocked_fwht")
+    out = _hadamard.launch(lib, X, signs.float().contiguous(), d_pad)
+    LAUNCHES["blocked_fwht"] += 1
+    return out
+
+
+def srht_sketch_kernel(key: torch.Tensor, X: torch.Tensor, k: int
+                       ) -> torch.Tensor:
+    """SRHT ``sqrt(1/k) R H D X`` through ``blocked_fwht``: X (d, n) ->
+    (k, n) float32, with the keys of ``core.sketch.srht_sketch``."""
+    d = X.shape[0]
+    dp = _next_pow2(d)
+    key_sign, key_rows = prng.split(key.to(X.device))
+    signs = prng.rademacher(key_sign, (d,), dtype=X.dtype)
+    HX = blocked_fwht(X, signs, d_pad=dp) / _sqrt_f32(dp).to(X.device)
+    rows = prng.choice(key_rows, dp, (k,))
+    return HX[rows.long()] * _sqrt_f32(dp / k).to(X.device)

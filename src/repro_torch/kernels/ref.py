@@ -22,6 +22,19 @@ def sketch_fused_ref(Pi: torch.Tensor, A: torch.Tensor):
     return out, norm2
 
 
+def blocked_fwht_ref(X: torch.Tensor, signs: torch.Tensor,
+                     d_pad: int | None = None) -> torch.Tensor:
+    """Unnormalized Walsh-Hadamard transform of the sign-flipped input,
+    ``H (signs * X)`` in float32, by the plain butterfly. X (d, n), signs
+    (d,); with ``d_pad`` the rows d..d_pad-1 are zero (the transform has
+    length d_pad)."""
+    from repro_torch.core.sketch import fwht
+    Xs = X.float() * signs[:, None].float()
+    if d_pad is not None and d_pad != X.shape[0]:
+        Xs = torch.nn.functional.pad(Xs, (0, 0, 0, d_pad - X.shape[0]))
+    return fwht(Xs, axis=0)
+
+
 def sampled_rescaled_dot_ref(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
                              norm_A: torch.Tensor, norm_B: torch.Tensor,
                              rows: torch.Tensor, cols: torch.Tensor

@@ -11,11 +11,13 @@ key tree (``jax_threefry_partitionable=False``):
   word lives in an int64 masked to 32 bits;
 * ``split``, ``fold_in`` and the random bits are ``threefry_2x32`` of a
   counter array, exactly as ``jax/_src/prng.py`` lays the counters out;
-* ``uniform``, ``normal``, ``randint`` and ``bernoulli`` apply
-  ``jax/_src/random.py``'s bits-to-value transforms.
+* ``uniform``, ``normal``, ``randint``, ``bernoulli``, ``rademacher``,
+  ``permutation`` and ``choice`` apply ``jax/_src/random.py``'s
+  bits-to-value transforms.
 
-Integer outputs (keys, bits, ``randint``, ``bernoulli``) and ``uniform`` are
-bit-exact with ``jax.random``. ``normal`` uses XLA's own ``erf_inv``
+Integer outputs (keys, bits, ``randint``, ``bernoulli``, ``rademacher``,
+``permutation``, ``choice``) and ``uniform`` are bit-exact with
+``jax.random``. ``normal`` uses XLA's own ``erf_inv``
 polynomial (Giles); its ``log1p`` rounds differently from XLA's in the last
 bit now and then, so a few percent of normals differ by an ulp or two.
 
@@ -165,3 +167,45 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
 def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
     """``jax.random.bernoulli`` (mode='low'): uniform < p, as bool."""
     return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+def rademacher(key: torch.Tensor, shape,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.rademacher``: ``2 * bernoulli(key, 0.5) - 1`` in
+    ``dtype``, so +1 or -1."""
+    return 2 * bernoulli(key, 0.5, shape).to(dtype) - 1
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a shuffle of ``arange(n)``
+    (int32), by jax's repeated sort on fresh 32-bit keys.
+
+    jax runs ``ceil(3 ln(max(1, n)) / ln(2**32 - 1))`` rounds (float64);
+    each round splits the key, draws 32 random bits per element and sorts
+    by them stably, so tied bits keep their order, as in
+    ``lax.sort_key_val``."""
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_MASK))
+    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    for _ in range(rounds):
+        key, subkey = split(key)
+        order = torch.sort(random_bits(subkey, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, shape) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace=False)``: the first
+    ``prod(shape)`` entries of ``permutation(key, n)``, int32. Sampling
+    with replacement has no caller in the port and is not ported."""
+    shape = tuple(shape)
+    draws = math.prod(shape)
+    if draws == 0:
+        return torch.zeros(shape, dtype=torch.int32, device=key.device)
+    if n <= 0:
+        raise ValueError("choice: n must be positive unless no samples "
+                         "are taken")
+    if draws > n:
+        raise ValueError(f"choice: cannot take a larger sample (size "
+                         f"{draws}) than population (size {n}) when "
+                         f"replace=False")
+    return permutation(key, n)[:draws].reshape(shape)

@@ -79,6 +79,56 @@ def test_sampled_dot_kernel_matches_plain(card):
         ops.sampled_rescaled_dot(As, Bs, na, nb, rows.long(), cols.long())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,d_pad,n", [
+    (2048, 2048, 1024),     # two passes of radix 32 and 64
+    (50_000, 65_536, 96),   # the slice's padding, two passes of 256
+    (200, 256, 64),         # one pass (the Pallas kernel's a = 1)
+    (777, 1024, 1000),      # ragged n: the last column tile is partial
+    (1, 1, 5),              # a transform of length 1
+    (70_000, 131_072, 40),  # three passes
+])
+def test_blocked_fwht_kernel_matches_plain(card, d, d_pad, n, dtype):
+    """The kernel does the plain butterfly's float32 adds in the plain
+    version's order, so the two agree bit for bit; the check still allows
+    1e-4 of each column's largest entry, chip_smoke.py's tolerance."""
+    gen = torch.Generator(device=card).manual_seed(d + n)
+    wide = torch.randn(d, n + 3, generator=gen, device=card).to(dtype)
+    X = wide[:, 1:n + 1]                    # a column slice: row stride n + 3
+    signs = torch.randint(0, 2, (d,), generator=gen, device=card) * 2.0 - 1
+    before = ops.LAUNCHES["blocked_fwht"]
+    out = ops.blocked_fwht(X, signs, d_pad=d_pad)
+    assert ops.LAUNCHES["blocked_fwht"] == before + 1
+    ref = ops.KERNELS["blocked_fwht"].plain(X, signs, d_pad)
+    assert out.dtype == torch.float32 and out.shape == (d_pad, n)
+    col_err = ((out - ref).abs().amax(dim=0)
+               / ref.abs().amax(dim=0).clamp(min=1e-30))
+    assert float(col_err.max()) <= 1e-4
+    with pytest.raises(ValueError, match="power of two"):
+        ops.blocked_fwht(X, signs, d_pad=3 * d_pad)
+
+
+def test_srht_smppca_on_the_card_matches_the_cpu(card):
+    rng = np.random.default_rng(1)
+    d, n, r = 2000, 200, 5
+    D = (1.0 / np.arange(1.0, n + 1.0)).astype(np.float32)
+    A = torch.from_numpy(rng.standard_normal((d, n)).astype(np.float32) * D)
+    B = A + 0.3 * torch.from_numpy(
+        rng.standard_normal((d, n)).astype(np.float32) * D)
+    m = int(10 * n * r * np.log(n))
+    ops.reset_launch_counts()
+    on_card = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8,
+                     method="srht")
+    assert ops.LAUNCHES == {"sketch_fused": 0, "sampled_rescaled_dot": 1,
+                            "blocked_fwht": 2}
+    on_cpu = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8,
+                    method="srht", device="cpu")
+    got = (on_card.factors.U @ on_card.factors.V.T).cpu()
+    want = on_cpu.factors.U @ on_cpu.factors.V.T
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) \
+        < 1e-3
+
+
 def test_smppca_on_the_card_matches_the_cpu(card):
     rng = np.random.default_rng(0)
     d, n, r = 2000, 200, 5
@@ -89,7 +139,8 @@ def test_smppca_on_the_card_matches_the_cpu(card):
     m = int(10 * n * r * np.log(n))
     ops.reset_launch_counts()
     on_card = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8)
-    assert ops.LAUNCHES == {"sketch_fused": 2, "sampled_rescaled_dot": 1}
+    assert ops.LAUNCHES == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
+                            "blocked_fwht": 0}
     on_cpu = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8,
                     device="cpu")
     got = (on_card.factors.U @ on_card.factors.V.T).cpu()

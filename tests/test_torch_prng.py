@@ -112,3 +112,61 @@ def test_key_stack_draws_rowwise():
     for i in range(4):
         np.testing.assert_array_equal(stacked[i].numpy(),
                                       prng.normal(keys[i], (9,)).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_rademacher_bit_exact(seed):
+    with jax.threefry_partitionable(False):
+        jkey = jax.random.PRNGKey(seed)
+        want = {dtype: np.asarray(jax.random.rademacher(jkey, (1000,),
+                                                        dtype=dtype))
+                for dtype in (jnp.float32, jnp.int32)}
+    key = prng.PRNGKey(seed)
+    got_f = prng.rademacher(key, (1000,)).numpy()
+    got_i = prng.rademacher(key, (1000,), dtype=torch.int32).numpy()
+    assert got_f.dtype == np.float32 and got_i.dtype == np.int32
+    np.testing.assert_array_equal(got_f, want[jnp.float32])
+    np.testing.assert_array_equal(got_i, want[jnp.int32])
+
+
+def _tied_first_round(key, n):
+    """Whether the first sort round of permutation(key, n) has tied keys."""
+    bits = prng.random_bits(prng.split(key)[1], (n,))
+    return bits.unique().numel() < n
+
+
+PERMUTATION_CASES = [(0, 64), (1, 2048), (2, 65_536), ("split0", 65_536)]
+
+
+@pytest.mark.parametrize("seed,n", PERMUTATION_CASES)
+def test_permutation_and_choice_bit_exact(seed, n):
+    """jax shuffles by 1 round of a stable 32-bit-key sort at n <= 2048 and
+    2 rounds at 65,536; split(PRNGKey(0))[1] at 65,536 has a tied sort key
+    in its first round, so only a stable sort reproduces it."""
+    with jax.threefry_partitionable(False):
+        jkey = (jax.random.split(jax.random.PRNGKey(0))[1]
+                if seed == "split0" else jax.random.PRNGKey(seed))
+        want_perm = np.asarray(jax.random.permutation(jkey, n))
+        want_choice = np.asarray(jax.random.choice(jkey, n, (n // 8,),
+                                                   replace=False))
+        want_grid = np.asarray(jax.random.choice(jkey, n, (2, 3),
+                                                 replace=False))
+    key = convert.key_from_numpy(np.asarray(jkey))
+    got = prng.permutation(key, n).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want_perm)
+    np.testing.assert_array_equal(prng.choice(key, n, (n // 8,)).numpy(),
+                                  want_choice)
+    np.testing.assert_array_equal(prng.choice(key, n, (2, 3)).numpy(),
+                                  want_grid)
+    if seed == "split0":
+        assert _tied_first_round(key, n)
+
+
+def test_choice_refuses_what_jax_refuses():
+    key = prng.PRNGKey(0)
+    with pytest.raises(ValueError, match="larger sample"):
+        prng.choice(key, 4, (5,))
+    with pytest.raises(ValueError, match="positive"):
+        prng.choice(key, 0, (1,))
+    assert prng.choice(key, 0, (0,)).shape == (0,)

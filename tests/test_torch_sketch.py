@@ -132,10 +132,13 @@ def test_summary_backends_agree_and_merge():
 
 
 def test_unported_summary_options_raise():
+    """What is still unported raises and names ROADMAP.md: the distributed
+    backend, batched input, probes and co-sketch; an unknown method or
+    backend is a ValueError."""
     A, B = torch.zeros(8, 3), torch.zeros(8, 2)
     key = prng.PRNGKey(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        summary_engine.build_summary(key, A, B, 4, method="srht",
+        summary_engine.build_summary(key, A, B, 4, backend="distributed",
                                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         summary_engine.build_summary(key, A, B, 4, probes=2, device="cpu")
@@ -143,8 +146,15 @@ def test_unported_summary_options_raise():
         summary_engine.build_summary(key, A, B, 4, cosketch=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         summary_engine.build_summary(key, A[None], B[None], 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        summary_engine.build_summary(key, A[None], B[None], 4,
+                                     method="srht", backend="scan",
+                                     device="cpu")
     with pytest.raises(ValueError, match="backend"):
-        summary_engine.build_summary(key, A, B, 4, backend="scan",
+        summary_engine.build_summary(key, A, B, 4, backend="pallas",
+                                     device="cpu")
+    with pytest.raises(ValueError, match="method"):
+        summary_engine.build_summary(key, A, B, 4, method="countsketch",
                                      device="cpu")
 
 
