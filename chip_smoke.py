@@ -7,8 +7,9 @@ Phases, each failing the script (non-zero exit, no final line) when it
 fails; nothing is caught:
 
 1. card: the card's name and power limit, from nvidia-smi;
-2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   nvcc per source, started together, with each kernel's register report;
+2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   nvcc per source, started together, with each kernel's register report,
+   and the tile each older kernel resolves to through ``tuning.lookup``;
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
    ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
@@ -32,7 +33,22 @@ fails; nothing is caught:
    times of a staged run, and card against CPU at the small size;
 8. the timing of kernel 3 at its call shape, beside its plain version and
    its bound;
-9. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+9. kernel 4 (``flash_attention``) against its plain version on the JAX
+   test shapes (causal and not, float32 and bf16, every compiled tile) and
+   at S = 4,096 with granite-3-8b's 32 query and 8 KV heads of 128;
+10. the attention path at full width: one granite-3-8b attention layer at
+    ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
+    ``ops.flash_attention`` (launch counters set to 0 before the call and
+    read after it), against the plain version on every row, then bf16 and
+    non-causal the same way;
+11. kernel 4's timings: every compiled tile at S = 32,768; at S = 32,768
+    and 4,096 beside its plain version, ``scaled_dot_product_attention``
+    and its bound, then with bf16 inputs;
+12. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
+    for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
+    the attention's full width, launch counters set to 0 before and read
+    after;
+13. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -50,9 +66,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data sheet: float32 without the tensor cores, and HBM3.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW, PEAK_BF16_FLOPS, PEAK_F32_FLOPS)
+
 
 # Kernel against plain version, float32 sums over d = 50,000 taken in
 # another order: each sketch column within 1e-4 of its own largest entry
@@ -82,6 +98,24 @@ FWHT_TOL = 1e-4
 # path peaked at 51.2 GB (PERF.md), and the SRHT pass must add no (dp, n)
 # copy of A or B (26.2 GB each).
 SRHT_PEAK_GB_MAX = 60.0
+# Kernel 4 against its plain version: the JAX suite's tolerances for its
+# kernel against its oracle (tests/kernels/test_flash_attention.py), also at
+# S = 32,768: the kernel's and the plain version's float32 sums of 32,768
+# terms differ by a few ulps of outputs that are at most max |v|.
+FLASH_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
+# KV heads, d_model 4096) and the sequence lengths of prefill_32k and
+# train_4k (src/repro/configs/shapes.py).
+HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
+S_FULL, S_TRAIN = 32_768, 4_096
+# benchmarks/run.py::kernel_sweep's shapes (not the smoke ones), and the
+# attention's full width as (B * H, S, Dh).
+TUNE_SHAPES = {
+    "sketch_fused": [(128, 4096, 512), (256, 8192, 512)],
+    "blocked_fwht": [(2048, 512)],
+    "sampled_dot": [(1024, 1024, 128, 4096)],
+    "flash_attention": [(8, 1024, 128), (HEADS, S_FULL, HEAD_DIM)],
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -116,7 +150,7 @@ def turns(plain, kernel, reps: int):
 
 def bound(flops: float, nbytes: float):
     """Least time on an H100 SXM in ms, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / HBM_BW
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -261,6 +295,60 @@ def sampled_check(ops, As, Bs, na, nb, rows, cols, label):
     return err
 
 
+def flash_check(ops, q, k, v, causal, label, config=None, out=None):
+    """Kernel 4 against its plain version on every row (``out``: the
+    kernel's output if it ran already); returns the max abs err. Fails
+    unless |out - ref| <= tol + tol |ref| everywhere, the JAX test's
+    ``assert_allclose(rtol=tol, atol=tol)``."""
+    if out is None:
+        out = ops.flash_attention(q, k, v, causal=causal, config=config)
+    ref = ops.KERNELS["flash_attention"].plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"flash_attention {label} shape/dtype")
+    tol = FLASH_TOL[q.dtype]
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    excess = float((diff - tol * ref.float().abs()).max())
+    print(f"flash_attention check {label} {tuple(q.shape)}/{tuple(k.shape)} "
+          f"{str(q.dtype).split('.')[-1]} causal={causal}: max_abs_err="
+          f"{err:.3e} (tol {tol:.0e} + {tol:.0e} |ref|)", flush=True)
+    check(excess <= tol, f"flash_attention {label}: err {err}")
+    return err
+
+
+def attention_inputs(gen, S, heads, kv_heads, dh, dev, batch=1):
+    q = torch.randn(batch, S, heads, dh, generator=gen, device=dev)
+    k = torch.randn(batch, S, kv_heads, dh, generator=gen, device=dev)
+    v = torch.randn(batch, S, kv_heads, dh, generator=gen, device=dev)
+    return q, k, v
+
+
+def sdpa_call(q, k, v):
+    """The library yardstick, never on the port's path: one call of
+    PyTorch's fused causal attention on the same tensors in its (B, H, S,
+    Dh) layout, restricted to fused backends so that it never forms the
+    S x S scores. For bf16 that is the flash backend with GQA. PyTorch has
+    no fused float32 kernel for GQA heads (its memory-efficient backend
+    needs equal head counts, its math backend would form 137 GB of scores
+    at S = 32,768), so for float32 the KV heads are repeated to H once,
+    outside the timed call, and the memory-efficient backend reads them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        backend, gqa = SDPBackend.FLASH_ATTENTION, True
+    else:
+        rep = q.shape[2] // k.shape[2]
+        kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+        backend, gqa = SDPBackend.EFFICIENT_ATTENTION, False
+
+    def call():
+        with sdpa_kernel([backend]):
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)
+    return call
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -271,7 +359,7 @@ def main(argv=None) -> int:
     from repro_torch import prng
     from repro_torch.core import estimation_engine, sampling, summary_engine
     from repro_torch.core.smppca import smppca, spectral_error_vs_optimal
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, tuning
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -296,6 +384,19 @@ def main(argv=None) -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    # with no committed table every wrapper resolves to the tile it had
+    backend = tuning.backend_of(dev)
+    for kernel, shape in (("sketch_fused", (k, d, n)),
+                          ("blocked_fwht", (65_536, 8_192)),
+                          ("sampled_dot", (n, n, k, m))):
+        cfg = tuning.lookup(kernel, shape, backend=backend)
+        print(f"tuning.lookup {kernel} {shape} on {backend}: {cfg.block} "
+              f"(table {os.path.relpath(tuning.table_path(backend), ROOT)}"
+              f"{'' if os.path.exists(tuning.table_path(backend)) else ', absent'})",
+              flush=True)
+        check(cfg == tuning.DEFAULTS[kernel]
+              and cfg.block == tuning.TILE_MENUS[kernel][0],
+              f"{kernel} resolves to its compiled tile")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -334,7 +435,7 @@ def main(argv=None) -> int:
           f"wall, launches {launches}, peak memory {peak_gb:.1f} GB",
           flush=True)
     check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
-                       "blocked_fwht": 0},
+                       "blocked_fwht": 0, "flash_attention": 0},
           f"launches per smppca call: {launches}")
     U, V = res.factors
     check(tuple(U.shape) == (n, r) and tuple(V.shape) == (n, r),
@@ -428,7 +529,7 @@ def main(argv=None) -> int:
           f"blocks of {width} per matrix), peak memory {peak_gb:.1f} GB",
           flush=True)
     check(launches_srht == {"sketch_fused": 0, "sampled_rescaled_dot": 1,
-                            "blocked_fwht": 2 * blocks},
+                            "blocked_fwht": 2 * blocks, "flash_attention": 0},
           f"launches per smppca(method='srht') call: {launches_srht}")
     check(peak_gb < SRHT_PEAK_GB_MAX, f"srht peak memory {peak_gb} GB")
     U, V = res.factors
@@ -464,12 +565,121 @@ def main(argv=None) -> int:
     print("timing blocked_fwht " + json.dumps(timing["blocked_fwht"]),
           flush=True)
 
-    # 9. the kernels line and the last line ---------------------------------
+    del A, B, X3, signs
+    torch.cuda.empty_cache()
+
+    # 9. kernel 4 against its plain version ---------------------------------
+    fa = ops.KERNELS["flash_attention"]
+    for shape in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
+                  (1, 384, 3, 3, 64)):       # tests/kernels/test_flash_attention.py
+        B_, S_, H_, Hkv_, Dh_ = shape
+        q, kk, v = attention_inputs(gen, S_, H_, Hkv_, Dh_, dev, batch=B_)
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for block in tuning.TILE_MENUS["flash_attention"]:
+                    flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype),
+                                causal, f"JAX test shape, tile {block}",
+                                config=tuning.KernelConfig("flash_attention",
+                                                           block))
+    q, kk, v = attention_inputs(gen, S_TRAIN, HEADS, KV_HEADS, HEAD_DIM, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype), causal,
+                        f"S={S_TRAIN}")
+
+    # 10. the attention path at full width ----------------------------------
+    q, kk, v = attention_inputs(gen, S_FULL, HEADS, KV_HEADS, HEAD_DIM, dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ops.flash_attention(q, kk, v, causal=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches_flash = dict(ops.LAUNCHES)
+    print(f"flash_attention granite-3-8b layer, S={S_FULL}, {HEADS}/{KV_HEADS} "
+          f"heads of {HEAD_DIM}, causal, float32: {wall_s:.3f} s wall (first "
+          f"call), launches {launches_flash}", flush=True)
+    check(launches_flash == {"sketch_fused": 0, "sampled_rescaled_dot": 0,
+                             "blocked_fwht": 0, "flash_attention": 1},
+          f"launches per attention call: {launches_flash}")
+    check(tuple(out.shape) == tuple(q.shape) and bool(torch.isfinite(out).all()),
+          "attention output shape and finite")
+    err_flash = flash_check(ops, q, kk, v, True, "full width", out=out)
+    del out
+    flash_check(ops, q.to(torch.bfloat16), kk.to(torch.bfloat16),
+                v.to(torch.bfloat16), True, "full width")
+    flash_check(ops, q, kk, v, False, "full width")
+    flash_check(ops, q.to(torch.bfloat16), kk.to(torch.bfloat16),
+                v.to(torch.bfloat16), False, "full width")
+
+    # 11. kernel 4's timings ------------------------------------------------
+    # every compiled tile at the full width, float32, one call each after a
+    # warm-up (the tuner below measures only its model's best three)
+    for block in tuning.TILE_MENUS["flash_attention"]:
+        cfg = tuning.KernelConfig("flash_attention", block)
+        ops.flash_attention(q, kk, v, config=cfg)
+        print(f"tile flash_attention S={S_FULL} {block}: "
+              f"{cuda_ms(lambda: ops.flash_attention(q, kk, v, config=cfg), 1):.3f} ms",
+              flush=True)
+    for S_, reps in ((S_FULL, 1), (S_TRAIN, 5)):
+        if S_ != S_FULL:
+            q, kk, v = attention_inputs(gen, S_, HEADS, KV_HEADS, HEAD_DIM, dev)
+        # causal: half the S x S scores of each head, two products each;
+        # q, k, v read once and o written once
+        flops = 2.0 * HEADS * S_ * S_ * HEAD_DIM
+        elems = (2 * S_ * HEADS + 2 * S_ * KV_HEADS) * HEAD_DIM
+        k4_ms, k4_plain = turns(lambda: fa.plain(q, kk, v, True),
+                                lambda: ops.flash_attention(q, kk, v),
+                                reps=reps)
+        lib = sdpa_call(q, kk, v)
+        lib()
+        k4_bound, k4_by = bound(flops, 4.0 * elems)
+        t = dict(S=S_, kernel_ms=k4_ms, plain_ms=k4_plain,
+                 library_ms=cuda_ms(lib, reps=reps), bound_ms=k4_bound,
+                 bound_by=k4_by)
+        print("timing flash_attention " + json.dumps(t), flush=True)
+        if S_ == S_FULL:
+            timing["flash_attention"] = t
+        # bf16 inputs: the same float32 arithmetic in the kernel; the bound
+        # for bf16 operands is the tensor cores' rate
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, kk, v))
+        libb = sdpa_call(qb, kb, vb)
+        ops.flash_attention(qb, kb, vb)
+        libb()
+        tb = dict(S=S_, kernel_ms=cuda_ms(lambda: ops.flash_attention(
+                      qb, kb, vb), reps=reps),
+                  library_ms=cuda_ms(libb, reps=reps),
+                  bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, 2.0 * elems / HBM_BW))
+        print("timing flash_attention bf16 " + json.dumps(tb), flush=True)
+        del qb, kb, vb, lib, libb
+    del q, kk, v
+    torch.cuda.empty_cache()
+
+    # 12. the kernel tuner --------------------------------------------------
+    ops.reset_launch_counts()
+    for kernel, shapes in TUNE_SHAPES.items():
+        for shape in shapes:
+            winner, records = tuning.autotune(kernel, shape, measure_top=3,
+                                              device=dev)
+            for rec in records:
+                print(f"tune {kernel} {shape} {rec['config']}: us_per_call="
+                      f"{rec['us_per_call']:.2f} achieved_gbps="
+                      f"{rec['achieved_gbps']:.2f} model_us="
+                      f"{rec['t_total'] * 1e6:.2f}", flush=True)
+            print(f"tune {kernel} {shape} winner {winner.tag()}", flush=True)
+    launches_tune = dict(ops.LAUNCHES)
+    print(f"tuner launches {launches_tune}", flush=True)
+    check(all(launches_tune[name] > 0 for name in ops.KERNELS),
+          f"the tuner launched every kernel: {launches_tune}")
+
+    # 13. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
-            "blocked_fwht": err_fwht}
+            "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the path that runs it: the Gaussian path
-    # for kernels 1 and 2, the SRHT path for kernel 3
-    path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"])
+    # for kernels 1 and 2, the SRHT path for kernel 3, the attention call
+    # for kernel 4
+    path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
+                         flash_attention=launches_flash["flash_attention"])
     kernels = []
     for name, mod in ops.KERNELS.items():
         t = timing[name]

@@ -36,6 +36,12 @@ from repro_torch.kernels.ref import blocked_fwht_ref as plain
 SOURCE = "blocked_fwht.cu"
 REPLACES = "src/repro/kernels/hadamard.py:59"
 
+#: The one tile ``csrc/blocked_fwht.cu`` compiles, as the tuner names it:
+#: (b, bn) = (the largest radix of a pass, 2**MAX_LOG_RADIX, and the COLS
+#: columns a CTA transforms). A CTA of radix L holds a (L, 32) float32
+#: exchange tile in shared memory.
+TILE = (256, 32)
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ENTRY = {torch.float32: "blocked_fwht_f32", torch.bfloat16: "blocked_fwht_bf16"}
@@ -78,4 +84,5 @@ def launch(lib: ctypes.CDLL, X: torch.Tensor, signs: torch.Tensor,
     return out
 
 
-__all__ = ["plain", "bind", "launch", "hadamard_matrix", "SOURCE", "REPLACES"]
+__all__ = ["plain", "bind", "launch", "hadamard_matrix", "SOURCE", "REPLACES",
+           "TILE"]

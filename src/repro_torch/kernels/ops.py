@@ -18,6 +18,16 @@ kernels at once, one ``nvcc`` process per source, side by side.
 
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one exactly
 where it launches its kernel, and the plain version counts nothing.
+
+Every wrapper takes an optional ``config: tuning.KernelConfig`` and
+resolves it as the JAX package's wrappers do, before anything runs:
+
+    explicit kwarg (precision=...)                    wins over
+    explicit ``config``                               wins over
+    committed tuning-table hit for the shape bucket   wins over
+    ``tuning.DEFAULTS`` (the tiles the kernels had before the tuner)
+
+A config names a tile the kernel's source compiles, or ``ValueError``.
 """
 from __future__ import annotations
 
@@ -32,13 +42,16 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.sketch import _next_pow2, _sqrt_f32
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import hadamard as _hadamard
 from repro_torch.kernels import sampled_dot as _sampled_dot
 from repro_torch.kernels import sketch_fused as _sketch_fused
+from repro_torch.kernels import tuning as _tuning
 
 KERNELS = {"sketch_fused": _sketch_fused,
            "sampled_rescaled_dot": _sampled_dot,
-           "blocked_fwht": _hadamard}
+           "blocked_fwht": _hadamard,
+           "flash_attention": _flash}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -129,6 +142,21 @@ def _on_cpu(*tensors) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
+def _resolved(kernel: str, shape: tuple, ref: torch.Tensor,
+              config: "_tuning.KernelConfig | None") -> _tuning.KernelConfig:
+    """The effective config: the explicit one, else the table's hit or the
+    default for ``ref``'s device; validated either way."""
+    if config is None:
+        config = _tuning.lookup(kernel, shape,
+                                dtype_bytes=_tuning.dtype_bytes_of(ref),
+                                backend=_tuning.backend_of(ref.device))
+    _tuning.validate_config(config)
+    if config.kernel != kernel:
+        raise ValueError(f"config is for kernel {config.kernel!r}, "
+                         f"wrapper is {kernel!r}")
+    return config
+
+
 def _kernel_dtype(*tensors, precision):
     """The dtype the kernel reads: bf16 when asked for or when every input
     already is bf16, float32 otherwise (mixed inputs read as float32, as the
@@ -143,7 +171,8 @@ def _kernel_dtype(*tensors, precision):
 
 
 def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
-                 precision: str | None = None):
+                 precision: str | None = None,
+                 config: "_tuning.KernelConfig | None" = None):
     """Fused (Pi @ A, column norms of A) for Pi (k, d) and A (d, n).
 
     Both outputs are float32 and accumulate in float32. ``precision='bf16'``
@@ -154,6 +183,8 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
         raise ValueError(f"sketch_fused: Pi {tuple(Pi.shape)} and A "
                          f"{tuple(A.shape)} disagree on d")
     n = A.shape[1]
+    cfg = _resolved("sketch_fused", (k, d, n), A, config)
+    precision = precision if precision is not None else cfg.precision
     dtype = _kernel_dtype(Pi, A, precision=precision)
     if precision == "bf16":
         Pi, A = Pi.to(torch.bfloat16), A.to(torch.bfloat16)
@@ -176,7 +207,9 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
 def sampled_rescaled_dot(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
                          norm_A: torch.Tensor, norm_B: torch.Tensor,
                          rows: torch.Tensor, cols: torch.Tensor, *,
-                         precision: str | None = None) -> torch.Tensor:
+                         precision: str | None = None,
+                         config: "_tuning.KernelConfig | None" = None
+                         ) -> torch.Tensor:
     """Rescaled-JL estimates (Eq. 2) at (rows, cols) from row-major sketches
     As_rows (n1, k) and Bs_rows (n2, k) and the exact norms. Returns (m,)
     float32; m = 0 gives an empty result, duplicates are allowed.
@@ -187,6 +220,9 @@ def sampled_rescaled_dot(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
         raise ValueError("sampled_rescaled_dot: sketch and norm shapes disagree")
     if rows.shape != cols.shape or rows.ndim != 1:
         raise ValueError("sampled_rescaled_dot: rows and cols must be (m,)")
+    cfg = _resolved("sampled_dot", (n1, n2, k, rows.shape[0]), As_rows,
+                    config)
+    precision = precision if precision is not None else cfg.precision
     dtype = _kernel_dtype(As_rows, Bs_rows, precision=precision)
     if precision == "bf16":
         As_rows, Bs_rows = As_rows.to(torch.bfloat16), Bs_rows.to(torch.bfloat16)
@@ -214,14 +250,17 @@ def sampled_rescaled_dot(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
 
 
 def blocked_fwht(X: torch.Tensor, signs: torch.Tensor, *,
-                 d_pad: int | None = None) -> torch.Tensor:
+                 d_pad: int | None = None,
+                 config: "_tuning.KernelConfig | None" = None) -> torch.Tensor:
     """Unnormalized Walsh-Hadamard transform ``H (signs * X)``, float32.
 
     X (d, n) float32 or bfloat16, signs (d,). Without ``d_pad``, d must be
     a power of two, as in the JAX wrapper. With it, X is read as if padded
     with zero rows to ``d_pad`` (a power of two >= d) and the result is
     (d_pad, n); on the card no padded copy is made, and X may be a column
-    slice of a wider matrix (unit column stride, any row stride)."""
+    slice of a wider matrix (unit column stride, any row stride). A
+    config's ``precision`` reads X as bfloat16 ('bf16') or float32 ('f32');
+    the JAX wrapper ignores it."""
     if X.ndim != 2 or signs.shape != (X.shape[0],):
         raise ValueError(f"blocked_fwht: X {tuple(X.shape)} and signs "
                          f"{tuple(signs.shape)} disagree")
@@ -235,6 +274,9 @@ def blocked_fwht(X: torch.Tensor, signs: torch.Tensor, *,
     elif _next_pow2(d_pad) != d_pad or d_pad < d:
         raise ValueError(f"blocked_fwht: d_pad={d_pad} must be a power of "
                          f"two >= d={d}")
+    cfg = _resolved("blocked_fwht", (d_pad, n), X, config)
+    if cfg.precision is not None:
+        X = X.to(_kernel_dtype(X, precision=cfg.precision))
     if _on_cpu(X, signs):
         return _hadamard.plain(X, signs, d_pad)
     if d == 0 or n == 0:
@@ -260,3 +302,52 @@ def srht_sketch_kernel(key: torch.Tensor, X: torch.Tensor, k: int
     HX = blocked_fwht(X, signs, d_pad=dp) / _sqrt_f32(dp).to(X.device)
     rows = prng.choice(key_rows, dp, (k,))
     return HX[rows.long()] * _sqrt_f32(dp / k).to(X.device)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the flash kernel reads it: unit stride along the last axis,
+    the other strides multiples of 4 elements, 16-byte aligned; a
+    contiguous copy otherwise."""
+    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
+            or t.data_ptr() % 16:
+        return t.contiguous()
+    return t
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    config: "_tuning.KernelConfig | None" = None
+                    ) -> torch.Tensor:
+    """Softmax attention, forward: q (B, S, H, Dh), k and v GQA
+    (B, S, Hkv, Dh) with H a multiple of Hkv; returns (B, S, H, Dh) in q's
+    dtype. Query head h reads KV head ``h // (H // Hkv)``, as the JAX
+    wrapper's ``jnp.repeat`` gives it; the kernel reads k and v in place.
+    Blocks are ``min(block, S)`` of the resolved config and must divide S.
+    The kernel reads float32 or bf16 (a config's ``precision``, else bf16
+    when q, k and v all are); the arithmetic is float32."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or \
+            k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} and v {tuple(v.shape)} disagree")
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_attention: {H} query heads is not a multiple "
+                         f"of {Hkv} KV heads")
+    cfg = _resolved("flash_attention", (B * H, S, Dh), q, config)
+    bq, bk = (min(b, S) for b in cfg.block)
+    if S == 0 or S % bq or S % bk:
+        raise ValueError(f"flash_attention: S={S} not divisible by blocks "
+                         f"(bq={bq}, bk={bk})")
+    dtype = _kernel_dtype(q, k, v, precision=cfg.precision)
+    qc, kc, vc = (t.to(dtype) for t in (q, k, v))
+    if _on_cpu(q, k, v):
+        return _flash.plain(qc, kc, vc, causal).to(q.dtype)
+    _flash.check_tile(bq, bk, Dh)
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    lib = _library("flash_attention")
+    out = _flash.launch(lib, _aligned(qc), _aligned(kc), _aligned(vc),
+                        causal, bq, bk)
+    LAUNCHES["flash_attention"] += 1
+    return out.to(q.dtype)

@@ -6,6 +6,8 @@ holds each CUDA kernel against them on the card. They mirror
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _EPS = 1e-12
@@ -13,6 +15,11 @@ _EPS = 1e-12
 # Samples gathered per step by the plain sampled dot: (2**20, k) float32 rows
 # are 2 GiB at k = 512, where a single gather of all m rows would not fit.
 _SAMPLE_CHUNK = 1 << 20
+
+# Scores formed per step by the plain attention: 2**26 float32 (256 MiB),
+# 2,048 query rows at S = 32,768, where one head's (S, S) scores would take
+# 4 GiB and all 32 heads' 137 GB.
+_SCORE_CHUNK = 1 << 26
 
 
 def sketch_fused_ref(Pi: torch.Tensor, A: torch.Tensor):
@@ -51,4 +58,26 @@ def sampled_rescaled_dot_ref(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
         sb = torch.linalg.vector_norm(b, dim=1)
         out[s:s + _SAMPLE_CHUNK] = (dots * norm_A[r] * norm_B[c]
                                     / torch.clamp(sa * sb, min=_EPS))
+    return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention over folded heads, q/k/v (BH, S, Dh): float32
+    scores ``q k^T / sqrt(Dh)``, keys after the query masked to -1e30 when
+    ``causal``, softmax, then the product with v; the output in q's dtype.
+    Every query row is independent, so the rows go in chunks of at most
+    ``_SCORE_CHUNK`` scores: the same numbers at any S, in bounded memory."""
+    BH, S, Dh = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rows = max(1, min(S, _SCORE_CHUNK // max(S, 1)))
+    pos = torch.arange(S, device=q.device)
+    for b in range(BH):
+        kb, vb = k[b].float(), v[b].float()
+        for r0 in range(0, S, rows):
+            s = q[b, r0:r0 + rows].float() @ kb.T / math.sqrt(Dh)
+            if causal:
+                keep = pos[r0:r0 + rows, None] >= pos[None, :]
+                s = torch.where(keep, s, torch.full_like(s, -1e30))
+            out[b, r0:r0 + rows] = (torch.softmax(s, dim=-1) @ vb).to(q.dtype)
     return out

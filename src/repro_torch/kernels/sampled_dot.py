@@ -33,6 +33,10 @@ from repro_torch.kernels.ref import sampled_rescaled_dot_ref as plain
 SOURCE = "sampled_dot.cu"
 REPLACES = "src/repro/kernels/sampled_dot.py:46"
 
+#: ``csrc/sampled_dot.cu``'s CTA: WARPS = 8 samples, one warp each, no
+#: shared memory; it has no tile to tune.
+SAMPLES_PER_CTA = 8
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ENTRY = {torch.float32: "sampled_dot_f32", torch.bfloat16: "sampled_dot_bf16"}
@@ -66,4 +70,5 @@ def launch(lib: ctypes.CDLL, As_rows: torch.Tensor, Bs_rows: torch.Tensor,
     return out
 
 
-__all__ = ["plain", "bind", "launch", "SOURCE", "REPLACES"]
+__all__ = ["plain", "bind", "launch", "SOURCE", "REPLACES",
+           "SAMPLES_PER_CTA"]

@@ -31,6 +31,14 @@ from repro_torch.kernels.ref import sketch_fused_ref as plain
 SOURCE = "sketch_fused.cu"
 REPLACES = "src/repro/kernels/sketch_fused.py:50"
 
+#: The one tile ``csrc/sketch_fused.cu`` compiles, as the tuner names it:
+#: (bn, bd) = (BN columns of A per CTA, BK rows of d per step). A CTA also
+#: covers BM = 128 rows of Pi, with 256 threads and two shared-memory stages
+#: of a (BK, BM + 4) Pi tile and a (BK, BN) A tile.
+TILE = (128, 16)
+THREADS = 256
+SMEM_BYTES = 4 * 2 * (16 * (128 + 4) + 16 * 128)
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ENTRY = {torch.float32: "sketch_fused_f32", torch.bfloat16: "sketch_fused_bf16"}
@@ -63,4 +71,5 @@ def launch(lib: ctypes.CDLL, Pi: torch.Tensor, A: torch.Tensor):
     return out, norm2
 
 
-__all__ = ["plain", "bind", "launch", "SOURCE", "REPLACES"]
+__all__ = ["plain", "bind", "launch", "SOURCE", "REPLACES", "TILE", "THREADS",
+           "SMEM_BYTES"]

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.smppca import smppca
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention, ops, tuning
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +23,9 @@ pytestmark = pytest.mark.cuda
 # largest entry at these small d, norms 1e-5 relative; Eq. 2 values within
 # 1e-5 of their nA * nB scale.
 RTOL = 1e-5
+# Flash kernel against its plain version: the JAX suite's tolerances for
+# its kernel against its oracle (tests/kernels/test_flash_attention.py).
+FLASH_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture()
@@ -120,7 +123,7 @@ def test_srht_smppca_on_the_card_matches_the_cpu(card):
     on_card = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8,
                      method="srht")
     assert ops.LAUNCHES == {"sketch_fused": 0, "sampled_rescaled_dot": 1,
-                            "blocked_fwht": 2}
+                            "blocked_fwht": 2, "flash_attention": 0}
     on_cpu = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8,
                     method="srht", device="cpu")
     got = (on_card.factors.U @ on_card.factors.V.T).cpu()
@@ -140,10 +143,85 @@ def test_smppca_on_the_card_matches_the_cpu(card):
     ops.reset_launch_counts()
     on_card = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8)
     assert ops.LAUNCHES == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
-                            "blocked_fwht": 0}
+                            "blocked_fwht": 0, "flash_attention": 0}
     on_cpu = smppca(prng.PRNGKey(0), A, B, r=r, k=512, m=m, T=8,
                     device="cpu")
     got = (on_card.factors.U @ on_card.factors.V.T).cpu()
     want = on_cpu.factors.U @ on_cpu.factors.V.T
     assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) \
         < 1e-3
+
+
+@pytest.mark.parametrize("dh", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("bq,bk", tuning.TILE_MENUS["flash_attention"])
+def test_flash_kernel_matches_plain(card, bq, bk, dh):
+    """Every compiled tile and head width, causal and not, float32 and
+    bf16, with GQA (4 query heads on 2 KV heads) and q, k and v read in
+    place from one packed (B, S, H + 2 Hkv, Dh) tensor."""
+    gen = torch.Generator(device=card).manual_seed(bq + bk + dh)
+    B, S, H, Hkv = 2, 256, 4, 2
+    packed = torch.randn(B, S, H + 2 * Hkv, dh, generator=gen, device=card)
+    cfg = tuning.KernelConfig("flash_attention", (bq, bk))
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = packed.to(dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+        for causal in (True, False):
+            before = ops.LAUNCHES["flash_attention"]
+            out = ops.flash_attention(q, k, v, causal=causal, config=cfg)
+            assert ops.LAUNCHES["flash_attention"] == before + 1
+            ref = ops.KERNELS["flash_attention"].plain(q, k, v, causal)
+            assert out.dtype == dtype and out.shape == (B, S, H, dh)
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       rtol=FLASH_TOL[dtype],
+                                       atol=FLASH_TOL[dtype])
+
+
+def test_flash_block_shape_independence(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = torch.randn(3, 2, 512, 2, 64, generator=gen, device=card)
+    o1 = ops.flash_attention(q, k, v, config=tuning.KernelConfig(
+        "flash_attention", (128, 128)))
+    o2 = ops.flash_attention(q, k, v, config=tuning.KernelConfig(
+        "flash_attention", (64, 32)))
+    torch.testing.assert_close(o1, o2, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="compiled"):
+        ops.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="divisible"):
+        ops.flash_attention(q[:, :192], k[:, :192], v[:, :192])
+
+
+def test_default_config_gives_the_bits_of_today(card):
+    """The three older kernels resolve to the tiles they always had:
+    config=None and DEFAULTS passed explicitly give the same bits."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    Pi = torch.randn(130, 517, generator=gen, device=card)
+    A = torch.randn(517, 259, generator=gen, device=card)
+    for a, b in zip(ops.sketch_fused(Pi, A), ops.sketch_fused(
+            Pi, A, config=tuning.DEFAULTS["sketch_fused"])):
+        assert torch.equal(a, b)
+    X = torch.randn(777, 300, generator=gen, device=card)
+    signs = torch.randint(0, 2, (777,), generator=gen, device=card) * 2.0 - 1
+    assert torch.equal(ops.blocked_fwht(X, signs, d_pad=1024),
+                       ops.blocked_fwht(X, signs, d_pad=1024,
+                                        config=tuning.DEFAULTS["blocked_fwht"]))
+    As = torch.randn(300, 64, generator=gen, device=card)
+    na = torch.rand(300, generator=gen, device=card) + 0.5
+    rows = torch.randint(0, 300, (5000,), generator=gen, device=card,
+                         dtype=torch.int32)
+    args = (As, As, na, na, rows, rows.flip(0))
+    assert torch.equal(ops.sampled_rescaled_dot(*args),
+                       ops.sampled_rescaled_dot(
+                           *args, config=tuning.DEFAULTS["sampled_dot"]))
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("sketch_fused", (128, 4096, 512)), ("blocked_fwht", (2048, 512)),
+    ("sampled_dot", (1024, 1024, 128, 4096)),
+    ("flash_attention", (8, 1024, 128))])
+def test_tuner_measures_on_the_card(card, kernel, shape):
+    us = tuning.measure_config(tuning.DEFAULTS[kernel], shape, reps=2)
+    assert us > 0
+    winner, records = tuning.autotune(kernel, shape, measure_top=2, reps=2)
+    assert winner in tuning.candidate_configs(kernel, shape)
+    assert all(r["us_per_call"] > 0 and r["achieved_gbps"] > 0
+               for r in records)

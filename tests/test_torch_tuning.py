@@ -1,0 +1,378 @@
+"""The port's kernel tuner: twins of tests/kernels/test_tuning.py for the
+Hopper tile menus, the tuning table shared with the JAX package, and the
+config resolution of the ``ops`` wrappers against the JAX wrappers'.
+
+Inputs are made with numpy from a seed and handed to both packages; the
+JAX kernels run in interpret mode, as the JAX suite runs them on the CPU.
+"""
+import json
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import tuning as jax_tuning
+from repro_torch.kernels import flash_attention, hadamard, ops, sketch_fused
+from repro_torch.kernels import tuning
+from repro_torch.kernels.tuning import (
+    DEFAULTS, KernelConfig, TuningSpec, TuningTable, candidate_configs,
+    rank_candidates, smem_bytes, table_key, validate_config)
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
+    / "kernels" / "csrc"
+
+# benchmarks/run.py::kernel_sweep's shapes, and granite-3-8b's attention at
+# prefill_32k as the flash kernel's full width.
+SHAPES = {"sketch_fused": (128, 4096, 512), "blocked_fwht": (2048, 512),
+          "sampled_dot": (1024, 1024, 128, 4096),
+          "flash_attention": (32, 32768, 128)}
+TINY = {"sketch_fused": (8, 64, 32), "blocked_fwht": (64, 16),
+        "sampled_dot": (16, 16, 8, 40), "flash_attention": (2, 128, 32)}
+FLASH = (8, 1024, 128)
+
+
+def _sk(**kw):
+    return KernelConfig("sketch_fused", sketch_fused.TILE, **kw)
+
+
+@pytest.fixture()
+def empty_tables(monkeypatch):
+    """Both packages' table caches, emptied for the test."""
+    monkeypatch.setattr(tuning, "_TABLE_CACHE", {})
+    monkeypatch.setattr(jax_tuning, "_TABLE_CACHE", {})
+
+
+def test_validate_config_rejects_bad_configs():
+    with pytest.raises(ValueError, match="unknown kernel"):
+        validate_config(KernelConfig("nope", (128, 128)))
+    with pytest.raises(ValueError, match="block"):
+        validate_config(KernelConfig("sketch_fused", (128,)))
+    with pytest.raises(ValueError, match="not compiled"):
+        validate_config(KernelConfig("sketch_fused", (256, 512)))
+    with pytest.raises(ValueError, match="not compiled"):
+        validate_config(KernelConfig("blocked_fwht", (128, 256)))
+    with pytest.raises(ValueError, match="not compiled"):
+        validate_config(KernelConfig("flash_attention", (256, 64)))
+    with pytest.raises(ValueError, match="positive"):
+        validate_config(KernelConfig("flash_attention", (64, -64)))
+    with pytest.raises(ValueError, match="grid_order"):
+        validate_config(_sk(grid_order="p_inner"))
+    with pytest.raises(ValueError, match="precision"):
+        validate_config(_sk(precision="f64"))
+    with pytest.raises(TypeError):
+        validate_config(("sketch_fused", (128, 16)))
+    for cfg in DEFAULTS.values():
+        validate_config(cfg)
+    validate_config(_sk(grid_order="d_inner", precision="bf16"))
+
+
+def test_tuning_spec_rejects_duplicate_kernels():
+    fl = KernelConfig("flash_attention", (64, 32))
+    with pytest.raises(ValueError, match="more than once"):
+        TuningSpec((fl, KernelConfig("flash_attention", (64, 64)))).validate()
+    ts = TuningSpec((_sk(), fl))
+    ts.validate()
+    assert ts.config_for("flash_attention") == fl
+    assert ts.config_for("sampled_dot") is None
+
+
+def test_menus_are_the_tiles_the_sources_compile():
+    """DEFAULTS and the menus name exactly the tiles the CUDA sources
+    compile, read from the sources themselves."""
+    def const(src, name):
+        text = (CSRC / src).read_text()
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert tuning.TILE_MENUS["sketch_fused"] == (
+        (const("sketch_fused.cu", "BN"), const("sketch_fused.cu", "BK")),)
+    assert tuning.TILE_MENUS["blocked_fwht"] == (
+        (1 << const("blocked_fwht.cu", "MAX_LOG_RADIX"),
+         const("blocked_fwht.cu", "COLS")),)
+    flash_src = (CSRC / "flash_attention.cu").read_text()
+
+    def cases(fn):
+        body = re.search(rf"int {fn}\(.*?\n}}\n", flash_src, re.S)[0]
+        return tuple(int(c) for c in re.findall(r"case (\d+):", body))
+
+    assert cases("run") == flash_attention.BLOCK_Q
+    assert cases("launch_bk") == flash_attention.BLOCK_K
+    assert cases("launch_dh") == flash_attention.HEAD_DIMS
+    assert DEFAULTS["sketch_fused"].block == (128, 16)
+    assert DEFAULTS["blocked_fwht"].block == (256, 32)
+    assert DEFAULTS["sampled_dot"].block == ()
+    assert DEFAULTS["flash_attention"].block in \
+        tuning.TILE_MENUS["flash_attention"]
+
+
+@pytest.mark.parametrize("kernel", tuning.KERNELS)
+def test_candidates_respect_smem_budget_and_menu(kernel):
+    shape = SHAPES[kernel]
+    cands = candidate_configs(kernel, shape)
+    assert cands
+    for cfg in cands:
+        validate_config(cfg)
+        assert smem_bytes(cfg, shape) <= tuning.SMEM_BUDGET_BYTES
+    if kernel == "flash_attention":
+        assert len(cands) == 6
+
+
+def test_flash_candidates_follow_the_sequence_length():
+    """Blocks larger than S or not dividing it are no candidates; a head
+    width the source does not compile leaves only the default."""
+    assert candidate_configs("flash_attention", (4, 96, 64)) == \
+        [DEFAULTS["flash_attention"]]
+    got = {c.block for c in candidate_configs("flash_attention", (4, 192, 64))}
+    assert got == {(64, 32), (64, 64)}
+    assert candidate_configs("flash_attention", (4, 256, 48)) == \
+        [DEFAULTS["flash_attention"]]
+
+
+def test_candidates_tiny_budget_falls_back_to_min_footprint():
+    cands = candidate_configs("flash_attention", FLASH, smem_budget=1)
+    assert len(cands) == 1
+    full = candidate_configs("flash_attention", FLASH)
+    assert min(smem_bytes(c, FLASH) for c in full) == \
+        smem_bytes(cands[0], FLASH)
+
+
+def test_ranking_is_deterministic():
+    r1 = rank_candidates("flash_attention", FLASH)
+    r2 = rank_candidates("flash_attention", FLASH)
+    assert r1 == r2 and len(r1) >= 2
+    costs = [tuning.roofline_cost(c, FLASH).t_total for c in r1]
+    assert costs == sorted(costs)
+
+
+def test_roofline_cost_counts_the_causal_work():
+    """At the full width the model's FLOP are the causal 2 S^2 Dh per head
+    plus the masked halves of the diagonal tiles."""
+    BH, S, Dh = SHAPES["flash_attention"]
+    exact = 2.0 * BH * S * S * Dh
+    for cfg in candidate_configs("flash_attention", (BH, S, Dh)):
+        bq, bk = cfg.block
+        cost = tuning.roofline_cost(cfg, (BH, S, Dh))
+        assert exact < cost.flops <= exact * (1 + 2 * max(bq, bk) / S)
+        assert cost.t_total >= cost.t_compute > cost.t_memory
+
+
+def test_autotune_static_mode_returns_ranking_head():
+    winner, records = tuning.autotune("flash_attention", FLASH)
+    assert winner == rank_candidates("flash_attention", FLASH)[0]
+    assert records and "t_total" in records[0]
+    assert "us_per_call" not in records[0]
+
+
+def test_table_round_trip_and_version_check(tmp_path):
+    t = TuningTable(backend="h100")
+    cfg = KernelConfig("flash_attention", (128, 32))
+    t.put("flash_attention", (30, 3000, 100), cfg,
+          stats={"us_per_call": 7.0})
+    assert t.get("flash_attention", (32, 4096, 128)) == cfg
+    assert t.get("flash_attention", (32, 8192, 128)) is None
+    path = str(tmp_path / "h100.json")
+    t.save(path)
+    back = TuningTable.load(path)
+    assert back.get("flash_attention", (30, 3000, 100)) == cfg
+    assert back.backend == "h100" and back.version == tuning.TABLE_VERSION
+    with open(path) as f:
+        blob = json.load(f)
+    blob["version"] = tuning.TABLE_VERSION + 1
+    with open(path, "w") as f:
+        json.dump(blob, f)
+    with pytest.raises(ValueError, match="version"):
+        TuningTable.load(path)
+
+
+def test_tables_cross_between_the_packages(tmp_path):
+    """A table either package saves, the other loads with the same entries;
+    a config read back names the same kernel, block and knobs."""
+    jt = jax_tuning.TuningTable(backend="tpu")
+    jt.put("sketch_fused", (100, 3000, 400),
+           jax_tuning.KernelConfig("sketch_fused", (128, 1024)),
+           stats={"us_per_call": 3.5})
+    jt.put("flash_attention", (8, 1024, 128),
+           jax_tuning.KernelConfig("flash_attention", (64, 128)),
+           dtype_bytes=2)
+    jt.save(str(tmp_path / "jax.json"))
+    pt = TuningTable.load(str(tmp_path / "jax.json"))
+    assert pt.entries == jt.entries and pt.backend == "tpu"
+    assert tuple(pt.get("flash_attention", (8, 1024, 128), 2)) == \
+        tuple(jt.get("flash_attention", (8, 1024, 128), 2))
+
+    pt2 = TuningTable(backend="h100")
+    pt2.put("flash_attention", (32, 32768, 128),
+            KernelConfig("flash_attention", (64, 64)),
+            stats={"us_per_call": 4e5, "achieved_gbps": 0.7})
+    pt2.put("sampled_dot", (10, 10, 4, 9), KernelConfig("sampled_dot", (),
+                                                        precision="bf16"))
+    pt2.save(str(tmp_path / "port.json"))
+    assert (tmp_path / "port.json").read_text() == \
+        json.dumps({"backend": "h100", "entries": pt2.entries,
+                    "version": 1}, indent=2, sort_keys=True) + "\n"
+    jt2 = jax_tuning.TuningTable.load(str(tmp_path / "port.json"))
+    assert jt2.entries == pt2.entries
+    for kernel, shape in (("flash_attention", (32, 32768, 128)),
+                          ("sampled_dot", (10, 10, 4, 9))):
+        assert tuple(jt2.get(kernel, shape)) == tuple(pt2.get(kernel, shape))
+        assert jax_tuning.table_key(kernel, shape) == table_key(kernel, shape)
+
+
+def test_lookup_unknown_shape_falls_back_to_defaults(empty_tables):
+    assert table_key("sketch_fused", (100, 3000, 400)) == \
+        table_key("sketch_fused", (128, 4096, 512))
+    for backend in ("cpu", "h100"):
+        for kernel in tuning.KERNELS:
+            assert tuning.lookup(kernel, TINY[kernel], backend=backend) == \
+                DEFAULTS[kernel]
+
+
+def test_backend_of_names_the_table():
+    assert tuning.backend_of("cpu") == "cpu"
+    assert tuning.backend_of(torch.device("cpu")) == "cpu"
+    assert tuning.dtype_bytes_of(torch.zeros(2, dtype=torch.bfloat16)) == 2
+    assert tuning.dtype_bytes_of(torch.float64) == 4
+    assert tuning.dtype_bytes_of(np.zeros(2, np.float32)) == 4
+    assert tuning.dtype_bytes_of(jnp.zeros(2, jnp.bfloat16)) == 2
+
+
+@pytest.mark.parametrize("kernel", tuning.KERNELS)
+def test_measure_config_on_the_cpu(kernel):
+    us = tuning.measure_config(DEFAULTS[kernel], TINY[kernel], reps=1,
+                               device="cpu")
+    assert us > 0
+
+
+def test_autotune_measured_on_the_cpu_records_the_winner():
+    table = TuningTable(backend="cpu")
+    winner, records = tuning.autotune("flash_attention", (2, 128, 32),
+                                      measure_top=2, reps=1, table=table,
+                                      device="cpu")
+    assert len(records) == 2
+    assert all(r["us_per_call"] > 0 and r["achieved_gbps"] > 0
+               for r in records)
+    assert table.get("flash_attention", (2, 128, 32)) == winner
+    assert tuning.achieved_gbps(winner, (2, 128, 32), 1.0) == \
+        pytest.approx(tuning.roofline_cost(winner, (2, 128, 32)).hbm_bytes
+                      / 1e3)
+
+
+def test_autotune_always_measures_the_default():
+    """A measured winner never loses to the default tile: when the static
+    ranking leaves the default out of its top N, it is measured too."""
+    shape = (2, 128, 32)
+    head = rank_candidates("flash_attention", shape)[0]
+    assert head != DEFAULTS["flash_attention"]
+    winner, records = tuning.autotune("flash_attention", shape,
+                                      measure_top=1, reps=1, device="cpu")
+    assert [r["config"] for r in records] == \
+        [head.tag(), DEFAULTS["flash_attention"].tag()]
+    assert winner in (head, DEFAULTS["flash_attention"])
+
+
+def test_retune_writes_a_table(tmp_path):
+    out = tmp_path / "cpu.json"
+    table = tuning.retune({"sampled_dot": [TINY["sampled_dot"]]},
+                          backend="cpu", measure_top=1, reps=1,
+                          out_path=str(out), device="cpu")
+    assert TuningTable.load(str(out)).entries == table.entries
+    assert table.get("sampled_dot", TINY["sampled_dot"]) == \
+        DEFAULTS["sampled_dot"]
+
+
+def test_ops_kwarg_overrides_config_and_kernel_mismatch_rejected():
+    rng = np.random.default_rng(4)
+    Pi = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32))
+    A = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32))
+    got, _ = ops.sketch_fused(Pi, A, precision="f32",
+                              config=_sk(precision="bf16"))
+    want, _ = ops.sketch_fused(Pi, A)
+    assert torch.equal(got, want)
+    half, _ = ops.sketch_fused(Pi, A, config=_sk(precision="bf16"))
+    want_half, _ = ops.sketch_fused(Pi, A, precision="bf16")
+    assert torch.equal(half, want_half) and not torch.equal(half, want)
+    with pytest.raises(ValueError, match="sketch_fused"):
+        ops.sketch_fused(Pi, A, config=DEFAULTS["blocked_fwht"])
+    with pytest.raises(ValueError, match="blocked_fwht"):
+        ops.blocked_fwht(A, torch.ones(256), config=_sk())
+    with pytest.raises(ValueError, match="not compiled"):
+        ops.sketch_fused(Pi, A, config=KernelConfig("sketch_fused",
+                                                    (256, 512)))
+
+
+def test_table_hit_reaches_the_wrapper(empty_tables):
+    """A table hit for the shape bucket resolves before DEFAULTS, in both
+    packages; a hit naming a tile the source does not compile is refused."""
+    q = torch.zeros(1, 256, 2, 32)
+    shape = (2, 256, 32)
+    hit = KernelConfig("flash_attention", (128, 32))
+    tuning._TABLE_CACHE["cpu"] = TuningTable(backend="cpu")
+    tuning._TABLE_CACHE["cpu"].put("flash_attention", shape, hit)
+    assert ops._resolved("flash_attention", shape, q, None) == hit
+    jax_tuning._TABLE_CACHE["cpu"] = jax_tuning.TuningTable(backend="cpu")
+    jax_tuning._TABLE_CACHE["cpu"].put(
+        "flash_attention", shape,
+        jax_tuning.KernelConfig("flash_attention", (128, 32)))
+    assert tuple(jax_ops._resolved("flash_attention", shape,
+                                   jnp.zeros((1, 256, 2, 32)), None)) == \
+        tuple(hit)
+    tuning._TABLE_CACHE["cpu"].entries[table_key(
+        "flash_attention", shape)]["block"] = [256, 32]
+    with pytest.raises(ValueError, match="not compiled"):
+        ops.flash_attention(q, q, q)
+
+
+def _sampled_inputs(seed=3):
+    rng = np.random.default_rng(seed)
+    As = rng.standard_normal((64, 32)).astype(np.float32)
+    Bs = rng.standard_normal((64, 32)).astype(np.float32)
+    na = (np.abs(rng.standard_normal(64)) + 0.5).astype(np.float32)
+    nb = (np.abs(rng.standard_normal(64)) + 0.5).astype(np.float32)
+    rows = rng.integers(0, 64, 50).astype(np.int32)
+    cols = rng.integers(0, 64, 50).astype(np.int32)
+    return As, Bs, na, nb, rows, cols
+
+
+@pytest.mark.parametrize("source", ["miss", "config", "kwarg"])
+def test_resolution_order_matches_jax(source, empty_tables):
+    """A table miss, an explicit config, and a kwarg over a config each
+    resolve to the precision the JAX wrapper's ``_resolved`` picks, and the
+    two wrappers then agree: the JAX suite's 5e-2 for bf16 gathers
+    (test_sampled_dot_precision_sweep), 1e-5 of the scale otherwise."""
+    arrays = _sampled_inputs()
+    jcfg = {"miss": None, "config": jax_tuning.KernelConfig(
+        "sampled_dot", (), precision="bf16"),
+        "kwarg": jax_tuning.KernelConfig("sampled_dot", (),
+                                         precision="bf16")}[source]
+    pcfg = None if jcfg is None else KernelConfig("sampled_dot", (),
+                                                  precision=jcfg.precision)
+    kw = {"precision": "f32"} if source == "kwarg" else {}
+    want = jax_ops.sampled_rescaled_dot(*(jnp.asarray(a) for a in arrays),
+                                        config=jcfg, **kw)
+    got = ops.sampled_rescaled_dot(*(torch.from_numpy(a) for a in arrays),
+                                   config=pcfg, **kw)
+    n1, k = arrays[0].shape
+    shape = (n1, arrays[1].shape[0], k, arrays[4].shape[0])
+    resolved = ops._resolved("sampled_dot", shape,
+                             torch.from_numpy(arrays[0]), pcfg)
+    jresolved = jax_ops._resolved("sampled_dot", shape,
+                                  jnp.asarray(arrays[0]), jcfg)
+    assert resolved.precision == jresolved.precision
+    scale = float(np.abs(np.asarray(want)).max())
+    tol = 5e-2 if kw.get("precision", resolved.precision) == "bf16" else 1e-5
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("precision", [None, "bf16"])
+def test_fwht_config_precision_reads_x_in_that_precision(precision):
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.standard_normal((256, 24)).astype(np.float32))
+    signs = torch.from_numpy(rng.choice([-1.0, 1.0], 256).astype(np.float32))
+    got = ops.blocked_fwht(X, signs, config=KernelConfig(
+        "blocked_fwht", hadamard.TILE, precision=precision))
+    Xr = X if precision is None else X.to(torch.bfloat16)
+    assert torch.equal(got, ops.blocked_fwht(Xr, signs))
