@@ -9,7 +9,9 @@ fails; nothing is caught:
 1. card: the card's name and power limit, from nvidia-smi;
 2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source, started together, with each kernel's register report,
-   and the tile each older kernel resolves to through ``tuning.lookup``;
+   the count of tensor-core (``HMMA``) instructions in each instance of
+   kernel 1's SASS, which must be positive, and the tile each older kernel
+   resolves to through ``tuning.lookup``;
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
    ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
@@ -27,7 +29,8 @@ fails; nothing is caught:
    first 2**20 of the slice's samples, with m = 0 and with duplicates;
 6. timings of kernels 1 and 2 at the slice's shapes beside their plain
    versions, one PyTorch library call where one computes the same
-   function, and their bounds on an H100 SXM;
+   function, and their bounds on an H100 SXM; kernel 1 in float32 and with
+   bf16 inputs;
 7. the SRHT path (``method='srht'``) at the same full width, through
    kernels 3 and 2: launch counts, peak memory, probe residual, per-stage
    times of a staged run, and card against CPU at the small size;
@@ -67,7 +70,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.roofline.analysis import (  # noqa: E402
-    HBM_BW, PEAK_BF16_FLOPS, PEAK_F32_FLOPS)
+    HBM_BW, PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_TF32_FLOPS)
 
 
 # Kernel against plain version, float32 sums over d = 50,000 taken in
@@ -148,11 +151,28 @@ def turns(plain, kernel, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(flops: float, nbytes: float):
-    """Least time on an H100 SXM in ms, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / HBM_BW
+def bound(flops: float, nbytes: float, peak: float):
+    """Least time on an H100 SXM in ms, with the operations at ``peak``
+    FLOP/s, and what bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BW
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def hmma_counts(ops, lib) -> dict:
+    """Tensor-core MMA instructions (``HMMA``) in each kernel function of
+    the library's SASS, from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(ops._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def planted_pair(gen, d, n, device, decay=1.0, corr=0.3):
@@ -384,6 +404,11 @@ def main(argv=None) -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    hmma = hmma_counts(ops, paths["sketch_fused"])
+    for fn, count in hmma.items():
+        print(f"  sketch_fused SASS {fn}: {count} HMMA", flush=True)
+    check(len(hmma) > 0 and all(c > 0 for c in hmma.values()),
+          f"sketch_fused runs on the tensor cores: HMMA counts {hmma}")
     # with no committed table every wrapper resolves to the tile it had
     backend = tuning.backend_of(dev)
     for kernel, shape in (("sketch_fused", (k, d, n)),
@@ -488,9 +513,19 @@ def main(argv=None) -> int:
     sk = ops.KERNELS["sketch_fused"]
     k1_ms, k1_plain = turns(lambda: sk.plain(Pi, A),
                             lambda: ops.sketch_fused(Pi, A), reps=2)
+    torch.matmul(Pi, A)                   # the library's first call
     k1_lib = cuda_ms(lambda: torch.matmul(Pi, A), reps=2)
-    k1_bound, k1_by = bound(2.0 * k * d * n + 2.0 * d * n,
-                            4.0 * (k * d + d * n + k * n + n))
+    # float32 inputs: three TF32 tensor-core passes of 2kdn FLOP (the 2dn
+    # of the norms run beside them on the FMA units); bytes: Pi and A read
+    # once, the sketch and norms written once
+    k1_bytes = 4.0 * (k * d + d * n + k * n + n)
+    k1_bound, k1_by = bound(3 * 2.0 * k * d * n, k1_bytes, PEAK_TF32_FLOPS)
+    k1_fma = bound(2.0 * k * d * n + 2.0 * d * n, k1_bytes,
+                   PEAK_F32_FLOPS)[0]
+    print(f"sketch_fused bounds: {k1_bound:.3f} ms on the TF32 tensor cores "
+          f"(three passes, {k1_by}); {k1_fma:.3f} ms on the float32 FMA "
+          f"units; {1e3 * k1_bytes / HBM_BW:.3f} ms for the bytes",
+          flush=True)
     sd = ops.KERNELS["sampled_rescaled_dot"]
     rows, cols = samples.rows, samples.cols
     k2_ms, k2_plain = turns(
@@ -500,7 +535,8 @@ def main(argv=None) -> int:
     # the function's least work: one k-term dot product and five scalar
     # operations per sample, and each sketch row's squared norm once
     k2_bound, k2_by = bound(m * (2.0 * k + 5.0) + 2.0 * (2 * n) * k,
-                            4.0 * (2 * n * k + 2 * n) + 12.0 * m)
+                            4.0 * (2 * n * k + 2 * n) + 12.0 * m,
+                            PEAK_F32_FLOPS)
     timing = {
         "sketch_fused": dict(kernel_ms=k1_ms, plain_ms=k1_plain,
                              library_ms=k1_lib, bound_ms=k1_bound,
@@ -511,7 +547,24 @@ def main(argv=None) -> int:
     }
     for name, t in timing.items():
         print(f"timing {name} " + json.dumps(t), flush=True)
-    del res, summary, samples, values, rows, cols, As_rows, Bs_rows, Pi
+    del res, summary, samples, values, rows, cols, As_rows, Bs_rows
+
+    # kernel 1 with bf16 inputs: one TF32 pass; the least time is the bf16
+    # tensor cores' (this design's TF32 instruction has half their rate)
+    Pi16, A16 = Pi.to(torch.bfloat16), A.to(torch.bfloat16)
+    k1b_ms, k1b_plain = turns(lambda: sk.plain(Pi16, A16),
+                              lambda: ops.sketch_fused(Pi16, A16), reps=2)
+    k1b_bytes = 2.0 * (k * d + d * n) + 4.0 * (k * n + n)
+    k1b_bound, k1b_by = bound(2.0 * k * d * n, k1b_bytes, PEAK_BF16_FLOPS)
+    torch.matmul(Pi16, A16)
+    t = dict(kernel_ms=k1b_ms, plain_ms=k1b_plain,
+             library_ms=cuda_ms(lambda: torch.matmul(Pi16, A16), reps=2),
+             bound_ms=k1b_bound, bound_by=k1b_by,
+             tf32_one_pass_ms=bound(2.0 * k * d * n, k1b_bytes,
+                                    PEAK_TF32_FLOPS)[0])
+    print("timing sketch_fused bf16 " + json.dumps(t), flush=True)
+    del Pi, Pi16, A16
+    torch.cuda.empty_cache()
 
     # 7. the SRHT path at full width ----------------------------------------
     torch.cuda.synchronize()
@@ -557,7 +610,7 @@ def main(argv=None) -> int:
     # the function's least work: each valid input row and sign read once,
     # the (dp, width) float32 output written once, dp log2(dp) adds a column
     k3_bound, k3_by = bound(dp * math.log2(dp) * width,
-                            4.0 * (d * width + d + dp * width))
+                            4.0 * (d * width + d + dp * width), PEAK_F32_FLOPS)
     # no single PyTorch call computes a Walsh-Hadamard transform
     timing["blocked_fwht"] = dict(kernel_ms=k3_ms, plain_ms=k3_plain,
                                   library_ms=None, bound_ms=k3_bound,
@@ -633,7 +686,7 @@ def main(argv=None) -> int:
                                 reps=reps)
         lib = sdpa_call(q, kk, v)
         lib()
-        k4_bound, k4_by = bound(flops, 4.0 * elems)
+        k4_bound, k4_by = bound(flops, 4.0 * elems, PEAK_F32_FLOPS)
         t = dict(S=S_, kernel_ms=k4_ms, plain_ms=k4_plain,
                  library_ms=cuda_ms(lib, reps=reps), bound_ms=k4_bound,
                  bound_by=k4_by)

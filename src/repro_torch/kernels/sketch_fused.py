@@ -2,20 +2,27 @@
 
 Hopper counterpart of the Pallas TPU kernel
 ``repro.kernels.sketch_fused.sketch_fused`` (``src/repro/kernels/
-sketch_fused.py``): CUDA C++ for ``sm_90a`` in ``csrc/sketch_fused.cu``.
+sketch_fused.py:50``): CUDA C++ for ``sm_90a`` in ``csrc/sketch_fused.cu``,
+on the TF32 tensor cores.
 
-Bound on an H100: operations. The product costs ``2 k d n`` float32 FMA
-FLOP (67 TFLOP/s without the tensor cores), about four times the time its
-``(k d + d n + k n) * 4`` bytes take at 3.35 TB/s when k = 512.
+Bound on an H100: operations. A float32-accurate product takes three TF32
+passes, ``3 * 2 k d n`` FLOP at 495 TFLOP/s (31.03 ms at k = 512, d =
+50,000, n = 100,000); its ``(k d + d n + k n + n) * 4`` bytes take 6.06 ms
+at 3.35 TB/s, and the float32 FMA units would take 76.57 ms.
 
-Design (see the source for more): the Pallas kernel accumulates into an
-output block it revisits along a sequential d grid axis, which would race on
-a GPU, whose blocks run in parallel. Here each CTA owns one 128 x 128 tile
-of the output and loops over all of d itself, a register-tiled SIMT GEMM
-with double-buffered shared-memory tiles of Pi and A, two CTAs per SM; the
-CTAs of k-tile 0 also add up the squared column norms from the A tile they
-already hold. One write per
-output element, no atomics, deterministic; ragged edges are masked.
+Design (see the source for more): each CTA owns one 128 x 128 tile of the
+output at a time and loops over all of d itself (the Pallas kernel's
+sequential d grid axis would race on a GPU), so every output element is
+written once, with no atomics, deterministically. ``mma.sync`` m16n8k8 TF32
+products on a ring of three ``cp.async`` shared-memory stages, 256 threads,
+one persistent CTA per SM. float32 values are split into a TF32 big and
+small part, and small*big, big*small and big*big are summed (about 2^-21
+relative, float32 class); a bf16 value is exact in TF32, so bf16 takes one
+pass. Each stage's products go into a fresh fragment that is added to the
+float32 sum with an ordinary add, since the tensor cores truncate inside an
+MMA. The CTAs of k-tile 0 also add up the squared
+column norms from the exact A tile they hold. Not ``wgmma`` yet: its TF32
+form reads B only K-major, and a tile of row-major A is N-major.
 
 ``plain`` is the PyTorch version of the same function; ``kernels/ops.py``
 chooses between the two and counts launches.
@@ -32,12 +39,27 @@ SOURCE = "sketch_fused.cu"
 REPLACES = "src/repro/kernels/sketch_fused.py:50"
 
 #: The one tile ``csrc/sketch_fused.cu`` compiles, as the tuner names it:
-#: (bn, bd) = (BN columns of A per CTA, BK rows of d per step). A CTA also
-#: covers BM = 128 rows of Pi, with 256 threads and two shared-memory stages
-#: of a (BK, BM + 4) Pi tile and a (BK, BN) A tile.
-TILE = (128, 16)
+#: (bn, bd) = (BN columns of A per CTA, BK rows of d per stage). A CTA also
+#: covers BM rows of Pi, with 256 threads and three shared-memory stages of
+#: a (BM, BK + 8) Pi tile and a (BK, BN + 16 bytes) A tile.
+BM = 128
+TILE = (128, 64)
 THREADS = 256
-SMEM_BYTES = 4 * 2 * (16 * (128 + 4) + 16 * 128)
+STAGES = 3
+#: One CTA per SM: a thread may use up to 255 registers.
+CTAS_PER_SM = 1
+#: float32 does three TF32 tensor-core passes, bf16 one.
+PASSES = {4: 3, 2: 1}
+
+
+def smem_bytes(dtype_bytes: int = 4) -> int:
+    """Dynamic shared memory of one CTA for inputs of ``dtype_bytes``."""
+    bn, bk = TILE
+    a_pitch = bn + 16 // dtype_bytes
+    return STAGES * dtype_bytes * (BM * (bk + 8) + bk * a_pitch)
+
+
+SMEM_BYTES = smem_bytes(4)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -71,5 +93,6 @@ def launch(lib: ctypes.CDLL, Pi: torch.Tensor, A: torch.Tensor):
     return out, norm2
 
 
-__all__ = ["plain", "bind", "launch", "SOURCE", "REPLACES", "TILE", "THREADS",
+__all__ = ["plain", "bind", "launch", "smem_bytes", "SOURCE", "REPLACES",
+           "BM", "TILE", "THREADS", "STAGES", "CTAS_PER_SM", "PASSES",
            "SMEM_BYTES"]

@@ -10,9 +10,10 @@ kernels: the port of ``repro.kernels.tuning``.
   alignment: ``sketch_fused`` and ``blocked_fwht`` compile one tile each
   today, ``flash_attention`` six.
 * ``roofline_cost`` / ``rank_candidates``: a static cost model in the terms
-  of ``repro_torch.roofline.analysis`` (bytes at ``HBM_BW``, float32 FLOP at
-  ``PEAK_F32_FLOPS``, stretched by the tail wave over 132 SMs), so the
-  ranking is deterministic on any machine.
+  of ``repro_torch.roofline.analysis`` (bytes at ``HBM_BW``; FLOP at
+  ``PEAK_TF32_FLOPS`` for ``sketch_fused``, which runs on the tensor cores,
+  and at ``PEAK_F32_FLOPS`` for the others; stretched by the tail wave over
+  132 SMs), so the ranking is deterministic on any machine.
 * ``autotune`` measures the best-ranked candidates on the card
   (``measure_config``, CUDA events) and records winners in a versioned JSON
   ``TuningTable`` (``kernels/tunings/<backend>.json``) keyed by
@@ -29,7 +30,7 @@ inherit the caller's precision. The kernel names are the JAX package's
 
 >>> from repro_torch.kernels import tuning
 >>> tuning.lookup("sketch_fused", (64, 1024, 256), backend="cpu").block
-(128, 16)
+(128, 64)
 >>> cands = tuning.candidate_configs("flash_attention", (8, 1024, 128))
 >>> all(tuning.smem_bytes(c, (8, 1024, 128)) <= tuning.SMEM_BUDGET_BYTES
 ...     for c in cands)
@@ -50,8 +51,8 @@ from repro_torch.kernels import hadamard as _hadamard
 from repro_torch.kernels import sampled_dot as _sampled_dot
 from repro_torch.kernels import sketch_fused as _sketch_fused
 from repro_torch.roofline.analysis import (
-    HBM_BW, PEAK_F32_FLOPS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED, SMS,
-    THREADS_PER_SM, kernel_time_lb)
+    HBM_BW, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, SMEM_PER_BLOCK, SMEM_PER_SM,
+    SMEM_RESERVED, SMS, THREADS_PER_SM, kernel_time_lb)
 
 #: Shared memory one CTA may use on an H100 (the 227 KB opt-in).
 SMEM_BUDGET_BYTES = SMEM_PER_BLOCK
@@ -235,11 +236,11 @@ class RooflineCost:
     """Static cost terms for one kernel call at one shape and config."""
 
     hbm_bytes: float          # device-memory traffic per call
-    flops: float              # float32 FLOP per call
+    flops: float              # FLOP per call, as the kernel issues them
     ctas: int                 # CTAs per launch
     slots: int                # CTAs resident on the card at once
     t_memory: float           # hbm_bytes / HBM_BW
-    t_compute: float          # flops / PEAK_F32_FLOPS
+    t_compute: float          # flops at the kernel's peak rate
     t_total: float            # max(mem, compute) stretched by the tail wave
 
     def as_dict(self) -> dict:
@@ -249,9 +250,11 @@ class RooflineCost:
 def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
                   dtype_bytes: int = 4) -> RooflineCost:
     """The static model the ranking runs on: the bytes and FLOP of the
-    kernel as its source does the work, with every FLOP at the float32 FMA
-    rate (the kernels do float32 arithmetic whatever they read). CTAs
-    resident per SM count threads and shared memory, not registers.
+    kernel as its source does the work: ``sketch_fused``'s tensor-core
+    passes (three for float32 inputs, one for bf16) at the TF32 rate, the
+    other kernels' float32 arithmetic at the FMA rate, whatever they read.
+    CTAs resident per SM count threads and shared memory, and registers
+    where a kernel's launch bounds name them (``sketch_fused``: one CTA).
     ``flash_attention`` is modelled causal, as ``measure_config`` runs it:
     a q-tile works through the k-tiles up to its diagonal.
     """
@@ -260,10 +263,10 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
     if cfg.kernel == "sketch_fused":
         k, d, n = shape
         bn = cfg.block[0]
-        n_tiles, k_tiles = -(-n // bn), -(-k // 128)
+        n_tiles, k_tiles = -(-n // bn), -(-k // _sketch_fused.BM)
         # A streamed once; Pi re-read per column tile; sketch + norms out
         hbm = d * n * ds + n_tiles * k * d * ds + 4 * (k + 1) * n
-        flops = 2.0 * k * d * n
+        flops = _sketch_fused.PASSES[ds] * 2.0 * k * d * n
         ctas = n_tiles * k_tiles
     elif cfg.kernel == "blocked_fwht":
         d, n = shape
@@ -286,12 +289,16 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
         hbm = 2 * BH * S * Dh * ds + 2 * BH * tiles * bk * Dh * ds
         flops = 4.0 * BH * tiles * bq * bk * Dh
         ctas = BH * (S // bq)
+    peak = PEAK_TF32_FLOPS if cfg.kernel == "sketch_fused" else PEAK_F32_FLOPS
     per_sm = min(THREADS_PER_SM // _threads(cfg, shape),
                  SMEM_PER_SM // (smem_bytes(cfg, shape) + SMEM_RESERVED))
+    if cfg.kernel == "sketch_fused":
+        per_sm = min(per_sm, _sketch_fused.CTAS_PER_SM)
     slots = SMS * max(per_sm, 1)
     t_mem = hbm / HBM_BW
-    t_comp = flops / PEAK_F32_FLOPS
-    t_total = kernel_time_lb(flops, hbm, ctas=ctas, slots=slots)
+    t_comp = flops / peak
+    t_total = kernel_time_lb(flops, hbm, peak_flops=peak, ctas=ctas,
+                             slots=slots)
     return RooflineCost(hbm_bytes=float(hbm), flops=float(flops),
                         ctas=int(ctas), slots=int(slots), t_memory=t_mem,
                         t_compute=t_comp, t_total=t_total)

@@ -3,14 +3,16 @@
 
 The port of ``repro.roofline.analysis`` as far as the tuner needs it: the
 peak constants and ``kernel_time_lb``. The constants are the H100 SXM data
-sheet's (dense, at the full 700 W), not the TPU's: the port's kernels do
-float32 arithmetic on the FMA units, so ``PEAK_F32_FLOPS`` is the rate
-without the tensor cores. Parsing compiled programs for their FLOPs and
-bytes waits for the LM stack.
+sheet's (dense, at the full 700 W), not the TPU's. ``sketch_fused`` runs on
+the TF32 tensor cores (``PEAK_TF32_FLOPS``, three passes for float32
+inputs); the other kernels do float32 arithmetic on the FMA units, whose
+rate without the tensor cores is ``PEAK_F32_FLOPS``. Parsing compiled
+programs for their FLOPs and bytes waits for the LM stack.
 """
 from __future__ import annotations
 
 PEAK_F32_FLOPS = 67e12       # float32 FMA units, no tensor cores
+PEAK_TF32_FLOPS = 495e12     # TF32 tensor cores, dense
 PEAK_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
 HBM_BW = 3.35e12             # bytes/s, HBM3
 

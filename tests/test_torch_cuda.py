@@ -19,8 +19,9 @@ from repro_torch.kernels import flash_attention, ops, tuning
 
 pytestmark = pytest.mark.cuda
 
-# float32 sums over d in another order: sketch entries within 1e-5 of the
-# largest entry at these small d, norms 1e-5 relative; Eq. 2 values within
+# float32 sums over d in another order (sketch_fused: three split TF32
+# passes on the tensor cores, float32 class): sketch entries within 1e-5 of
+# the largest entry at these d, norms 1e-5 relative; Eq. 2 values within
 # 1e-5 of their nA * nB scale.
 RTOL = 1e-5
 # Flash kernel against its plain version: the JAX suite's tolerances for
@@ -50,6 +51,61 @@ def test_sketch_fused_kernel_matches_plain(card, k, d, n, dtype):
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=RTOL * float(ref.abs().max()))
     torch.testing.assert_close(norm ** 2, ref_norm2, rtol=RTOL, atol=0)
+
+
+def _sketch_against_plain(Pi, A, per_column=False):
+    """ops.sketch_fused (one launch) against the plain version on the same
+    inputs: entries within RTOL of the largest entry (of each column's
+    largest entry with ``per_column``), squared norms within RTOL."""
+    before = ops.LAUNCHES["sketch_fused"]
+    out, norm = ops.sketch_fused(Pi, A)
+    assert ops.LAUNCHES["sketch_fused"] == before + 1
+    ref, ref_norm2 = ops.KERNELS["sketch_fused"].plain(Pi, A)
+    scale = ref.abs().amax(dim=0 if per_column else None)
+    assert bool(((out - ref).abs() <= RTOL * scale).all())
+    torch.testing.assert_close(norm ** 2, ref_norm2, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d,n", [
+    (64, 1001, 203),    # d and n odd: element copies, bf16 rows 2-byte aligned
+    (96, 1002, 206),    # d and n even, not multiples of 4 or 8
+    (200, 100, 256),    # 16-byte copies; d not a multiple of BK; k of BM
+    (128, 20, 264),     # d shorter than one stage
+    (512, 64, 40_000),  # 1,252 tiles: more than one per persistent CTA
+])
+def test_sketch_fused_kernel_edges(card, k, d, n, dtype):
+    gen = torch.Generator(device=card).manual_seed(k * d + n)
+    Pi = torch.randn(k, d, generator=gen, device=card).to(dtype)
+    A = torch.randn(d, n, generator=gen, device=card).to(dtype)
+    _sketch_against_plain(Pi, A)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sketch_fused_kernel_unaligned_pointers(card, dtype):
+    """Rows whose lengths are multiples of 16 bytes, but whose storage
+    starts one element past a 16-byte boundary: element copies."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    k, d, n = 130, 512, 384
+    flat = torch.randn(k * d + d * n + 2, generator=gen, device=card).to(dtype)
+    Pi = flat[1:1 + k * d].view(k, d)
+    A = flat[2 + k * d:].view(d, n)
+    assert Pi.is_contiguous() and A.is_contiguous()
+    assert Pi.data_ptr() % 16 and A.data_ptr() % 16
+    _sketch_against_plain(Pi, A)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sketch_fused_kernel_columns_at_d_20000(card, dtype):
+    """Long sums on the tensor cores: at d = 20,000, with the planted
+    pair's columns scaled 1/i, each column within RTOL of its own largest
+    entry (chip_smoke.py holds d = 50,000 to 1e-4 the same way)."""
+    gen = torch.Generator(device=card).manual_seed(20)
+    k, d, n = 256, 20_000, 1024
+    Pi = torch.randn(k, d, generator=gen, device=card)
+    scale = 1.0 / torch.arange(1, n + 1, device=card, dtype=torch.float32)
+    A = torch.randn(d, n, generator=gen, device=card) * scale
+    _sketch_against_plain(Pi.to(dtype), A.to(dtype), per_column=True)
 
 
 def test_sampled_dot_kernel_matches_plain(card):

@@ -173,3 +173,104 @@ def test_summary_converts_both_ways_exactly():
         else:
             assert x.dtype == y.dtype
             np.testing.assert_array_equal(x, y)
+
+
+# The tolerance of the tensor-core sketch_fused.cu, decided on the CPU by
+# emulating what the kernel feeds its TF32 MMAs. A TF32 value keeps the top
+# 19 bits of a float32: the kernel rounds an operand x to nearest TF32
+# (``big``), and the MMA reads only the top 19 bits of ``small = x - big``.
+_TF32_MASK = np.uint32(0xFFFFE000)
+
+
+def _tf32_nearest(x):
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & _TF32_MASK).view(np.float32)
+
+
+def _tf32_truncated(x):
+    return (x.astype(np.float32).view(np.uint32) & _TF32_MASK).view(np.float32)
+
+
+def _planted_operands(k, d, n, seed=0):
+    """Pi (k, d) and A (d, n) float32 from a numpy seed, A's columns scaled
+    1/i as in the planted pair, so each column has its own scale."""
+    rng = np.random.default_rng(seed)
+    Pi = rng.standard_normal((k, d)).astype(np.float32)
+    A = (rng.standard_normal((d, n)) / np.arange(1, n + 1)).astype(np.float32)
+    return Pi, A
+
+
+def _column_err(got, want):
+    """Each column's largest error over that column's largest entry."""
+    return float((np.abs(got - want).max(0) / np.abs(want).max(0)).max())
+
+
+def test_split_tf32_meets_the_sketch_tolerance_and_one_pass_does_not():
+    """At the slice's d = 50,000, the three-pass split (small*big, big*small,
+    big*big) stays within 1e-5 of each column's largest entry of the float64
+    product; one TF32 pass is off by more than the kernel's 1e-4. Sums in
+    float64, so that only the rounding of the operands is measured."""
+    Pi, A = _planted_operands(64, 50_000, 64)
+    exact = Pi.astype(np.float64) @ A.astype(np.float64)
+    Pb, Ab = _tf32_nearest(Pi), _tf32_nearest(A)
+    Ps, As = _tf32_truncated(Pi - Pb), _tf32_truncated(A - Ab)
+    f64 = lambda x: x.astype(np.float64)  # noqa: E731
+    three = f64(Ps) @ f64(Ab) + f64(Pb) @ f64(As) + f64(Pb) @ f64(Ab)
+    one = f64(Pb) @ f64(Ab)
+    assert _column_err(three, exact) <= 1e-5
+    assert _column_err(one, exact) > 1e-4
+
+
+def _round_toward_zero(x64):
+    f = x64.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x64)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _accumulate(Pi, A, steps_per_fresh):
+    """Three-pass products of each k8 step added into a float32 accumulator
+    that rounds toward zero, as an MMA adds; every ``steps_per_fresh`` k8
+    steps the fragment is added to a float32 sum with round to nearest
+    (None: the accumulator is the sum)."""
+    Pb, Ab = _tf32_nearest(Pi), _tf32_nearest(A)
+    Ps, As = _tf32_truncated(Pi - Pb), _tf32_truncated(A - Ab)
+    total = np.zeros((Pi.shape[0], A.shape[1]), np.float32)
+    frag = np.zeros_like(total)
+    for step, d0 in enumerate(range(0, Pi.shape[1], 8), start=1):
+        cols = slice(d0, d0 + 8)
+        for a, b in ((Ps, Ab), (Pb, As), (Pb, Ab)):
+            prod = a[:, cols].astype(np.float64) @ b[cols].astype(np.float64)
+            frag = _round_toward_zero(frag.astype(np.float64) + prod)
+        if steps_per_fresh and step % steps_per_fresh == 0:
+            total, frag = total + frag, np.zeros_like(frag)
+    return total + frag
+
+
+def test_two_level_accumulation_bounds_the_mma_truncation():
+    """An accumulator that rounds toward zero at each MMA drifts toward zero
+    over d = 50,000 by more than 1e-4 of a column's largest entry; a fresh
+    fragment per 64 rows of d (one stage of sketch_fused.cu), added with
+    round to nearest, keeps the sum within 1e-5."""
+    Pi, A = _planted_operands(16, 50_000, 16, seed=1)
+    exact = Pi.astype(np.float64) @ A.astype(np.float64)
+    assert _column_err(_accumulate(Pi, A, None), exact) > 1e-4
+    assert _column_err(_accumulate(Pi, A, 8), exact) <= 1e-5
+
+
+def test_probe_edits_apply_to_the_kernel_source():
+    """tools/sketch_fused_probe.py builds its variants by editing
+    sketch_fused.cu's text; each edit must still find what it replaces."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "sketch_fused_probe", root / "tools" / "sketch_fused_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    text = (root / "src/repro_torch/kernels/csrc/sketch_fused.cu").read_text()
+    for variant in (probe.one_level, probe.no_copies, probe.no_mma):
+        edited = variant(text)
+        assert edited != text
+    assert "mma(part" not in probe.no_mma(text)
+    assert "mma(acc[i][j]" in probe.one_level(text)

@@ -101,11 +101,47 @@ def test_menus_are_the_tiles_the_sources_compile():
     assert cases("run") == flash_attention.BLOCK_Q
     assert cases("launch_bk") == flash_attention.BLOCK_K
     assert cases("launch_dh") == flash_attention.HEAD_DIMS
-    assert DEFAULTS["sketch_fused"].block == (128, 16)
+    assert DEFAULTS["sketch_fused"].block == (128, 64)
     assert DEFAULTS["blocked_fwht"].block == (256, 32)
     assert DEFAULTS["sampled_dot"].block == ()
     assert DEFAULTS["flash_attention"].block in \
         tuning.TILE_MENUS["flash_attention"]
+
+
+def test_sketch_fused_constants_are_the_sources():
+    """The block, thread count, stages, CTAs per SM and shared memory the
+    tuner models for sketch_fused are the ones its CUDA source compiles."""
+    text = (CSRC / "sketch_fused.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert sketch_fused.BM == const("BM")
+    assert sketch_fused.STAGES == const("STAGES")
+    assert sketch_fused.THREADS == 32 * const("WARPS_M") * const("WARPS_N")
+    assert sketch_fused.CTAS_PER_SM == const("MIN_BLOCKS")
+    assert "constexpr int PI_PITCH = BK + 8;" in text
+    assert "A_PITCH = BN + 16 / (int)sizeof(T);" in text
+    bn, bk = sketch_fused.TILE
+    for size in (4, 2):
+        assert sketch_fused.smem_bytes(size) == const("STAGES") * size * (
+            const("BM") * (bk + 8) + bk * (bn + 16 // size))
+    assert tuning.smem_bytes(_sk(), SHAPES["sketch_fused"]) == \
+        sketch_fused.SMEM_BYTES <= tuning.SMEM_BUDGET_BYTES
+
+
+@pytest.mark.parametrize("precision,passes", [(None, 3), ("bf16", 1)])
+def test_sketch_fused_cost_counts_the_tensor_core_passes(precision, passes):
+    """The model charges sketch_fused its TF32 tensor-core passes: three
+    for float32 inputs (31.03 ms at the slice's shape), one for bf16."""
+    k, d, n = 512, 50_000, 100_000
+    cost = tuning.roofline_cost(_sk(precision=precision), (k, d, n))
+    assert cost.flops == passes * 2.0 * k * d * n
+    assert cost.t_compute == pytest.approx(passes * 2.0 * k * d * n / 495e12)
+    assert cost.slots == tuning.SMS * sketch_fused.CTAS_PER_SM
+    if precision is None:
+        assert cost.t_compute == pytest.approx(31.03e-3, rel=1e-3)
+        assert cost.t_compute > cost.t_memory
 
 
 @pytest.mark.parametrize("kernel", tuning.KERNELS)
