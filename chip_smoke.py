@@ -10,8 +10,11 @@ fails; nothing is caught:
 2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source, started together, with each kernel's register report,
    the count of tensor-core (``HMMA``) instructions in each instance of
-   kernel 1's SASS, which must be positive, and the tile each older kernel
-   resolves to through ``tuning.lookup``;
+   kernels 1 and 4 (``sketch_fused`` and ``flash_attention``), which must be
+   positive, kernel 4's registers and spills per instance, the registers
+   within the tuner's ``flash_attention.REGISTERS`` and no spill at its
+   default tile, and the tile each kernel resolves to through
+   ``tuning.lookup``;
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
    ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
@@ -36,17 +39,21 @@ fails; nothing is caught:
    times of a staged run, and card against CPU at the small size;
 8. the timing of kernel 3 at its call shape, beside its plain version and
    its bound;
-9. kernel 4 (``flash_attention``) against its plain version on the JAX
-   test shapes (causal and not, float32 and bf16, every compiled tile) and
-   at S = 4,096 with granite-3-8b's 32 query and 8 KV heads of 128;
+9. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
+   plain version on the JAX test shapes (causal and not, float32 and bf16,
+   every compiled tile) and at S = 4,096 with granite-3-8b's 32 query and 8
+   KV heads of 128, all at ``FLASH_TOL``;
 10. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
     read after it), against the plain version on every row, then bf16 and
     non-causal the same way;
-11. kernel 4's timings: every compiled tile at S = 32,768; at S = 32,768
-    and 4,096 beside its plain version, ``scaled_dot_product_attention``
-    and its bound, then with bf16 inputs;
+11. kernel 4's timings: every compiled tile at S = 32,768, float32 and
+    bf16; at S = 32,768 and 4,096, float32 and bf16, beside its plain
+    version, ``scaled_dot_product_attention`` and its bound: float32 on the
+    TF32 tensor cores (three split passes per product), with the float32
+    FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
+    this design's two TF32 passes beside it;
 12. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
@@ -59,6 +66,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -173,6 +181,28 @@ def hmma_counts(ops, lib) -> dict:
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def flash_resources(lib) -> dict:
+    """{(bq, bk, Dh, dtype): (registers, spilled bytes)} of each
+    ``flash_fwd`` instance, from the ``-Xptxas -v`` report kept beside the
+    library."""
+    log = lib.with_name(lib.name + ".log").read_text()
+    out, inst = {}, None
+    for line in log.splitlines():
+        m = re.search(r"flash_fwdILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E",
+                      line)
+        if "Compiling entry function" in line:
+            inst = None if m is None else (
+                int(m[1]), int(m[2]), int(m[3]),
+                "float32" if m[4] == "f" else "bfloat16")
+        elif inst is not None and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
+            out[inst] = (None, spill)
+        elif inst is not None and "Used" in line and inst in out:
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            out[inst] = (regs, out[inst][1])
+    return out
 
 
 def planted_pair(gen, d, n, device, decay=1.0, corr=0.3):
@@ -400,28 +430,45 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {len(paths)} kernels in {build_s:.1f} s", flush=True)
     for name, path in paths.items():
+        if name == "flash_attention":
+            continue                  # per instance below
         log = path.with_name(path.name + ".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    hmma = hmma_counts(ops, paths["sketch_fused"])
-    for fn, count in hmma.items():
-        print(f"  sketch_fused SASS {fn}: {count} HMMA", flush=True)
-    check(len(hmma) > 0 and all(c > 0 for c in hmma.values()),
-          f"sketch_fused runs on the tensor cores: HMMA counts {hmma}")
+    for name in ("sketch_fused", "flash_attention"):
+        hmma = hmma_counts(ops, paths[name])
+        for fn, count in hmma.items():
+            print(f"  {name} SASS {fn}: {count} HMMA", flush=True)
+        check(len(hmma) > 0 and all(c > 0 for c in hmma.values()),
+              f"{name} runs on the tensor cores: HMMA counts {hmma}")
+    flash_default = tuning.DEFAULTS["flash_attention"].block
+    spills = flash_resources(paths["flash_attention"])
+    for inst, (regs, spill) in spills.items():
+        print(f"  flash_attention instance bq,bk,Dh,dtype={inst}: {regs} "
+              f"registers, {spill} bytes spilled", flush=True)
+    table = ops.KERNELS["flash_attention"].REGISTERS
+    check(all(regs <= table[inst[2]] for inst, (regs, _) in spills.items()),
+          f"flash_attention: registers within the tuner's table {table}")
+    default_insts = [i for i in spills if i[:2] == flash_default]
+    check(len(spills) == 2 * len(tuning.TILE_MENUS["flash_attention"])
+          * len(ops.KERNELS["flash_attention"].HEAD_DIMS) and default_insts
+          and all(spills[i][1] == 0 for i in default_insts),
+          f"flash_attention: no spill at the default tile {flash_default}")
     # with no committed table every wrapper resolves to the tile it had
     backend = tuning.backend_of(dev)
     for kernel, shape in (("sketch_fused", (k, d, n)),
                           ("blocked_fwht", (65_536, 8_192)),
-                          ("sampled_dot", (n, n, k, m))):
+                          ("sampled_dot", (n, n, k, m)),
+                          ("flash_attention", (HEADS, S_FULL, HEAD_DIM))):
         cfg = tuning.lookup(kernel, shape, backend=backend)
         print(f"tuning.lookup {kernel} {shape} on {backend}: {cfg.block} "
               f"(table {os.path.relpath(tuning.table_path(backend), ROOT)}"
               f"{'' if os.path.exists(tuning.table_path(backend)) else ', absent'})",
               flush=True)
         check(cfg == tuning.DEFAULTS[kernel]
-              and cfg.block == tuning.TILE_MENUS[kernel][0],
-              f"{kernel} resolves to its compiled tile")
+              and cfg.block in tuning.TILE_MENUS[kernel],
+              f"{kernel} resolves to its compiled default tile")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -666,14 +713,17 @@ def main(argv=None) -> int:
                 v.to(torch.bfloat16), False, "full width")
 
     # 11. kernel 4's timings ------------------------------------------------
-    # every compiled tile at the full width, float32, one call each after a
-    # warm-up (the tuner below measures only its model's best three)
-    for block in tuning.TILE_MENUS["flash_attention"]:
-        cfg = tuning.KernelConfig("flash_attention", block)
-        ops.flash_attention(q, kk, v, config=cfg)
-        print(f"tile flash_attention S={S_FULL} {block}: "
-              f"{cuda_ms(lambda: ops.flash_attention(q, kk, v, config=cfg), 1):.3f} ms",
-              flush=True)
+    # every compiled tile at the full width, float32 and bf16, one call each
+    # after a warm-up (the tuner below measures only its model's best three)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
+        for block in tuning.TILE_MENUS["flash_attention"]:
+            cfg = tuning.KernelConfig("flash_attention", block)
+            ops.flash_attention(qd, kd, vd, config=cfg)
+            ms = cuda_ms(lambda: ops.flash_attention(qd, kd, vd, config=cfg), 1)
+            print(f"tile flash_attention S={S_FULL} {block} "
+                  f"{str(dtype).split('.')[-1]}: {ms:.3f} ms", flush=True)
+        del qd, kd, vd
     for S_, reps in ((S_FULL, 1), (S_TRAIN, 5)):
         if S_ != S_FULL:
             q, kk, v = attention_inputs(gen, S_, HEADS, KV_HEADS, HEAD_DIM, dev)
@@ -681,30 +731,36 @@ def main(argv=None) -> int:
         # q, k, v read once and o written once
         flops = 2.0 * HEADS * S_ * S_ * HEAD_DIM
         elems = (2 * S_ * HEADS + 2 * S_ * KV_HEADS) * HEAD_DIM
-        k4_ms, k4_plain = turns(lambda: fa.plain(q, kk, v, True),
-                                lambda: ops.flash_attention(q, kk, v),
-                                reps=reps)
-        lib = sdpa_call(q, kk, v)
-        lib()
-        k4_bound, k4_by = bound(flops, 4.0 * elems, PEAK_F32_FLOPS)
-        t = dict(S=S_, kernel_ms=k4_ms, plain_ms=k4_plain,
-                 library_ms=cuda_ms(lib, reps=reps), bound_ms=k4_bound,
-                 bound_by=k4_by)
-        print("timing flash_attention " + json.dumps(t), flush=True)
-        if S_ == S_FULL:
-            timing["flash_attention"] = t
-        # bf16 inputs: the same float32 arithmetic in the kernel; the bound
-        # for bf16 operands is the tensor cores' rate
-        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, kk, v))
-        libb = sdpa_call(qb, kb, vb)
-        ops.flash_attention(qb, kb, vb)
-        libb()
-        tb = dict(S=S_, kernel_ms=cuda_ms(lambda: ops.flash_attention(
-                      qb, kb, vb), reps=reps),
-                  library_ms=cuda_ms(libb, reps=reps),
-                  bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, 2.0 * elems / HBM_BW))
-        print("timing flash_attention bf16 " + json.dumps(tb), flush=True)
-        del qb, kb, vb, lib, libb
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
+            size = qd.element_size()
+            k4_ms, k4_plain = turns(lambda: fa.plain(qd, kd, vd, True),
+                                    lambda: ops.flash_attention(qd, kd, vd),
+                                    reps=reps)
+            lib = sdpa_call(qd, kd, vd)
+            lib()
+            tf32_ms = bound(fa.PASSES[size] * flops, size * elems,
+                            PEAK_TF32_FLOPS)
+            if size == 4:
+                # float32-accurate: three split passes on the TF32 tensor
+                # cores; the FMA units alone beside it
+                (k4_bound, k4_by), extra = tf32_ms, dict(
+                    tf32_passes=fa.PASSES[4],
+                    fma_units_ms=bound(flops, size * elems,
+                                       PEAK_F32_FLOPS)[0])
+            else:
+                # bf16 inputs: the bf16 tensor cores' rate; this design's
+                # two TF32 passes beside it
+                k4_bound, k4_by = bound(flops, size * elems, PEAK_BF16_FLOPS)
+                extra = dict(tf32_two_pass_ms=tf32_ms[0])
+            t = dict(S=S_, kernel_ms=k4_ms, plain_ms=k4_plain,
+                     library_ms=cuda_ms(lib, reps=reps), bound_ms=k4_bound,
+                     bound_by=k4_by, **extra)
+            tag = "" if dtype == torch.float32 else " bf16"
+            print(f"timing flash_attention{tag} " + json.dumps(t), flush=True)
+            if S_ == S_FULL and dtype == torch.float32:
+                timing["flash_attention"] = t
+            del qd, kd, vd, lib
     del q, kk, v
     torch.cuda.empty_cache()
 

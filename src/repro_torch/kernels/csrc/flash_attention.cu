@@ -1,4 +1,5 @@
-// flash_attention.cu: forward softmax attention with the online softmax.
+// flash_attention.cu: forward softmax attention with the online softmax, on
+// Hopper's tensor cores.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (body _kernel) and
@@ -12,14 +13,16 @@
 // denominator clamped at 1e-30, and the output in the input dtype. q is
 // (B, S, H, Dh), k and v (B, S, Hkv, Dh), each read in place through its
 // own strides (unit stride along Dh), so no repeated or folded copy exists;
-// o is (B, S, H, Dh), contiguous. float32 or bf16 in; the arithmetic is
-// float32 whatever the input, as the TPU kernel casts its tiles to f32.
+// o is (B, S, H, Dh), contiguous. float32 or bf16 in; float32-accurate
+// arithmetic whatever the input, as the TPU kernel casts its tiles to f32.
 //
 // What bounds it on an H100: operations. Causal attention does 2 * S^2 * Dh
 // FLOP per head (QK^T and PV, half the square each): 8.80e12 at S = 32,768
-// with 32 heads of 128, 131 ms at 67 TFLOP/s on the float32 FMA units,
-// against 0.4 ms for its bytes. Its S^2 / 2 exponentials per head go to
-// the special-function units, about 4 ms.
+// with 32 heads of 128. float32-accurate on the TF32 tensor cores that is
+// three passes of each product (below), 26.4e12 FLOP, 53.3 ms at
+// 495 TFLOP/s; bf16 inputs take two passes, 35.6 ms. Its bytes take 0.4 ms,
+// its S^2 / 2 exponentials per head about 4 ms on the special-function
+// units; the float32 FMA units alone would take 131 ms.
 //
 // Design:
 //  * The TPU grid walks the k-blocks in order and carries the running max,
@@ -27,53 +30,84 @@
 //    Blocks on a GPU run in parallel and in no order, so here one CTA owns
 //    one BQ x Dh query tile of one (b, h) and loops over the k-tiles
 //    itself, with the running state in registers.
-//  * The query tile, scaled, stays in shared memory; each k-tile of BK keys
-//    and values is staged in shared memory. A thread owns 8 query rows
-//    (ty + RG * i) and BK / 16 key columns (tx + 16 * j) of the scores, and
-//    the same 8 rows by Dh / 16 columns of the accumulator: register-tiled
-//    float32 FMAs, no tensor cores (a bf16 wgmma version would change the
-//    numbers the kernel is held to).
-//  * A row's 16 column threads are one half-warp, so its max is reduced
-//    with shuffles; the denominator stays a per-thread partial sum, reduced
-//    once at the end (every update scales all partials by the same factor).
-//  * The probabilities go through shared memory (in the K tile's space,
-//    which is free by then) to the PV product.
+//  * Tensor cores: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 for
+//    both products. Each warp owns 16 query rows (BQ / 16 warps). For
+//    S = (scale q) K^T the A operand is the scaled Q tile, kept in shared
+//    memory as float32, and the B operand is K read row-major, which is the
+//    MMA's .col layout. For O += P V each thread loads its own V values, so
+//    V keeps its row-major layout too.
+//  * Split passes: a float32 operand x becomes big = x rounded to nearest
+//    TF32 and small = x - big, and small*big, big*small and big*big are
+//    issued (about 2^-21 relative, float32 class). bf16 k and v are exact in
+//    TF32, so with bf16 inputs each product takes two passes: q small and
+//    big times k, p small and big times v. One TF32 pass misses the float32
+//    tolerance (tests/test_torch_flash_attention.py emulates all three).
+//  * P stays in registers. The accumulator fragment of S puts a thread's
+//    scores at keys 2t and 2t + 1 of rows g and g + 8; the A fragment of
+//    the PV MMA wants its k slots t and t + 4. The PV MMA is fed the keys of
+//    each k8 step in the order in which slot t is key 2t and slot t + 4 is
+//    key 2t + 1, and the thread loads V's B fragment from those same rows:
+//    a sum over keys does not depend on their order. No shared-memory
+//    round trip for P, no barrier for it. The QK^T MMA takes d in the same
+//    order, so a thread's two values of a row of Q or K are neighbours.
+//  * Two-level accumulation of O: an MMA adds with truncation, and over
+//    S = 32,768 keys O's sum would drift toward zero. Each k-tile's PV
+//    products go into a fresh fragment (per group of four 8-column tiles of
+//    O, which keeps registers down), added to O with one FFMA that also
+//    applies the softmax correction: o = o * corr + part. QK^T sums over at
+//    most Dh = 128, 16 k8 steps, straight into its fragment.
+//  * Online softmax in the fragment layout: the 4 threads of a quad share a
+//    row, so its max takes two __shfl_xor_sync; the denominator stays a
+//    per-thread partial, reduced once at the end (every update scales all
+//    partials by the same factor).
+//  * Copies: a ring of STAGES K/V tiles in shared memory filled by
+//    cp.async (16-byte copies for float32, 8-byte for bf16: the wrapper
+//    guarantees strides that are multiples of 4 elements), so the next
+//    tile loads while this one computes; one __syncthreads() per tile. bf16
+//    tiles stay bf16 in shared memory and are widened in registers, which
+//    is exact. S is divisible by the tile, so nothing is zero-filled.
 //  * Causal: the loop stops at the tile that holds the diagonal. That is
 //    exact: a fully masked tile would add exp(-1e30 - m) = 0 to every sum,
-//    and tile 0 holds an unmasked key for every row. CTAs are numbered
-//    heaviest query tile first, so the short tiles fill the last wave.
-//  * Shared-memory pitches: Q and K rows Dh + 4 floats (the K reads of 16
-//    lanes on 16 rows fall in distinct banks), P rows BK + 16 (the two rows
-//    of a warp land 16 banks apart).
-//  * Tiles compiled: BQ in {64, 128} (128 or 256 threads), BK in
-//    {32, 64, 128}, Dh in {32, 64, 128}; kernels/flash_attention.py holds
-//    the same menu and refuses anything else before a launch.
-// Not yet done: tensor cores, TMA, overlapping the next tile's loads with
-// this tile's products.
+//    and tile 0 holds an unmasked key for every row. A warp skips the
+//    products of a diagonal tile that lies wholly past its rows, for the
+//    same reason. CTAs are numbered heaviest query tile first, so the short
+//    tiles fill the last wave.
+//  * Shared-memory pitches keep the fragment loads off shared banks: Q and
+//    K rows Dh + 8 elements, V rows Dh + 16 bytes.
+//  * Tiles compiled: BQ in {64, 128} (128 or 256 threads), BK in {32, 64},
+//    Dh in {32, 64, 128}; kernels/flash_attention.py holds the same menu
+//    and refuses anything else before a launch. BK = 128 with two float32
+//    stages and a 128-row Q tile would not fit in 227 KB.
+// Not wgmma or TMA: later work. PERF.md has the kernel's times against its
+// bound and what holds it back (tools/flash_attention_probe.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int TX = 16;   // column threads per query row: one half-warp
-constexpr int RPT = 8;   // query rows per thread
+constexpr int STAGES = 2;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
 
-template <int BQ, int BK, int DH>
+template <int BQ, int BK, int DH, typename T>
 struct Tile {
-  static constexpr int RG = BQ / RPT;               // row groups
-  static constexpr int THREADS = RG * TX;           // 128 or 256
-  static constexpr int SC = BK / TX;                // score columns a thread
-  static constexpr int OC = DH / TX;                // output columns a thread
-  static constexpr int OV = OC < 4 ? OC : 4;        // their vector width
-  static constexpr int LDQ = DH + 4;                // Q and K row pitch
-  static constexpr int LDP = BK + 16;               // P row pitch
-  static constexpr int LDV = DH;                    // V row pitch
-  static constexpr int KP = BK * LDQ > BQ * LDP ? BK * LDQ : BQ * LDP;
-  static constexpr int SMEM_FLOATS = BQ * LDQ + KP + BK * LDV;
+  static constexpr int WARPS = BQ / 16;             // 16 query rows a warp
+  static constexpr int THREADS = 32 * WARPS;        // 128 or 256
+  static constexpr int NT = BK / 8;                 // key tiles of S
+  static constexpr int DT = DH / 8;                 // column tiles of O
+  static constexpr int G = DT < 4 ? DT : 4;         // O tiles per fresh part
+  static constexpr int LDQ = DH + 8;                // floats per Q row
+  static constexpr int LDK = DH + 8;                // elements per K row
+  static constexpr int LDV = DH + 16 / (int)sizeof(T);  // per V row
+  static constexpr int STAGE_ELEMS = BK * (LDK + LDV);
+  static constexpr int SMEM =
+      BQ * LDQ * (int)sizeof(float) + STAGES * STAGE_ELEMS * (int)sizeof(T);
+  // float32: three passes per product; bf16 k and v are exact in TF32: two
+  static constexpr int PASSES = std::is_same<T, float>::value ? 3 : 2;
 };
 
 struct Params {
@@ -93,202 +127,295 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// N consecutive floats of shared memory into registers.
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float* dst) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    dst[0] = t.x; dst[1] = t.y;
+// A value's TF32 operands, as the MMA reads them (the top 19 bits of a
+// float32). float32: big rounds x to nearest TF32 (the integer form of
+// cvt.rna.tf32.f32, without its NaN guard), small = x - big is exact and
+// the MMA ignores its low 13 bits. A widened bf16 is a TF32 value already.
+template <int PASSES>
+__device__ __forceinline__ void split(uint32_t x, uint32_t& big,
+                                      uint32_t& small) {
+  if constexpr (PASSES == 3) {
+    big = (x + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));
   } else {
-    dst[0] = p[0];
+    big = x;
+    small = 0u;
   }
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// c += a * b on one m16n8k8 tile.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One asynchronous copy of VEC bytes from gmem to smem.
+template <int VEC>
+__device__ __forceinline__ void copy(void* smem, const void* gmem) {
+  const unsigned dst = smem_addr(smem);
+  if constexpr (VEC == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(dst), "l"(gmem) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                 :: "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// K's B fragment of one (k8 step, key tile): the thread's keys-row values
+// at d offsets 2t and 2t + 1, which the MMA takes as its k slots t, t + 4.
+__device__ __forceinline__ void k_pair(const float* p, uint32_t& b0,
+                                       uint32_t& b1) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  b0 = __float_as_uint(x.x);
+  b1 = __float_as_uint(x.y);
+}
+__device__ __forceinline__ void k_pair(const __nv_bfloat16* p, uint32_t& b0,
+                                       uint32_t& b1) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  b0 = u << 16;             // the lower address holds d offset 2t
+  b1 = u & 0xffff0000u;
+}
+
+// One V value as a float32 bit pattern.
+__device__ __forceinline__ uint32_t v_bits(const float* p) {
+  return __float_as_uint(*p);
+}
+__device__ __forceinline__ uint32_t v_bits(const __nv_bfloat16* p) {
+  return (uint32_t)*reinterpret_cast<const uint16_t*>(p) << 16;
+}
+
 template <int BQ, int BK, int DH, typename T>
-__global__ void __launch_bounds__(Tile<BQ, BK, DH>::THREADS)
+__global__ void __launch_bounds__(Tile<BQ, BK, DH, T>::THREADS, 1)
 flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
           const T* __restrict__ V, T* __restrict__ O, Params p) {
-  using Tl = Tile<BQ, BK, DH>;
-  constexpr int RG = Tl::RG, SC = Tl::SC, OC = Tl::OC, OV = Tl::OV;
-  constexpr int LDQ = Tl::LDQ, LDP = Tl::LDP, LDV = Tl::LDV;
-  constexpr int THREADS = Tl::THREADS;
-  constexpr int CH = DH / 4;  // 4-element chunks per row
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;            // [BQ][LDQ], scaled
-  float* KP = Qs + BQ * LDQ;   // K tile [BK][LDQ], then P [BQ][LDP]
-  float* Vs = KP + Tl::KP;     // [BK][LDV]
+  using Tl = Tile<BQ, BK, DH, T>;
+  constexpr int THREADS = Tl::THREADS, NT = Tl::NT, DT = Tl::DT, G = Tl::G;
+  constexpr int LDQ = Tl::LDQ, LDK = Tl::LDK, LDV = Tl::LDV;
+  constexpr int PASSES = Tl::PASSES;
+  constexpr int CH = DH / 4;                     // 4-element chunks a row
+  constexpr int Q_COPIES = BQ * CH / THREADS;    // per thread
+  constexpr int KV_COPIES = BK * CH / THREADS;
+  static_assert(Q_COPIES * THREADS == BQ * CH &&
+                KV_COPIES * THREADS == BK * CH && KV_COPIES >= 1,
+                "copy split");
+  static_assert(DT % G == 0, "O tile groups");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const Qs = reinterpret_cast<float*>(smem_raw);      // [BQ][LDQ]
+  T* const ring = reinterpret_cast<T*>(smem_raw + BQ * LDQ * sizeof(float));
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4;  // fragment row group
+  const int t = lane % 4;  // thread in group
   const int64_t nqt = p.S / BQ;
   const int64_t qt = nqt - 1 - (int64_t)blockIdx.x / p.BH;  // heaviest first
   const int64_t bh = (int64_t)blockIdx.x % p.BH;
   const int64_t b = bh / p.H;
   const int64_t h = bh % p.H;
-  const int64_t g = h / (p.H / p.Hkv);
+  const int64_t kvh = h / (p.H / p.Hkv);
   const int64_t q0 = qt * BQ;
   const T* Qb = Q + b * p.sqb + h * p.sqh;
-  const T* Kb = K + b * p.skb + g * p.skh;
-  const T* Vb = V + b * p.svb + g * p.svh;
+  const T* Kb = K + b * p.skb + kvh * p.skh;
+  const T* Vb = V + b * p.svb + kvh * p.svh;
 
-  for (int c = tid; c < BQ * CH; c += THREADS) {
+  // Slot s <- keys k0..k0+BK-1 of K and V.
+  auto load_stage = [&](int slot, int64_t k0) {
+    T* ks = ring + slot * Tl::STAGE_ELEMS;
+    T* vs = ks + BK * LDK;
+#pragma unroll
+    for (int i = 0; i < KV_COPIES; ++i) {
+      const int c = tid + i * THREADS;
+      const int r = c / CH, d = (c % CH) * 4;
+      copy<4 * (int)sizeof(T)>(ks + r * LDK + d, Kb + (k0 + r) * p.sks + d);
+      copy<4 * (int)sizeof(T)>(vs + r * LDV + d, Vb + (k0 + r) * p.svs + d);
+    }
+  };
+  load_stage(0, 0);
+  cp_async_commit();
+
+#pragma unroll
+  for (int i = 0; i < Q_COPIES; ++i) {
+    const int c = tid + i * THREADS;
     const int r = c / CH, d = (c % CH) * 4;
     float4 x = load4(Qb + (q0 + r) * p.sqs + d);
     x.x *= p.scale; x.y *= p.scale; x.z *= p.scale; x.w *= p.scale;
     *reinterpret_cast<float4*>(&Qs[r * LDQ + d]) = x;
   }
 
-  float m[RPT], l[RPT], o[RPT][OC];
+  // This thread's rows are r0 and r0 + 8 of the tile (h = 0, 1 below).
+  const int r0 = warp * 16 + g;
+  const int64_t warp_first = q0 + warp * 16;
+  float o[DT][4], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
+  for (int j = 0; j < DT; ++j)
 #pragma unroll
-    for (int c = 0; c < OC; ++c) o[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
   const int64_t n_kt = p.causal ? (q0 + BQ - 1) / BK + 1 : p.S / BK;
   for (int64_t kt = 0; kt < n_kt; ++kt) {
-    const int64_t k0 = kt * BK;
-    for (int c = tid; c < BK * CH; c += THREADS) {
-      const int r = c / CH, d = (c % CH) * 4;
-      *reinterpret_cast<float4*>(&KP[r * LDQ + d]) =
-          load4(Kb + (k0 + r) * p.sks + d);
-      *reinterpret_cast<float4*>(&Vs[r * LDV + d]) =
-          load4(Vb + (k0 + r) * p.svs + d);
-    }
+    // tile kt has landed for everyone, and every warp is done with the slot
+    // refilled below
+    cp_async_wait<0>();
     __syncthreads();
+    if (kt + 1 < n_kt) load_stage((int)((kt + 1) % STAGES), (kt + 1) * BK);
+    cp_async_commit();
+    const int64_t k0 = kt * BK;
+    if (p.causal && k0 > warp_first + 15) continue;  // all masked for this warp
+    const T* ks = ring + (int)(kt % STAGES) * Tl::STAGE_ELEMS;
+    const T* vs = ks + BK * LDK;
 
-    // scores s = (scale q) k^T for 8 rows x SC columns
-    float s[RPT][SC];
+    // s = (scale q) k^T: 16 rows x BK keys
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < DH; d += 4) {
-      float4 kv[SC];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < SC; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&KP[(tx + TX * j) * LDQ + d]);
+    for (int kk = 0; kk < DH; kk += 8) {
+      const float2 lo = *reinterpret_cast<const float2*>(&Qs[r0 * LDQ + kk + 2 * t]);
+      const float2 hi =
+          *reinterpret_cast<const float2*>(&Qs[(r0 + 8) * LDQ + kk + 2 * t]);
+      const uint32_t a[4] = {__float_as_uint(lo.x), __float_as_uint(hi.x),
+                             __float_as_uint(lo.y), __float_as_uint(hi.y)};
+      uint32_t a_big[4], a_small[4];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(&Qs[(ty + RG * i) * LDQ + d]);
+      for (int e = 0; e < 4; ++e) split<3>(a[e], a_big[e], a_small[e]);
 #pragma unroll
-        for (int j = 0; j < SC; ++j) {
-          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
-        }
+      for (int j = 0; j < NT; ++j) {
+        uint32_t b0, b1, b0_big, b0_small, b1_big, b1_small;
+        k_pair(ks + (8 * j + g) * LDK + kk + 2 * t, b0, b1);
+        split<PASSES>(b0, b0_big, b0_small);
+        split<PASSES>(b1, b1_big, b1_small);
+        mma(s[j], a_small, b0_big, b1_big);
+        if constexpr (PASSES == 3) mma(s[j], a_big, b0_small, b1_small);
+        mma(s[j], a_big, b0_big, b1_big);
       }
     }
-    if (p.causal && k0 + BK - 1 > q0) {
+    if (p.causal && k0 + BK - 1 > warp_first) {
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < SC; ++j)
-          if (k0 + tx + TX * j > q0 + ty + RG * i) s[i][j] = NEG;
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + (e & 1) > q0 + r0 + 8 * (e >> 1))
+            s[j][e] = NEG;
     }
 
-    // online softmax: new running max, rescale, probabilities
+    // online softmax: new running max, correction, probabilities
+    float corr[2];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float mx = s[i][0];
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = fmaxf(s[0][2 * hh], s[0][2 * hh + 1]);
 #pragma unroll
-      for (int j = 1; j < SC; ++j) mx = fmaxf(mx, s[i][j]);
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - mn);
+      for (int j = 1; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float mn = fmaxf(m[hh], mx);
+      corr[hh] = expf(m[hh] - mn);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < SC; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
-        sum += s[i][j];
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * hh] = expf(s[j][2 * hh] - mn);
+        s[j][2 * hh + 1] = expf(s[j][2 * hh + 1] - mn);
+        sum += s[j][2 * hh] + s[j][2 * hh + 1];
       }
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int c = 0; c < OC; ++c) o[i][c] *= corr;
-      m[i] = mn;
+      l[hh] = l[hh] * corr[hh] + sum;
+      m[hh] = mn;
     }
-    __syncthreads();  // every thread is done reading the K tile
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < SC; ++j)
-        KP[(ty + RG * i) * LDP + tx + TX * j] = s[i][j];
-    __syncthreads();
 
-    // o += P v
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 pv[RPT];
+    // P as the PV MMA's A operand, k8 step j = key tile j: slot t is key
+    // 2t, slot t + 4 key 2t + 1, so (a0, a1, a2, a3) = (s0, s2, s1, s3)
+    uint32_t p_big[NT][4], p_small[NT][4];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&KP[(ty + RG * i) * LDP + j]);
+    for (int j = 0; j < NT; ++j) {
+      split<3>(__float_as_uint(s[j][0]), p_big[j][0], p_small[j][0]);
+      split<3>(__float_as_uint(s[j][2]), p_big[j][1], p_small[j][1]);
+      split<3>(__float_as_uint(s[j][1]), p_big[j][2], p_small[j][2]);
+      split<3>(__float_as_uint(s[j][3]), p_big[j][3], p_small[j][3]);
+    }
+
+    // o = o * corr + P v, G column tiles of O at a time, each tile's
+    // products of this k-tile in a fresh fragment
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float vv[OC];
+    for (int jg = 0; jg < DT; jg += G) {
+      float part[G][4];
 #pragma unroll
-        for (int gq = 0; gq < OC / OV; ++gq)
-          load_vec<OV>(&Vs[(j + jj) * LDV + gq * TX * OV + tx * OV],
-                       &vv[gq * OV]);
+      for (int jj = 0; jj < G; ++jj)
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float pij = comp(pv[i], jj);
+        for (int e = 0; e < 4; ++e) part[jj][e] = 0.f;
 #pragma unroll
-          for (int c = 0; c < OC; ++c) o[i][c] = fmaf(pij, vv[c], o[i][c]);
+      for (int j = 0; j < NT; ++j) {
+        const T* vrow = vs + (8 * j + 2 * t) * LDV + g;
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) {
+          const int col = 8 * (jg + jj);
+          uint32_t b0_big, b0_small, b1_big, b1_small;
+          split<PASSES>(v_bits(vrow + col), b0_big, b0_small);
+          split<PASSES>(v_bits(vrow + LDV + col), b1_big, b1_small);
+          mma(part[jj], p_small[j], b0_big, b1_big);
+          if constexpr (PASSES == 3)
+            mma(part[jj], p_big[j], b0_small, b1_small);
+          mma(part[jj], p_big[j], b0_big, b1_big);
         }
       }
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[jg + jj][e] = fmaf(o[jg + jj][e], corr[e >> 1], part[jj][e]);
     }
-    __syncthreads();  // before the next tile overwrites K/P and V
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1)
-      li += __shfl_xor_sync(FULL, li, off);
+  for (int hh = 0; hh < 2; ++hh) {
+    float li = l[hh];
+    li += __shfl_xor_sync(FULL, li, 1);
+    li += __shfl_xor_sync(FULL, li, 2);
     const float denom = fmaxf(li, 1e-30f);
-    const int64_t row = q0 + ty + RG * i;
-    T* orow = O + ((b * p.S + row) * p.H + h) * DH;
+    const int64_t row = q0 + r0 + 8 * hh;
+    T* orow = O + ((b * p.S + row) * p.H + h) * DH + 2 * t;
 #pragma unroll
-    for (int gq = 0; gq < OC / OV; ++gq)
-#pragma unroll
-      for (int e = 0; e < OV; ++e)
-        store1(orow + gq * TX * OV + tx * OV + e, o[i][gq * OV + e] / denom);
+    for (int j = 0; j < DT; ++j)
+      store2(orow + 8 * j, o[j][2 * hh] / denom, o[j][2 * hh + 1] / denom);
   }
 }
 
 template <int BQ, int BK, int DH, typename T>
 int launch_tile(const T* q, const T* k, const T* v, T* o, const Params& p,
                 cudaStream_t s) {
-  using Tl = Tile<BQ, BK, DH>;
-  constexpr int bytes = Tl::SMEM_FLOATS * (int)sizeof(float);
+  using Tl = Tile<BQ, BK, DH, T>;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd<BQ, BK, DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      Tl::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const int64_t blocks = (p.S / BQ) * p.BH;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_fwd<BQ, BK, DH, T><<<(unsigned)blocks, Tl::THREADS, bytes, s>>>(
+  flash_fwd<BQ, BK, DH, T><<<(unsigned)blocks, Tl::THREADS, Tl::SMEM, s>>>(
       q, k, v, o, p);
   return (int)cudaGetLastError();
 }
@@ -310,7 +437,6 @@ int launch_bk(int64_t bk, int64_t dh, const T* q, const T* k, const T* v,
   switch (bk) {
     case 32: return launch_dh<BQ, 32, T>(dh, q, k, v, o, p, s);
     case 64: return launch_dh<BQ, 64, T>(dh, q, k, v, o, p, s);
-    case 128: return launch_dh<BQ, 128, T>(dh, q, k, v, o, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -9,17 +9,27 @@ for ``sm_90a`` in ``csrc/flash_attention.cu``. q (B, S, H, Dh) and k, v
 causal keys past the query are masked to -1e30; float32 running max,
 denominator and accumulator; the output (B, S, H, Dh) in the input dtype.
 
-Bound on an H100: operations. Causal attention does ``2 S^2 Dh`` float32
-FLOP per head on the FMA units (67 TFLOP/s): 131 ms for granite-3-8b's 32
-heads of 128 at S = 32,768, against 0.4 ms for its bytes.
+Bound on an H100: operations. Causal attention does ``2 S^2 Dh`` FLOP per
+head: 8.80e12 for granite-3-8b's 32 heads of 128 at S = 32,768. On the
+TF32 tensor cores a float32-accurate product takes three split passes
+(``PASSES``): 26.4e12 FLOP, 53.3 ms at 495 TFLOP/s; the float32 FMA units
+alone would take 131 ms. bf16 inputs are bound by the bf16 tensor cores,
+8.9 ms at 989 TFLOP/s; this design's two TF32 passes take 35.6 ms there.
+The bytes take 0.4 ms in float32.
 
 Design (see the source for more): the TPU kernel carries its running
 softmax state across a sequential grid axis of k-blocks; here one CTA owns
-one (bq, Dh) query tile of one (b, h), loops over k-tiles of bk keys staged
-in shared memory and keeps the state in registers, register-tiled float32
-FMAs with no tensor cores. It reads q, k and v in place through their
-strides, so GQA costs no repeated copy, and under ``causal`` stops at the
-diagonal tile, which is exact.
+one (bq, Dh) query tile of one (b, h) and loops over k-tiles of bk keys,
+with the state in registers. Both products are ``mma.sync`` m16n8k8 TF32
+MMAs, 16 query rows a warp: float32 operands split into a TF32 big and
+small part (small*big, big*small, big*big), bf16 k and v exact in TF32 (two
+passes). P stays in registers: the PV MMA takes each k8 step's keys in the
+order of the score fragment. Each k-tile's PV products go into a fresh
+fragment added to O with an ordinary FFMA, since the tensor cores truncate
+inside an MMA. K and V tiles come through a ring of two ``cp.async``
+stages. It reads q, k and v in place through their strides, so GQA costs
+no repeated copy, and under ``causal`` stops at the diagonal tile, which is
+exact.
 
 ``plain`` is the PyTorch version of the same function; ``kernels/ops.py``
 chooses between the two and counts launches.
@@ -32,6 +42,7 @@ import math
 import torch
 
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.roofline.analysis import REGISTERS_PER_SM
 
 SOURCE = "flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:78"
@@ -39,8 +50,18 @@ REPLACES = "src/repro/kernels/flash_attention.py:78"
 #: The tiles ``csrc/flash_attention.cu`` compiles (its ``run`` and
 #: ``launch_*`` switches).
 BLOCK_Q = (64, 128)
-BLOCK_K = (32, 64, 128)
+BLOCK_K = (32, 64)
 HEAD_DIMS = (32, 64, 128)
+#: K/V tiles in the ``cp.async`` ring.
+STAGES = 2
+#: TF32 tensor-core passes per product, by input itemsize: float32 three
+#: (small*big, big*small, big*big), bf16 two (k and v are exact in TF32).
+PASSES = {4: 3, 2: 2}
+#: Registers a thread holds, by head width: the most that ptxas gave any
+#: instance of that width (``__launch_bounds__(THREADS, 1)`` allows 255;
+#: ``chip_smoke.py``'s build phase prints each instance's count and holds
+#: it to this table).
+REGISTERS = {32: 166, 64: 255, 128: 255}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -48,17 +69,25 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
 
-def smem_bytes(bq: int, bk: int, dh: int) -> int:
-    """Dynamic shared memory of one CTA, as ``Tile`` in the source lays it
-    out: the scaled Q tile and the K tile at a pitch of Dh + 4 floats, P
-    (bq, bk + 16) in the K tile's space, and the V tile."""
-    ldq, ldp = dh + 4, bk + 16
-    return 4 * (bq * ldq + max(bk * ldq, bq * ldp) + bk * dh)
+def smem_bytes(bq: int, bk: int, dh: int, dtype_bytes: int = 4) -> int:
+    """Dynamic shared memory of one CTA for inputs of ``dtype_bytes``, as
+    ``Tile`` in the source lays it out: the scaled float32 Q tile at a
+    pitch of Dh + 8, and ``STAGES`` K/V tiles in the input dtype, K rows at
+    Dh + 8 elements, V rows at Dh + 16 bytes."""
+    ldk, ldv = dh + 8, dh + 16 // dtype_bytes
+    return 4 * bq * (dh + 8) + STAGES * bk * (ldk + ldv) * dtype_bytes
 
 
 def threads(bq: int) -> int:
-    """Threads per CTA: 16 for each 8 query rows."""
+    """Threads per CTA: one warp for each 16 query rows."""
     return 2 * bq
+
+
+def ctas_per_sm(bq: int, dh: int) -> int:
+    """CTAs of ``bq`` query rows that an SM's register file holds at head
+    width ``dh``: a warp's registers are allocated 256 at a time, so a
+    thread's count rounds up to a multiple of 8."""
+    return REGISTERS_PER_SM // (threads(bq) * -(-REGISTERS[dh] // 8) * 8)
 
 
 def check_tile(bq: int, bk: int, dh: int) -> None:
@@ -117,4 +146,5 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
 
 
 __all__ = ["plain", "bind", "launch", "check_tile", "smem_bytes", "threads",
-           "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "SOURCE", "REPLACES"]
+           "ctas_per_sm", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "STAGES",
+           "PASSES", "REGISTERS", "SOURCE", "REPLACES"]

@@ -8,12 +8,13 @@ kernels: the port of ``repro.kernels.tuning``.
   that are legal at a shape and fit the shared-memory budget of one CTA.
   The compiled tile menus take the place of the TPU's lane/sublane
   alignment: ``sketch_fused`` and ``blocked_fwht`` compile one tile each
-  today, ``flash_attention`` six.
+  today, ``flash_attention`` four.
 * ``roofline_cost`` / ``rank_candidates``: a static cost model in the terms
   of ``repro_torch.roofline.analysis`` (bytes at ``HBM_BW``; FLOP at
-  ``PEAK_TF32_FLOPS`` for ``sketch_fused``, which runs on the tensor cores,
-  and at ``PEAK_F32_FLOPS`` for the others; stretched by the tail wave over
-  132 SMs), so the ranking is deterministic on any machine.
+  ``PEAK_TF32_FLOPS`` times the split passes for ``sketch_fused`` and
+  ``flash_attention``, which run on the tensor cores, and at
+  ``PEAK_F32_FLOPS`` for the others; stretched by the tail wave over 132
+  SMs), so the ranking is deterministic on any machine.
 * ``autotune`` measures the best-ranked candidates on the card
   (``measure_config``, CUDA events) and records winners in a versioned JSON
   ``TuningTable`` (``kernels/tunings/<backend>.json``) keyed by
@@ -113,13 +114,13 @@ class KernelConfig(NamedTuple):
 
 #: ``lookup``'s fallback: the tiles the kernels ran with before the tuner,
 #: so default-config results are bit-identical to them. flash_attention's
-#: (128, 128) is the JAX package's default, and the fastest compiled tile
-#: for granite-3-8b's attention at S = 32,768 on an H100 (PERF.md).
+#: (128, 32) is the fastest compiled tile of its tensor-core source for
+#: granite-3-8b's attention at S = 32,768 on an H100 (PERF.md).
 DEFAULTS: Dict[str, KernelConfig] = {
     "sketch_fused": KernelConfig("sketch_fused", _sketch_fused.TILE),
     "blocked_fwht": KernelConfig("blocked_fwht", _hadamard.TILE),
     "sampled_dot": KernelConfig("sampled_dot", ()),
-    "flash_attention": KernelConfig("flash_attention", (128, 128)),
+    "flash_attention": KernelConfig("flash_attention", (128, 32)),
 }
 
 
@@ -216,7 +217,8 @@ def smem_bytes(cfg: KernelConfig, shape: Tuple[int, ...]) -> int:
     if cfg.kernel == "sampled_dot":
         return 0
     BH, S, Dh = shape
-    return _flash.smem_bytes(*_flash_tile(cfg, S), Dh)
+    return _flash.smem_bytes(*_flash_tile(cfg, S), Dh,
+                             _itemsize(cfg.precision))
 
 
 def _threads(cfg: KernelConfig, shape: Tuple[int, ...]) -> int:
@@ -250,11 +252,13 @@ class RooflineCost:
 def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
                   dtype_bytes: int = 4) -> RooflineCost:
     """The static model the ranking runs on: the bytes and FLOP of the
-    kernel as its source does the work: ``sketch_fused``'s tensor-core
-    passes (three for float32 inputs, one for bf16) at the TF32 rate, the
+    kernel as its source does the work: the tensor-core passes of
+    ``sketch_fused`` (three for float32 inputs, one for bf16) and of
+    ``flash_attention`` (three, or two for bf16) at the TF32 rate, the
     other kernels' float32 arithmetic at the FMA rate, whatever they read.
     CTAs resident per SM count threads and shared memory, and registers
-    where a kernel's launch bounds name them (``sketch_fused``: one CTA).
+    where a kernel's launch bounds let it take up to 255 a thread
+    (``sketch_fused``: one CTA; ``flash_attention``: its ptxas counts).
     ``flash_attention`` is modelled causal, as ``measure_config`` runs it:
     a q-tile works through the k-tiles up to its diagonal.
     """
@@ -287,13 +291,17 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
         tiles = sum(((qt + 1) * bq - 1) // bk + 1 for qt in range(S // bq))
         # q in and o out once; K and V tiles per q-tile up to the diagonal
         hbm = 2 * BH * S * Dh * ds + 2 * BH * tiles * bk * Dh * ds
-        flops = 4.0 * BH * tiles * bq * bk * Dh
+        flops = _flash.PASSES[ds] * 4.0 * BH * tiles * bq * bk * Dh
         ctas = BH * (S // bq)
-    peak = PEAK_TF32_FLOPS if cfg.kernel == "sketch_fused" else PEAK_F32_FLOPS
+    peak = (PEAK_TF32_FLOPS if cfg.kernel in ("sketch_fused", "flash_attention")
+            else PEAK_F32_FLOPS)
     per_sm = min(THREADS_PER_SM // _threads(cfg, shape),
                  SMEM_PER_SM // (smem_bytes(cfg, shape) + SMEM_RESERVED))
     if cfg.kernel == "sketch_fused":
         per_sm = min(per_sm, _sketch_fused.CTAS_PER_SM)
+    elif cfg.kernel == "flash_attention":
+        per_sm = min(per_sm, _flash.ctas_per_sm(
+            _flash_tile(cfg, shape[1])[0], shape[2]))
     slots = SMS * max(per_sm, 1)
     t_mem = hbm / HBM_BW
     t_comp = flops / peak

@@ -3,10 +3,11 @@
 
 The port of ``repro.roofline.analysis`` as far as the tuner needs it: the
 peak constants and ``kernel_time_lb``. The constants are the H100 SXM data
-sheet's (dense, at the full 700 W), not the TPU's. ``sketch_fused`` runs on
-the TF32 tensor cores (``PEAK_TF32_FLOPS``, three passes for float32
-inputs); the other kernels do float32 arithmetic on the FMA units, whose
-rate without the tensor cores is ``PEAK_F32_FLOPS``. Parsing compiled
+sheet's (dense, at the full 700 W), not the TPU's. ``sketch_fused`` and
+``flash_attention`` run on the TF32 tensor cores (``PEAK_TF32_FLOPS``,
+three split passes for float32 inputs; bf16 one and two); the other
+kernels do float32 arithmetic on the FMA units, whose rate without the
+tensor cores is ``PEAK_F32_FLOPS``. Parsing compiled
 programs for their FLOPs and bytes waits for the LM stack.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ SMEM_PER_SM = 233_472        # bytes of shared memory an SM hands out (228 KB)
 SMEM_PER_BLOCK = 232_448     # bytes one CTA may opt into (227 KB)
 SMEM_RESERVED = 1_024        # bytes the runtime keeps per resident CTA
 THREADS_PER_SM = 2_048
+REGISTERS_PER_SM = 65_536    # 32-bit registers
 
 
 def kernel_time_lb(flops: float, hbm_bytes: float, *,

@@ -154,3 +154,192 @@ def test_port_sources_name_no_jax_import():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), \
                     f"{path.relative_to(ROOT)} imports {name}"
+
+
+# The tensor-core flash_attention.cu, emulated in numpy: what the kernel
+# feeds its TF32 MMAs and how they add. A TF32 value keeps the top 19 bits
+# of a float32: the kernel rounds an operand x to nearest TF32 (``big``),
+# and the MMA reads only the top 19 bits of ``small = x - big``. An MMA adds
+# its products into its accumulator rounding toward zero. (The helpers are
+# those of tests/test_torch_sketch.py, copied.)
+_TF32_MASK = np.uint32(0xFFFFE000)
+
+
+def _tf32_nearest(x):
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & _TF32_MASK).view(np.float32)
+
+
+def _tf32_truncated(x):
+    return (x.astype(np.float32).view(np.uint32) & _TF32_MASK).view(np.float32)
+
+
+def _round_toward_zero(x64):
+    f = x64.astype(np.float32)
+    over = np.abs(f) > np.abs(x64)
+    return (f.view(np.uint32) - over).view(np.float32)  # one ulp toward 0
+
+
+def _operands(x, passes):
+    """(a, b) pairs of one product's passes for operands x = (left, right):
+    three passes (small*big, big*small, big*big); two when the right side is
+    exact in TF32 (small*right, big*right); one pass big*big."""
+    left, right = x
+    lb, rb = _tf32_nearest(left), _tf32_nearest(right)
+    ls, rs = _tf32_truncated(left - lb), _tf32_truncated(right - rb)
+    return {3: [(ls, rb), (lb, rs), (lb, rb)], 2: [(ls, right), (lb, right)],
+            1: [(lb, rb)]}[passes]
+
+
+def _mma_sum(pairs, fresh_every=None):
+    """sum_k a[:, k] b[k, :] as the MMAs add it: each k8 step's products of
+    every pass, summed exactly, added into a float32 fragment that rounds
+    toward zero. ``fresh_every``: the fragment is added to a float32 sum
+    (round to nearest) after that many k8 steps and restarted; None: one
+    fragment takes the whole sum."""
+    n = pairs[0][0].shape[1]
+    shape = (pairs[0][0].shape[0], pairs[0][1].shape[1])
+    total = np.zeros(shape, np.float32)
+    frag = np.zeros(shape, np.float32)
+    for step, k0 in enumerate(range(0, n, 8), start=1):
+        for a, b in pairs:
+            prod = a[:, k0:k0 + 8].astype(np.float64) @ \
+                b[k0:k0 + 8].astype(np.float64)
+            frag = _round_toward_zero(frag.astype(np.float64) + prod)
+        if fresh_every and step % fresh_every == 0:
+            total, frag = total + frag, np.zeros(shape, np.float32)
+    return total + frag
+
+
+def _emulated_attention(q, k, v, passes, bk=32):
+    """flash_attention.cu's arithmetic for one causal head at its default
+    k-tile: q (S, Dh) scaled in float32; QK^T straight into its fragment
+    over Dh; the online softmax in float32 per k-tile of ``bk`` keys; PV
+    into a fresh fragment per k-tile, added to O with one rounding (the
+    kernel's FFMA). A k-tile changes nothing for the rows before it (their
+    p is exactly 0), so those rows are skipped, as the kernel skips the
+    tiles past its diagonal."""
+    S, Dh = q.shape
+    qs = (q * np.float32(1 / np.sqrt(Dh))).astype(np.float32)
+    m = np.full((S, 1), -1e30, np.float32)
+    lsum = np.zeros((S, 1), np.float32)
+    o = np.zeros((S, Dh), np.float32)
+    for k0 in range(0, S, bk):
+        r = slice(k0, S)
+        s = _mma_sum(_operands((qs[r], k[k0:k0 + bk].T), passes[0]))
+        s[k0 + np.arange(bk)[None, :] > np.arange(k0, S)[:, None]] = -1e30
+        mn = np.maximum(m[r], s.max(1, keepdims=True))
+        corr = np.exp(m[r] - mn)
+        p = np.exp(s - mn)
+        lsum[r] = lsum[r] * corr + p.sum(1, keepdims=True, dtype=np.float32)
+        m[r] = mn
+        part = _mma_sum(_operands((p, v[k0:k0 + bk]), passes[1]))
+        o[r] = (o[r].astype(np.float64) * corr + part).astype(np.float32)
+    return o / np.maximum(lsum, np.float32(1e-30))
+
+
+def _exact_attention(q, k, v):
+    S, Dh = q.shape
+    s = (q.astype(np.float64) @ k.T.astype(np.float64)) / np.sqrt(Dh)
+    s[np.triu_indices(S, 1)] = -np.inf
+    p = np.exp(s - s.max(1, keepdims=True))
+    return (p / p.sum(1, keepdims=True)) @ v.astype(np.float64)
+
+
+def _excess(got, want, tol):
+    """max(|got - want| - tol |want|): the kernel meets ``tol`` (the JAX
+    test's rtol = atol = tol) when this is at most tol."""
+    return float((np.abs(got - want) - tol * np.abs(want)).max())
+
+
+@pytest.fixture(scope="module")
+def head():
+    """One causal head of Dh = 128 at S = 2,048 from a numpy seed, and its
+    float64 attention."""
+    rng = np.random.default_rng(16)
+    q, k, v = (rng.standard_normal((2048, 128)).astype(np.float32)
+               for _ in range(3))
+    return q, k, v, _exact_attention(q, k, v)
+
+
+def test_split_tf32_passes_meet_the_flash_tolerance(head):
+    """The kernel's pass counts meet the float32 FLASH_TOL (5e-5) against
+    float64: three and three for float32 inputs, two and two for bf16-valued
+    k and v (exact in TF32; bf16 inputs are held to 2e-2, so this is float32
+    class). One TF32 pass misses it: a causal row that sees few keys gets
+    v's TF32 rounding, 2^-12 relative, almost undiluted."""
+    q, k, v, exact = head
+    tol = TOL[torch.float32]
+    three = _emulated_attention(q, k, v, (3, 3))
+    assert _excess(three, exact, tol) <= tol / 10
+    kb, vb = (torch.from_numpy(x).bfloat16().float().numpy() for x in (k, v))
+    two = _emulated_attention(q, kb, vb, (2, 2))
+    assert _excess(two, _exact_attention(q, kb, vb), tol) <= tol / 10
+    one = _emulated_attention(q, k, v, (1, 1))
+    assert _excess(one, exact, tol) > tol
+
+
+def test_pv_needs_a_fresh_fragment_per_k_tile():
+    """The MMA's truncating adds, on one 16-row m-tile of P V at the full
+    S = 32,768 (4,096 k8 steps): with a fresh fragment per 32-key k-tile,
+    added to O with round to nearest (the kernel), the normalised output
+    stays far inside FLASH_TOL; one long accumulator drifts toward zero by
+    several 1e-4 of it and misses. v has a common offset, as real values
+    do, so the output is not a cancelling sum near zero. QK^T sums over
+    Dh = 128 only, 16 k8 steps, and needs no fresh fragment: the emulation
+    above, which meets the tolerance, includes its truncation."""
+    rng = np.random.default_rng(32)
+    S, tol = 32_768, TOL[torch.float32]
+    p = np.exp(rng.standard_normal((16, S)) - 3).astype(np.float32)
+    v = (1 + rng.standard_normal((S, 128))).astype(np.float32)
+    lsum = p.astype(np.float64).sum(1, keepdims=True)
+    exact = p.astype(np.float64) @ v.astype(np.float64) / lsum
+    pairs = _operands((p, v), 3)
+    fresh = _mma_sum(pairs, fresh_every=4) / lsum
+    long = _mma_sum(pairs) / lsum
+    assert _excess(fresh, exact, tol) <= tol / 10
+    assert _excess(long, exact, tol) > tol
+
+
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_fragment_key_order_gives_the_plain_product(product):
+    """The MMA takes its k slots t and t + 4 of each k8 step as the 2t-th
+    and (2t+1)-th element (d for QK^T, keys for PV). Building each lane's A
+    and B fragments that way, and for PV the A fragment straight from the
+    score accumulator's registers (c0, c2, c1, c3), the m16n8k8 product is
+    the plain one."""
+    rng = np.random.default_rng(3 if product == "qk" else 4)
+    left = rng.standard_normal((16, 8))
+    right = rng.standard_normal((8, 8))
+    A = np.zeros((16, 8))          # A[row, slot], B[slot, col] as the MMA
+    B = np.zeros((8, 8))           # reads them
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        if product == "pv":
+            # the lane's score registers: (row g, key 2t), (g, 2t + 1),
+            # (g + 8, 2t), (g + 8, 2t + 1)
+            c = [left[g, 2 * t], left[g, 2 * t + 1], left[g + 8, 2 * t],
+                 left[g + 8, 2 * t + 1]]
+            a = [c[0], c[2], c[1], c[3]]
+        else:
+            a = [left[g, 2 * t], left[g + 8, 2 * t], left[g, 2 * t + 1],
+                 left[g + 8, 2 * t + 1]]
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a
+        B[t, g], B[t + 4, g] = right[2 * t, g], right[2 * t + 1, g]
+    np.testing.assert_allclose(A @ B, left @ right, rtol=1e-12, atol=1e-12)
+
+
+def test_probe_edits_apply_to_the_kernel_source():
+    """tools/flash_attention_probe.py builds its variants by editing
+    flash_attention.cu's text; each edit must still find what it replaces."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "flash_attention_probe", ROOT / "tools" / "flash_attention_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    text = (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
+    for variant in (probe.no_copies, probe.no_mma, probe.no_split):
+        assert variant(text) != text
+    assert probe.MMA_ASM not in probe.no_mma(text)
+    assert probe.REFILL not in probe.no_copies(text)
+    assert "0x1000u" not in probe.no_split(text)

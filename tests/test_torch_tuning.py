@@ -130,6 +130,29 @@ def test_sketch_fused_constants_are_the_sources():
         sketch_fused.SMEM_BYTES <= tuning.SMEM_BUDGET_BYTES
 
 
+def test_flash_attention_constants_are_the_sources():
+    """The stages, passes and shared-memory layout the tuner models for
+    flash_attention are the ones its CUDA source compiles."""
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert f"constexpr int STAGES = {flash_attention.STAGES};" in text
+    assert "std::is_same<T, float>::value ? 3 : 2;" in text
+    assert flash_attention.PASSES == {4: 3, 2: 2}
+    for line in ("LDQ = DH + 8;", "LDK = DH + 8;",
+                 "LDV = DH + 16 / (int)sizeof(T);",
+                 "BQ * LDQ * (int)sizeof(float) + STAGES * STAGE_ELEMS",
+                 "STAGE_ELEMS = BK * (LDK + LDV);",
+                 "THREADS = 32 * WARPS;", "WARPS = BQ / 16;"):
+        assert line in text, line
+    for bq, bk, dh, size in ((128, 32, 128, 4), (64, 64, 32, 2)):
+        ldk, ldv = dh + 8, dh + 16 // size
+        assert flash_attention.smem_bytes(bq, bk, dh, size) == \
+            4 * bq * (dh + 8) + 2 * bk * (ldk + ldv) * size
+        assert flash_attention.threads(bq) == 32 * bq // 16
+    cfg = KernelConfig("flash_attention", (128, 32), precision="bf16")
+    assert smem_bytes(cfg, (32, 4096, 128)) == \
+        flash_attention.smem_bytes(128, 32, 128, 2)
+
+
 @pytest.mark.parametrize("precision,passes", [(None, 3), ("bf16", 1)])
 def test_sketch_fused_cost_counts_the_tensor_core_passes(precision, passes):
     """The model charges sketch_fused its TF32 tensor-core passes: three
@@ -153,7 +176,7 @@ def test_candidates_respect_smem_budget_and_menu(kernel):
         validate_config(cfg)
         assert smem_bytes(cfg, shape) <= tuning.SMEM_BUDGET_BYTES
     if kernel == "flash_attention":
-        assert len(cands) == 6
+        assert len(cands) == 4
 
 
 def test_flash_candidates_follow_the_sequence_length():
@@ -185,14 +208,65 @@ def test_ranking_is_deterministic():
 
 def test_roofline_cost_counts_the_causal_work():
     """At the full width the model's FLOP are the causal 2 S^2 Dh per head
-    plus the masked halves of the diagonal tiles."""
+    plus the masked halves of the diagonal tiles, times the kernel's three
+    TF32 passes for float32 inputs, at the TF32 rate. With 128-row query
+    tiles the operations bound it; 64-row tiles read K and V twice as often,
+    and the model's bytes (every K/V re-read counted) then outweigh them."""
     BH, S, Dh = SHAPES["flash_attention"]
-    exact = 2.0 * BH * S * S * Dh
+    exact = 2.0 * BH * S * S * Dh * flash_attention.PASSES[4]
     for cfg in candidate_configs("flash_attention", (BH, S, Dh)):
         bq, bk = cfg.block
         cost = tuning.roofline_cost(cfg, (BH, S, Dh))
         assert exact < cost.flops <= exact * (1 + 2 * max(bq, bk) / S)
-        assert cost.t_total >= cost.t_compute > cost.t_memory
+        assert cost.t_compute == pytest.approx(cost.flops / 495e12)
+        assert cost.t_total >= max(cost.t_compute, cost.t_memory)
+        if bq == max(flash_attention.BLOCK_Q):
+            assert cost.t_compute > cost.t_memory
+
+
+def test_flash_cost_counts_two_passes_for_bf16():
+    """bf16 inputs: two TF32 passes per product (k and v are exact in
+    TF32), two thirds of float32's FLOP: 35.5 ms at the full width, plus
+    the masked halves of the diagonal tiles."""
+    cfg = KernelConfig("flash_attention", (128, 32))
+    f32 = tuning.roofline_cost(cfg, SHAPES["flash_attention"])
+    bf16 = tuning.roofline_cost(cfg._replace(precision="bf16"),
+                                SHAPES["flash_attention"])
+    assert bf16.flops == pytest.approx(f32.flops * 2 / 3)
+    BH, S, Dh = SHAPES["flash_attention"]
+    assert bf16.t_compute == pytest.approx(
+        2 * 2.0 * BH * S * S * Dh / 495e12, rel=2 * 128 / S)
+    assert bf16.hbm_bytes == pytest.approx(f32.hbm_bytes / 2)
+
+
+def test_flash_cost_caps_ctas_by_registers():
+    """The flash kernel's launch bounds let a thread take up to 255
+    registers, so registers, not threads or shared memory, cap its CTAs
+    per SM: one 128-row CTA at every head width, two 64-row ones at
+    Dh = 64 and 128, three at Dh = 32."""
+    assert flash_attention.REGISTERS[128] <= 255
+    assert [flash_attention.ctas_per_sm(128, dh) for dh in (32, 64, 128)] \
+        == [1, 1, 1]
+    assert [flash_attention.ctas_per_sm(64, dh) for dh in (32, 64, 128)] \
+        == [3, 2, 2]
+    for shape in (TINY["flash_attention"], FLASH, SHAPES["flash_attention"]):
+        for cfg in candidate_configs("flash_attention", shape):
+            slots = tuning.roofline_cost(cfg, shape).slots
+            bq = min(cfg.block[0], shape[1])
+            assert slots <= tuning.SMS * flash_attention.ctas_per_sm(
+                bq, shape[2])
+
+
+@pytest.mark.parametrize("precision", [None, "bf16"])
+def test_flash_model_ranks_a_128_row_tile_first_at_full_width(precision):
+    """At granite-3-8b's layer (S = 32,768) the 128-row tiles were
+    measured fastest and (64, 64) slowest; the model's head is the
+    default, and (64, 64) is not first."""
+    ranked = rank_candidates("flash_attention", SHAPES["flash_attention"],
+                             precision=precision,
+                             dtype_bytes=2 if precision else 4)
+    assert ranked[0].block == DEFAULTS["flash_attention"].block
+    assert ranked[-1].block[0] == 64 and ranked[0].block != (64, 64)
 
 
 def test_autotune_static_mode_returns_ranking_head():
@@ -299,7 +373,7 @@ def test_autotune_measured_on_the_cpu_records_the_winner():
 def test_autotune_always_measures_the_default():
     """A measured winner never loses to the default tile: when the static
     ranking leaves the default out of its top N, it is measured too."""
-    shape = (2, 128, 32)
+    shape = FLASH
     head = rank_candidates("flash_attention", shape)[0]
     assert head != DEFAULTS["flash_attention"]
     winner, records = tuning.autotune("flash_attention", shape,

@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""What holds ``flash_attention.cu`` back on the card: the kernel beside
+variants of itself, each made by editing the source's text, and the rate of
+the card's ``mma.sync`` TF32 instruction alone.
+
+    python3 tools/flash_attention_probe.py [--seed 0] [--tile 128 32]
+
+* ``kernel``: the source as committed;
+* ``no_copies``: the K/V stages after the first are never refilled, so the
+  kernel works on stale tiles: its time without the loads;
+* ``no_mma``: each MMA becomes one float add of its operands' bits: its
+  time without the tensor cores;
+* ``no_split``: big = small = x, with no rounding or subtraction: its time
+  without the split's integer and float work (the MMAs stay).
+
+Each variant is checked against the plain version at S = 4,096 and timed
+at one granite-3-8b attention layer (S = 32,768, causal, 32 query and 8 KV
+heads of 128), float32 and bf16, at the tile given (default: the tuner's
+default). ``mma_sync_peak`` times a kernel of independent
+``mma.sync.m16n8k8`` TF32 MMAs on every SM, the rate this design can reach
+at most. One JSON line per variant; needs a CUDA card and ``nvcc``. Builds
+go to ``build/repro_torch/probe/``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+import json
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tools")]
+
+from kernel_probe import build, card, cuda_ms, edit as _edit  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, tuning  # noqa: E402
+
+REFILL = "if (kt + 1 < n_kt) load_stage("
+MMA_ASM = '''  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));'''
+SPLIT = '''    big = (x + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));'''
+
+# Independent MMAs, 8 accumulators a warp, operands kept in registers.
+PEAK_SOURCE = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(256) peak(float* out, int iters, uint32_t seed) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = (seed * (threadIdx.x + 7 * i)) & 0x3f7fe000u;
+  for (int i = 0; i < 2; ++i) b[i] = (seed * (threadIdx.x + 3 * i)) & 0x3f7fe000u;
+  float c[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_peak(float* out, int blocks, int iters, void* stream) {
+  peak<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(out, iters, 12345u);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+edit = functools.partial(_edit, source=flash_attention.SOURCE)
+
+
+def no_copies(text: str) -> str:
+    return edit(text, REFILL, "if (kt + 1 < 0) load_stage(")
+
+
+def no_mma(text: str) -> str:
+    return edit(text, MMA_ASM, "  c[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] "
+                               "^ a[3] ^ b0 ^ b1);")
+
+
+def no_split(text: str) -> str:
+    return edit(text, SPLIT, "    big = x;\n    small = x;")
+
+
+def mma_peak_tflops(lib, dev) -> float:
+    """FLOP/s of independent m16n8k8 TF32 MMAs, 8 warps a CTA, 8 CTAs per
+    SM worth of work in flight."""
+    lib.mma_peak.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
+    lib.mma_peak.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, iters = 8 * sms, 4096
+    out = torch.empty(blocks * 256, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        if lib.mma_peak(out.data_ptr(), blocks, iters, stream):
+            raise RuntimeError("mma_peak launch failed")
+    ms = cuda_ms(call, 5)
+    mmas = blocks * 8 * iters * 8          # warps x iterations x accumulators
+    return mmas * 2.0 * 16 * 8 * 8 / (ms * 1e-3) / 1e12
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tile", type=int, nargs=2,
+                    default=tuning.DEFAULTS["flash_attention"].block)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("flash_attention_probe: torch sees no CUDA device",
+              file=sys.stderr)
+        return 1
+    text = (ops.CSRC / flash_attention.SOURCE).read_text()
+    libs = build({"kernel": text, "no_copies": no_copies(text),
+                  "no_mma": no_mma(text), "no_split": no_split(text),
+                  "peak": PEAK_SOURCE}, prefix="flash_")
+    peak_lib = libs.pop("peak")
+    for lib in libs.values():
+        flash_attention.bind(lib)
+    print(f"card: {card()}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    bq, bk = args.tile
+    heads, kv_heads, dh = 32, 8, 128
+
+    def inputs(S):
+        return (torch.randn(1, S, heads, dh, generator=gen, device=dev),
+                torch.randn(1, S, kv_heads, dh, generator=gen, device=dev),
+                torch.randn(1, S, kv_heads, dh, generator=gen, device=dev))
+
+    q, k, v = inputs(4096)
+    errs = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        ref = flash_attention.plain(qd, kd, vd, True).float()
+        for name, lib in libs.items():
+            out = flash_attention.launch(lib, qd, kd, vd, True, bq, bk)
+            errs.setdefault(name, {})[f"max_abs_err_{tag}"] = float(
+                (out.float() - ref).abs().max())
+    q, k, v = inputs(32768)
+    for name, lib in libs.items():
+        times = {}
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            times[f"{tag}_ms"] = cuda_ms(lambda: flash_attention.launch(
+                lib, qd, kd, vd, True, bq, bk), 2)
+        print(json.dumps({"variant": name, "tile": [bq, bk], **errs[name],
+                          **times}), flush=True)
+    print(json.dumps({"variant": "mma_sync_peak",
+                      "tf32_tflops": mma_peak_tflops(peak_lib, dev)}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

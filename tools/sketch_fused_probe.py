@@ -22,17 +22,17 @@ beside ``torch.matmul``. One JSON line per variant; needs a CUDA card and
 from __future__ import annotations
 
 import argparse
-import ctypes
+import functools
 import json
 import os
-import subprocess
 import sys
 
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tools")]
 
+from kernel_probe import build, card, cuda_ms, edit as _edit  # noqa: E402
 from repro_torch.kernels import ops, sketch_fused  # noqa: E402
 
 MMA_CALLS = ("mma(part[i][j], a_small, b_big[j][0], b_big[j][1]);",
@@ -42,10 +42,7 @@ STAGE_ADD = "for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];"
 REFILL = "if (ahead < n_steps)"
 
 
-def edit(text: str, old: str, new: str) -> str:
-    if old not in text:
-        raise RuntimeError(f"sketch_fused.cu no longer contains {old!r}")
-    return text.replace(old, new)
+edit = functools.partial(_edit, source=sketch_fused.SOURCE)
 
 
 def one_level(text: str) -> str:
@@ -67,46 +64,12 @@ def no_mma(text: str) -> str:
     return text
 
 
-def build(variants: dict) -> dict:
-    out = ops.BUILD_DIR / "probe"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in variants.items():
-        src = out / f"{name}.cu"
-        src.write_text(text)
-        procs[name] = subprocess.Popen(
-            [ops._nvcc(), *ops.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        sketch_fused.bind(lib)
-        libs[name] = lib
-    return libs
-
-
 def column_err(lib, Pi, A) -> float:
     out, _ = sketch_fused.launch(lib, Pi, A)
     ref, _ = sketch_fused.plain(Pi, A)
     torch.cuda.synchronize()
     return float(((out - ref).abs().amax(dim=0)
                   / ref.abs().amax(dim=0).clamp(min=1e-30)).max())
-
-
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:
@@ -120,11 +83,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     text = (ops.CSRC / sketch_fused.SOURCE).read_text()
     libs = build({"kernel": text, "one_level": one_level(text),
-                  "no_copies": no_copies(text), "no_mma": no_mma(text)})
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    print(f"card: {card}", flush=True)
+                  "no_copies": no_copies(text), "no_mma": no_mma(text)},
+                 prefix="sketch_")
+    for lib in libs.values():
+        sketch_fused.bind(lib)
+    print(f"card: {card()}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     k, d, n = 512, 50_000, 100_000
