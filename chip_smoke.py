@@ -18,8 +18,11 @@ fails; nothing is caught:
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
    ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
-   the SRHT pass's call shape (d = 50,000 padded to 65,536 on a column
-   slice), in float32 and bf16, in one pass (d <= 256) and on a ragged n;
+   the SRHT pass's call shape (d = 50,000 padded to 65,536 on an
+   8,192-column slice), in float32 and bf16, in one pass (d <= 256) and on
+   a ragged n, in its full mode and in the SRHT block mode that the SRHT
+   path launches (the k = 512 plan rows, equal bit for bit; the norms
+   within ``NORM_RTOL``; a second call equal to the first);
 4. the Gaussian path at full width: SMP-PCA
    (``repro_torch.core.smppca.smppca``) of a planted pair with d = 50,000,
    n1 = n2 = 100,000, k = 512, r = 5, m = default_m(1e5, 1e5, 5) =
@@ -28,17 +31,23 @@ fails; nothing is caught:
    staged run, with the cost of the sampler's host-side CDF; a
    probe-estimated relative residual against its threshold; and the same
    SMP-PCA on card and CPU at a small size, which must agree;
-5. kernel 2 (``sampled_rescaled_dot``) against its plain version on the
-   first 2**20 of the slice's samples, with m = 0 and with duplicates;
+5. kernel 2 (``sampled_rescaled_dot``) against its plain version on all
+   of the slice's samples and on the same m drawn uniform on both sides,
+   with m = 0 and with duplicates, each call made twice and equal bit for
+   bit;
 6. timings of kernels 1 and 2 at the slice's shapes beside their plain
    versions, one PyTorch library call where one computes the same
    function, and their bounds on an H100 SXM; kernel 1 in float32 and with
-   bf16 inputs;
+   bf16 inputs; kernel 2 on both draws, with the time one B row a sample
+   takes from L2 at the card's L2 read rate (``tools/kernel_probe.py``);
 7. the SRHT path (``method='srht'``) at the same full width, through
    kernels 3 and 2: launch counts, peak memory, probe residual, per-stage
-   times of a staged run, and card against CPU at the small size;
-8. the timing of kernel 3 at its call shape, beside its plain version and
-   its bound;
+   times of a staged run, SRHT step 1 split into the plan and the block
+   calls (CUDA events) with the memory it adds, beside the composition the
+   block mode replaced, and card against CPU at the small size;
+8. the timing of kernel 3's block mode at its call shape (float32 and
+   bf16), beside its plain version, its bound, the full mode and the
+   composition it replaced;
 9. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
    plain version on the JAX test shapes (causal and not, float32 and bf16,
    every compiled tile) and at S = 4,096 with granite-3-8b's 32 query and 8
@@ -77,6 +86,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import kernel_probe  # noqa: E402
 from repro_torch.roofline.analysis import (  # noqa: E402
     HBM_BW, PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_TF32_FLOPS)
 
@@ -105,6 +117,14 @@ SMALL_UVT_TOL = 1e-3
 # is held to 1e-4 of its own largest entry, the JAX suite's tolerance for
 # the blocked FWHT against its butterfly.
 FWHT_TOL = 1e-4
+# Kernel 3's SRHT block mode against its plain version: the sketch rows are
+# the full transform's, rescaled with the same two float32 roundings, and
+# must be equal bit for bit; the kernel adds the norms' squares in its own
+# order (float64 beyond a thread's float32 sum), the plain version in
+# float32 (torch.sum), so they differ by float32 rounding: within 1e-6
+# relative, the tolerance the CPU tests give two float32 orders
+# (tests/test_torch_srht.py).
+NORM_RTOL = 1e-6
 # Peak device memory of the SRHT path: A and B take 40 GB, the Gaussian
 # path peaked at 51.2 GB (PERF.md), and the SRHT pass must add no (dp, n)
 # copy of A or B (26.2 GB each).
@@ -266,6 +286,92 @@ def fwht_check(ops, X, signs, d_pad, label):
     return err
 
 
+def srht_block_check(ops, X, signs, rows, dp, label):
+    """Kernel 3's SRHT block mode against its plain version (the full
+    transform's sampled rows, rescaled, and ``column_norms``): the sketch
+    equal bit for bit, the norms within NORM_RTOL, and a second call equal
+    to the first. Returns (the sketch's max abs err, the norms' max
+    relative err)."""
+    got_s, got_n = ops.srht_block(X, signs, rows, d_pad=dp)
+    again_s, again_n = ops.srht_block(X, signs, rows, d_pad=dp)
+    ref_s, ref_n = ops.KERNELS["blocked_fwht"].plain_block(X, signs, rows, dp)
+    torch.cuda.synchronize()
+    err = float((got_s - ref_s).abs().max())
+    rel = float(((got_n - ref_n).abs() / ref_n.clamp(min=1e-30)).max())
+    equal = bool(torch.equal(got_s, ref_s))
+    rerun = bool(torch.equal(got_s, again_s) and torch.equal(got_n, again_n))
+    print(f"srht_block check {label} d={X.shape[0]} d_pad={dp} "
+          f"n={X.shape[1]} k={rows.shape[0]} "
+          f"{str(X.dtype).split('.')[-1]}: sketch equal={equal} "
+          f"(max_abs_err={err:.3e}), norms max_rel_err={rel:.3e} (tol "
+          f"{NORM_RTOL:.0e}), second call equal={rerun}", flush=True)
+    check(equal, f"srht_block {label}: sketch differs from the plain version")
+    check(rel <= NORM_RTOL, f"srht_block {label}: norms rel err {rel}")
+    check(rerun, f"srht_block {label}: a second call gave other bits")
+    return err, rel
+
+
+def srht_composition(ops, X, signs, rows, dp, k, width):
+    """What the SRHT pass ran per column block before the block mode: the
+    full transform, the k-row gather and rescale, and ``column_norms``."""
+    from repro_torch.core.sketch import _sqrt_f32, column_norms
+    n = X.shape[1]
+    sketch = torch.empty((k, n), device=X.device)
+    norms = torch.empty((n,), device=X.device)
+    root_dp = _sqrt_f32(dp).to(X.device)
+    root_dp_k = _sqrt_f32(dp / k).to(X.device)
+    for c0 in range(0, n, width):
+        Xb = X[:, c0:c0 + width]
+        HX = ops.blocked_fwht(Xb, signs, d_pad=dp)
+        sketch[:, c0:c0 + width] = (HX[rows.long()] / root_dp) * root_dp_k
+        norms[c0:c0 + width] = column_norms(Xb)
+    return sketch, norms
+
+
+def srht_step1_split(ops, summary_engine, key, A, B, k, dev):
+    """SRHT step 1 as the cuda backend runs it, in stages timed with CUDA
+    events: the plan, then the block calls over A and B; the peak memory
+    the step adds; and the same for the composition it replaced (the full
+    transform, gather, rescale and ``column_norms`` per block). The two
+    must give the same sketches (bit for bit) and norms (NORM_RTOL)."""
+    from repro_torch import prng
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    k_sk = prng.split(key, 3)[0]
+    d = A.shape[0]
+    width = summary_engine.SRHT_COLUMN_BLOCK
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    events[0].record()
+    signs, rows, dp = summary_engine.srht_plan(k_sk, d, k)
+    events[1].record()
+    new = [summary_engine._srht_blocked(X, signs, rows, dp, k, None)
+           for X in (A, B)]
+    events[2].record()
+    events[2].synchronize()
+    peak_new = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    events[3].record()
+    old = [srht_composition(ops, X, signs, rows, dp, k, width)
+           for X in (A, B)]
+    events[4].record()
+    events[4].synchronize()
+    peak_old = (torch.cuda.max_memory_allocated() - base) / 1e9
+    for (s_new, n_new), (s_old, n_old) in zip(new, old):
+        check(bool(torch.equal(s_new, s_old)),
+              "srht step 1: block mode and composition sketches differ")
+        check(bool(((n_new - n_old).abs() <= NORM_RTOL * n_old).all()),
+              "srht step 1: block mode and composition norms differ")
+    calls = 2 * -(-A.shape[1] // width)
+    return {"plan_ms": events[0].elapsed_time(events[1]),
+            "block_calls_ms": events[1].elapsed_time(events[2]),
+            "block_calls": calls,
+            "step1_added_peak_gb": peak_new,
+            "composition_ms": events[3].elapsed_time(events[4]),
+            "composition_added_peak_gb": peak_old}
+
+
 def staged_run(key, A, B, k, m, r, T, n, method, dev):
     """The main path once more, stage by stage, timed with CUDA events.
     Returns (stages_ms, summary, samples, values)."""
@@ -327,11 +433,17 @@ def small_pair_check(smppca, spectral_error_vs_optimal, seed, r, dev,
 
 
 def sampled_check(ops, As, Bs, na, nb, rows, cols, label):
+    """Kernel 2 against its plain version: every value within SAMPLED_TOL
+    of its nA * nB scale, in sample order, and a second call equal to the
+    first bit for bit. Returns the max abs err."""
     out = ops.sampled_rescaled_dot(As, Bs, na, nb, rows, cols)
+    again = ops.sampled_rescaled_dot(As, Bs, na, nb, rows, cols)
     ref = ops.KERNELS["sampled_rescaled_dot"].plain(As, Bs, na, nb, rows,
                                                     cols)
     torch.cuda.synchronize()
     check(out.shape == ref.shape, f"sampled_dot {label} shape")
+    check(bool(torch.equal(out, again)),
+          f"sampled_dot {label}: a second call gave other bits")
     if out.numel() == 0:
         print(f"sampled_rescaled_dot check {label}: empty", flush=True)
         return 0.0
@@ -340,7 +452,8 @@ def sampled_check(ops, As, Bs, na, nb, rows, cols, label):
                     / (na[rows.long()] * nb[cols.long()]).clamp(min=1e-30)
                     ).max())
     print(f"sampled_rescaled_dot check {label}: max_abs_err={err:.3e} "
-          f"scaled_err={scaled:.3e} (tol {SAMPLED_TOL:.0e})", flush=True)
+          f"scaled_err={scaled:.3e} (tol {SAMPLED_TOL:.0e}), second call "
+          f"equal", flush=True)
     check(scaled <= SAMPLED_TOL, f"sampled_dot {label}: {scaled}")
     return err
 
@@ -472,6 +585,10 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
+    # draws for the block-mode and uniform-draw checks, apart so that gen's
+    # stream (A, B and the probes' W) is the same with or without them
+    aux = torch.Generator(device=dev)
+    aux.manual_seed(args.seed + 1)
     key = prng.PRNGKey(args.seed, device=dev)
 
     # 3. kernel 1 against its plain version ---------------------------------
@@ -486,12 +603,21 @@ def main(argv=None) -> int:
 
     # kernel 3 against its plain version, at the SRHT pass's call shape
     width = summary_engine.SRHT_COLUMN_BLOCK
-    signs, _, dp = summary_engine.srht_plan(k_sketch, d, k)
+    signs, plan_rows, dp = summary_engine.srht_plan(k_sketch, d, k)
     X3 = A[:, :width]                      # a column slice of A, row stride n
-    err_fwht = fwht_check(ops, X3, signs, dp, "call shape")
+    fwht_check(ops, X3, signs, dp, "call shape")
     fwht_check(ops, X3.to(torch.bfloat16), signs, dp, "call shape")
     fwht_check(ops, A[:200, :4096], signs[:200], 256, "one pass")
     fwht_check(ops, A[:777, :1001], signs[:777], 1024, "ragged n")
+    # its SRHT block mode, which the SRHT path launches
+    err_fwht, _ = srht_block_check(ops, X3, signs, plan_rows, dp,
+                                   "call shape")
+    srht_block_check(ops, X3.to(torch.bfloat16), signs, plan_rows, dp,
+                     "call shape")
+    few = torch.randperm(256, generator=aux, device=dev)[:128].int()
+    srht_block_check(ops, A[:200, :4096], signs[:200], few, 256, "one pass")
+    few = torch.randperm(1024, generator=aux, device=dev)[:k].int()
+    srht_block_check(ops, A[:777, :1001], signs[:777], few, 1024, "ragged n")
 
     # 4. the slice at full width --------------------------------------------
     torch.cuda.synchronize()
@@ -504,7 +630,7 @@ def main(argv=None) -> int:
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"smppca d={d} n1=n2={n} k={k} r={r} m={m} T={T}: {wall_s:.3f} s "
-          f"wall, launches {launches}, peak memory {peak_gb:.1f} GB",
+          f"wall, launches {launches}, peak memory {peak_gb:.3f} GB",
           flush=True)
     check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
                        "blocked_fwht": 0, "flash_attention": 0},
@@ -546,10 +672,14 @@ def main(argv=None) -> int:
     As_rows = summary.A_sketch.T.contiguous()
     Bs_rows = summary.B_sketch.T.contiguous()
     na, nb = summary.norm_A, summary.norm_B
-    head = min(m, 1 << 20)
     err_sampled = sampled_check(ops, As_rows, Bs_rows, na, nb,
-                                samples.rows[:head], samples.cols[:head],
-                                f"first {head} samples")
+                                samples.rows, samples.cols,
+                                f"the slice's draw, m={m}")
+    uni_rows, uni_cols = (torch.randint(0, n, (m,), generator=aux,
+                                        device=dev, dtype=torch.int32)
+                          for _ in range(2))
+    sampled_check(ops, As_rows, Bs_rows, na, nb, uni_rows, uni_cols,
+                  f"uniform rows and cols, m={m}")
     empty = samples.rows[:0]
     sampled_check(ops, As_rows, Bs_rows, na, nb, empty, empty, "m=0")
     dup_r = samples.rows[:64].repeat(4)
@@ -584,6 +714,19 @@ def main(argv=None) -> int:
     k2_bound, k2_by = bound(m * (2.0 * k + 5.0) + 2.0 * (2 * n) * k,
                             4.0 * (2 * n * k + 2 * n) + 12.0 * m,
                             PEAK_F32_FLOPS)
+    # the same m drawn uniform on both sides, on the same sketches
+    k2u_ms, k2u_plain = turns(
+        lambda: sd.plain(As_rows, Bs_rows, na, nb, uni_rows, uni_cols),
+        lambda: ops.sampled_rescaled_dot(As_rows, Bs_rows, na, nb, uni_rows,
+                                         uni_cols), reps=2)
+    # one B row a sample read from L2, at the card's L2 read rate measured
+    # here (all SMs reading a 16 MB buffer with loads that skip L1)
+    l2_gbps = kernel_probe.l2_read_gbps()
+    k2_l2 = 1e3 * m * k * 4.0 / (l2_gbps * 1e9)
+    print("timing sampled_rescaled_dot draws " + json.dumps({
+        "slice_ms": k2_ms, "uniform_ms": k2u_ms, "uniform_plain_ms": k2u_plain,
+        "bound_ms": k2_bound, "l2_read_gbps": l2_gbps,
+        "one_B_row_per_sample_from_L2_ms": k2_l2}), flush=True)
     timing = {
         "sketch_fused": dict(kernel_ms=k1_ms, plain_ms=k1_plain,
                              library_ms=k1_lib, bound_ms=k1_bound,
@@ -595,6 +738,7 @@ def main(argv=None) -> int:
     for name, t in timing.items():
         print(f"timing {name} " + json.dumps(t), flush=True)
     del res, summary, samples, values, rows, cols, As_rows, Bs_rows
+    del uni_rows, uni_cols
 
     # kernel 1 with bf16 inputs: one TF32 pass; the least time is the bf16
     # tensor cores' (this design's TF32 instruction has half their rate)
@@ -626,7 +770,7 @@ def main(argv=None) -> int:
     blocks = -(-n // width)
     print(f"smppca srht d={d} (dp={dp}) n1=n2={n} k={k} r={r} m={m} T={T}: "
           f"{wall_s:.3f} s wall, launches {launches_srht} ({blocks} column "
-          f"blocks of {width} per matrix), peak memory {peak_gb:.1f} GB",
+          f"blocks of {width} per matrix), peak memory {peak_gb:.3f} GB",
           flush=True)
     check(launches_srht == {"sketch_fused": 0, "sampled_rescaled_dot": 1,
                             "blocked_fwht": 2 * blocks, "flash_attention": 0},
@@ -646,26 +790,52 @@ def main(argv=None) -> int:
           "staged srht run draws the main path's sample")
     print("stages_ms_srht " + json.dumps(stages), flush=True)
     del res, samples
+    split = srht_step1_split(ops, summary_engine, key, A, B, k, dev)
+    split["rest_ms"] = stages["sketch"] - split["plan_ms"] \
+        - split["block_calls_ms"]
+    print("srht_step1_split " + json.dumps(split), flush=True)
     small_pair_check(smppca, spectral_error_vs_optimal, args.seed, r, dev,
                      "srht")
 
     # 8. kernel 3's timing at its call shape --------------------------------
+    # the SRHT block mode, which the SRHT path launches, beside its plain
+    # version, the full mode and the composition the block mode replaced
     fw = ops.KERNELS["blocked_fwht"]
-    k3_ms, k3_plain = turns(lambda: fw.plain(X3, signs, dp),
-                            lambda: ops.blocked_fwht(X3, signs, d_pad=dp),
-                            reps=3)
-    # the function's least work: each valid input row and sign read once,
-    # the (dp, width) float32 output written once, dp log2(dp) adds a column
-    k3_bound, k3_by = bound(dp * math.log2(dp) * width,
-                            4.0 * (d * width + d + dp * width), PEAK_F32_FLOPS)
+    k3_ms, k3_plain = turns(
+        lambda: fw.plain_block(X3, signs, plan_rows, dp),
+        lambda: ops.srht_block(X3, signs, plan_rows, d_pad=dp), reps=3)
+    X3b = X3.to(torch.bfloat16)
+    ops.srht_block(X3b, signs, plan_rows, d_pad=dp)
+    k3b_ms = cuda_ms(lambda: ops.srht_block(X3b, signs, plan_rows, d_pad=dp),
+                     3)
+    full = lambda: ops.blocked_fwht(X3, signs, d_pad=dp)
+    full()
+    full_ms = cuda_ms(full, 3)
+    comp = lambda: srht_composition(ops, X3, signs, plan_rows, dp, k, width)
+    comp()
+    comp_ms = cuda_ms(comp, 3)
+    # the block mode's least work: each valid input row and sign read once,
+    # the k sampled rows and the norms written once, dp log2(dp) adds a
+    # column (the full mode writes all dp rows)
+    adds = dp * math.log2(dp) * width
+    k3_bound, k3_by = bound(adds, 4.0 * (d * width + d + k * width + width),
+                            PEAK_F32_FLOPS)
+    k3b_bound = bound(adds, 2.0 * d * width + 4.0 * (d + k * width + width),
+                      PEAK_F32_FLOPS)[0]
+    full_bound = bound(adds, 4.0 * (d * width + d + dp * width),
+                       PEAK_F32_FLOPS)[0]
     # no single PyTorch call computes a Walsh-Hadamard transform
     timing["blocked_fwht"] = dict(kernel_ms=k3_ms, plain_ms=k3_plain,
                                   library_ms=None, bound_ms=k3_bound,
-                                  bound_by=k3_by)
+                                  bound_by=k3_by, bf16_ms=k3b_ms,
+                                  bf16_bound_ms=k3b_bound, full_mode_ms=full_ms,
+                                  full_mode_bound_ms=full_bound,
+                                  composition_ms=comp_ms)
     print("timing blocked_fwht " + json.dumps(timing["blocked_fwht"]),
           flush=True)
+    del X3b
 
-    del A, B, X3, signs
+    del A, B, X3, signs, plan_rows
     torch.cuda.empty_cache()
 
     # 9. kernel 4 against its plain version ---------------------------------

@@ -46,8 +46,9 @@ BACKENDS = ("reference", "scan", "rows", "cuda")
 
 # Columns per blocked_fwht call in the cuda backend's SRHT pass. The
 # transform acts on each column alone, so the pass never holds a padded or
-# transformed (dp, n) copy of A or B, only one (dp, SRHT_COLUMN_BLOCK)
-# float32 block: 2.1 GB at dp = 65,536.
+# transformed (dp, n) copy of A or B; on the card the kernel's block mode
+# holds one block's (dp, SRHT_COLUMN_BLOCK) float32 intermediate (2.1 GB at
+# dp = 65,536) and its float64 norm partials (16 MB).
 SRHT_COLUMN_BLOCK = 8192
 
 
@@ -224,23 +225,21 @@ def _scan_backend(key, A, B, k: int, *, method: str, block: int,
 def _srht_blocked(X: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
                   dp: int, k: int, precision: Optional[str]):
     """(R H D X / sqrt(dp) * sqrt(dp / k), column norms of X), one
-    ``blocked_fwht`` call per SRHT_COLUMN_BLOCK columns, keeping only the k
-    sampled rows of each transformed block. The norms are plain PyTorch, as
-    in the JAX package; fusing them into the kernel's first pass would save
-    one read of X."""
+    ``ops.srht_block`` call per SRHT_COLUMN_BLOCK columns. On the card each
+    call is one launch of the blocked FWHT's block mode: it writes only the
+    k sampled rows of each transformed block, straight into the sketch, and
+    takes the norms from its first pass's read of X (its own order of
+    sums, float64 beyond a thread's float32); on the CPU the plain
+    composition (transform, row gather, rescale, ``column_norms``)."""
     from repro_torch.kernels import ops
     n = X.shape[1]
     dev = X.device
     sketch = torch.empty((k, n), dtype=torch.float32, device=dev)
     norms = torch.empty((n,), dtype=torch.float32, device=dev)
-    root_dp = _sqrt_f32(dp).to(dev)
-    root_dp_k = _sqrt_f32(dp / k).to(dev)
     for c0 in range(0, n, SRHT_COLUMN_BLOCK):
         c1 = min(n, c0 + SRHT_COLUMN_BLOCK)
-        Xb = _cast(X[:, c0:c1], precision)
-        HX = ops.blocked_fwht(Xb, signs, d_pad=dp)              # (dp, c1-c0)
-        sketch[:, c0:c1] = (HX[rows] / root_dp) * root_dp_k
-        norms[c0:c1] = column_norms(Xb)
+        ops.srht_block(_cast(X[:, c0:c1], precision), signs, rows, d_pad=dp,
+                       sketch=sketch, norms=norms, col0=c0)
     return sketch, norms
 
 
@@ -259,7 +258,6 @@ def _cuda_backend(key, A, B, k: int, *, method: str, block: int,
         Bs, nb = ops.sketch_fused(P, B, precision=precision)
         return SketchSummary(As, Bs, na, nb)
     signs, rows, dp = srht_plan(key, d, k)
-    rows = rows.long()
     As, na = _srht_blocked(A, signs, rows, dp, k, precision)
     Bs, nb = _srht_blocked(B, signs, rows, dp, k, precision)
     return SketchSummary(As, Bs, na, nb)

@@ -234,18 +234,22 @@ def sampled_rescaled_dot(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
         return torch.zeros((0,), dtype=torch.float32, device=rows.device)
     if rows.dtype != torch.int32 or cols.dtype != torch.int32:
         raise TypeError("sampled_rescaled_dot: the kernel takes int32 indices")
-    bounds = torch.stack([rows.min(), rows.max(), cols.min(), cols.max()])
-    lo_r, hi_r, lo_c, hi_c = bounds.tolist()
-    if lo_r < 0 or lo_c < 0 or hi_r >= n1 or hi_c >= n2:
-        raise IndexError(f"sampled_rescaled_dot: indices out of range: rows "
-                         f"in [{lo_r}, {hi_r}] for n1={n1}, cols in "
-                         f"[{lo_c}, {hi_c}] for n2={n2}")
+    if m >= 2 ** 31 - 1:
+        raise ValueError("sampled_rescaled_dot: m must be below 2**31 - 1")
+    if n1 == 0 or n2 == 0:
+        raise IndexError(f"sampled_rescaled_dot: {m} samples of an empty "
+                         f"sketch (n1={n1}, n2={n2})")
     lib = _library("sampled_rescaled_dot")
-    out = _sampled_dot.launch(
+    out, flag = _sampled_dot.launch(
         lib, As_rows.to(dtype).contiguous(), Bs_rows.to(dtype).contiguous(),
         norm_A.float().contiguous(), norm_B.float().contiguous(),
         rows.contiguous(), cols.contiguous())
     LAUNCHES["sampled_rescaled_dot"] += 1
+    # the range check is folded into the kernel's first pass; reading its
+    # flag is the one synchronisation
+    if flag.item():
+        raise IndexError(f"sampled_rescaled_dot: indices out of range: rows "
+                         f"must lie in [0, {n1}), cols in [0, {n2})")
     return out
 
 
@@ -289,6 +293,72 @@ def blocked_fwht(X: torch.Tensor, signs: torch.Tensor, *,
     out = _hadamard.launch(lib, X, signs.float().contiguous(), d_pad)
     LAUNCHES["blocked_fwht"] += 1
     return out
+
+
+def srht_block(X: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
+               d_pad: int, sketch: torch.Tensor | None = None,
+               norms: torch.Tensor | None = None, col0: int = 0,
+               config: "_tuning.KernelConfig | None" = None):
+    """The SRHT pass on one column block: ``(H (signs * X))[rows] /
+    sqrt(d_pad) * sqrt(d_pad / k)`` (k, n) and X's column norms (n,), both
+    float32, written into ``sketch[:, col0:col0 + n]`` and ``norms[col0:col0
+    + n]`` when given (else new tensors). Returns the two written views.
+
+    X (d, n) float32 or bfloat16 as for ``blocked_fwht`` with ``d_pad``;
+    rows (k,) integer, each in [0, d_pad). On the card one ``blocked_fwht``
+    launch: the kernel's block mode, which writes only the k rows (equal
+    bit for bit to the plain composition) and adds the norms into its first
+    pass (in its own order, float64 beyond a thread's float32 sum, so they
+    may differ from the plain float32 sums by float32 rounding)."""
+    if X.ndim != 2 or signs.shape != (X.shape[0],) or rows.ndim != 1:
+        raise ValueError(f"srht_block: X {tuple(X.shape)}, signs "
+                         f"{tuple(signs.shape)} and rows "
+                         f"{tuple(rows.shape)} disagree")
+    d, n = X.shape
+    k = rows.shape[0]
+    if _next_pow2(d_pad) != d_pad or d_pad < d or not 0 < k <= d_pad:
+        raise ValueError(f"srht_block: d_pad={d_pad} must be a power of two "
+                         f">= d={d}, and k={k} in [1, d_pad]")
+    if sketch is None:
+        sketch = torch.empty((k, col0 + n), dtype=torch.float32,
+                             device=X.device)
+    if norms is None:
+        norms = torch.empty((col0 + n,), dtype=torch.float32, device=X.device)
+    if sketch.shape[0] != k or sketch.shape[1] < col0 + n or \
+            norms.shape[0] < col0 + n or sketch.dtype != torch.float32 or \
+            norms.dtype != torch.float32:
+        raise ValueError(f"srht_block: sketch {tuple(sketch.shape)} and "
+                         f"norms {tuple(norms.shape)} (float32) cannot take "
+                         f"{n} columns at {col0}")
+    out_s, out_n = sketch[:, col0:col0 + n], norms[col0:col0 + n]
+    cfg = _resolved("blocked_fwht", (d_pad, n), X, config)
+    if cfg.precision is not None:
+        X = X.to(_kernel_dtype(X, precision=cfg.precision))
+    if _on_cpu(X, signs, rows, sketch, norms):
+        block, block_norms = _hadamard.plain_block(X, signs, rows, d_pad)
+        out_s.copy_(block)
+        out_n.copy_(block_norms)
+        return out_s, out_n
+    if n == 0:
+        return out_s, out_n
+    if d == 0:                  # nothing to read: the plain version's zeros
+        out_s.zero_()
+        out_n.zero_()
+        return out_s, out_n
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        X = X.float()
+    if X.stride(1) != 1:
+        X = X.contiguous()
+    if sketch.stride(1) != 1 or not norms.is_contiguous():
+        raise ValueError("srht_block: sketch needs unit column stride and "
+                         "norms must be contiguous")
+    lib = _library("blocked_fwht")
+    _hadamard.launch_block(
+        lib, X, signs.float().contiguous(), rows.to(torch.int32).contiguous(),
+        d_pad, float(_sqrt_f32(d_pad)), float(_sqrt_f32(d_pad / k)), out_s,
+        out_n)
+    LAUNCHES["blocked_fwht"] += 1
+    return out_s, out_n
 
 
 def srht_sketch_kernel(key: torch.Tensor, X: torch.Tensor, k: int

@@ -42,6 +42,20 @@ def blocked_fwht_ref(X: torch.Tensor, signs: torch.Tensor,
     return fwht(Xs, axis=0)
 
 
+def srht_block_ref(X: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
+                   d_pad: int):
+    """The SRHT pass's work on one column block, as the composition of
+    plain operations: ``(H (signs * X))[rows] / sqrt(d_pad) * sqrt(d_pad /
+    k)`` (each square root rounded to float32, two float32 roundings) and
+    X's column norms accumulated in float32. Returns ((k, n), (n,))."""
+    from repro_torch.core.sketch import _sqrt_f32, column_norms
+    k = rows.shape[0]
+    HX = blocked_fwht_ref(X, signs, d_pad)
+    root_dp = _sqrt_f32(d_pad).to(X.device)
+    root_dp_k = _sqrt_f32(d_pad / k).to(X.device)
+    return (HX[rows.long()] / root_dp) * root_dp_k, column_norms(X)
+
+
 def sampled_rescaled_dot_ref(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
                              norm_A: torch.Tensor, norm_B: torch.Tensor,
                              rows: torch.Tensor, cols: torch.Tensor

@@ -229,7 +229,7 @@ def _threads(cfg: KernelConfig, shape: Tuple[int, ...]) -> int:
         log_l = radix.bit_length() - 1
         return (radix >> ((log_l + 1) // 2)) * 32   # warps = L / R
     if cfg.kernel == "sampled_dot":
-        return _sampled_dot.SAMPLES_PER_CTA * 32
+        return _sampled_dot.GATHER_THREADS
     return _flash.threads(_flash_tile(cfg, shape[1])[0])
 
 
@@ -275,15 +275,28 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
     elif cfg.kernel == "blocked_fwht":
         d, n = shape
         passes, radix = _fwht_radix(d, cfg.block[0])
-        # pass 1 reads X and writes float32; later passes read and write it
+        # the full mode, which the tuner measures (the SRHT block mode
+        # shares its passes and CTAs): pass 1 reads X and writes float32;
+        # later passes read and write it
         hbm = d * n * ds + 4 * d * n + 8 * d * n * (passes - 1) + 4 * d
         flops = float(d) * max(d - 1, 0).bit_length() * n
         ctas = (d // radix) * -(-n // cfg.block[1])
     elif cfg.kernel == "sampled_dot":
         n1, n2, k, m = shape
-        # two gathered rows + one float32 out per sample; the norms once
-        hbm = m * (2 * k * ds + 4) + 4 * (n1 + n2) + 8 * m
-        flops = 6.0 * m * k
+        cblock = _sampled_dot.column_block(k, ds, n2)
+        nb = _sampled_dot.buckets(n1, n2, cblock)
+        rows_a = min(m, nb)        # an A row at most once per bucket
+        passes = -(-max(nb - 1, 0).bit_length() // 8)
+        # the sort into bucket order: the indices read and (key, t, col)
+        # written, then per 8-bit pass the keys read for the histogram and
+        # keys and values read and written; the gather: them read once, Bs
+        # once from memory (a column block stays in L2 while its buckets
+        # are worked; the per-sample L2 reads are not modelled), the A rows,
+        # the norms, one float32 out per sample
+        hbm = (20 * m + 28 * m * passes + 12 * m
+               + (n2 + rows_a) * k * ds + 4 * (n1 + n2) + 4 * m)
+        # the dot product per sample; each row's squared norm once
+        flops = 2.0 * m * k + 2.0 * (n1 + n2) * k
         ctas = -(-m // _sampled_dot.SAMPLES_PER_CTA)
     else:                                   # flash_attention
         BH, S, Dh = shape

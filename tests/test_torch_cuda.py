@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.smppca import smppca
-from repro_torch.kernels import flash_attention, ops, tuning
+from repro_torch.kernels import flash_attention, hadamard, ops, tuning
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +138,47 @@ def test_sampled_dot_kernel_matches_plain(card):
         ops.sampled_rescaled_dot(As, Bs, na, nb, rows.long(), cols.long())
 
 
+@pytest.mark.parametrize("case", ["uniform", "hot_row", "duplicates", "bf16",
+                                  "k_ragged", "k_above_512", "small_n2"])
+def test_sampled_dot_kernel_draws(card, case):
+    """The bucketed kernel against its plain version on draws that stress
+    its buckets: uniform rows and columns over several column blocks of Bs
+    (n2 = 20,000 > 8,192 rows a block); one row holding half the samples
+    (its buckets cut into many 32-sample segments); many duplicates; bf16
+    rows; k not a multiple of 32; k above the 512 that registers hold; n2
+    below one block. Values in sample order within RTOL of their nA * nB
+    scale, and the same bits on a second call."""
+    gen = torch.Generator(device=card).manual_seed(17)
+    n1, n2, k, m = 3000, 20_000, 512, 200_000
+    k = {"k_ragged": 100, "k_above_512": 600}.get(case, k)
+    n2 = 700 if case == "small_n2" else n2
+    As = torch.randn(n1, k, generator=gen, device=card)
+    Bs = torch.randn(n2, k, generator=gen, device=card)
+    if case == "bf16":
+        As, Bs = As.bfloat16(), Bs.bfloat16()
+    na = torch.rand(n1, generator=gen, device=card) + 0.5
+    nb = torch.rand(n2, generator=gen, device=card) + 0.5
+    rows = torch.randint(0, n1, (m,), generator=gen, device=card,
+                         dtype=torch.int32)
+    cols = torch.randint(0, n2, (m,), generator=gen, device=card,
+                         dtype=torch.int32)
+    if case == "hot_row":
+        rows[::2] = 11
+    if case == "duplicates":
+        rows[: m // 2], cols[: m // 2] = rows[:100].repeat(m // 200), \
+            cols[:100].repeat(m // 200)
+    out = ops.sampled_rescaled_dot(As, Bs, na, nb, rows, cols)
+    ref = ops.KERNELS["sampled_rescaled_dot"].plain(As, Bs, na, nb, rows,
+                                                    cols)
+    scale = na[rows.long()] * nb[cols.long()]
+    assert out.shape == (m,)
+    assert float(((out - ref).abs() / scale).max()) < RTOL
+    assert torch.equal(ops.sampled_rescaled_dot(As, Bs, na, nb, rows, cols),
+                       out)
+    if case == "duplicates":
+        assert torch.equal(out[100:200], out[:100])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,d_pad,n", [
     (2048, 2048, 1024),     # two passes of radix 32 and 64
@@ -165,6 +206,61 @@ def test_blocked_fwht_kernel_matches_plain(card, d, d_pad, n, dtype):
     assert float(col_err.max()) <= 1e-4
     with pytest.raises(ValueError, match="power of two"):
         ops.blocked_fwht(X, signs, d_pad=3 * d_pad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,d_pad,n", [
+    (2048, 2048, 1024),     # two passes of radix 32 and 64
+    (50_000, 65_536, 96),   # the slice's padding, two passes of 256
+    (200, 256, 64),         # one pass: read, norms and sampled rows at once
+    (777, 1024, 1000),      # ragged n: the last column tile is partial
+    (1, 1, 5),              # a transform of length 1
+    (70_000, 131_072, 40),  # three passes
+])
+def test_srht_block_kernel_matches_plain(card, d, d_pad, n, dtype):
+    """The block mode against its plain version (the full transform's
+    sampled rows, rescaled, and ``column_norms``) on a column slice, into a
+    wider sketch at a column offset: the sketch bit for bit, the norms (the
+    kernel's own order of sums) within 1e-6 relative, the columns outside
+    the block untouched, one launch; two calls give the same bits."""
+    gen = torch.Generator(device=card).manual_seed(d + n + 1)
+    wide = torch.randn(d, n + 3, generator=gen, device=card).to(dtype)
+    X = wide[:, 1:n + 1]
+    signs = torch.randint(0, 2, (d,), generator=gen, device=card) * 2.0 - 1
+    k = min(64, d_pad)
+    rows = torch.randperm(d_pad, generator=gen, device=card)[:k].int()
+    col0 = 5
+    sketch = torch.full((k, n + 9), 7.0, device=card)
+    norms = torch.full((n + 9,), 7.0, device=card)
+    before = ops.LAUNCHES["blocked_fwht"]
+    got_s, got_n = ops.srht_block(X, signs, rows, d_pad=d_pad, sketch=sketch,
+                                  norms=norms, col0=col0)
+    assert ops.LAUNCHES["blocked_fwht"] == before + 1
+    want_s, want_n = hadamard.plain_block(X, signs, rows, d_pad)
+    assert torch.equal(got_s, want_s)
+    torch.testing.assert_close(got_n, want_n, rtol=1e-6, atol=0)
+    assert bool((sketch[:, :col0] == 7.0).all()
+                and (sketch[:, col0 + n:] == 7.0).all())
+    assert bool((norms[:col0] == 7.0).all() and (norms[col0 + n:] == 7.0).all())
+    again = ops.srht_block(X, signs, rows, d_pad=d_pad)
+    assert torch.equal(again[0], got_s) and torch.equal(again[1], got_n)
+
+
+@pytest.mark.parametrize("d,d_pad,k", [(0, 1, 1), (0, 512, 16),
+                                       (200, 256, 1), (2048, 4096, 4096)])
+def test_srht_block_kernel_edges(card, d, d_pad, k):
+    """No input row (zeros, no launch), one sampled row in one pass, every
+    row sampled in two: the plain version's values."""
+    gen = torch.Generator(device=card).manual_seed(d + k)
+    X = torch.randn(d, 70, generator=gen, device=card)
+    signs = torch.randint(0, 2, (d,), generator=gen, device=card) * 2.0 - 1
+    rows = torch.randperm(d_pad, generator=gen, device=card)[:k].int()
+    before = ops.LAUNCHES["blocked_fwht"]
+    got_s, got_n = ops.srht_block(X, signs, rows, d_pad=d_pad)
+    assert ops.LAUNCHES["blocked_fwht"] == before + (d > 0)
+    want_s, want_n = hadamard.plain_block(X, signs, rows, d_pad)
+    assert torch.equal(got_s, want_s)
+    torch.testing.assert_close(got_n, want_n, rtol=1e-6, atol=0)
 
 
 def test_srht_smppca_on_the_card_matches_the_cpu(card):

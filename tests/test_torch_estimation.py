@@ -21,7 +21,7 @@ from repro.kernels import ops as jax_ops
 from repro_torch import convert, prng
 from repro_torch.core import estimation_engine, estimator, sampling, waltmin
 from repro_torch.core.types import SampleSet
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sampled_dot
 
 jax_waltmin = importlib.import_module("repro.core.waltmin")
 
@@ -91,6 +91,29 @@ def test_sampled_dot_bf16_gather():
                                      (As, Bs, na, nb, rows, cols)),
                                    precision="bf16").numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=VALUE_RTOL)
+
+
+@pytest.mark.parametrize("k,itemsize,n2,want", [
+    (512, 4, 100_000, 8192),     # the slice: 16 MiB of float32 rows
+    (512, 2, 100_000, 16_384),   # bf16 rows: twice as many
+    (100, 4, 100_000, 32_768),   # k not a multiple of 32
+    (33, 2, 10 ** 6, 131_072),
+    (512, 4, 1000, 1024),        # n2 below a block: one block
+    (512, 4, 8192, 8192),
+    (512, 4, 1, 1),
+    (0, 4, 50, 64),
+    (1 << 23, 4, 100, 1),        # a row larger than the budget
+])
+def test_sampled_dot_column_block(k, itemsize, n2, want):
+    """The bucketing's column block: the largest power of two of rows of
+    Bs within L2_BLOCK_BYTES, capped by what n2 needs, at least 1; and the
+    bucket count that sizes the kernel's scratch."""
+    cblock = sampled_dot.column_block(k, itemsize, n2)
+    assert cblock == want
+    assert cblock & (cblock - 1) == 0
+    assert cblock * max(k, 1) * itemsize <= max(sampled_dot.L2_BLOCK_BYTES,
+                                                max(k, 1) * itemsize)
+    assert sampled_dot.buckets(7, n2, cblock) == 7 * -(-n2 // cblock)
 
 
 @pytest.mark.parametrize("m", [1, 5000])

@@ -21,8 +21,9 @@ from repro.kernels import hadamard as jax_hadamard
 from repro.kernels import ops as jax_ops
 from repro_torch import prng
 from repro_torch.core import sketch, summary_engine
+from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.smppca import smppca, spectral_error_vs_optimal
-from repro_torch.kernels import hadamard, ops
+from repro_torch.kernels import hadamard, ops, tuning
 
 # The JAX suite's own tolerances: the blocked FWHT against its butterfly
 # (tests/kernels/test_kernels.py::test_blocked_fwht_sweep), and every
@@ -186,6 +187,73 @@ def test_blocked_fwht_d_pad_reads_zero_rows():
         ops.blocked_fwht(X, signs, d_pad=256)
     with pytest.raises(ValueError, match="disagree"):
         ops.blocked_fwht(X, signs[:10], d_pad=512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,d_pad,n,k,col0", [
+    (300, 512, 40, 32, 0),     # two passes, padded
+    (200, 256, 33, 256, 5),    # one pass, every row sampled, a column offset
+    (1, 1, 3, 1, 0),           # a transform of length 1
+    (777, 1024, 17, 64, 2),    # ragged n, into a wider sketch
+    (0, 1, 4, 1, 0),           # no input row: zeros
+])
+def test_srht_block_plain_is_the_composition(d, d_pad, n, k, col0, dtype):
+    """``ops.srht_block`` on CPU tensors (the block mode's plain version)
+    writes what ``_srht_blocked`` computed before the block mode existed:
+    the full transform's sampled rows divided by sqrt(dp), times sqrt(dp /
+    k), and ``column_norms``, bit for bit; columns outside the block stay
+    untouched, and it counts no launch."""
+    rng = np.random.default_rng(d + n + k)
+    X = torch.from_numpy(rng.standard_normal((d, n)).astype(np.float32)
+                         ).to(dtype)
+    signs = torch.from_numpy(np.where(rng.random(d) < 0.5, -1.0, 1.0)
+                             .astype(np.float32))
+    rows = torch.from_numpy(rng.permutation(d_pad)[:k].astype(np.int32))
+    sketch = torch.full((k, col0 + n + 3), 7.0)
+    norms = torch.full((col0 + n + 3,), 7.0)
+    before = dict(ops.LAUNCHES)
+    got_s, got_n = ops.srht_block(X, signs, rows, d_pad=d_pad, sketch=sketch,
+                                  norms=norms, col0=col0)
+    assert ops.LAUNCHES == before
+    HX = ops.blocked_fwht(X, signs, d_pad=d_pad)
+    want_s = (HX[rows.long()] / sketch_mod._sqrt_f32(d_pad)) \
+        * sketch_mod._sqrt_f32(d_pad / k)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_n, sketch_mod.column_norms(X))
+    assert torch.equal(sketch[:, col0:col0 + n], want_s)
+    outside = torch.cat([sketch[:, :col0], sketch[:, col0 + n:]], dim=1)
+    assert bool((outside == 7.0).all())
+    assert bool((norms[:col0] == 7.0).all() and (norms[col0 + n:] == 7.0).all())
+    alone = ops.srht_block(X, signs, rows, d_pad=d_pad)
+    assert torch.equal(alone[0], want_s) and torch.equal(alone[1], got_n)
+
+
+def test_srht_block_rejects_bad_shapes():
+    X, signs = torch.zeros(300, 4), torch.ones(300)
+    rows = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        ops.srht_block(X, signs, rows, d_pad=384)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.srht_block(X, signs[:10], rows, d_pad=512)
+    with pytest.raises(ValueError, match="k="):
+        ops.srht_block(X, signs, rows[:0], d_pad=512)
+    with pytest.raises(ValueError, match="cannot take"):
+        ops.srht_block(X, signs, rows, d_pad=512, sketch=torch.zeros(8, 3),
+                       norms=torch.zeros(4))
+
+
+@pytest.mark.parametrize("d_pad", [1, 2, 256, 512, 65_536, 131_072, 2 ** 25])
+def test_radices_are_the_sources_split(d_pad):
+    """``hadamard.radices`` (which sizes the block mode's scratch) cuts a
+    transform as ``tuning._fwht_radix`` models it: the same number of
+    passes and first radix, radices that multiply to d_pad, each at most
+    256, larger first."""
+    logs = hadamard.radices(d_pad)
+    passes, radix = tuning._fwht_radix(d_pad, 1 << hadamard.MAX_LOG_RADIX)
+    assert (len(logs), 1 << logs[0]) == (passes, radix)
+    assert sum(logs) == d_pad.bit_length() - 1
+    assert all(0 <= x <= hadamard.MAX_LOG_RADIX for x in logs)
+    assert logs == sorted(logs, reverse=True)
 
 
 def test_srht_sketch_and_kernel_composition_match_jax():

@@ -16,7 +16,8 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import tuning as jax_tuning
-from repro_torch.kernels import flash_attention, hadamard, ops, sketch_fused
+from repro_torch.kernels import (flash_attention, hadamard, ops, sampled_dot,
+                                  sketch_fused)
 from repro_torch.kernels import tuning
 from repro_torch.kernels.tuning import (
     DEFAULTS, KernelConfig, TuningSpec, TuningTable, candidate_configs,
@@ -128,6 +129,33 @@ def test_sketch_fused_constants_are_the_sources():
             const("BM") * (bk + 8) + bk * (bn + 16 // size))
     assert tuning.smem_bytes(_sk(), SHAPES["sketch_fused"]) == \
         sketch_fused.SMEM_BYTES <= tuning.SMEM_BUDGET_BYTES
+
+
+@pytest.mark.parametrize("kernel", ["sampled_dot", "blocked_fwht"])
+def test_bucketing_and_block_mode_constants_are_the_sources(kernel):
+    """What the wrappers size scratch by, and the tuner models, is what the
+    CUDA sources compile: sampled_dot's gather CTA, scan and radix tiles;
+    blocked_fwht's largest radix and its block-mode entry points."""
+    if kernel == "sampled_dot":
+        text = (CSRC / "sampled_dot.cu").read_text()
+    else:
+        text = (CSRC / "blocked_fwht.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    if kernel == "sampled_dot":
+        assert sampled_dot.SAMPLES_PER_CTA == const("WARPS") * const("SEG")
+        assert sampled_dot.GATHER_THREADS == 32 * const("WARPS")
+        assert sampled_dot.SCAN_TILE == \
+            const("SCAN_THREADS") * const("SCAN_ITEMS")
+        assert sampled_dot.BINS == 1 << const("RADIX_BITS")
+        assert "constexpr int SORT_THREADS = BINS;" in text
+        assert sampled_dot.SORT_TILE == sampled_dot.BINS * const("SORT_ITEMS")
+    else:
+        assert hadamard.MAX_LOG_RADIX == const("MAX_LOG_RADIX")
+        for entry in hadamard._BLOCK_ENTRY.values():
+            assert f'extern "C" int {entry}(' in text
 
 
 def test_flash_attention_constants_are_the_sources():
