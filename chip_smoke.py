@@ -48,26 +48,40 @@ fails; nothing is caught:
 8. the timing of kernel 3's block mode at its call shape (float32 and
    bf16), beside its plain version, its bound, the full mode and the
    composition it replaced;
-9. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
-   plain version on the JAX test shapes (causal and not, float32 and bf16,
-   every compiled tile) and at S = 4,096 with granite-3-8b's 32 query and 8
-   KV heads of 128, all at ``FLASH_TOL``;
-10. the attention path at full width: one granite-3-8b attention layer at
+9. the rest of the estimation engine at the same full width, on the same A
+   and B: ``build_summary(..., backend='cuda', probes=16, cosketch=10)``
+   (launches, time split into sketch, probes and co-sketch with CUDA
+   events, the memory it adds; the probe block and Y against one unblocked
+   float32 product each, within ``BLOCK_TOL``, W within ``W_TOL``); the
+   rescaled-JL estimate with ``with_error=True``, whose ``rel_est`` must be
+   under ``PROBE_RESIDUAL_MAX`` and within a factor 2 of the 8-column probe
+   residual; ``direct_svd``, ``power`` with Tropp's reconstruction,
+   ``adaptive_rank`` refined by it and ``product_of_pcas`` (time, launches,
+   probe residual, ``rel_est``); LELA, whose exact-entry rate on the first
+   2^20 samples decides whether it runs whole or on the first 4,096 rows;
+   then card against CPU at d = 2,000, n = 200: every method on both
+   backends, both gates, a batched L = 3 summary and estimate against the
+   looped ones, and the Bernoulli sampler;
+10. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
+    plain version on the JAX test shapes (causal and not, float32 and bf16,
+    every compiled tile) and at S = 4,096 with granite-3-8b's 32 query and 8
+    KV heads of 128, all at ``FLASH_TOL``;
+11. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
     read after it), against the plain version on every row, then bf16 and
     non-causal the same way;
-11. kernel 4's timings: every compiled tile at S = 32,768, float32 and
+12. kernel 4's timings: every compiled tile at S = 32,768, float32 and
     bf16; at S = 32,768 and 4,096, float32 and bf16, beside its plain
     version, ``scaled_dot_product_attention`` and its bound: float32 on the
     TF32 tensor cores (three split passes per product), with the float32
     FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
     this design's two TF32 passes beside it;
-12. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
+13. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
     after;
-13. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+14. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -134,6 +148,26 @@ SRHT_PEAK_GB_MAX = 60.0
 # S = 32,768: the kernel's and the plain version's float32 sums of 32,768
 # terms differ by a few ulps of outputs that are at most max |v|.
 FLASH_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# The estimation-engine phase at full width: 16 held-out probes (the middle
+# probe count of benchmarks/run.py::error_sweep: 4, 16, 64) and a co-sketch
+# of s = 2r = 10, the value of the JAX benchmark's refinement sweep
+# (benchmarks/run.py:405).
+PROBES, COSKETCH = 16, 10
+# The probe and co-sketch blocks (float32 sums over 1,024-row blocks)
+# against one unblocked float32 product: each column within 1e-4 of its own
+# largest entry, the sketch's tolerance.
+BLOCK_TOL = 1e-4
+# W = (Psi_c A^T) B sums n1 = 100,000 terms of mixed sign, then d = 50,000:
+# float32 rounding of either order reaches ~1e-4 of a column's largest
+# entry (7.3e-5 measured on an H100), so W is held to 1e-3.
+W_TOL = 1e-3
+# adaptive_rank at full width: the gate's tolerance (the residual limit
+# above) and its largest candidate rank (= the co-sketch width).
+GATE_TOL, GATE_R_MAX = 0.2, 10
+# LELA's exact second pass: its rate on the first 2^20 samples of the draw
+# decides whether the whole call runs (under 60 s), or LELA on the first
+# 4,096 rows of A and B at the full n and m.
+LELA_PROBE, LELA_FULL_S, LELA_ROWS = 1 << 20, 60.0, 4096
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -512,6 +546,289 @@ def sdpa_call(q, k, v):
     return call
 
 
+def timed(fn):
+    """(fn(), wall ms) on the host clock, the card synchronized before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def column_err(got, want) -> float:
+    """Largest error of any column relative to that column's largest
+    entry."""
+    return float(((got - want).abs().amax(dim=0)
+                  / want.abs().amax(dim=0).clamp(min=1e-30)).max())
+
+
+def error_fields(err) -> dict:
+    return {name: float(x) for name, x in zip(err._fields, err)}
+
+
+def engine_full_width(ops, key, A, B, k, r, m, T, gen, waltmin_ms, dev):
+    """The estimation engine beyond rescaled_jl at the slice's full width:
+    a summary with probes and co-sketch (launches, time split with CUDA
+    events, memory; the blocks against one unblocked product), the
+    rescaled-JL estimate with its ErrorEstimate, direct_svd, power
+    (Tropp), the Tropp-refined adaptive_rank, the product of PCAs and LELA
+    (whole if the measured exact-entry rate puts it under LELA_FULL_S,
+    else on the first LELA_ROWS rows). Returns the numbers it printed."""
+    from repro_torch import prng
+    from repro_torch.core import (
+        baselines, error_engine, estimation_engine, lela, refinement,
+        sampling, summary_engine)
+    out = {}
+    k_sketch, k_sample, _ = prng.split(key, 3)
+    k_est = prng.fold_in(k_sample, 0)
+
+    # the summary, through the entry point, launch counters set to 0 first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    summary, wall_ms = timed(lambda: summary_engine.build_summary(
+        k_sketch, A, B, k, backend="cuda", probes=PROBES, cosketch=COSKETCH,
+        device=dev))
+    launches = dict(ops.LAUNCHES)
+    added_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 0,
+                       "blocked_fwht": 0, "flash_attention": 0},
+          f"launches per build_summary(probes, cosketch): {launches}")
+    # the same stages one by one, timed with CUDA events
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    staged = summary_engine._cuda_backend(k_sketch, A, B, k,
+                                          method="gaussian", block=1024,
+                                          precision=None)
+    events[1].record()
+    staged = error_engine.attach_probes(staged, k_sketch, A, B, PROBES)
+    events[2].record()
+    staged = refinement.attach_cosketch(staged, k_sketch, A, B, COSKETCH)
+    events[3].record()
+    events[3].synchronize()
+    check(all(bool(torch.equal(x, y)) for x, y in zip(staged, summary)
+              if x is not None and y is not None),
+          "the staged summary is the entry point's")
+    del staged
+    out["summary"] = {
+        "wall_ms": wall_ms, "launches": launches, "added_peak_gb": added_gb,
+        **{f"{name}_ms": events[i].elapsed_time(events[i + 1])
+           for i, name in enumerate(("sketch", "probes", "cosketch"))}}
+    print("engine summary d,n,k,p,s=" + f"{A.shape[0]},{A.shape[1]},{k},"
+          f"{PROBES},{COSKETCH} " + json.dumps(out["summary"]), flush=True)
+    # the blocks against one unblocked float32 product each
+    errs = {
+        "probes": column_err(summary.probes,
+                             A.T @ (B @ summary.probe_omega)),
+        "cosketch_Y": column_err(summary.cosketch_Y,
+                                 A.T @ (B @ summary.cosketch_omega)),
+        "cosketch_W": column_err(summary.cosketch_W,
+                                 (summary.cosketch_psi @ A.T) @ B)}
+    tols = {"probes": BLOCK_TOL, "cosketch_Y": BLOCK_TOL,
+            "cosketch_W": W_TOL}
+    print(f"engine blocks against one unblocked product: "
+          + json.dumps(errs) + " (tol, of each column's largest entry: "
+          + json.dumps(tols) + ")", flush=True)
+    for name, err in errs.items():
+        check(err <= tols[name],
+              f"{name} against the unblocked product: {err}")
+
+    # rescaled_jl with its ErrorEstimate (the main path's factors)
+    ops.reset_launch_counts()
+    res, ms = timed(lambda: estimation_engine.estimate_product(
+        k_est, summary, r, m=m, T=T, backend="cuda", with_error=True,
+        device=dev))
+    launches = dict(ops.LAUNCHES)
+    check(launches == {"sketch_fused": 0, "sampled_rescaled_dot": 1,
+                       "blocked_fwht": 0, "flash_attention": 0},
+          f"launches per estimate_product(with_error=True): {launches}")
+    resid = probe_residual(A, B, res.factors, gen)
+    est = error_fields(res.error)
+    out["rescaled_jl"] = dict(ms=ms, launches=launches, probe_residual=resid,
+                              error=est)
+    print("engine rescaled_jl with_error " + json.dumps(out["rescaled_jl"]),
+          flush=True)
+    check(est["rel_est"] < PROBE_RESIDUAL_MAX,
+          f"rescaled_jl rel_est {est['rel_est']}")
+    check(0.5 * resid <= est["rel_est"] <= 2.0 * resid,
+          f"rel_est {est['rel_est']} not within a factor 2 of the probe "
+          f"residual {resid}")
+    del res
+
+    # the other methods, the gate and the product of PCAs
+    k_pow = prng.split(key)[1]
+    tropp = refinement.RefineSpec(0, "tropp")
+    runs = {
+        "direct_svd": lambda: estimation_engine.estimate_product(
+            k_pow, summary, r, method="direct_svd", backend="cuda",
+            with_error=True, device=dev),
+        "power_tropp": lambda: estimation_engine.estimate_product(
+            k_pow, summary, r, method="power", backend="cuda", refine=tropp,
+            with_error=True, device=dev),
+        "adaptive_rank_tropp": lambda: error_engine.adaptive_rank(
+            summary, tol=GATE_TOL, r_max=GATE_R_MAX, refine=tropp),
+        "product_of_pcas": lambda: baselines.product_of_pcas(
+            key, A, B, r, device=dev)}
+    for name, run in runs.items():
+        ops.reset_launch_counts()
+        got, ms = timed(run)
+        launches = dict(ops.LAUNCHES)
+        factors = got if name == "product_of_pcas" else got.factors
+        err = (error_engine.estimate_error(summary, factors)
+               if name == "product_of_pcas" else got.error)
+        check(all(bool(torch.isfinite(x).all()) for x in factors),
+              f"{name} factors finite")
+        out[name] = dict(ms=ms, launches=launches,
+                         probe_residual=probe_residual(A, B, factors, gen),
+                         rel_est=float(err.rel_est))
+        if name == "adaptive_rank_tropp":
+            out[name].update(r=got.r, curve=got.curve.tolist())
+        print(f"engine {name} " + json.dumps(out[name]), flush=True)
+        del got, factors
+
+    # LELA: the exact-entry rate on the first LELA_PROBE samples of the
+    # full-width draw decides whether the whole call runs
+    na, nb = summary.norm_A, summary.norm_B
+    samples = sampling.sample_entries(prng.split(key)[0], na, nb, m)
+    rows, cols = samples.rows[:LELA_PROBE], samples.cols[:LELA_PROBE]
+    estimation_engine.exact_entries(A, B, rows[:2048], cols[:2048])
+    _, ms = timed(lambda: estimation_engine.exact_entries(A, B, rows, cols))
+    rate = LELA_PROBE / (ms / 1e3)
+    exact_s = m / rate
+    predicted_s = exact_s + waltmin_ms / 1e3
+    del samples, rows, cols
+    full = predicted_s <= LELA_FULL_S
+    d_run = A.shape[0] if full else LELA_ROWS
+    reason = ("the whole call" if full else
+              f"cut to the first {LELA_ROWS} rows of A and B (full n and m):"
+              f" the measured rate puts the exact pass alone at "
+              f"{exact_s:.1f} s, the call at {predicted_s:.1f} s, over "
+              f"{LELA_FULL_S} s")
+    print(f"engine lela exact_entries rate {rate:.4e} samples/s on the "
+          f"first {LELA_PROBE} samples of m={m} at d={A.shape[0]}: "
+          f"{exact_s:.1f} s for the exact pass; {reason}", flush=True)
+    Ar, Br = A[:d_run], B[:d_run]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    factors, ms = timed(lambda: lela.lela(key, Ar, Br, r=r, m=m, T=T,
+                                          device=dev))
+    launches = dict(ops.LAUNCHES)
+    check(all(bool(torch.isfinite(x).all()) for x in factors),
+          "lela factors finite")
+    out["lela"] = dict(d=d_run, n=A.shape[1], m=m, ms=ms, launches=launches,
+                       exact_rate_per_s=rate, exact_full_width_s=exact_s,
+                       probe_residual=probe_residual(Ar, Br, factors, gen),
+                       added_peak_gb=(torch.cuda.max_memory_allocated()
+                                      - base) / 1e9,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("engine lela " + json.dumps(out["lela"]), flush=True)
+    return out
+
+
+def engine_small(seed, r, dev):
+    """Card against CPU at d = 2,000, n = 200 with the same keys: every
+    method on both backends (power with Tropp and with one sketch-power
+    iteration), both with_error; the unrefined and refined gates; a
+    batched L = 3 summary and estimate against the looped ones; the
+    Bernoulli sampler. U V^T within SMALL_UVT_TOL, the chosen ranks
+    equal, the sampler's rows and cols equal."""
+    from repro_torch import prng
+    from repro_torch.core import (
+        error_engine, estimation_engine, refinement, sampling,
+        summary_engine)
+    from repro_torch.core.types import tree_index
+    rng = np.random.default_rng(seed)
+    ds, ns = 2000, 200
+    Dn = (1.0 / np.arange(1, ns + 1)).astype(np.float32)
+    As_ = rng.standard_normal((ds, ns)).astype(np.float32) * Dn
+    Bs_ = As_ + 0.3 * rng.standard_normal((ds, ns)).astype(np.float32) * Dn
+    As_, Bs_ = torch.from_numpy(As_), torch.from_numpy(Bs_)
+    ms = estimation_engine.default_m(ns, ns, r)
+    where = ("cuda", "cpu")
+
+    def uvt_rel(f, g):
+        a, b = (x.U.cpu() @ x.V.cpu().transpose(-1, -2) for x in (f, g))
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    summ = {w: summary_engine.build_summary(
+        prng.PRNGKey(seed), As_, Bs_, 512, backend="cuda", probes=16,
+        cosketch=10, device=w) for w in where}
+    worst = {}
+    cases = [(meth, be, None) for meth in ("rescaled_jl", "lela_waltmin",
+                                           "direct_svd")
+             for be in estimation_engine.BACKENDS]
+    cases += [("power", be, spec) for be in estimation_engine.BACKENDS
+              for spec in (refinement.RefineSpec(0, "tropp"),
+                           refinement.RefineSpec(1, "power"))]
+    for meth, be, spec in cases:
+        res = {w: estimation_engine.estimate_product(
+            prng.PRNGKey(seed + 1), summ[w], r, method=meth, backend=be,
+            m=ms, T=8, refine=spec, with_error=True, device=w,
+            exact_pair=(As_, Bs_) if meth == "lela_waltmin" else None)
+            for w in where}
+        rel = uvt_rel(res["cuda"].factors, res["cpu"].factors)
+        est = [float(res[w].error.rel_est) for w in where]
+        tag = f"{meth}/{be}" + ("" if spec is None else
+                                f"/{spec.method}{spec.iters}")
+        worst[tag] = rel
+        check(rel < SMALL_UVT_TOL, f"{tag} card vs CPU at the small size: "
+              f"{rel}")
+        check(abs(est[0] - est[1]) <= SMALL_UVT_TOL * est[1],
+              f"{tag} rel_est card {est[0]} vs CPU {est[1]}")
+    gates = {}
+    for name, spec in (("unrefined", None),
+                       ("tropp", refinement.RefineSpec(0, "tropp"))):
+        picks = {w: error_engine.adaptive_rank(summ[w], tol=GATE_TOL,
+                                               r_max=GATE_R_MAX, refine=spec)
+                 for w in where}
+        gates[name] = picks["cuda"].r
+        check(picks["cuda"].r == picks["cpu"].r,
+              f"adaptive_rank {name}: card {picks['cuda'].r} vs CPU "
+              f"{picks['cpu'].r}")
+        check(uvt_rel(picks["cuda"].factors, picks["cpu"].factors)
+              < SMALL_UVT_TOL, f"adaptive_rank {name} factors")
+    # batched L = 3 against the looped single calls, on the card
+    L = 3
+    Ab = torch.stack([As_, As_.flip(1), 2.0 * As_])
+    Bb = torch.stack([Bs_, Bs_.flip(1), Bs_])
+    sb = summary_engine.build_summary(prng.PRNGKey(seed), Ab, Bb, 512,
+                                      backend="cuda", probes=8, device=dev)
+    eb = estimation_engine.estimate_product(prng.PRNGKey(seed + 1), sb, r,
+                                            m=ms, T=8, with_error=True,
+                                            device=dev)
+    skeys = prng.split(prng.PRNGKey(seed, device=dev), L)
+    ekeys = prng.split(prng.PRNGKey(seed + 1, device=dev), L)
+    for i in range(L):
+        one = summary_engine.build_summary(skeys[i], Ab[i], Bb[i], 512,
+                                           backend="cuda", probes=8,
+                                           device=dev)
+        check(all(bool(torch.equal(x, y)) for x, y in
+                  zip(tree_index(sb, i), one) if x is not None),
+              f"batched summary pair {i} is the single one")
+        est = estimation_engine.estimate_product(ekeys[i], one, r, m=ms, T=8,
+                                                 with_error=True, device=dev)
+        rel = uvt_rel(tree_index(eb.factors, i), est.factors)
+        worst[f"batched pair {i}"] = rel
+        check(rel < SMALL_UVT_TOL, f"batched estimate pair {i}: {rel}")
+    # the Bernoulli sampler
+    na, nb = summ["cpu"].norm_A, summ["cpu"].norm_B
+    bern = {w: sampling.sample_entries_binomial(prng.PRNGKey(seed + 2),
+                                                na.to(w), nb.to(w), ms)
+            for w in where}
+    same = all(bool(torch.equal(getattr(bern["cuda"], f).cpu(),
+                                getattr(bern["cpu"], f)))
+               for f in ("rows", "cols", "mask"))
+    print(f"engine small d={ds} n={ns}: card vs CPU U V^T rel diff "
+          + json.dumps(worst) + f" (tol {SMALL_UVT_TOL:.0e}); gates "
+          f"{gates} equal on both; binomial sampler rows/cols/mask equal="
+          f"{same} ({int(bern['cpu'].mask.sum())} kept)", flush=True)
+    check(same, "sample_entries_binomial card vs CPU")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -835,10 +1152,20 @@ def main(argv=None) -> int:
           flush=True)
     del X3b
 
+    # 9. the rest of the estimation engine at full width, then small ------
+    engine = engine_full_width(ops, key, A, B, k, r, m, T, gen,
+                               stages["waltmin"], dev)
+    engine_small(args.seed, r, dev)
+    print("engine_phase " + json.dumps({name: {kk: v for kk, v in x.items()
+                                               if kk != "curve"}
+                                        for name, x in engine.items()}),
+          flush=True)
+    torch.cuda.empty_cache()
+
     del A, B, X3, signs, plan_rows
     torch.cuda.empty_cache()
 
-    # 9. kernel 4 against its plain version ---------------------------------
+    # 10. kernel 4 against its plain version ---------------------------------
     fa = ops.KERNELS["flash_attention"]
     for shape in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
                   (1, 384, 3, 3, 64)):       # tests/kernels/test_flash_attention.py
@@ -857,7 +1184,7 @@ def main(argv=None) -> int:
             flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype), causal,
                         f"S={S_TRAIN}")
 
-    # 10. the attention path at full width ----------------------------------
+    # 11. the attention path at full width ----------------------------------
     q, kk, v = attention_inputs(gen, S_FULL, HEADS, KV_HEADS, HEAD_DIM, dev)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -882,7 +1209,7 @@ def main(argv=None) -> int:
     flash_check(ops, q.to(torch.bfloat16), kk.to(torch.bfloat16),
                 v.to(torch.bfloat16), False, "full width")
 
-    # 11. kernel 4's timings ------------------------------------------------
+    # 12. kernel 4's timings ------------------------------------------------
     # every compiled tile at the full width, float32 and bf16, one call each
     # after a warm-up (the tuner below measures only its model's best three)
     for dtype in (torch.float32, torch.bfloat16):
@@ -934,7 +1261,7 @@ def main(argv=None) -> int:
     del q, kk, v
     torch.cuda.empty_cache()
 
-    # 12. the kernel tuner --------------------------------------------------
+    # 13. the kernel tuner --------------------------------------------------
     ops.reset_launch_counts()
     for kernel, shapes in TUNE_SHAPES.items():
         for shape in shapes:
@@ -951,7 +1278,7 @@ def main(argv=None) -> int:
     check(all(launches_tune[name] > 0 for name in ops.KERNELS),
           f"the tuner launched every kernel: {launches_tune}")
 
-    # 13. the kernels line and the last line --------------------------------
+    # 14. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the path that runs it: the Gaussian path

@@ -1,7 +1,9 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
-The JAX package's keys, summaries, samples and factors are NamedTuples of
-arrays; ``numpy.asarray`` of each field gives what these functions take.
+The JAX package's keys, summaries, samples, factors and error estimates
+are NamedTuples of arrays; ``numpy.asarray`` of each field gives what these
+functions take, and a field that is None (a summary without probes or
+co-sketch) stays None.
 Key data is uint32 (2,) in JAX and int64 (2,) here, holding the same two
 32-bit words. Every other field keeps its dtype (int32 indices, float32
 values, bool mask), so a round trip through the port is exact.
@@ -13,7 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.types import LowRankFactors, SampleSet, SketchSummary
+from repro_torch.core.types import (
+    ErrorEstimate, LowRankFactors, SampleSet, SketchSummary)
 
 
 def key_from_numpy(key_data, device="cpu") -> torch.Tensor:
@@ -68,3 +71,13 @@ def factors_from_numpy(state, device="cpu") -> LowRankFactors:
 def factors_to_numpy(factors: LowRankFactors) -> LowRankFactors:
     """Port ``LowRankFactors`` -> the same NamedTuple holding numpy arrays."""
     return _to_numpy(LowRankFactors, factors)
+
+
+def error_from_numpy(state, device="cpu") -> ErrorEstimate:
+    """A JAX ``ErrorEstimate`` (six scalars) -> port (0-d float32)."""
+    return _from_numpy(ErrorEstimate, state, device)
+
+
+def error_to_numpy(error: ErrorEstimate) -> ErrorEstimate:
+    """Port ``ErrorEstimate`` -> the same NamedTuple holding numpy arrays."""
+    return _to_numpy(ErrorEstimate, error)

@@ -1,0 +1,20 @@
+"""The SVD every factorization of the port goes through.
+
+On CUDA tensors ``torch.linalg.svd`` picks cuSOLVER's Jacobi routine
+(``gesvdj``) by default, which is less exact: on a 200 x 200 float32 matrix
+with a 1/i spectrum it gave singular values 1.1e-5 (of the largest) away
+from float64's on an NVIDIA H100, where the QR-based ``gesvd`` gave 1.2e-7
+and the CPU 1.4e-7. The error gate's curve and the refined and completed
+factors read those values, so the port asks for ``gesvd`` on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def svd(M: torch.Tensor):
+    """``torch.linalg.svd(M, full_matrices=False)``: (U, s, Vh), through
+    cuSOLVER's ``gesvd`` when M is on a CUDA device."""
+    if M.is_cuda:
+        return torch.linalg.svd(M, full_matrices=False, driver="gesvd")
+    return torch.linalg.svd(M, full_matrices=False)

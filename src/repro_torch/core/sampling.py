@@ -100,6 +100,26 @@ def sample_entries(key: torch.Tensor, norm_A: torch.Tensor,
                      torch.ones((m,), dtype=torch.bool, device=rows.device))
 
 
+def sample_entries_binomial(key: torch.Tensor, norm_A: torch.Tensor,
+                            norm_B: torch.Tensor, m: int,
+                            max_samples: int | None = None) -> SampleSet:
+    """The paper's Bernoulli-per-entry model (Alg 1 line 3): entry (i, j)
+    is kept with probability q_hat_ij. Dense O(n1 n2), so for small n only.
+    Returns a SampleSet padded to ``max_samples`` (default 2m): the kept
+    entries first, in row-major order (a stable sort, as ``jnp.argsort``
+    is), then unkept ones with ``mask`` False. Raises ``ValueError`` on an
+    all-zero A or B."""
+    require_nonzero_norms(norm_A, norm_B)
+    n2 = norm_B.shape[0]
+    cap = int(max_samples or 2 * m)
+    q = q_probabilities(norm_A, norm_B, m)
+    flat = prng.bernoulli(key, q).reshape(-1)
+    sel = torch.argsort(~flat, stable=True)[:cap]
+    rows = torch.div(sel, n2, rounding_mode="floor").to(torch.int32)
+    cols = (sel % n2).to(torch.int32)
+    return SampleSet(rows, cols, q.reshape(-1)[sel], flat[sel])
+
+
 def split_omega(key: torch.Tensor, samples: SampleSet,
                 n_splits: int) -> torch.Tensor:
     """Assign each sampled entry to one of ``n_splits`` subsets (Alg 2

@@ -85,19 +85,23 @@ def column_norms(X: torch.Tensor) -> torch.Tensor:
 
 
 def merge_summaries(a: SketchSummary, b: SketchSummary) -> SketchSummary:
-    """Combine summaries of disjoint row shards: the sketches add and the
-    squared norms add. Summaries with probe or co-sketch blocks are not
-    merged here yet (``ROADMAP.md``, Queue 1 item 4)."""
-    for s in (a, b):
-        if s.probes is not None or s.cosketch_Y is not None:
-            raise NotImplementedError(
-                "merge_summaries: probe and co-sketch blocks are not ported "
-                "yet (ROADMAP.md, Queue 1 item 4)")
+    """Combine summaries of disjoint row shards: the sketches add, the
+    squared norms add, and the probe and co-sketch blocks add (both
+    operands must carry the same blocks); the shared test matrices are
+    carried from ``a`` (both operands must descend from the same key)."""
+    from repro_torch.core.error_engine import merge_probes
+    from repro_torch.core.refinement import merge_cosketch
     return SketchSummary(
         a.A_sketch + b.A_sketch,
         a.B_sketch + b.B_sketch,
         torch.sqrt(a.norm_A ** 2 + b.norm_A ** 2),
-        torch.sqrt(a.norm_B ** 2 + b.norm_B ** 2))
+        torch.sqrt(a.norm_B ** 2 + b.norm_B ** 2),
+        probes=merge_probes(a.probes, b.probes),
+        probe_omega=a.probe_omega,
+        cosketch_Y=merge_cosketch(a.cosketch_Y, b.cosketch_Y),
+        cosketch_W=merge_cosketch(a.cosketch_W, b.cosketch_W),
+        cosketch_omega=a.cosketch_omega,
+        cosketch_psi=a.cosketch_psi)
 
 
 # ---------------------------------------------------------------------------

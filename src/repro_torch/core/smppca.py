@@ -17,6 +17,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch import prng
 from repro_torch.core import estimation_engine, summary_engine
+from repro_torch.core.linalg import svd
 from repro_torch.core.types import LowRankFactors, SketchSummary, SMPPCAResult
 
 
@@ -72,7 +73,7 @@ def spectral_error_vs_optimal(A: torch.Tensor, B: torch.Tensor, r: int,
     """(algorithm error, optimal rank-r error), both relative spectral norm."""
     M = A.T @ B
     nM = torch.linalg.matrix_norm(M, ord=2)
-    U, s, Vt = torch.linalg.svd(M, full_matrices=False)
+    U, s, Vt = svd(M)
     Mr = (U[:, :r] * s[:r]) @ Vt[:r]
     return (torch.linalg.matrix_norm(M - factors.U @ factors.V.T, ord=2) / nM,
             torch.linalg.matrix_norm(M - Mr, ord=2) / nM)

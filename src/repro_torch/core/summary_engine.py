@@ -39,7 +39,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch import prng
 from repro_torch.core.sketch import _next_pow2, _sqrt_f32, column_norms, pi_rows
-from repro_torch.core.types import SketchSummary
+from repro_torch.core.types import SketchSummary, tree_stack
 
 METHODS = ("gaussian", "srht")
 BACKENDS = ("reference", "scan", "rows", "cuda")
@@ -267,6 +267,13 @@ _BACKENDS = {"reference": _reference_backend, "scan": _scan_backend,
              "rows": _rows_backend, "cuda": _cuda_backend}
 
 
+def pair_keys(key: torch.Tensor, L: int) -> torch.Tensor:
+    """The (L, 2) per-pair keys of a batched call: ``key`` itself when it
+    is a stack of L keys, else ``split(key, L)`` (the JAX package's
+    ``_is_key_stack`` rule)."""
+    return key if key.ndim == 2 and key.shape[0] == L else prng.split(key, L)
+
+
 def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
                   *, method: str = "gaussian", backend: str = "reference",
                   block: int = 1024, precision: Optional[str] = None,
@@ -274,10 +281,23 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
                   device="cuda") -> SketchSummary:
     """One-pass summary of (A, B): sketches (k, n) and exact column norms.
 
-    A: (d, n1), B: (d, n2). ``method`` is 'gaussian' or 'srht';
-    ``backend`` one of ``BACKENDS``; ``block`` the row-block size of the
-    scan backend. ``precision``: None/'f32' | 'bf16'. Key, A and B are
+    A: (d, n1), B: (d, n2), or stacked (L, d, n1) / (L, d, n2) for the
+    batched mode, which summarizes the L pairs one after another and stacks
+    the fields (``key`` is split L ways, or pass a stack of L keys).
+    ``method`` is 'gaussian' or 'srht'; ``backend`` one of ``BACKENDS``;
+    ``block`` the row-block size of the scan backend and of the probe and
+    co-sketch passes. ``precision``: None/'f32' | 'bf16'. Key, A and B are
     moved to ``device`` (CUDA by default), where the summary is computed.
+
+    probes:   retain this many held-out probe columns ``(A^T B) @ Omega``
+              (``core/error_engine.py``: ``estimate_error``,
+              ``adaptive_rank``).
+    cosketch: retain an s-column Tropp range/co-range pair ``(A^T B) @
+              Omega_c``, ``Psi_c @ (A^T B)`` (``core/refinement.py``:
+              ``estimate_product(method='power')``).
+
+    Both blocks are plain PyTorch products over ``block``-row blocks, run
+    after the backend whichever it is (as in the JAX package).
 
     >>> import torch
     >>> from repro_torch import prng
@@ -287,9 +307,9 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
     >>> (tuple(s.A_sketch.shape), tuple(s.B_sketch.shape), tuple(s.norm_A.shape))
     ((16, 8), (16, 6), (8,))
     >>> t = build_summary(key, A, B, 16, method="srht", backend="scan",
-    ...                   block=32, device="cpu")
-    >>> tuple(t.A_sketch.shape)
-    (16, 8)
+    ...                   block=32, probes=3, cosketch=2, device="cpu")
+    >>> (tuple(t.A_sketch.shape), tuple(t.probes.shape), tuple(t.cosketch_W.shape))
+    ((16, 8), (8, 3), (5, 6))
     """
     if method not in METHODS:
         raise ValueError(f"unknown sketch method {method!r} (use {METHODS})")
@@ -300,17 +320,37 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
     if backend not in _BACKENDS:
         raise ValueError(f"unknown summary backend {backend!r} "
                          f"(use one of {BACKENDS})")
-    if probes or cosketch:
-        raise NotImplementedError(
-            "probe and co-sketch blocks are not ported yet (ROADMAP.md, "
-            "Queue 1 item 4: quality gate and refinement)")
-    if A.ndim != 2 or B.ndim != 2:
-        raise NotImplementedError(
-            "batched (L, d, n) summaries are not ported yet (ROADMAP.md, "
-            "Queue 1 item 2)")
-    if A.shape[0] != B.shape[0]:
+    if A.ndim != B.ndim or A.ndim not in (2, 3) or \
+            A.shape[:-1] != B.shape[:-1]:
         raise ValueError(f"A {tuple(A.shape)} and B {tuple(B.shape)} "
-                         f"disagree on d")
+                         f"disagree: expected (d, n1) and (d, n2), or "
+                         f"(L, d, n1) and (L, d, n2)")
     dev = _device.resolve(device)
-    return _BACKENDS[backend](key.to(dev), A.to(dev), B.to(dev), k,
-                              method=method, block=block, precision=precision)
+    key, A, B = key.to(dev), A.to(dev), B.to(dev)
+
+    def _one(kk, a, b):
+        out = _BACKENDS[backend](kk, a, b, k, method=method, block=block,
+                                 precision=precision)
+        if probes:
+            from repro_torch.core import error_engine
+            out = error_engine.attach_probes(out, kk, a, b, probes,
+                                             block=block, precision=precision)
+        if cosketch:
+            from repro_torch.core import refinement
+            out = refinement.attach_cosketch(out, kk, a, b, cosketch,
+                                             block=block, precision=precision)
+        return out
+
+    if A.ndim == 2:
+        return _one(key, A, B)
+    keys = pair_keys(key, A.shape[0])
+    return tree_stack([_one(keys[i], A[i], B[i]) for i in range(A.shape[0])])
+
+
+def norms_only_summary(A: torch.Tensor, B: torch.Tensor) -> SketchSummary:
+    """Exact column norms and empty (0, n) sketches, on A's device: LELA's
+    first pass, all a norm-driven estimator (lela_waltmin) consumes."""
+    return SketchSummary(
+        torch.zeros((0, A.shape[1]), dtype=torch.float32, device=A.device),
+        torch.zeros((0, B.shape[1]), dtype=torch.float32, device=B.device),
+        column_norms(A), column_norms(B))

@@ -16,9 +16,11 @@ class SketchSummary(NamedTuple):
 
     A: (d, n1), B: (d, n2); the sketches are ``Pi @ A`` (k, n1) and
     ``Pi @ B`` (k, n2), and the exact column norms are the side information
-    the rescaled-JL estimator needs. The probe and co-sketch blocks of the
-    JAX summary are carried as fields so that the two types line up; this
-    package does not build them yet and leaves them None.
+    the rescaled-JL estimator needs. ``build_summary(..., probes=p)`` adds
+    the held-out probe block ``(A^T B) @ Omega`` and its test columns
+    (``core/error_engine.py``); ``cosketch=s`` adds Tropp's range and
+    co-range pair (Y, W) and their test matrices (``core/refinement.py``).
+    Without them those fields are None.
     """
 
     A_sketch: torch.Tensor        # (k, n1) = Pi @ A
@@ -57,6 +59,16 @@ class SketchSummary(NamedTuple):
         """Frobenius norm of B (from the retained column norms)."""
         return torch.sqrt(torch.sum(self.norm_B ** 2))
 
+    @property
+    def n_probes(self) -> int:
+        """Held-out probe count p (0 when no probe block was retained)."""
+        return 0 if self.probes is None else self.probes.shape[-1]
+
+    @property
+    def n_cosketch(self) -> int:
+        """Co-sketch width s (0 when no refinement block was retained)."""
+        return 0 if self.cosketch_Y is None else self.cosketch_Y.shape[-1]
+
 
 class SampleSet(NamedTuple):
     """A COO sample of entries of the (n1 x n2) product matrix.
@@ -93,13 +105,35 @@ class LowRankFactors(NamedTuple):
         return self.U @ self.V.T
 
 
+class ErrorEstimate(NamedTuple):
+    """A-posteriori quality estimate of rank-r factors (``error_engine``).
+
+    Each of the p held-out probe columns retained in the summary gives one
+    unbiased sample of the squared Frobenius residual ``||A^T B - U
+    V^T||_F^2``; the fields are their mean, a normal-approximation
+    confidence interval over the p samples, a spectral-norm proxy and the
+    residual relative to the estimated ``||A^T B||_F``. Every field is a
+    0-d float32 tensor ((L,) for a batched estimate).
+    """
+
+    frob_est: torch.Tensor       # sqrt of the unbiased mean squared residual
+    frob_sq_est: torch.Tensor    # unbiased estimate of ||A^T B - U V^T||_F^2
+    frob_lo: torch.Tensor        # lower confidence bound
+    frob_hi: torch.Tensor        # upper confidence bound
+    spectral_est: torch.Tensor   # max_j ||R w_j|| / ||w_j||
+    rel_est: torch.Tensor        # frob_est / estimated ||A^T B||_F
+
+
 class EstimateResult(NamedTuple):
     """Steps 2-3 output of ``estimate_product``: the factors, the Omega
-    sample and the estimated entries on it."""
+    sample and the estimated entries on it (both None for the methods that
+    do not sample), and the a-posteriori ``ErrorEstimate`` when asked for
+    with ``with_error=True``."""
 
     factors: LowRankFactors
     samples: Optional[SampleSet]
     values: Optional[torch.Tensor]   # (m,) estimated entries on Omega
+    error: Optional[ErrorEstimate] = None
 
 
 class SMPPCAResult(NamedTuple):
@@ -109,3 +143,24 @@ class SMPPCAResult(NamedTuple):
     summary: SketchSummary
     samples: SampleSet
     sampled_values: torch.Tensor     # (m,) rescaled-JL estimates on Omega
+
+
+def tree_index(tree, i: int):
+    """The i-th pair of a batched result: each tensor of a (nested)
+    NamedTuple indexed along its leading axis; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return type(tree)(*(tree_index(x, i) for x in tree))
+
+
+def tree_stack(trees):
+    """Stack per-pair results of one (nested) NamedTuple type along a new
+    leading axis, the batched layout; None fields stay None."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return type(first)(*(tree_stack(list(xs)) for xs in zip(*trees)))

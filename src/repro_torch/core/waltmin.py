@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import sampling
+from repro_torch.core.linalg import svd
 from repro_torch.core.types import LowRankFactors, SampleSet
 
 _RIDGE = 1e-8
@@ -68,7 +69,7 @@ def coo_topr_svd(key: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
         Y = coo_matmat(rows, cols, vals, Z, n1)
     Q = _qr(Y)                                  # (n1, p)
     Bt = coo_rmatmat(rows, cols, vals, Q, n2)   # (n2, p) = (Q^T S)^T
-    Ub, s, Vt = torch.linalg.svd(Bt.T, full_matrices=False)
+    Ub, s, Vt = svd(Bt.T)
     return Q @ Ub[:, :r], s[:r], Vt[:r].T
 
 

@@ -164,9 +164,12 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
     return (offset + minval).to(torch.int32)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
-    """``jax.random.bernoulli`` (mode='low'): uniform < p, as bool."""
-    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
+    """``jax.random.bernoulli`` (mode='low'): uniform < p, as bool. ``p``
+    is a float or a tensor of probabilities (compared in float32,
+    elementwise); ``shape`` defaults to ``p``'s shape."""
+    p = torch.as_tensor(p, dtype=torch.float32, device=key.device)
+    return uniform(key, p.shape if shape is None else shape) < p
 
 
 def rademacher(key: torch.Tensor, shape,

@@ -304,6 +304,208 @@ def test_smppca_on_the_card_matches_the_cpu(card):
         < 1e-3
 
 
+# ---------------------------------------------------------------------------
+# The rest of the estimation engine on the card against the CPU: the probe
+# and co-sketch blocks, every estimation method, the error gate, batched
+# mode, the baselines and the Bernoulli sampler (plain PyTorch around the
+# kernels; the same keys on both devices)
+# ---------------------------------------------------------------------------
+
+# U V^T on the card against the CPU: float32 sums in other orders and
+# WAltMin's atomics move it by ~1e-5 relative (chip_smoke.py SMALL_UVT_TOL).
+UVT_TOL = 1e-3
+
+
+def _planted(seed=0, d=2000, n=200):
+    rng = np.random.default_rng(seed)
+    D = (1.0 / np.arange(1.0, n + 1.0)).astype(np.float32)
+    A = torch.from_numpy(rng.standard_normal((d, n)).astype(np.float32) * D)
+    return A, A + 0.3 * torch.from_numpy(
+        rng.standard_normal((d, n)).astype(np.float32) * D)
+
+
+def _uvt_rel(got, want):
+    g = (got.U @ got.V.transpose(-1, -2)).cpu()
+    w = (want.U @ want.V.transpose(-1, -2)).cpu()
+    return float(torch.linalg.norm(g - w) / torch.linalg.norm(w))
+
+
+def _summaries(A, B, **kw):
+    from repro_torch.core.summary_engine import build_summary
+    return {where: build_summary(prng.PRNGKey(0), A, B, 512, backend="cuda",
+                                 device=where, **kw)
+            for where in ("cuda", "cpu")}
+
+
+@pytest.mark.parametrize("precision,dtype,tol", [
+    (None, torch.float32, 1e-5),
+    # a bf16 intermediate (B @ Omega, Psi @ A^T) may round to the
+    # neighbouring bf16 value (2^-8 of one term) when the card's float32
+    # sum of it differs in its last bit
+    ("bf16", torch.float32, 1e-3),
+    (None, torch.bfloat16, 1e-3)])
+def test_probe_and_cosketch_blocks_on_the_card_match_the_cpu(card, precision,
+                                                             dtype, tol):
+    from repro_torch.core.summary_engine import build_summary
+    A, B = (x.to(dtype) for x in _planted(d=1500, n=120))
+    ops.reset_launch_counts()
+    got = build_summary(prng.PRNGKey(1), A, B, 64, backend="cuda",
+                        precision=precision, probes=6, cosketch=4)
+    assert ops.LAUNCHES["sketch_fused"] == 2
+    want = build_summary(prng.PRNGKey(1), A, B, 64, backend="cuda",
+                         precision=precision, probes=6, cosketch=4,
+                         device="cpu")
+    for name in ("probes", "cosketch_Y", "cosketch_W"):
+        g, w = getattr(got, name).cpu(), getattr(want, name)
+        assert g.dtype == torch.float32
+        scale = w.abs().amax(dim=0)
+        assert bool(((g - w).abs() <= tol * scale).all()), name
+    for name in ("probe_omega", "cosketch_omega", "cosketch_psi"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("method,refine", [
+    ("rescaled_jl", None), ("lela_waltmin", None), ("direct_svd", None),
+    ("power", (0, "tropp")), ("power", (1, "power"))])
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_every_method_on_the_card_matches_the_cpu(card, method, refine,
+                                                  backend):
+    from repro_torch.core.estimation_engine import estimate_product
+    from repro_torch.core.refinement import RefineSpec
+    A, B = _planted()
+    summaries = _summaries(A, B, probes=8, cosketch=10)
+    kw = dict(method=method, backend=backend, m=20_000, T=6,
+              with_error=True,
+              refine=None if refine is None else RefineSpec(*refine))
+    if method == "lela_waltmin":
+        kw["exact_pair"] = (A, B)
+    ops.reset_launch_counts()
+    got = estimate_product(prng.PRNGKey(2), summaries["cuda"], 5, **kw)
+    assert ops.LAUNCHES["sampled_rescaled_dot"] == int(
+        method == "rescaled_jl" and backend == "cuda")
+    want = estimate_product(prng.PRNGKey(2), summaries["cpu"], 5,
+                            device="cpu", **kw)
+    assert got.factors.U.is_cuda
+    assert _uvt_rel(got.factors, want.factors) < UVT_TOL
+    torch.testing.assert_close(got.error.rel_est.cpu(), want.error.rel_est,
+                               rtol=UVT_TOL, atol=0)
+
+
+def test_svd_on_the_card_is_float32_accurate(card):
+    """The port's SVD (``core/linalg.svd``: cuSOLVER's gesvd on the card)
+    against float64 on a 200 x 200 matrix with a 1/i spectrum, square and
+    wide: singular values within 1e-6 of the largest, the reconstruction
+    within 2e-6. torch's default routine (gesvdj) gave 1.1e-5 and 3.0e-5
+    on this matrix."""
+    from repro_torch.core.linalg import svd
+    gen = torch.Generator().manual_seed(0)
+    D = 1.0 / torch.arange(1, 201).float()
+    M = (torch.randn(200, 200, generator=gen) * D) @ torch.randn(
+        200, 200, generator=gen)
+    W = torch.randn(13, 20_000, generator=gen) * torch.logspace(
+        0, -3, 13)[:, None]
+    for X in (M, W):
+        U, s, Vh = svd(X.to(card))
+        X64 = X.double()
+        s64 = torch.linalg.svdvals(X64)
+        assert float(((s.cpu().double() - s64).abs()).max() / s64[0]) < 1e-6
+        rec = ((U * s) @ Vh).cpu().double()
+        assert float((rec - X64).norm() / X64.norm()) < 2e-6
+
+
+def test_lstsq_on_the_card_matches_the_cpu(card):
+    """torch.linalg.lstsq on CUDA has only the 'gels' routine (full rank
+    assumed): the tall (2s + 1, s) system of Tropp's reconstruction is."""
+    from repro_torch.core import refinement
+    A, B = _planted()
+    s = _summaries(A, B, cosketch=10)
+    Q = {w: torch.linalg.qr(x.cosketch_Y).Q for w, x in s.items()}
+    X = {w: torch.linalg.lstsq(x.cosketch_psi @ Q[w], x.cosketch_W).solution
+         for w, x in s.items()}
+    got, want = Q["cuda"] @ X["cuda"], Q["cpu"] @ X["cpu"]
+    assert float(torch.linalg.norm(got.cpu() - want)
+                 / torch.linalg.norm(want)) < 1e-4
+    for spec in (refinement.RefineSpec(0, "tropp"),
+                 refinement.RefineSpec(2, "power")):
+        assert _uvt_rel(refinement.refine_factors(s["cuda"], 5, spec),
+                        refinement.refine_factors(s["cpu"], 5, spec)) < 1e-4
+
+
+@pytest.mark.parametrize("refine", [None, (0, "tropp"), (1, "power")])
+def test_error_gate_on_the_card_matches_the_cpu(card, refine):
+    """The gate on one summary (the CPU's, moved to the card), so that only
+    its own SVD, QR, least squares and sums run on the two devices: the
+    same rank, the curve's squares (cumulative sums of terms as large as
+    the probes' energy, which the curve divides out) within 1e-5, the
+    estimates within 1e-4 of themselves."""
+    from repro_torch.core import error_engine
+    from repro_torch.core.refinement import RefineSpec
+    from repro_torch.core.summary_engine import build_summary
+    from repro_torch.core.types import SketchSummary
+    A, B = _planted()
+    want_s = build_summary(prng.PRNGKey(0), A, B, 512, backend="cuda",
+                           probes=16, cosketch=10, device="cpu")
+    got_s = SketchSummary(*(x.to(card) for x in want_s))
+    spec = None if refine is None else RefineSpec(*refine)
+    got = error_engine.adaptive_rank(got_s, tol=0.2, r_max=10, refine=spec)
+    want = error_engine.adaptive_rank(want_s, tol=0.2, r_max=10,
+                                      refine=spec)
+    assert got.r == want.r and got.curve.is_cuda
+    sq_diff = (got.curve.cpu() ** 2 - want.curve ** 2).abs()
+    assert float(sq_diff.max()) <= 1e-5
+    for g, w in zip(got.error, want.error):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=0)
+
+
+def test_batched_on_the_card_matches_the_looped_cpu(card):
+    from repro_torch.core.estimation_engine import estimate_product
+    from repro_torch.core.summary_engine import build_summary
+    from repro_torch.core.types import tree_index
+    pairs = [_planted(seed, d=800, n=60) for seed in range(3)]
+    A = torch.stack([a for a, _ in pairs])
+    B = torch.stack([b for _, b in pairs])
+    ops.reset_launch_counts()
+    s = build_summary(prng.PRNGKey(3), A, B, 128, backend="cuda", probes=4,
+                      cosketch=3)
+    got = estimate_product(prng.PRNGKey(4), s, 3, m=5000, T=4,
+                           with_error=True)
+    assert ops.LAUNCHES["sketch_fused"] == 6
+    assert ops.LAUNCHES["sampled_rescaled_dot"] == 3
+    keys, est_keys = prng.split(prng.PRNGKey(3), 3), prng.split(
+        prng.PRNGKey(4), 3)
+    for i in range(3):
+        one = build_summary(keys[i], A[i], B[i], 128, backend="cuda",
+                            probes=4, cosketch=3, device="cpu")
+        want = estimate_product(est_keys[i], one, 3, m=5000, T=4,
+                                with_error=True, device="cpu")
+        assert _uvt_rel(tree_index(got.factors, i), want.factors) < UVT_TOL
+
+
+def test_baselines_on_the_card_match_the_cpu(card):
+    from repro_torch.core import baselines, lela
+    A, B = _planted()
+    for fn in (lambda dev: lela.lela(prng.PRNGKey(5), A, B, r=5, m=20_000,
+                                     T=6, device=dev),
+               lambda dev: baselines.sketch_svd(prng.PRNGKey(5), A, B, r=5,
+                                                k=512, device=dev),
+               lambda dev: baselines.product_of_pcas(prng.PRNGKey(5), A, B,
+                                                     5, device=dev),
+               lambda dev: baselines.optimal_rank_r(A, B, 5, device=dev)):
+        assert _uvt_rel(fn("cuda"), fn("cpu")) < UVT_TOL
+
+
+def test_binomial_sampler_on_the_card_matches_the_cpu(card):
+    from repro_torch.core import sampling
+    A, B = _planted()
+    na, nb = A.norm(dim=0), B.norm(dim=0)
+    got = sampling.sample_entries_binomial(prng.PRNGKey(6), na.cuda(),
+                                           nb.cuda(), 4000)
+    want = sampling.sample_entries_binomial(prng.PRNGKey(6), na, nb, 4000)
+    for name in ("rows", "cols", "mask"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+
+
 @pytest.mark.parametrize("dh", flash_attention.HEAD_DIMS)
 @pytest.mark.parametrize("bq,bk", tuning.TILE_MENUS["flash_attention"])
 def test_flash_kernel_matches_plain(card, bq, bk, dh):

@@ -20,6 +20,7 @@ from repro.core import summary_engine as jax_summary
 from repro.kernels import ops as jax_ops
 from repro_torch import convert, prng
 from repro_torch.core import estimation_engine, estimator, sampling, waltmin
+from repro_torch.core.refinement import RefineSpec
 from repro_torch.core.types import SampleSet
 from repro_torch.kernels import ops, sampled_dot
 
@@ -244,11 +245,42 @@ def test_estimate_product_matches_jax(backend):
 
 
 def test_unported_methods_raise():
+    """Every method of the JAX package is ported now; what is left is its
+    guards, in its order: lela_waltmin without exact_pair, power without a
+    co-sketch and refine= on another method raise its ValueError, and so do
+    an unknown method and backend."""
     _, ts = _summary()
-    for method in ("lela_waltmin", "direct_svd", "power"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            estimation_engine.estimate_product(prng.PRNGKey(0), ts, 2,
-                                               method=method, device="cpu")
+    key = prng.PRNGKey(0)
+    with pytest.raises(ValueError, match="exact_pair"):
+        estimation_engine.estimate_product(key, ts, 2, method="lela_waltmin",
+                                           m=50, T=1, device="cpu")
+    with pytest.raises(ValueError, match="co-sketch"):
+        estimation_engine.estimate_product(key, ts, 2, method="power",
+                                           device="cpu")
+    for method in ("rescaled_jl", "lela_waltmin", "direct_svd"):
+        with pytest.raises(ValueError, match="refine"):
+            estimation_engine.estimate_product(key, ts, 2, method=method,
+                                               refine=RefineSpec(),
+                                               device="cpu")
+    with pytest.raises(TypeError, match="RefineSpec"):
+        estimation_engine.estimate_product(
+            key, ts._replace(cosketch_Y=ts.A_sketch.T, cosketch_W=ts.B_sketch,
+                             cosketch_psi=ts.A_sketch), 2, method="power",
+            refine=("tropp", 0), device="cpu")
+    with pytest.raises(ValueError, match="method"):
+        estimation_engine.estimate_product(key, ts, 2, method="cur",
+                                           device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        estimation_engine.estimate_product(key, ts, 2, backend="pallas",
+                                           device="cpu")
+    # the sampling methods refuse a zero factor before they sample
+    zero = ts._replace(norm_A=torch.zeros_like(ts.norm_A))
+    for method, extra in (("rescaled_jl", {}),
+                          ("lela_waltmin", {"exact_pair": (None, None)})):
+        with pytest.raises(ValueError, match="zero norm"):
+            estimation_engine.estimate_product(key, zero, 2, method=method,
+                                               m=50, T=1, device="cpu",
+                                               **extra)
 
 
 def test_samples_convert_both_ways_exactly():

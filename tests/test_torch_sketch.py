@@ -133,29 +133,31 @@ def test_summary_backends_agree_and_merge():
 
 def test_unported_summary_options_raise():
     """What is still unported raises and names ROADMAP.md: the distributed
-    backend, batched input, probes and co-sketch; an unknown method or
-    backend is a ValueError."""
-    A, B = torch.zeros(8, 3), torch.zeros(8, 2)
+    backend. Merging summaries of which only one carries a probe or
+    co-sketch block is a ValueError, as in the JAX package; so are an
+    unknown method or backend and mismatched shapes."""
+    A, B = torch.randn(8, 3), torch.randn(8, 2)
     key = prng.PRNGKey(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         summary_engine.build_summary(key, A, B, 4, backend="distributed",
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        summary_engine.build_summary(key, A, B, 4, probes=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        summary_engine.build_summary(key, A, B, 4, cosketch=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        summary_engine.build_summary(key, A[None], B[None], 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        summary_engine.build_summary(key, A[None], B[None], 4,
-                                     method="srht", backend="scan",
-                                     device="cpu")
+    bare = summary_engine.build_summary(key, A, B, 4, device="cpu")
+    for blocks, what in ((dict(probes=2), "probe"),
+                         (dict(cosketch=2), "cosketch")):
+        full = summary_engine.build_summary(key, A, B, 4, device="cpu",
+                                            **blocks)
+        for a, b in ((bare, full), (full, bare)):
+            with pytest.raises(ValueError, match=what):
+                sketch.merge_summaries(a, b)
     with pytest.raises(ValueError, match="backend"):
         summary_engine.build_summary(key, A, B, 4, backend="pallas",
                                      device="cpu")
     with pytest.raises(ValueError, match="method"):
         summary_engine.build_summary(key, A, B, 4, method="countsketch",
                                      device="cpu")
+    with pytest.raises(ValueError, match="disagree"):
+        summary_engine.build_summary(key, A[None], B[None].repeat(2, 1, 1),
+                                     4, device="cpu")
 
 
 def test_summary_converts_both_ways_exactly():
