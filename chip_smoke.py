@@ -62,26 +62,45 @@ fails; nothing is caught:
    then card against CPU at d = 2,000, n = 200: every method on both
    backends, both gates, a batched L = 3 summary and estimate against the
    looped ones, and the Bernoulli sampler;
-10. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
+10. the streaming path at the same full width, on the same A and B, with
+    16 probes and a co-sketch of 10 (``repro_torch.core.streaming``, two
+    ``sketch_fused`` launches a chunk): sequential ingestion, Gaussian and
+    SRHT, at chunks of 1,024, 4,096 and 16,384 rows (time per chunk, rows
+    per second, launches, added memory), each against the one-shot
+    ``cuda`` summary (``SKETCH_TOL`` per column) and bit for bit against
+    the ``scan`` backend at ``block`` = chunk; the rescaled-JL estimate
+    from the streamed summary (probe residual under ``PROBE_RESIDUAL_MAX``
+    and within 5% of the one-shot summary's); ``tree_merge`` of per-chunk
+    partial states; shuffled arrival (``update_rows``, 1,024-row chunks);
+    ``ingest`` from host memory (as many rows as the host's free memory
+    holds) with prefetch 0 and 2, bit for bit against the update loop, with
+    rows per second and host-to-device GB/s; decay 0.9 (one tick a chunk,
+    ``decay(merge) == merge(decay)`` bit for bit) and a 4-bucket window
+    (bit for bit against its rebuilt live buckets, and its estimate); the
+    wire format (bytes, ``wire_error``, the gate at 1e-2, the f32 round
+    trip bit for bit); checkpoints after 6 of 13 chunks, plain (resumed bit
+    for bit) and int8 (within its ``wire_error``), timed; ``stream ...``
+    lines;
+11. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
     plain version on the JAX test shapes (causal and not, float32 and bf16,
     every compiled tile) and at S = 4,096 with granite-3-8b's 32 query and 8
     KV heads of 128, all at ``FLASH_TOL``;
-11. the attention path at full width: one granite-3-8b attention layer at
+12. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
     read after it), against the plain version on every row, then bf16 and
     non-causal the same way;
-12. kernel 4's timings: every compiled tile at S = 32,768, float32 and
+13. kernel 4's timings: every compiled tile at S = 32,768, float32 and
     bf16; at S = 32,768 and 4,096, float32 and bf16, beside its plain
     version, ``scaled_dot_product_attention`` and its bound: float32 on the
     TF32 tensor cores (three split passes per product), with the float32
     FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
     this design's two TF32 passes beside it;
-13. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
+14. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
     after;
-14. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+15. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -92,6 +111,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -168,6 +188,25 @@ GATE_TOL, GATE_R_MAX = 0.2, 10
 # decides whether the whole call runs (under 60 s), or LELA on the first
 # 4,096 rows of A and B at the full n and m.
 LELA_PROBE, LELA_FULL_S, LELA_ROWS = 1 << 20, 60.0, 4096
+# The streaming phase at full width: the JAX benchmark's streaming_sweep
+# chunk sizes (benchmarks/run.py:457) with 4,096 the default; the streamed
+# estimate's probe residual within 5% of the one-shot summary's; shuffled
+# arrival at the sweep's shuffled_rows/chunk1024; ingest's copy ring two
+# chunks deep; decay 0.9 with one tick a chunk; a window of 4 epochs of
+# 12,500 rows, filled with all d rows, then slid twice (the two oldest
+# epochs expire); the wire gate at 1e-2; checkpoints after 6 of the 13
+# chunks.
+STREAM_CHUNKS, STREAM_CHUNK = (1024, 4096, 16384), 4096
+STREAM_RESID_REL = 0.05
+STREAM_SHUFFLE_CHUNK, STREAM_SHUFFLE_SEED = 1024, 19
+STREAM_PREFETCH = 2
+STREAM_DECAY = 0.9
+STREAM_BUCKETS, STREAM_EPOCH, STREAM_SLIDES = 4, 12_500, 2
+WIRE_TOL = 1e-2
+STREAM_CKPT_CHUNKS = 6
+# Host memory left free beside the host copy of A and B and the pinned
+# staging ring (the process, the allocator and the page cache).
+HOST_SPARE_BYTES = 8 * 10 ** 9
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -556,6 +595,35 @@ def timed(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
+def timed_host(fn) -> float:
+    """Wall ms of ``fn`` on the host clock (host-only work)."""
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def host_copy(X, rows: int, chunk: int) -> np.ndarray:
+    """The first ``rows`` rows of a card tensor as a pageable numpy array,
+    copied ``chunk`` rows at a time through one pinned buffer (a copy
+    straight to pageable memory runs at a fraction of the rate)."""
+    out = np.empty((rows, X.shape[1]), dtype=np.float32)
+    bounce = torch.empty((chunk, X.shape[1]), pin_memory=True)
+    for lo in range(0, rows, chunk):
+        hi = min(rows, lo + chunk)
+        bounce[:hi - lo].copy_(X[lo:hi])
+        torch.from_numpy(out[lo:hi]).copy_(bounce[:hi - lo])
+    return out
+
+
+def host_mem_available() -> int:
+    """The host's available memory in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
 def column_err(got, want) -> float:
     """Largest error of any column relative to that column's largest
     entry."""
@@ -727,6 +795,408 @@ def engine_full_width(ops, key, A, B, k, r, m, T, gen, waltmin_ms, dev):
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print("engine lela " + json.dumps(out["lela"]), flush=True)
     return out
+
+
+def _fields_equal(x, y) -> dict:
+    """{field: torch.equal} over the non-None fields of two NamedTuples."""
+    return {name: bool(torch.equal(a, b))
+            for name, a, b in zip(x._fields, x, y) if a is not None}
+
+
+def stream_full_width(ops, key, A, B, k, r, m, T, gen, dev, card):
+    """The streaming path at the slice's full width, on the same A and B
+    (the module docstring's phase 10). Returns the launch counts of the
+    default pass (Gaussian, STREAM_CHUNK rows a chunk)."""
+    from repro_torch import prng
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.core import (
+        error_engine, estimation_engine, refinement, streaming,
+        summary_engine)
+    phase_t0 = time.perf_counter()
+    d, n = A.shape
+    k_sketch, k_sample, _ = prng.split(key, 3)
+    k_est = prng.fold_in(k_sample, 0)
+    W = torch.randn(n, 8, generator=gen, device=dev)   # one probe set here
+
+    def resid(A_, B_, factors):
+        AtBW = A_.T @ (B_ @ W)
+        return float(torch.linalg.norm(AtBW - factors.U @ (factors.V.T @ W))
+                     / torch.linalg.norm(AtBW))
+
+    def summarizer(method="gaussian", **kw):
+        return streaming.StreamingSummarizer(k, method=method, probes=PROBES,
+                                             cosketch=COSKETCH, **kw)
+
+    def chunks(lo, hi, c):
+        return [(off, min(hi, off + c)) for off in range(lo, hi, c)]
+
+    def emit(name, rec):
+        print(f"stream {name} [{card}] " + json.dumps(rec), flush=True)
+
+    # 1. sequential ingestion, both methods, every chunk size: the kernel
+    # twice a chunk, against the one-shot cuda summary (tolerance) and the
+    # scan backend at block = c on the card (bit for bit)
+    one_shot, seq_4096 = {}, None
+    for method in ("gaussian", "srht"):
+        one = summary_engine.build_summary(
+            k_sketch, A, B, k, method=method, backend="cuda", probes=PROBES,
+            cosketch=COSKETCH, device=dev)
+        one_shot[method] = one
+        for c in STREAM_CHUNKS:
+            summ = summarizer(method)
+            spans = chunks(0, d, c)
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(len(spans) + 1)]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = summ.init(k_sketch, (d, n, n))
+            for i, (lo, hi) in enumerate(spans):
+                events[i].record()
+                state = summ.update(state, A[lo:hi], B[lo:hi], lo)
+            events[-1].record()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            launches = dict(ops.LAUNCHES)
+            added_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            check(launches == {"sketch_fused": 2 * len(spans),
+                               "sampled_rescaled_dot": 0, "blocked_fwht": 0,
+                               "flash_attention": 0},
+                  f"stream {method} c={c}: launches {launches}")
+            chunk_ms = [events[i].elapsed_time(events[i + 1])
+                        for i in range(len(spans))]
+            fin = summ.finalize(state)
+            errs = {"A_sketch": column_err(fin.A_sketch, one.A_sketch),
+                    "B_sketch": column_err(fin.B_sketch, one.B_sketch),
+                    "norm2": float(((fin.norm_A ** 2 - one.norm_A ** 2).abs()
+                                    / one.norm_A ** 2).max()),
+                    "probes": column_err(fin.probes, one.probes),
+                    "cosketch_Y": column_err(fin.cosketch_Y, one.cosketch_Y),
+                    "cosketch_W": column_err(fin.cosketch_W, one.cosketch_W)}
+            tols = {"A_sketch": SKETCH_TOL, "B_sketch": SKETCH_TOL,
+                    "norm2": SKETCH_TOL, "probes": BLOCK_TOL,
+                    "cosketch_Y": BLOCK_TOL, "cosketch_W": W_TOL}
+            for name, err in errs.items():
+                check(err <= tols[name], f"stream {method} c={c} {name} "
+                      f"against the one-shot cuda summary: {err}")
+            scan = summary_engine.build_summary(
+                k_sketch, A, B, k, method=method, backend="scan", block=c,
+                probes=PROBES, cosketch=COSKETCH, device=dev)
+            equal = _fields_equal(fin, scan)
+            check(all(equal[f] for f in ("A_sketch", "B_sketch", "norm_A",
+                                         "norm_B")),
+                  f"stream {method} c={c} bit-identical to scan: {equal}")
+            for f in ("probes", "cosketch_Y", "cosketch_W"):
+                check(column_err(getattr(fin, f), getattr(scan, f))
+                      <= tols[f], f"stream {method} c={c} {f} against scan")
+            del scan
+            emit(f"{method} c={c}", dict(
+                d=d, n=n, k=k, chunks=len(spans), launches=launches,
+                total_ms=wall_ms, chunk_ms_mean=sum(chunk_ms) / len(chunk_ms),
+                chunk_ms_min=min(chunk_ms), chunk_ms_max=max(chunk_ms),
+                rows_per_s=d / (wall_ms / 1e3), added_peak_gb=added_gb,
+                err_vs_one_shot=errs, bitwise_vs_scan=equal))
+            if method == "gaussian" and c == STREAM_CHUNK:
+                seq_4096, seq_fin = state, fin
+                main_launches = launches
+            del state, fin
+    del one_shot["srht"]
+    torch.cuda.empty_cache()
+
+    # each chunk's work apart (CUDA events): the projection rows, one
+    # sketch_fused launch, the probe and co-sketch products, and one
+    # (k, n) accumulator add, the traffic an accumulating kernel would save
+    omega, c_omega, c_psi = (seq_4096.omega, seq_4096.cosketch_omega,
+                             seq_4096.cosketch_psi)
+    acc_add_ms = cuda_ms(lambda: seq_4096.A_acc + seq_4096.B_acc, 5)
+    for c in STREAM_CHUNKS:
+        gids = torch.arange(c, device=dev)
+        P = summary_engine.projection_rows(k_sketch, gids, k).T.contiguous()
+        Ac, Bc = A[:c], B[:c]
+        split = {
+            "projection_ms": cuda_ms(lambda: summary_engine.projection_rows(
+                k_sketch, gids, k), 3),
+            "sketch_fused_ms": cuda_ms(lambda: ops.sketch_fused(
+                P, Ac, squared=True), 3),
+            "probes_ms": cuda_ms(lambda: error_engine.probe_contribution(
+                omega, Ac, Bc), 3),
+            "cosketch_ms": cuda_ms(lambda: refinement.cosketch_contribution(
+                c_omega, c_psi, Ac, Bc), 3),
+            "acc_add_ms": acc_add_ms}
+        split["two_adds_over_two_launches"] = \
+            acc_add_ms / split["sketch_fused_ms"]
+        emit(f"chunk_split c={c}", split)
+        del P
+
+    # 2. the estimate from the streamed summary against the one-shot one
+    ests = {}
+    for name, summary in (("stream", seq_fin), ("one_shot",
+                                                one_shot["gaussian"])):
+        res, ms = timed(lambda: estimation_engine.estimate_product(
+            k_est, summary, r, m=m, T=T, backend="cuda", with_error=True,
+            device=dev))
+        ests[name] = dict(ms=ms, probe_residual=resid(A, B, res.factors),
+                          rel_est=float(res.error.rel_est))
+        del res
+    rs, ro = ests["stream"]["probe_residual"], ests["one_shot"]["probe_residual"]
+    emit("estimate", dict(chunk=STREAM_CHUNK, **ests))
+    check(rs < PROBE_RESIDUAL_MAX, f"streamed estimate residual {rs}")
+    check(abs(rs - ro) <= STREAM_RESID_REL * ro,
+          f"streamed residual {rs} not within 5% of the one-shot {ro}")
+    del one_shot
+
+    # 3. tree_merge of per-chunk partial states
+    summ = summarizer()
+    spans = chunks(0, d, STREAM_CHUNK)
+    empty = summ.init(k_sketch, (d, n, n))
+    parts = [summ.update(empty, A[lo:hi], B[lo:hi], lo) for lo, hi in spans]
+    merged, ms = timed(lambda: streaming.tree_merge(parts))
+    del parts
+    fin = summ.finalize(merged)
+    err = max(column_err(fin.A_sketch, seq_fin.A_sketch),
+              column_err(fin.B_sketch, seq_fin.B_sketch),
+              column_err(fin.probes, seq_fin.probes))
+    emit("tree_merge", dict(parts=len(spans), ms=ms, err_vs_sequential=err,
+                            rows_seen=int(merged.rows_seen)))
+    check(err <= SKETCH_TOL and int(merged.rows_seen) == d,
+          f"tree_merge against the sequential state: {err}")
+    del merged, fin
+
+    # 4. shuffled arrival: update_rows in a seeded order, 1,024-row chunks
+    order = torch.Generator(device=dev)
+    order.manual_seed(STREAM_SHUFFLE_SEED)
+    perm = torch.randperm(d, generator=order, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = summ.init(k_sketch, (d, n, n))
+    for lo in range(0, d, STREAM_SHUFFLE_CHUNK):
+        ids = perm[lo:lo + STREAM_SHUFFLE_CHUNK]
+        state = summ.update_rows(state, ids, A[ids], B[ids])
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    fin = summ.finalize(state)
+    err = max(column_err(fin.A_sketch, seq_fin.A_sketch),
+              column_err(fin.B_sketch, seq_fin.B_sketch))
+    emit(f"shuffled_rows c={STREAM_SHUFFLE_CHUNK}", dict(
+        total_ms=wall_ms, rows_per_s=d / (wall_ms / 1e3),
+        launches=dict(ops.LAUNCHES), err_vs_sequential=err,
+        row_high=int(state.row_high)))
+    check(err <= SKETCH_TOL and int(state.row_high) == d,
+          f"shuffled arrival against the sequential state: {err}")
+    del state, fin, perm
+
+    # 5. host ingest through the pinned ring and the copy stream; the host
+    # copy of A and B is cut to the rows the host's free memory holds
+    ring_bytes = (STREAM_PREFETCH + 1) * 2 * STREAM_CHUNK * n * 4
+    avail = host_mem_available()
+    fit = (avail - ring_bytes - HOST_SPARE_BYTES) // (2 * n * 4)
+    rows = int(min(d, fit // STREAM_CHUNK * STREAM_CHUNK))
+    check(rows > 0, f"host memory {avail} holds no {STREAM_CHUNK}-row chunk")
+    t0 = time.perf_counter()
+    A_host, B_host = (host_copy(X, rows, STREAM_CHUNK) for X in (A, B))
+    to_host_s = time.perf_counter() - t0
+    # the ring's pinned buffers, allocated once here: PyTorch's caching
+    # host allocator keeps them, so both ingests below reuse them and
+    # measure the steady state; the pinning itself is timed apart
+    t0 = time.perf_counter()
+    ring = [torch.empty((STREAM_CHUNK, n), pin_memory=True)
+            for _ in range(2 * (STREAM_PREFETCH + 1))]
+    pin_s = time.perf_counter() - t0
+    del ring
+    spans = chunks(0, rows, STREAM_CHUNK)
+    if rows == d:
+        ref = seq_4096
+    else:
+        ref = summ.init(k_sketch, (d, n, n))
+        for lo, hi in spans:
+            ref = summ.update(ref, A[lo:hi], B[lo:hi], lo)
+    # the two copies alone: pageable to pinned on the host, pinned to card
+    pinned = torch.empty((STREAM_CHUNK, n), pin_memory=True)
+    host_gbps = pinned.nbytes / 1e9 / (timed_host(
+        lambda: pinned.copy_(torch.from_numpy(A_host[:STREAM_CHUNK]))) / 1e3)
+    pinned.to(dev)
+    h2d_gbps = pinned.nbytes / 1e9 / (cuda_ms(
+        lambda: pinned.to(dev, non_blocking=True), 3) / 1e3)
+    del pinned
+    ing = dict(rows=rows, d=d, host_mem_available_gb=avail / 1e9,
+               host_copy_of_A_B_s=to_host_s, chunk=STREAM_CHUNK,
+               ring_pinned_gb=2 * (STREAM_PREFETCH + 1) * STREAM_CHUNK * n
+               * 4 / 1e9, ring_pin_s=pin_s,
+               pageable_to_pinned_gbps=host_gbps, pinned_h2d_gbps=h2d_gbps)
+    for prefetch in (0, STREAM_PREFETCH):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = summ.ingest(summ.init(k_sketch, (d, n, n)),
+                          ((A_host[lo:hi], B_host[lo:hi])
+                           for lo, hi in spans), prefetch=prefetch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        equal = _fields_equal(got, ref)
+        ing[f"prefetch{prefetch}"] = dict(
+            s=wall, rows_per_s=rows / wall,
+            h2d_gbps=2 * rows * n * 4 / 1e9 / wall,
+            launches=ops.LAUNCHES["sketch_fused"],
+            bitwise_vs_update_loop=all(equal.values()))
+        check(all(equal.values()),
+              f"ingest prefetch={prefetch} bit-identical to the update loop: "
+              f"{equal}")
+        del got
+    emit("ingest", ing)
+    del A_host, B_host, ref
+    torch.cuda.empty_cache()
+
+    # 6. decay (one tick a chunk) and the window ring
+    dec = summarizer(decay=STREAM_DECAY)
+    spans = chunks(0, d, STREAM_CHUNK)
+    half = len(spans) // 2
+    parts = []
+    t0 = time.perf_counter()
+    for group in (spans[:half], spans[half:]):
+        s = dec.init(k_sketch, (d, n, n))
+        for lo, hi in group:
+            s = dec.advance(dec.update(s, A[lo:hi], B[lo:hi], lo))
+        parts.append(s)
+    torch.cuda.synchronize()
+    decay_ms = 1e3 * (time.perf_counter() - t0)
+    lhs = streaming.decay_state(streaming.merge_states(*parts), 3)
+    rhs = streaming.merge_states(*(streaming.decay_state(s, 3)
+                                   for s in parts))
+    law = _fields_equal(lhs, rhs)
+    law_fin = _fields_equal(streaming.finalize_state(lhs),
+                            streaming.finalize_state(rhs))
+    check(all(law.values()) and all(law_fin.values()),
+          f"decay(merge) == merge(decay) bit for bit: {law} {law_fin}")
+    emit("decay", dict(decay=STREAM_DECAY, ticks_per_chunk=1, ms=decay_ms,
+                       t_state=int(lhs.t_state),
+                       law_bitwise=all(law.values())))
+    del parts, lhs, rhs, s
+
+    win = streaming.WindowedSummarizer(k, STREAM_BUCKETS, probes=PROBES,
+                                       cosketch=COSKETCH)
+    epochs = chunks(0, d, STREAM_EPOCH)
+    w = win.init(k_sketch, (STREAM_EPOCH, n, n))
+    log = {}
+    t0 = time.perf_counter()
+    for i, (e_lo, e_hi) in enumerate(epochs):
+        if i:
+            w = win.slide(w)
+        for lo, hi in chunks(e_lo, e_hi, STREAM_CHUNK):
+            w = win.update(w, A[lo:hi], B[lo:hi], lo - e_lo)
+            log.setdefault(int(w.head), []).append((lo, hi, e_lo))
+    w = win.slide(w, STREAM_SLIDES)
+    torch.cuda.synchronize()
+    window_ms = 1e3 * (time.perf_counter() - t0)
+    head = int(w.head)
+    live = [e for e in range(head - STREAM_BUCKETS + 1, head + 1)]
+    inner = streaming.StreamingSummarizer(k, probes=PROBES,
+                                          cosketch=COSKETCH)
+    ref0 = w.buckets[0]
+    rebuilt = []
+    for e in live:
+        b = inner.init(streaming.window_bucket_key(k_sketch, e),
+                       (STREAM_EPOCH, n, n))._replace(
+            omega=ref0.omega, cosketch_omega=ref0.cosketch_omega,
+            cosketch_psi=ref0.cosketch_psi)
+        for lo, hi, e_lo in log.get(e, []):
+            b = inner.update(b, A[lo:hi], B[lo:hi], lo - e_lo)
+        rebuilt.append(b)
+    merged = win.merged(w)
+    equal = _fields_equal(merged, streaming.tree_merge(rebuilt))
+    check(all(equal.values()),
+          f"window bit-identical to its rebuilt live buckets: {equal}")
+    del rebuilt
+    live_rows = [span for e in live for span in log.get(e, [])]
+    lo_live = min(lo for lo, _, _ in live_rows)
+    hi_live = max(hi for _, hi, _ in live_rows)
+    res, ms = timed(lambda: estimation_engine.estimate_product(
+        k_est, win.finalize(w), r, m=m, T=T, backend="cuda", with_error=True,
+        device=dev))
+    wres = resid(A[lo_live:hi_live], B[lo_live:hi_live], res.factors)
+    emit("window", dict(
+        n_buckets=STREAM_BUCKETS, epoch_rows=STREAM_EPOCH,
+        epochs_filled=len(epochs), slides_after=STREAM_SLIDES, head=head,
+        live_rows=[lo_live, hi_live], rows_seen=int(merged.rows_seen),
+        ms=window_ms, bitwise_vs_rebuilt=all(equal.values()),
+        estimate_ms=ms, probe_residual=wres,
+        rel_est=float(res.error.rel_est)))
+    check(int(merged.rows_seen) == hi_live - lo_live,
+          "the window holds the live epochs' rows only")
+    check(wres < PROBE_RESIDUAL_MAX, f"window estimate residual {wres}")
+    del w, merged, res
+
+    # 7. the wire format on the sequential state
+    wire = {}
+    for spec in streaming.WIRE_DTYPES:
+        comp, ms = timed(lambda: streaming.compress_state(seq_4096, spec))
+        wire[spec] = dict(wire_bytes=streaming.wire_bytes(comp),
+                          compress_ms=ms,
+                          wire_error=streaming.wire_error(seq_4096, spec))
+        if spec == "f32":
+            back = streaming.decompress_state(comp)
+            equal = _fields_equal(back, seq_4096)
+            check(all(equal.values()), f"f32 wire round trip: {equal}")
+            del back
+        del comp
+    chosen, err = streaming.choose_wire_spec(seq_4096, tol=WIRE_TOL)
+    packed, ms = timed(lambda: streaming.wire_pack(
+        streaming.compress_state(seq_4096, chosen)))
+    emit("wire", dict(specs=wire, choose_wire_spec_tol=WIRE_TOL,
+                      chosen=chosen.sketch, chosen_error=err,
+                      pack_bytes=len(packed), pack_ms=ms))
+    del packed
+
+    # 8. checkpoints after 6 of the 13 chunks: plain and int8, resumed
+    spans = chunks(0, d, STREAM_CHUNK)
+    state6 = summ.init(k_sketch, (d, n, n))
+    for lo, hi in spans[:STREAM_CKPT_CHUNKS]:
+        state6 = summ.update(state6, A[lo:hi], B[lo:hi], lo)
+    ck = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, wire_spec in (("plain", None), ("int8", "int8")):
+            path = os.path.join(tmp, label)
+            _, write_ms = timed(lambda: checkpoint.save_stream_state(
+                path, STREAM_CKPT_CHUNKS, state6, wire=wire_spec))
+            restored, read_ms = timed(lambda: checkpoint.restore_stream_state(
+                path, summ.init(k_sketch, (d, n, n))))
+            meta = checkpoint.read_manifest(path)["extra"]
+            resumed = summ.ingest(restored, ((A[lo:hi], B[lo:hi])
+                                             for lo, hi in
+                                             spans[STREAM_CKPT_CHUNKS:]))
+            rec = dict(write_ms=write_ms, read_ms=read_ms,
+                       rows_seen=meta["rows_seen"],
+                       disk_bytes=sum(os.path.getsize(os.path.join(r_, f))
+                                      for r_, _, fs in os.walk(path)
+                                      for f in fs))
+            if wire_spec is None:
+                equal = _fields_equal(summ.finalize(resumed), seq_fin)
+                rec["bitwise_vs_uninterrupted"] = all(equal.values())
+                check(all(equal.values()),
+                      f"plain checkpoint resume bit-identical: {equal}")
+            else:
+                dev_ = (resumed.A_acc.T @ (resumed.B_acc @ seq_4096.omega)
+                        - seq_4096.A_acc.T @ (seq_4096.B_acc
+                                              @ seq_4096.omega))
+                wn2 = (seq_4096.omega ** 2).sum(dim=0)
+                rel = float(torch.sqrt(((dev_ ** 2).sum(dim=0) / wn2).mean())
+                            / torch.sqrt(((seq_4096.probe_acc ** 2).sum(dim=0)
+                                          / wn2).mean()))
+                rec.update(wire_error=meta["wire"]["error"],
+                           resumed_rel_err=rel)
+                check(rel <= meta["wire"]["error"],
+                      f"int8 checkpoint resume {rel} within its wire_error "
+                      f"{meta['wire']['error']}")
+            ck[label] = rec
+            del restored, resumed
+    emit("checkpoint", dict(after_chunks=STREAM_CKPT_CHUNKS,
+                            of_chunks=len(spans), **ck))
+    del state6, seq_4096, seq_fin
+    torch.cuda.empty_cache()
+    print(f"stream phase [{card}]: {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return main_launches
 
 
 def engine_small(seed, r, dev):
@@ -1162,10 +1632,14 @@ def main(argv=None) -> int:
           flush=True)
     torch.cuda.empty_cache()
 
+    # 10. the streaming path at full width ----------------------------------
+    launches_stream = stream_full_width(ops, key, A, B, k, r, m, T, gen,
+                                           dev, card)
+
     del A, B, X3, signs, plan_rows
     torch.cuda.empty_cache()
 
-    # 10. kernel 4 against its plain version ---------------------------------
+    # 11. kernel 4 against its plain version ---------------------------------
     fa = ops.KERNELS["flash_attention"]
     for shape in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
                   (1, 384, 3, 3, 64)):       # tests/kernels/test_flash_attention.py
@@ -1184,7 +1658,7 @@ def main(argv=None) -> int:
             flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype), causal,
                         f"S={S_TRAIN}")
 
-    # 11. the attention path at full width ----------------------------------
+    # 12. the attention path at full width ----------------------------------
     q, kk, v = attention_inputs(gen, S_FULL, HEADS, KV_HEADS, HEAD_DIM, dev)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1209,7 +1683,7 @@ def main(argv=None) -> int:
     flash_check(ops, q.to(torch.bfloat16), kk.to(torch.bfloat16),
                 v.to(torch.bfloat16), False, "full width")
 
-    # 12. kernel 4's timings ------------------------------------------------
+    # 13. kernel 4's timings ------------------------------------------------
     # every compiled tile at the full width, float32 and bf16, one call each
     # after a warm-up (the tuner below measures only its model's best three)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1261,7 +1735,7 @@ def main(argv=None) -> int:
     del q, kk, v
     torch.cuda.empty_cache()
 
-    # 13. the kernel tuner --------------------------------------------------
+    # 14. the kernel tuner --------------------------------------------------
     ops.reset_launch_counts()
     for kernel, shapes in TUNE_SHAPES.items():
         for shape in shapes:
@@ -1278,14 +1752,15 @@ def main(argv=None) -> int:
     check(all(launches_tune[name] > 0 for name in ops.KERNELS),
           f"the tuner launched every kernel: {launches_tune}")
 
-    # 14. the kernels line and the last line --------------------------------
+    # 15. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
-    # each kernel's launches on the path that runs it: the Gaussian path
-    # for kernels 1 and 2, the SRHT path for kernel 3, the attention call
-    # for kernel 4
+    # each kernel's launches on the paths that run it: the Gaussian path
+    # and the stream's 4,096-row pass for kernel 1, the Gaussian path for
+    # kernel 2, the SRHT path for kernel 3, the attention call for kernel 4
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
+    path_launches["sketch_fused"] += launches_stream["sketch_fused"]
     kernels = []
     for name, mod in ops.KERNELS.items():
         t = timing[name]

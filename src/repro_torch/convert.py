@@ -7,6 +7,13 @@ co-sketch) stays None.
 Key data is uint32 (2,) in JAX and int64 (2,) here, holding the same two
 32-bit words. Every other field keeps its dtype (int32 indices, float32
 values, bool mask), so a round trip through the port is exact.
+
+Streaming states (``StreamState``, ``WindowState``, ``CompressedState``)
+keep their 0-d fields (counters, the decay clock) on the CPU, as
+``core/streaming.py`` holds them, and their other fields on ``device``. A
+bfloat16 wire block crosses as its bit pattern: numpy knows bfloat16 only
+where ``ml_dtypes`` is loaded (as with jax), and there the way back gives
+that type; elsewhere it gives the uint16 bit patterns.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.streaming import (
+    CompressedState, StreamState, WindowState)
 from repro_torch.core.types import (
     ErrorEstimate, LowRankFactors, SampleSet, SketchSummary)
 
@@ -81,3 +90,101 @@ def error_from_numpy(state, device="cpu") -> ErrorEstimate:
 def error_to_numpy(error: ErrorEstimate) -> ErrorEstimate:
     """Port ``ErrorEstimate`` -> the same NamedTuple holding numpy arrays."""
     return _to_numpy(ErrorEstimate, error)
+
+
+def _bf16_numpy_dtype():
+    """numpy's bfloat16 where ``ml_dtypes`` registered it, else None."""
+    try:
+        return np.dtype("bfloat16")
+    except TypeError:
+        return None
+
+
+def bits_to_tensor(arr: np.ndarray, bf16: bool = False) -> torch.Tensor:
+    """A host array as a CPU tensor (a copy); with ``bf16`` the array holds
+    bfloat16 bit patterns (uint16 or int16) and the tensor is bfloat16."""
+    arr = np.array(arr)
+    if bf16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def tensor_to_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array; bfloat16 as its uint16 bit patterns, the
+    form the wire format and checkpoints store (numpy needs no bfloat16
+    type for it)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+    """A numpy array as a tensor on ``device`` (0-d arrays stay on the CPU);
+    a numpy bfloat16 array becomes a torch bfloat16 tensor, bit for bit."""
+    arr = np.asarray(arr)
+    t = bits_to_tensor(arr, bf16=arr.dtype.name == "bfloat16")
+    return t if t.ndim == 0 else t.to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 as numpy's bfloat16 where it is
+    registered, else as its uint16 bit patterns."""
+    arr = tensor_to_bits(t)
+    bf16 = _bf16_numpy_dtype()
+    if t.dtype != torch.bfloat16 or bf16 is None:
+        return arr
+    return arr.view(bf16)
+
+
+def _state_from_numpy(cls, state, device):
+    fields = dict(zip(cls._fields, state))
+    return cls(**{name: (None if x is None else
+                         key_from_numpy(x, device) if name == "key" else
+                         tensor_from_numpy(x, device))
+                  for name, x in fields.items()})
+
+
+def _state_to_numpy(cls, state):
+    return cls(*(None if x is None else
+                 key_to_numpy(x) if name == "key" else tensor_to_numpy(x)
+                 for name, x in zip(state._fields, state)))
+
+
+def stream_state_from_numpy(state, device="cpu") -> StreamState:
+    """A JAX ``StreamState`` (fields as numpy arrays or None) -> port."""
+    return _state_from_numpy(StreamState, state, device)
+
+
+def stream_state_to_numpy(state: StreamState) -> StreamState:
+    """Port ``StreamState`` -> the same NamedTuple holding numpy arrays,
+    the key as uint32 key data."""
+    return _state_to_numpy(StreamState, state)
+
+
+def compressed_state_from_numpy(state, device="cpu") -> CompressedState:
+    """A JAX ``CompressedState`` (numpy arrays or None) -> port."""
+    return _state_from_numpy(CompressedState, state, device)
+
+
+def compressed_state_to_numpy(state: CompressedState) -> CompressedState:
+    """Port ``CompressedState`` -> the same NamedTuple holding numpy
+    arrays."""
+    return _state_to_numpy(CompressedState, state)
+
+
+def window_state_from_numpy(state, device="cpu") -> WindowState:
+    """A JAX ``WindowState`` (key, tuple of StreamStates, head; numpy
+    leaves) -> port."""
+    key, buckets, head = state
+    return WindowState(key_from_numpy(key, device),
+                       tuple(stream_state_from_numpy(b, device)
+                             for b in buckets),
+                       tensor_from_numpy(head))
+
+
+def window_state_to_numpy(state: WindowState) -> WindowState:
+    """Port ``WindowState`` -> the same NamedTuples holding numpy arrays."""
+    return WindowState(key_to_numpy(state.key),
+                       tuple(stream_state_to_numpy(b) for b in state.buckets),
+                       tensor_to_numpy(state.head))

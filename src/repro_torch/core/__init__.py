@@ -5,5 +5,12 @@ Entry points: ``core.smppca.smppca``, ``core.summary_engine.build_summary``,
 ``core.estimation_engine.estimate_product``, ``core.lela.lela``,
 ``core.baselines`` (``optimal_rank_r``, ``sketch_svd``,
 ``product_of_pcas``) and ``core.error_engine`` (``estimate_error``,
-``rank_curve``, ``adaptive_rank``).
+``rank_curve``, ``adaptive_rank``). Streaming summaries (chunked ingestion,
+merges, decay, windows, the wire format) are ``core.streaming``, whose names
+this package exports as ``repro.core`` does.
 """
+from repro_torch.core.streaming import (  # noqa: F401
+    CompressedState, StreamingSummarizer, StreamState, WindowedSummarizer,
+    WindowState, WireSpec, choose_wire_spec, compress_state, decay_state,
+    decompress_state, finalize_state, merge_states, tree_merge,
+    window_bucket_key, wire_bytes, wire_error, wire_pack, wire_unpack)

@@ -8,7 +8,9 @@ and completion consume. Four backends, one randomness contract:
                  matrix (the oracle the other backends are tested against)
     scan         ``block`` rows at a time; each block regenerates its slice
                  of the projection, so the (k, d) operator never exists (the
-                 paper's streaming pass)
+                 paper's streaming pass); a block is one
+                 ``chunk_contribution``, the body ``core/streaming.py``
+                 shares, and on the card two ``sketch_fused`` launches
     rows         arbitrary-order row streaming (``rows_summary``) over rows
                  0..d-1; the reference's exact contraction, bit for bit
     cuda         the hand-written kernels, counterpart of the JAX package's
@@ -188,37 +190,62 @@ def _pad_rows(X: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.nn.functional.pad(X, (0, 0, 0, rows - X.shape[0]))
 
 
+def chunk_contribution(key: torch.Tensor, plan, A_chunk: torch.Tensor,
+                       B_chunk: torch.Tensor, gids: torch.Tensor, *, k: int,
+                       method: str, precision: Optional[str]):
+    """(dA, dB, dna2, dnb2) of one chunk of rows with global ids ``gids``:
+    ``P^T A_chunk`` (k, n1), ``P^T B_chunk`` (k, n2) and the chunk's squared
+    column norms, all float32, with ``P = projection_rows(key, gids, k)``
+    and ``plan`` the SRHT ``(signs, sampled rows)`` (None for gaussian).
+
+    The one body of the scan backend and of the stream
+    (``core/streaming.py``), so that a stream ingested in chunks of c rows
+    adds the scan backend's terms at ``block=c`` with the same float ops.
+    On CPU tensors these are plain products; on CUDA tensors one
+    ``ops.sketch_fused`` launch per matrix, whose squared norms are used as
+    the kernel summed them."""
+    P = projection_rows(key, gids, k, method=method, plan=plan)   # (t, k)
+    Ac, Bc = _cast(A_chunk, precision), _cast(B_chunk, precision)
+    if Ac.device.type == "cpu":
+        return (_sketch_dot(P, Ac, precision), _sketch_dot(P, Bc, precision),
+                torch.sum(Ac.float() ** 2, dim=0),
+                torch.sum(Bc.float() ** 2, dim=0))
+    from repro_torch.kernels import ops
+    dA, dna2 = ops.sketch_fused(_cast(P, precision).to(Ac.dtype).T, Ac,
+                                squared=True)
+    dB, dnb2 = ops.sketch_fused(_cast(P, precision).to(Bc.dtype).T, Bc,
+                                squared=True)
+    return dA, dB, dna2, dnb2
+
+
 def _scan_backend(key, A, B, k: int, *, method: str, block: int,
                   precision: Optional[str]) -> SketchSummary:
     """One pass over ``block``-row blocks; each block regenerates its slice
     of the projection from (key, global row ids), so the (k, d) operator
     never exists. The last block is padded with zero rows, whose signs are
-    1.0, as in the JAX package's scan."""
+    1.0, as in the JAX package's scan. Each block is one
+    ``chunk_contribution`` (on the card, two ``sketch_fused`` launches)."""
     d, n1 = A.shape
     n2 = B.shape[1]
     dev = A.device
     nblk = max(1, math.ceil(d / block))
+    plan = None
     if method == "srht":
         signs, srows, _ = srht_plan(key, d, k)
-        signs = torch.nn.functional.pad(signs, (0, nblk * block - d),
-                                        value=1.0)
+        plan = (torch.nn.functional.pad(signs, (0, nblk * block - d),
+                                        value=1.0), srows)
     As = torch.zeros((k, n1), dtype=torch.float32, device=dev)
     Bs = torch.zeros((k, n2), dtype=torch.float32, device=dev)
     na2 = torch.zeros((n1,), dtype=torch.float32, device=dev)
     nb2 = torch.zeros((n2,), dtype=torch.float32, device=dev)
     for bi in range(nblk):
         lo, hi = bi * block, (bi + 1) * block
-        gids = torch.arange(lo, hi, device=dev)
-        if method == "gaussian":
-            P_b = pi_rows(key, gids, k)                         # (block, k)
-        else:
-            P_b = srht_rows_from_plan(signs[lo:hi], srows, gids, k)
-        Ac = _cast(_pad_rows(A[lo:hi], block), precision)
-        Bc = _cast(_pad_rows(B[lo:hi], block), precision)
-        As = As + _sketch_dot(P_b, Ac, precision)
-        Bs = Bs + _sketch_dot(P_b, Bc, precision)
-        na2 = na2 + torch.sum(Ac.float() ** 2, dim=0)
-        nb2 = nb2 + torch.sum(Bc.float() ** 2, dim=0)
+        dA, dB, dna2, dnb2 = chunk_contribution(
+            key, plan, _pad_rows(A[lo:hi], block), _pad_rows(B[lo:hi], block),
+            torch.arange(lo, hi, device=dev), k=k, method=method,
+            precision=precision)
+        As, Bs = As + dA, Bs + dB
+        na2, nb2 = na2 + dna2, nb2 + dnb2
     return SketchSummary(As, Bs, torch.sqrt(na2), torch.sqrt(nb2))
 
 

@@ -171,13 +171,14 @@ def _kernel_dtype(*tensors, precision):
 
 
 def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
-                 precision: str | None = None,
+                 precision: str | None = None, squared: bool = False,
                  config: "_tuning.KernelConfig | None" = None):
     """Fused (Pi @ A, column norms of A) for Pi (k, d) and A (d, n).
 
     Both outputs are float32 and accumulate in float32. ``precision='bf16'``
-    casts both inputs to bfloat16 first. Unlike the squared norms of the
-    kernel, the second output is the norms themselves."""
+    casts both inputs to bfloat16 first. The second output is the norms
+    themselves, or with ``squared=True`` the kernel's own squared norms, as
+    it summed them (what a stream adds up chunk by chunk)."""
     k, d = Pi.shape
     if A.ndim != 2 or A.shape[0] != d:
         raise ValueError(f"sketch_fused: Pi {tuple(Pi.shape)} and A "
@@ -190,7 +191,7 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
         Pi, A = Pi.to(torch.bfloat16), A.to(torch.bfloat16)
     if _on_cpu(Pi, A):
         out, norm2 = _sketch_fused.plain(Pi, A)
-        return out, torch.sqrt(norm2)
+        return out, (norm2 if squared else torch.sqrt(norm2))
     if max(k, n) >= 2 ** 31:
         raise ValueError("sketch_fused: k and n must be below 2**31")
     if k == 0 or d == 0 or n == 0:
@@ -201,7 +202,7 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
     lib = _library("sketch_fused")
     out, norm2 = _sketch_fused.launch(lib, Pi, A)
     LAUNCHES["sketch_fused"] += 1
-    return out, norm2.sqrt_()
+    return out, (norm2 if squared else norm2.sqrt_())
 
 
 def sampled_rescaled_dot(As_rows: torch.Tensor, Bs_rows: torch.Tensor,

@@ -579,3 +579,159 @@ def test_tuner_measures_on_the_card(card, kernel, shape):
     assert winner in tuning.candidate_configs(kernel, shape)
     assert all(r["us_per_call"] > 0 and r["achieved_gbps"] > 0
                for r in records)
+
+
+# ---------------------------------------------------------------------------
+# Streaming on the card: the chunk function (two sketch_fused launches)
+# against its plain version, the kernel's squared norms, ingest's copy
+# stream against the update loop, and checkpoints of card state
+# ---------------------------------------------------------------------------
+
+def test_sketch_fused_squared_norms_are_the_kernels_sums(card):
+    """squared=True returns the kernel's own sums: their square roots are
+    the default output bit for bit, and they agree with sqrt-free plain
+    sums of squares."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    Pi = torch.randn(64, 3001, generator=gen, device=card)
+    A = torch.randn(3001, 515, generator=gen, device=card)
+    before = ops.LAUNCHES["sketch_fused"]
+    out2, norm2 = ops.sketch_fused(Pi, A, squared=True)
+    out, norm = ops.sketch_fused(Pi, A)
+    assert ops.LAUNCHES["sketch_fused"] == before + 2
+    assert torch.equal(out, out2) and torch.equal(norm, norm2.sqrt())
+    torch.testing.assert_close(norm2, (A ** 2).sum(dim=0), rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("method", ["gaussian", "srht"])
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("t", [1024, 848])
+def test_chunk_contribution_on_the_card_matches_plain(card, method,
+                                                      precision, t):
+    """One chunk's (dA, dB, dna2, dnb2) on the card (two launches) against
+    the plain products on the CPU, from the same key and ids."""
+    from repro_torch.core import summary_engine
+    rng = np.random.default_rng(t)
+    A = torch.from_numpy(rng.standard_normal((t, 300)).astype(np.float32))
+    B = torch.from_numpy(rng.standard_normal((t, 200)).astype(np.float32))
+    gids = torch.arange(4096, 4096 + t)
+
+    def run(dev):
+        key = prng.PRNGKey(3, device=dev)
+        plan = None
+        if method == "srht":
+            plan = summary_engine.srht_plan(key, 6000, 128)[:2]
+        return summary_engine.chunk_contribution(
+            key, plan, A.to(dev), B.to(dev), gids.to(dev), k=128,
+            method=method, precision=precision)
+
+    ops.reset_launch_counts()
+    got = run(card)
+    assert ops.LAUNCHES["sketch_fused"] == 2
+    for g, w in zip(got, run("cpu")):
+        g = g.cpu()
+        scale = w.abs().amax(dim=0) if w.ndim == 2 else w.abs()
+        assert bool(((g - w).abs() <= RTOL * scale).all())
+
+
+@pytest.mark.parametrize("method", ["gaussian", "srht"])
+@pytest.mark.parametrize("chunk", [600, 768])
+def test_stream_on_the_card_is_the_scan_backend_bit_for_bit(card, method,
+                                                            chunk):
+    """Chunks of c rows on the card == build_summary(scan, block=c) on the
+    card, with probes and co-sketch. At 768 the last chunk is ragged (3000
+    = 3 * 768 + 696): the sketches and norms stay bit-identical (the scan's
+    zero rows add only zeros in the kernel's fixed 64-row stages), while
+    the probe and co-sketch blocks, cuBLAS products whose algorithm may
+    follow the chunk's length, are held to tolerance there."""
+    from repro_torch.core import streaming, summary_engine
+    A, B = _planted(1, d=3000, n=300)
+    summ = streaming.StreamingSummarizer(256, method=method, probes=4,
+                                         cosketch=3)
+    ops.reset_launch_counts()
+    state = summ.init(prng.PRNGKey(1), (3000, 300, 300))
+    for off in range(0, 3000, chunk):
+        state = summ.update(state, A[off:off + chunk], B[off:off + chunk],
+                            off)
+    n_chunks = -(-3000 // chunk)
+    assert ops.LAUNCHES["sketch_fused"] == 2 * n_chunks
+    got = summ.finalize(state)
+    want = summary_engine.build_summary(
+        prng.PRNGKey(1), A, B, 256, method=method, backend="scan",
+        block=chunk, probes=4, cosketch=3)
+    for name, x, y in zip(got._fields, got, want):
+        if 3000 % chunk == 0 or name in ("A_sketch", "B_sketch", "norm_A",
+                                         "norm_B"):
+            assert torch.equal(x, y), name
+        else:
+            assert bool(((x - y).abs()
+                         <= RTOL * y.abs().amax(dim=0)).all()), name
+    on_cpu = streaming.StreamingSummarizer(256, method=method,
+                                           device="cpu").summarize_chunks(
+        prng.PRNGKey(1), (3000, 300, 300),
+        ((A[off:off + chunk], B[off:off + chunk])
+         for off in range(0, 3000, chunk)))
+    for name in ("A_sketch", "B_sketch", "norm_A", "norm_B"):
+        g, w = getattr(got, name).cpu(), getattr(on_cpu, name)
+        assert bool(((g - w).abs() <= RTOL * w.abs().max()).all()), name
+
+
+@pytest.mark.parametrize("prefetch", [0, 1, 2])
+@pytest.mark.parametrize("source", ["numpy", "pageable", "pinned"])
+def test_ingest_on_the_card_is_the_update_loop(card, prefetch, source):
+    """ingest from host chunks through the pinned ring and the copy stream
+    == the update loop over the same chunks on the card, bit for bit; the
+    last chunk is ragged, and the ring is reused several times."""
+    from repro_torch.core import streaming
+    A, B = _planted(2, d=3000, n=300)
+    summ = streaming.StreamingSummarizer(128, probes=4, cosketch=2)
+    chunk = 256
+    ref = summ.init(prng.PRNGKey(2), (3000, 300, 300))
+    for off in range(0, 3000, chunk):
+        ref = summ.update(ref, A[off:off + chunk].to(card),
+                          B[off:off + chunk].to(card), off)
+
+    def host(x):
+        if source == "numpy":
+            return x.numpy()
+        return x.pin_memory() if source == "pinned" else x.clone()
+
+    chunks = [(host(A[off:off + chunk]), host(B[off:off + chunk]))
+              for off in range(0, 3000, chunk)]
+    got = summ.ingest(summ.init(prng.PRNGKey(2), (3000, 300, 300)),
+                      iter(chunks), prefetch=prefetch)
+    for name, x, y in zip(got._fields, got, ref):
+        assert (x is None) == (y is None), name
+        if x is not None:
+            assert torch.equal(x, y), name
+
+
+def test_checkpoint_of_card_state_restores_on_the_cpu(card, tmp_path):
+    """A card state saved mid-pass, restored into a CPU template and into
+    a card template: equal to the card state's values, bit for bit, and
+    resuming on the card is the uninterrupted pass."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.core import streaming
+    A, B = _planted(3, d=2000, n=200)
+    on_card = streaming.StreamingSummarizer(128, method="srht", probes=4,
+                                            decay=0.9)
+    on_cpu = streaming.StreamingSummarizer(128, method="srht", probes=4,
+                                           decay=0.9, device="cpu")
+    half = on_card.advance(on_card.update(
+        on_card.init(prng.PRNGKey(3), (2000, 200, 200)), A[:1000], B[:1000],
+        0), 2)
+    checkpoint.save_stream_state(str(tmp_path), 1, half)
+    cpu = checkpoint.restore_stream_state(
+        str(tmp_path), on_cpu.init(prng.PRNGKey(0), (2000, 200, 200)))
+    card_back = checkpoint.restore_stream_state(
+        str(tmp_path), on_card.init(prng.PRNGKey(0), (2000, 200, 200)))
+    for name, x, y, z in zip(half._fields, half, cpu, card_back):
+        if x is None:
+            assert y is None and z is None, name
+            continue
+        assert y.device.type == "cpu" and z.device == x.device, name
+        assert torch.equal(x.cpu(), y) and torch.equal(x, z), name
+    resumed = on_card.update(card_back, A[1000:], B[1000:], 1000)
+    direct = on_card.update(half, A[1000:], B[1000:], 1000)
+    for x, y in zip(on_card.finalize(resumed), on_card.finalize(direct)):
+        if x is not None:
+            assert torch.equal(x, y)
