@@ -24,13 +24,17 @@ fails; nothing is caught:
    path launches (the k = 512 plan rows, equal bit for bit; the norms
    within ``NORM_RTOL``; a second call equal to the first);
 4. the Gaussian path at full width: SMP-PCA
-   (``repro_torch.core.smppca.smppca``) of a planted pair with d = 50,000,
-   n1 = n2 = 100,000, k = 512, r = 5, m = default_m(1e5, 1e5, 5) =
-   57,564,627, T = 10, through kernels 1 and 2 (launch counters set to 0
-   before the run and read after it); per-stage times from a second,
-   staged run, with the cost of the sampler's host-side CDF; a
-   probe-estimated relative residual against its threshold; and the same
-   SMP-PCA on card and CPU at a small size, which must agree;
+   (``repro_torch.core.smppca.smppca``, a plan run through the shared
+   ``PipelineEngine``) of a planted pair with d = 50,000, n1 = n2 =
+   100,000, k = 512, r = 5, m = default_m(1e5, 1e5, 5) = 57,564,627, T =
+   10, through kernels 1 and 2 (launch counters set to 0 before the run and
+   read after it); the first call builds one cache entry, a second
+   identical call is a hit that builds nothing, with its wall time, its
+   factors within ``WARM_UVT_TOL`` of the first's and both peaks within
+   ``PHASE4_PEAK_GB_MAX``; per-stage times from a staged run, with the cost of the
+   sampler's host-side CDF; a probe-estimated relative residual against
+   its threshold; and the same SMP-PCA on card and CPU at a small size,
+   which must agree;
 5. kernel 2 (``sampled_rescaled_dot``) against its plain version on all
    of the slice's samples and on the same m drawn uniform on both sides,
    with m = 0 and with duplicates, each call made twice and equal bit for
@@ -81,26 +85,42 @@ fails; nothing is caught:
     trip bit for bit); checkpoints after 6 of 13 chunks, plain (resumed bit
     for bit) and int8 (within its ``wire_error``), timed; ``stream ...``
     lines;
-11. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
+11. serving (``repro_torch.serve``): a ``SketchService`` stream session
+    over the same full-width pair in 4,096-row ``append``s, its summary bit
+    for bit against phase 10's state and ``stream_factors(r=5)`` under
+    ``PROBE_RESIDUAL_MAX``; a ``torch.profiler`` trace of one warm
+    full-width ``smppca`` call (the device's idle share, the five device
+    operations that took the most time, WAltMin's split between
+    ``index_add_``, the (m, r, r) product, the solves and QR, and its
+    atomic adds a second); ``benchmarks/run.py::serving_sweep`` at its full
+    size, with 1 warm flush (not 10), on the ``cuda`` and ``scan``
+    backends (cold and warm us per request, no build on a warm flush,
+    estimation calls per flush, each bucket's summaries bit for bit against
+    its requests served alone) and ``traffic_sweep``'s four cells at 16
+    requests each (not 256; requests/s, p50/p99 latency, occupancy above 1
+    in the steady cells, shed rate, no build in the steady state);
+    a trace of one warm serving flush; ``serve ...`` and ``trace ...``
+    lines;
+12. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
     plain version on the JAX test shapes (causal and not, float32 and bf16,
     every compiled tile) and at S = 4,096 with granite-3-8b's 32 query and 8
     KV heads of 128, all at ``FLASH_TOL``;
-12. the attention path at full width: one granite-3-8b attention layer at
+13. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
     read after it), against the plain version on every row, then bf16 and
     non-causal the same way;
-13. kernel 4's timings: every compiled tile at S = 32,768, float32 and
+14. kernel 4's timings: every compiled tile at S = 32,768, float32 and
     bf16; at S = 32,768 and 4,096, float32 and bf16, beside its plain
     version, ``scaled_dot_product_attention`` and its bound: float32 on the
     TF32 tensor cores (three split passes per product), with the float32
     FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
     this design's two TF32 passes beside it;
-14. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
+15. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
     after;
-15. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+16. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -207,6 +227,35 @@ STREAM_CKPT_CHUNKS = 6
 # Host memory left free beside the host copy of A and B and the pinned
 # staging ring (the process, the allocator and the page cache).
 HOST_SPARE_BYTES = 8 * 10 ** 9
+# Two identical full-width smppca calls through the pipeline engine (phase
+# 4): the second is a cache hit; WAltMin's index_add_ atomics add in no
+# fixed order, so its factors equal the first call's to float32 rounding,
+# held on an 8-column probe to 1e-4 relative (tests/test_torch_cuda.py's
+# RERUN_UVT_TOL). Neither call's peak may exceed 51.213 GB, the peak of
+# the same call with its stages composed by hand, before the engine (NVIDIA
+# H100 80GB HBM3): a cache entry must keep no tensor alive.
+WARM_UVT_TOL = 1e-4
+PHASE4_PEAK_GB_MAX = 51.213 + 5e-4      # that peak, as printed (3 decimals)
+# The serving phase at the JAX benchmark's full (non-smoke) sizes:
+# benchmarks/run.py::serving_sweep (d, n, k, L requests a flush, probes,
+# m, T; :670-739) on both serving summary backends, and ::traffic_sweep's
+# base and shapes (:741-783).
+SERVE_D, SERVE_N, SERVE_K, SERVE_L = 4096, 128, 128, 16
+SERVE_PROBES, SERVE_M, SERVE_T = 16, 6000, 4
+# Cuts that keep this phase near 70 s (the rest of the script takes about
+# 160 s on an H100 80GB HBM3 at 700 W): on that card a
+# request of these cells takes 50 to 150 ms (about 4,700 launches, most of
+# them the threefry key draws), so the sweep times 1 warm flush (the
+# benchmark's 10) and each traffic cell offers 16 requests (its 256).
+SERVE_WARM = 1
+SERVE_PLANS = (
+    ("fixed_r", dict(r=5, m=SERVE_M, T=SERVE_T)),
+    ("fixed_r_with_error", dict(r=5, m=SERVE_M, T=SERVE_T, with_error=True)),
+    ("auto_rank", dict(r="auto", tol=0.5, m=SERVE_M, T=SERVE_T)))
+SERVE_BACKENDS = ("cuda", "scan")
+TRAFFIC_BASE = dict(n_requests=16, k=64, m=1200, T=3, max_batch=8,
+                    target_occupancy=4.0, pairs_per_shape=4)
+TRAFFIC_SHAPES = ((2048, 64, 48), (2048, 96, 64), (3072, 64, 64))
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -1192,11 +1241,11 @@ def stream_full_width(ops, key, A, B, k, r, m, T, gen, dev, card):
             del restored, resumed
     emit("checkpoint", dict(after_chunks=STREAM_CKPT_CHUNKS,
                             of_chunks=len(spans), **ck))
-    del state6, seq_4096, seq_fin
+    del state6, seq_4096
     torch.cuda.empty_cache()
     print(f"stream phase [{card}]: {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
-    return main_launches
+    return main_launches, seq_fin
 
 
 def engine_small(seed, r, dev):
@@ -1299,6 +1348,255 @@ def engine_small(seed, r, dev):
     check(same, "sample_entries_binomial card vs CPU")
 
 
+def device_trace(fn, label: str, record_shapes: bool = True):
+    """Run ``fn`` (ending in a synchronize) under ``torch.profiler`` and
+    return (its result, a record): the device's idle share of the host
+    window the call spans (the share with no kernel, copy or set running),
+    the five device operations that took the most time, and WAltMin's
+    device time split by the PyTorch operation that launched it
+    (``index_add_``, the (m, r, r) product, the solves, QR; the product is
+    told apart by its input shapes, recorded only with ``record_shapes``).
+    It reads the profiler's raw events: each device event names the
+    operation that launched it (its linked correlation id), and an
+    operation belongs to a category when an operation of that category on
+    its thread encloses it (a solve calls its own helpers). Building
+    torch's event tree instead takes tens of seconds for a flush's 400,000
+    events. ``trace_s`` is the whole of it, the profiling included."""
+    import bisect
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
+        with record_function(label):
+            out = fn()
+            torch.cuda.synchronize()
+
+    def outer_product(e):
+        shapes = e.shapes() if record_shapes else []
+        return (len(shapes) >= 2 and len(shapes[0]) == 3
+                and shapes[0][2] == 1 and len(shapes[1]) == 3
+                and shapes[1][1] == 1)
+
+    categories = {
+        "index_add_": lambda name, e: name == "aten::index_add_",
+        "outer_mrr_product": lambda name, e: (name == "aten::mul"
+                                              and outer_product(e)),
+        "solves": lambda name, e: name.startswith("aten::linalg_solve"),
+        "qr": lambda name, e: name == "aten::linalg_qr"}
+    ops, device, window = {}, [], None
+    intervals = {cat: {} for cat in categories}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name == label:
+                window = (e.start_ns(), e.end_ns())
+            if e.linked_correlation_id() != 0:
+                continue
+            span = (e.start_ns(), e.end_ns(), e.start_thread_id())
+            ops[e.correlation_id()] = span
+            for cat, pred in categories.items():
+                if pred(name, e):
+                    intervals[cat].setdefault(span[2], []).append(span[:2])
+        elif e.device_type() == DeviceType.CUDA and name != label:
+            device.append((name, e.start_ns(), e.end_ns(),
+                           e.linked_correlation_id()))
+    w0, w1 = window
+    outermost = {}                       # cat -> thread -> (starts, ends)
+    calls = {}
+    for cat, by_thread in intervals.items():
+        outermost[cat] = {}
+        calls[cat] = 0
+        for thread, spans in by_thread.items():
+            merged = []
+            for lo, hi in sorted(spans):
+                if merged and lo <= merged[-1][1]:
+                    merged[-1][1] = max(merged[-1][1], hi)
+                else:
+                    merged.append([lo, hi])
+            outermost[cat][thread] = ([lo for lo, _ in merged],
+                                      [hi for _, hi in merged])
+            calls[cat] += len(merged)
+    split = {cat: 0.0 for cat in categories}
+    by_name: dict = {}
+    spans = []
+    for name, lo, hi, corr in device:
+        spans.append((max(lo, w0), min(hi, w1)))
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + (hi - lo), c + 1)
+        op = ops.get(corr)
+        if op is None:
+            continue
+        for cat, by_thread in outermost.items():
+            starts, ends = by_thread.get(op[2], ((), ()))
+            i = bisect.bisect_right(starts, op[0]) - 1
+            if i >= 0 and op[1] <= ends[i]:
+                split[cat] += hi - lo
+    busy, end = 0.0, w0
+    for lo, hi in sorted(spans):         # the union of the device spans
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    rec = {"window_ms": (w1 - w0) / 1e6, "device_events": len(spans),
+           "device_busy_ms": busy / 1e6,
+           "idle_share": (1.0 - busy / (w1 - w0) if spans else
+                          "not measured: the profiler saw no device event"),
+           "top5": [{"name": name[:90], "ms": t / 1e6, "count": c}
+                    for name, (t, c) in top],
+           "waltmin_split": {cat: {"ms": split[cat] / 1e6,
+                                   "calls": calls[cat]}
+                             for cat in categories},
+           "trace_s": time.perf_counter() - t0}
+    return out, rec
+
+
+def service_stream(ops, key, A, B, k, r, seq_fin, gen, dev, card):
+    """The serving phase's stream session over the full-width pair: a
+    ``SketchService`` session fed phase 10's 4,096-row chunks with
+    ``append``, its summary against phase 10's ``StreamingSummarizer``
+    state bit for bit, then ``stream_factors(r)`` and its probe residual.
+    Returns the launches of the session (counters set to 0 before it)."""
+    from repro_torch import prng
+    from repro_torch.serve.engine import SketchService
+    d, n = A.shape
+    k_sketch = prng.split(key, 3)[0]
+    svc = SketchService(k=k, probes=PROBES, cosketch=COSKETCH, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sid = svc.open_stream(k_sketch, d, n, n)
+    for lo in range(0, d, STREAM_CHUNK):
+        svc.append(sid, A[lo:lo + STREAM_CHUNK], B[lo:lo + STREAM_CHUNK])
+    summary = svc.query(sid)
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    equal = _fields_equal(summary, seq_fin)
+    check(all(equal.values()),
+          f"service stream session bit-identical to phase 10: {equal}")
+    t0 = time.perf_counter()
+    est = svc.stream_factors(sid, r=r)
+    torch.cuda.synchronize()
+    factors_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    resid = probe_residual(A, B, est.factors, gen)
+    rec = dict(d=d, n=n, k=k, chunk=STREAM_CHUNK, append_s=append_s,
+               stream_factors_s=factors_s, probe_residual=resid,
+               bitwise_vs_phase10=equal, launches=launches,
+               engine=vars(svc.engine.stats))
+    print(f"serve stream_session [{card}] " + json.dumps(rec), flush=True)
+    check(resid < PROBE_RESIDUAL_MAX, f"service stream residual {resid}")
+    svc.close_stream(sid)
+    return launches
+
+
+def serving_sweep(key, gen, dev, card):
+    """benchmarks/run.py::serving_sweep at its full size, per summary
+    backend: one bucket of SERVE_L requests a flush through a
+    ``SketchService`` on a fresh engine, per plan cell; the cold flush
+    builds, every warm flush must build nothing. Each cell's summaries are
+    held bit for bit against each request served alone. Returns the cells
+    and the first cell's flush, to trace a warm one."""
+    from repro_torch import prng
+    from repro_torch.core.pipeline import PipelineEngine
+    from repro_torch.serve.engine import SketchService
+    pairs = [planted_pair(gen, SERVE_D, SERVE_N, dev)
+             for _ in range(SERVE_L)]
+    keys = [prng.fold_in(key, i) for i in range(SERVE_L)]
+    cells = []
+    for backend in SERVE_BACKENDS:
+        for name, kw in SERVE_PLANS:
+            engine = PipelineEngine()
+            svc = SketchService(k=SERVE_K, backend=backend, block=1024,
+                                probes=SERVE_PROBES, engine=engine,
+                                device=dev)
+
+            def flush_once(kw=kw, svc=svc):
+                for kk, (A, B) in zip(keys, pairs):
+                    svc.submit(kk, A, B)
+                out = svc.flush_factors(**kw)
+                torch.cuda.synchronize()
+                return out
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flush_once()
+            cold_us = (time.perf_counter() - t0) * 1e6
+            traces_cold = engine.stats.traces
+            est_cold = engine.stats.est_dispatches
+            t0 = time.perf_counter()
+            for _ in range(SERVE_WARM):
+                out = flush_once()
+            warm_us = (time.perf_counter() - t0) / SERVE_WARM * 1e6
+            alone = PipelineEngine()
+            spec = svc._sketch_spec()
+            served = list(out.values())
+            equal = all(
+                all(torch.equal(getattr(alone.summarize(spec, kk, A, B), f),
+                                getattr(s.summary, f))
+                    for f in ("A_sketch", "B_sketch", "norm_A", "norm_B",
+                              "probes"))
+                for kk, (A, B), s in zip(keys, pairs, served))
+            rec = {"backend": backend, "name": name,
+                   "requests_per_flush": SERVE_L,
+                   "cold_us_per_request": cold_us / SERVE_L,
+                   "warm_us_per_request": warm_us / SERVE_L,
+                   "cold_over_warm": cold_us / warm_us,
+                   "traces_cold": traces_cold,
+                   "traces_warm": engine.stats.traces - traces_cold,
+                   "est_dispatches_per_flush":
+                       (engine.stats.est_dispatches - est_cold) / SERVE_WARM,
+                   "curve_dispatches": engine.stats.curve_dispatches,
+                   "rank": served[0].factors.r,
+                   "summaries_equal_served_alone": equal,
+                   "cache": {"hits": engine.stats.hits,
+                             "misses": engine.stats.misses}}
+            print(f"serve sweep [{card}] " + json.dumps(rec), flush=True)
+            check(rec["traces_warm"] == 0,
+                  f"serving {backend} {name}: no build on a warm flush")
+            check(equal, f"serving {backend} {name}: summaries equal each "
+                  f"request served alone")
+            cells.append(rec)
+            if len(cells) == 1:
+                first = flush_once
+    return cells, first
+
+
+def traffic_sweep(dev, card):
+    """benchmarks/run.py::traffic_sweep at its full size (the JAX package's
+    ``scan`` summary backend): a single shape, three shapes, four tenants
+    and an overload into a bounded queue. Steady cells must batch
+    (occupancy > 1); no cell may build after its warm-up."""
+    from repro_torch.serve.traffic import TrafficConfig, run_traffic
+    s1, s2, s3 = TRAFFIC_SHAPES
+    cells = [
+        TrafficConfig(name="steady_single_shape", shapes=(s1,),
+                      **TRAFFIC_BASE),
+        TrafficConfig(name="mixed_shapes", shapes=(s1, s2, s3),
+                      **TRAFFIC_BASE),
+        TrafficConfig(name="multi_tenant", shapes=(s1,),
+                      tenants=("acme", "globex", 7, None), **TRAFFIC_BASE),
+        TrafficConfig(name="overload_shed", shapes=(s1,), rate_x=4.0,
+                      max_queue=2 * TRAFFIC_BASE["max_batch"],
+                      **TRAFFIC_BASE),
+    ]
+    records = []
+    for cfg in cells:
+        rec = run_traffic(cfg, device=dev)
+        print(f"serve traffic [{card}] " + json.dumps(
+            {key: v for key, v in rec.items() if key != "config"}),
+            flush=True)
+        check(rec["traces_steady"] == 0,
+              f"traffic {cfg.name}: no build in the steady state")
+        check(rec["completed"] + sum(rec["shed"].values()) == cfg.n_requests,
+              f"traffic {cfg.name}: every request served or shed")
+        if cfg.name != "overload_shed":
+            check(rec["occupancy"] > 1.0,
+                  f"traffic {cfg.name}: occupancy {rec['occupancy']}")
+        records.append(rec)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1307,7 +1605,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import prng
-    from repro_torch.core import estimation_engine, sampling, summary_engine
+    from repro_torch.core import (
+        estimation_engine, pipeline, sampling, summary_engine)
     from repro_torch.core.smppca import smppca, spectral_error_vs_optimal
     from repro_torch.kernels import ops, tuning
 
@@ -1376,6 +1675,9 @@ def main(argv=None) -> int:
     # stream (A, B and the probes' W) is the same with or without them
     aux = torch.Generator(device=dev)
     aux.manual_seed(args.seed + 1)
+    # and for the engine's warm call and the serving phase
+    serve_gen = torch.Generator(device=dev)
+    serve_gen.manual_seed(args.seed + 2)
     key = prng.PRNGKey(args.seed, device=dev)
 
     # 3. kernel 1 against its plain version ---------------------------------
@@ -1406,7 +1708,13 @@ def main(argv=None) -> int:
     few = torch.randperm(1024, generator=aux, device=dev)[:k].int()
     srht_block_check(ops, A[:777, :1001], signs[:777], few, 1024, "ragged n")
 
-    # 4. the slice at full width --------------------------------------------
+    # 4. the slice at full width, through the pipeline engine --------------
+    engine = pipeline.get_engine()
+
+    def engine_delta(before):
+        return {f: getattr(engine.stats, f) - before[f] for f in before}
+
+    before = dict(vars(engine.stats))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1416,12 +1724,15 @@ def main(argv=None) -> int:
     wall_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cold = engine_delta(before)
     print(f"smppca d={d} n1=n2={n} k={k} r={r} m={m} T={T}: {wall_s:.3f} s "
-          f"wall, launches {launches}, peak memory {peak_gb:.3f} GB",
-          flush=True)
+          f"wall, launches {launches}, peak memory {peak_gb:.3f} GB, engine "
+          f"{cold}", flush=True)
     check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
                        "blocked_fwht": 0, "flash_attention": 0},
           f"launches per smppca call: {launches}")
+    check(cold["traces"] == 1 and cold["misses"] == 1 and cold["hits"] == 0,
+          f"the first smppca call builds one cache entry: {cold}")
     U, V = res.factors
     check(tuple(U.shape) == (n, r) and tuple(V.shape) == (n, r),
           "factor shapes")
@@ -1431,6 +1742,38 @@ def main(argv=None) -> int:
     print(f"probe residual: {resid:.4f} (threshold {PROBE_RESIDUAL_MAX})",
           flush=True)
     check(resid < PROBE_RESIDUAL_MAX, f"probe residual {resid}")
+    # the same call again: a cache hit that builds nothing, keeping only
+    # the first call's factors, on the host (its peak is then the call's)
+    U1, V1 = U.cpu(), V.cpu()
+    del res, U, V
+    before = dict(vars(engine.stats))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = smppca(key, A, B, r=r, k=k, m=m, T=T, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = engine_delta(before)
+    peak_warm_gb = torch.cuda.max_memory_allocated() / 1e9
+    W8 = torch.randn(n, 8, generator=serve_gen, device=dev)
+    ref = res.factors.U @ (res.factors.V.T @ W8)
+    U1, V1 = U1.to(dev), V1.to(dev)
+    warm_diff = float(torch.linalg.norm(U1 @ (V1.T @ W8) - ref)
+                      / torch.linalg.norm(ref))
+    print("smppca_warm " + json.dumps({
+        "cold_s": wall_s, "warm_s": warm_s, "engine_cold": cold,
+        "engine_warm": warm, "launches_warm": dict(ops.LAUNCHES),
+        "peak_gb": peak_gb, "peak_warm_gb": peak_warm_gb,
+        "uvt_probe_rel_diff": warm_diff}), flush=True)
+    check(warm["traces"] == 0 and warm["hits"] == 1 and warm["misses"] == 0,
+          f"the second smppca call is a cache hit: {warm}")
+    check(dict(ops.LAUNCHES) == launches, "the warm call's launches")
+    check(warm_diff < WARM_UVT_TOL,
+          f"warm factors equal the cold ones to float32 rounding: {warm_diff}")
+    check(max(peak_gb, peak_warm_gb) <= PHASE4_PEAK_GB_MAX,
+          f"phase 4 peak memory {peak_gb}, {peak_warm_gb} GB")
+    del U1, V1, W8, ref
 
     # the same path again, stage by stage, timed with CUDA events
     stages, summary, samples, values = staged_run(key, A, B, k, m, r, T, n,
@@ -1633,13 +1976,56 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 10. the streaming path at full width ----------------------------------
-    launches_stream = stream_full_width(ops, key, A, B, k, r, m, T, gen,
-                                           dev, card)
+    launches_stream, seq_fin = stream_full_width(ops, key, A, B, k, r, m, T,
+                                                 gen, dev, card)
 
+    # 11. serving -----------------------------------------------------------
+    # a SketchService stream session over the full-width pair, against
+    # phase 10's state; a trace of one warm full-width smppca call
+    serve_t0 = time.perf_counter()
+    serve_s = {}
+    launches_session = service_stream(ops, key, A, B, k, r, seq_fin,
+                                      serve_gen, dev, card)
+    serve_s["stream_session"] = time.perf_counter() - serve_t0
+    del seq_fin
+    torch.cuda.empty_cache()
+    _, trace = device_trace(
+        lambda: smppca(key, A, B, r=r, k=k, m=m, T=T, device=dev),
+        "smppca_warm")
+    # WAltMin's atomic adds: (m, r, r) and (m, r) per least-squares step
+    # (2T + 1 of them), (m, r + 8) per COO product of its initial SVD (18)
+    atomics = (2 * T + 1) * m * (r * r + r) + 18 * m * (r + 8)
+    index_add_ms = trace["waltmin_split"]["index_add_"]["ms"]
+    trace.update(waltmin_atomic_adds=atomics, atomic_adds_per_s=(
+        atomics / (index_add_ms / 1e3) if index_add_ms else None))
+    print(f"trace smppca_warm [{card}] " + json.dumps(trace), flush=True)
+    serve_s["trace_smppca"] = trace["trace_s"]
     del A, B, X3, signs, plan_rows
     torch.cuda.empty_cache()
+    # the serving sweep and the traffic cells at the JAX benchmark's sizes,
+    # launch counters set to 0 before and read after; a trace of one warm
+    # flush
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve_cells, warm_flush = serving_sweep(key, serve_gen, dev, card)
+    serve_s["serving_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    traffic = traffic_sweep(dev, card)
+    serve_s["traffic_sweep"] = time.perf_counter() - t0
+    launches_serve = {name: count + launches_session[name]
+                      for name, count in ops.LAUNCHES.items()}
+    print(f"serving launches {launches_serve}", flush=True)
+    check(launches_serve["sketch_fused"] > 0
+          and launches_serve["sampled_rescaled_dot"] > 0,
+          f"the serving path launched its kernels: {launches_serve}")
+    _, trace = device_trace(warm_flush, "serving_flush", record_shapes=False)
+    print(f"trace serving_flush [{card}] " + json.dumps(trace), flush=True)
+    serve_s["traces"] = serve_s.pop("trace_smppca") + trace["trace_s"]
+    print(f"serving phase [{card}]: {time.perf_counter() - serve_t0:.1f} s "
+          f"({len(serve_cells)} sweep cells, {len(traffic)} traffic cells; "
+          f"parts {json.dumps(serve_s)})", flush=True)
 
-    # 11. kernel 4 against its plain version ---------------------------------
+    # 12. kernel 4 against its plain version ---------------------------------
     fa = ops.KERNELS["flash_attention"]
     for shape in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
                   (1, 384, 3, 3, 64)):       # tests/kernels/test_flash_attention.py
@@ -1658,7 +2044,7 @@ def main(argv=None) -> int:
             flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype), causal,
                         f"S={S_TRAIN}")
 
-    # 12. the attention path at full width ----------------------------------
+    # 13. the attention path at full width ----------------------------------
     q, kk, v = attention_inputs(gen, S_FULL, HEADS, KV_HEADS, HEAD_DIM, dev)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1683,7 +2069,7 @@ def main(argv=None) -> int:
     flash_check(ops, q.to(torch.bfloat16), kk.to(torch.bfloat16),
                 v.to(torch.bfloat16), False, "full width")
 
-    # 13. kernel 4's timings ------------------------------------------------
+    # 14. kernel 4's timings ------------------------------------------------
     # every compiled tile at the full width, float32 and bf16, one call each
     # after a warm-up (the tuner below measures only its model's best three)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1735,7 +2121,7 @@ def main(argv=None) -> int:
     del q, kk, v
     torch.cuda.empty_cache()
 
-    # 14. the kernel tuner --------------------------------------------------
+    # 15. the kernel tuner --------------------------------------------------
     ops.reset_launch_counts()
     for kernel, shapes in TUNE_SHAPES.items():
         for shape in shapes:
@@ -1752,15 +2138,19 @@ def main(argv=None) -> int:
     check(all(launches_tune[name] > 0 for name in ops.KERNELS),
           f"the tuner launched every kernel: {launches_tune}")
 
-    # 15. the kernels line and the last line --------------------------------
+    # 16. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path
     # and the stream's 4,096-row pass for kernel 1, the Gaussian path for
-    # kernel 2, the SRHT path for kernel 3, the attention call for kernel 4
+    # kernel 2, the SRHT path for kernel 3, the attention call for kernel
+    # 4, and for each the serving phase's (the sweep, the traffic cells and
+    # the stream session)
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
+    for name in path_launches:
+        path_launches[name] += launches_serve[name]
     kernels = []
     for name, mod in ops.KERNELS.items():
         t = timing[name]

@@ -9,9 +9,11 @@
 * ``product_of_pcas``: A_r^T B_r (the Fig 4(c) failure mode), a rank-r PCA
   of each matrix alone, then their product.
 
-``sketch_svd`` composes the engines directly under the JAX package's
-``'sketch_svd'`` key layout (``k_sketch, k_pow = split(key)``), so for the
-same key it draws what ``repro.core.baselines.sketch_svd`` draws.
+``sketch_svd`` is a thin preset over the PipelineEngine
+(``pipeline.sketch_svd_plan``) under the JAX package's ``'sketch_svd'`` key
+layout (``k_sketch, k_pow = split(key)``), so for the same key it draws
+what ``repro.core.baselines.sketch_svd`` draws. ``optimal_rank_r`` and
+``product_of_pcas`` run outside the engine, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,9 +21,9 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch import prng
-from repro_torch.core.estimation_engine import estimate_product, implicit_topr
+from repro_torch.core import pipeline
+from repro_torch.core.estimation_engine import implicit_topr
 from repro_torch.core.linalg import svd
-from repro_torch.core.summary_engine import build_summary
 from repro_torch.core.types import LowRankFactors
 
 
@@ -39,13 +41,13 @@ def sketch_svd(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
                device="cuda") -> LowRankFactors:
     """SVD(A~^T B~): ``build_summary(k_sketch, A, B, k, method, backend)``,
     then ``estimate_product(k_pow, ..., method='direct_svd',
-    backend=est_backend)``."""
+    backend=est_backend)``, as one cached plan
+    (``pipeline.sketch_svd_plan``)."""
     dev = _device.resolve(device)
-    k_sketch, k_pow = prng.split(key.to(dev))
-    summary = build_summary(k_sketch, A, B, k, method=method,
-                            backend=backend, device=dev)
-    return estimate_product(k_pow, summary, r, method="direct_svd",
-                            backend=est_backend, device=dev).factors
+    plan = pipeline.sketch_svd_plan(r=r, k=k, method=method, backend=backend,
+                                    est_backend=est_backend)
+    return pipeline.get_engine().run(plan, key.to(dev), A.to(dev),
+                                     B.to(dev)).estimate.factors
 
 
 def product_of_pcas(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

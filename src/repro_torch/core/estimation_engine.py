@@ -71,16 +71,24 @@ def default_m(n1: int, n2: int, r: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _cuda_values(summary: SketchSummary, rows: torch.Tensor,
-                 cols: torch.Tensor) -> torch.Tensor:
+                 cols: torch.Tensor, tuning=None) -> torch.Tensor:
     """Rescaled-JL entries through the gather kernel, which wants row-major
-    (n, k) sketches: one transpose each, small next to the O(m k) gather."""
+    (n, k) sketches: one transpose each, small next to the O(m k) gather.
+    ``tuning``'s pinned ``sampled_dot`` config, if any, is the launch's."""
     from repro_torch.kernels import ops
     return ops.sampled_rescaled_dot(
         summary.A_sketch.T.contiguous(), summary.B_sketch.T.contiguous(),
-        summary.norm_A, summary.norm_B, rows, cols)
+        summary.norm_A, summary.norm_B, rows, cols,
+        config=None if tuning is None else tuning.config_for("sampled_dot"))
 
 
-_VALUES = {"reference": estimator.rescaled_entries, "cuda": _cuda_values}
+def _reference_values(summary: SketchSummary, rows: torch.Tensor,
+                      cols: torch.Tensor, tuning=None) -> torch.Tensor:
+    del tuning
+    return estimator.rescaled_entries(summary, rows, cols)
+
+
+_VALUES = {"reference": _reference_values, "cuda": _cuda_values}
 
 
 def exact_entries(A: torch.Tensor, B: torch.Tensor, rows: torch.Tensor,
@@ -115,7 +123,7 @@ def implicit_topr(matvec, rmatvec, n1: int, n2: int, r: int,
 
 # ---------------------------------------------------------------------------
 # The methods: fn(key, summary, r, *, m, T, use_splits, exact_pair, refine,
-# backend) -> EstimateResult
+# backend, tuning) -> EstimateResult
 # ---------------------------------------------------------------------------
 
 def _complete(key, summary, r, values_fn, *, m, T, use_splits):
@@ -130,16 +138,17 @@ def _complete(key, summary, r, values_fn, *, m, T, use_splits):
 
 
 def _rescaled_jl(key, summary, r, *, m, T, use_splits, exact_pair, refine,
-                 backend) -> EstimateResult:
+                 backend, tuning) -> EstimateResult:
     del exact_pair, refine
     values = _VALUES[backend]
-    return _complete(key, summary, r, lambda i, j: values(summary, i, j),
+    return _complete(key, summary, r,
+                     lambda i, j: values(summary, i, j, tuning),
                      m=m, T=T, use_splits=use_splits)
 
 
 def _lela_waltmin(key, summary, r, *, m, T, use_splits, exact_pair, refine,
-                  backend) -> EstimateResult:
-    del refine, backend
+                  backend, tuning) -> EstimateResult:
+    del refine, backend, tuning
     if exact_pair is None:
         raise ValueError(
             "method='lela_waltmin' is the two-pass baseline: it needs the "
@@ -151,8 +160,8 @@ def _lela_waltmin(key, summary, r, *, m, T, use_splits, exact_pair, refine,
 
 
 def _direct_svd(key, summary, r, *, m, T, use_splits, exact_pair, refine,
-                backend) -> EstimateResult:
-    del m, T, use_splits, exact_pair, refine
+                backend, tuning) -> EstimateResult:
+    del m, T, use_splits, exact_pair, refine, tuning
     As, Bs = summary.A_sketch, summary.B_sketch
     if backend == "reference":
         U, s, Vt = svd(As.T @ Bs)
@@ -165,10 +174,10 @@ def _direct_svd(key, summary, r, *, m, T, use_splits, exact_pair, refine,
 
 
 def _power(key, summary, r, *, m, T, use_splits, exact_pair, refine,
-           backend) -> EstimateResult:
+           backend, tuning) -> EstimateResult:
     """Deterministic given the summary: the randomness already lives in the
     retained co-sketch, so the key is unused."""
-    del key, m, T, use_splits, exact_pair, backend
+    del key, m, T, use_splits, exact_pair, backend, tuning
     return EstimateResult(refinement.refine_factors(summary, r, refine),
                           None, None)
 
@@ -188,7 +197,7 @@ def estimate_product(key: torch.Tensor, summary: SketchSummary, r: int, *,
                      exact_pair: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
                      refine: Optional[RefineSpec] = None,
-                     with_error: bool = False,
+                     with_error: bool = False, tuning=None,
                      device="cuda") -> EstimateResult:
     """Rank-r factors of A^T B from a one-pass summary (Alg 1 steps 2-3).
 
@@ -207,6 +216,8 @@ def estimate_product(key: torch.Tensor, summary: SketchSummary, r: int, *,
              ``RefineSpec()``, the Tropp reconstruction alone).
     with_error: attach ``error_engine.estimate_error`` of the factors;
              needs ``build_summary(..., probes=p)``.
+    tuning:  a ``kernels.tuning.TuningSpec``: the cuda backend launches
+             the gather kernel with its ``sampled_dot`` config, if pinned.
     device:  where to run; key, summary and exact_pair are moved there.
     """
     if method not in METHODS:
@@ -240,7 +251,7 @@ def estimate_product(key: torch.Tensor, summary: SketchSummary, r: int, *,
                       int(summary.B_sketch.shape[-1]), r)
     fn = _METHODS[method]
     kw = dict(m=m, T=T, use_splits=use_splits, refine=refine,
-              backend=backend)
+              backend=backend, tuning=tuning)
 
     def _one(kk, s, pair):
         out = fn(kk, s, r, exact_pair=pair, **kw)
@@ -258,3 +269,23 @@ def estimate_product(key: torch.Tensor, summary: SketchSummary, r: int, *,
              None if exact_pair is None else
              (exact_pair[0][i], exact_pair[1][i]))
         for i in range(L)])
+
+
+def estimation_stage(spec, key: torch.Tensor, summary: SketchSummary, r: int,
+                     *, exact_pair: Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]] = None,
+                     refine: Optional[RefineSpec] = None,
+                     with_error: bool = False, tuning=None) -> EstimateResult:
+    """Steps 2-3 driven by a declarative spec, on the summary's device.
+
+    ``spec`` is any object with the ``EstimationSpec`` fields (method,
+    backend, m, T, use_splits); ``core.pipeline`` owns the concrete type.
+    ``refine`` rides the plan (``PipelinePlan.refine``), not the spec.
+    ``tuning`` pins the gather kernel's config (the ``PipelineEngine``
+    passes the one it resolved when it built its cache entry).
+    """
+    return estimate_product(key, summary, r, method=spec.method,
+                            backend=spec.backend, m=spec.m, T=spec.T,
+                            use_splits=spec.use_splits, exact_pair=exact_pair,
+                            refine=refine, with_error=with_error,
+                            tuning=tuning, device=summary.A_sketch.device)

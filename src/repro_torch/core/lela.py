@@ -6,8 +6,10 @@ WAltMin completion as SMP-PCA. SMP-PCA replaces pass 2 with the rescaled-JL
 estimate; comparing the two isolates the cost of sketching (the eta
 sigma_r^* term of Thm 3.1).
 
-``lela`` composes the engines directly under the JAX package's ``'direct'``
-key layout (``repro.core.pipeline.derive_keys``): the caller's key goes
+A thin preset over the PipelineEngine: ``lela`` runs ``pipeline.lela_plan``
+(a sketch-free ``norms_only`` first stage and ``method='lela_waltmin'``
+estimation fed the original pair as its exact second pass) through the
+shared engine. Under the ``'direct'`` key layout the caller's key goes
 straight to estimation, so for the same key it draws the same sample as
 ``repro.core.lela.lela``.
 """
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.estimation_engine import estimate_product
+from repro_torch.core import pipeline
 from repro_torch.core.summary_engine import norms_only_summary
 from repro_torch.core.types import LowRankFactors
 
@@ -29,8 +31,6 @@ def lela(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, r: int,
     """LELA: biased sample, exact entries, WAltMin. A: (d, n1), B: (d,
     n2), moved to ``device`` (CUDA unless the caller asks for the CPU)."""
     dev = _device.resolve(device)
-    A, B = A.to(dev), B.to(dev)
-    return estimate_product(key, norms_only_summary(A, B), r,
-                            method="lela_waltmin", backend="cuda", m=m, T=T,
-                            use_splits=use_splits, exact_pair=(A, B),
-                            device=dev).factors
+    plan = pipeline.lela_plan(r=r, m=m, T=T, use_splits=use_splits)
+    return pipeline.get_engine().run(plan, key.to(dev), A.to(dev),
+                                     B.to(dev)).estimate.factors

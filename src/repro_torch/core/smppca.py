@@ -1,22 +1,24 @@
 """Algorithm 1: SMP-PCA, Streaming Matrix Product PCA, end to end.
 
-``smppca`` composes the two engines directly, under the JAX package's
-``smppca`` key layout (``repro.core.pipeline.derive_keys('smppca')``):
+A thin preset over the PipelineEngine: ``smppca`` builds the declarative
+``pipeline.smppca_plan`` (the step-1 sketch spec and the steps-2/3
+estimation spec under the ``split(key, 3)`` layout) and runs it through the
+shared engine, whose cache entry for (plan, signature) is built once. The
+key derivations are the JAX package's ``smppca``:
 
     k_sketch, k_sample, _ = split(key, 3)
     summary = build_summary(k_sketch, A, B, k)                 (step 1)
     result  = estimate_product(fold_in(k_sample, 0), summary)  (steps 2-3)
 
 so for the same key it draws the same projection and the same sample as
-``repro.core.smppca``. There is no compile-once pipeline cache yet.
+``repro.core.smppca``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import device as _device
-from repro_torch import prng
-from repro_torch.core import estimation_engine, summary_engine
+from repro_torch.core import estimation_engine, pipeline
 from repro_torch.core.linalg import svd
 from repro_torch.core.types import LowRankFactors, SketchSummary, SMPPCAResult
 
@@ -33,16 +35,15 @@ def smppca(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, r: int,
     'rows' or 'reference': plain PyTorch; ``block`` is the scan's row
     block); ``est_backend`` computes the Eq. (2) values ('cuda': the gather
     kernel, 'reference'). ``device`` is CUDA unless the caller asks for the
-    CPU, where the kernels' plain versions run."""
+    CPU, where the kernels' plain versions run. Both stages run as one
+    cached plan (``pipeline.get_engine()``)."""
     dev = _device.resolve(device)
-    key = key.to(dev)
-    k_sketch, k_sample, _ = prng.split(key, 3)
-    summary = summary_engine.build_summary(
-        k_sketch, A, B, k, method=method, backend=backend, block=block,
-        precision=precision, device=dev)
-    return smppca_from_summary(prng.fold_in(k_sample, 0), summary, r=r, m=m,
-                               T=T, est_backend=est_backend,
-                               use_splits=use_splits, device=dev)
+    plan = pipeline.smppca_plan(
+        r=r, k=k, m=m, T=T, method=method, backend=backend, block=block,
+        precision=precision, est_backend=est_backend, use_splits=use_splits)
+    res = pipeline.get_engine().run(plan, key.to(dev), A.to(dev), B.to(dev))
+    return SMPPCAResult(res.estimate.factors, res.summary,
+                        res.estimate.samples, res.estimate.values)
 
 
 def smppca_from_summary(key: torch.Tensor, summary: SketchSummary, *, r: int,

@@ -34,7 +34,7 @@ sum stays float32; sketches and norms are float32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -147,9 +147,10 @@ def _sketch_dot(P: torch.Tensor, X: torch.Tensor,
 
 
 def _reference_backend(key, A, B, k: int, *, method: str, block: int,
-                       precision: Optional[str]) -> SketchSummary:
+                       precision: Optional[str],
+                       configs=None) -> SketchSummary:
     """Materialized projection operator + one dense product per matrix."""
-    del block
+    del block, configs
     d = A.shape[0]
     P = projection_rows(key, torch.arange(d, device=key.device), k,
                         method=method, d_total=d)
@@ -178,9 +179,9 @@ def rows_summary(key: torch.Tensor, row_idx: torch.Tensor,
 
 
 def _rows_backend(key, A, B, k: int, *, method: str, block: int,
-                  precision: Optional[str]) -> SketchSummary:
+                  precision: Optional[str], configs=None) -> SketchSummary:
     """Row-stream semantics over the whole pair (rows 0..d-1)."""
-    del block
+    del block, configs
     d = A.shape[0]
     return rows_summary(key, torch.arange(d, device=A.device), A, B, k,
                         method=method, d_total=d, precision=precision)
@@ -192,7 +193,7 @@ def _pad_rows(X: torch.Tensor, rows: int) -> torch.Tensor:
 
 def chunk_contribution(key: torch.Tensor, plan, A_chunk: torch.Tensor,
                        B_chunk: torch.Tensor, gids: torch.Tensor, *, k: int,
-                       method: str, precision: Optional[str]):
+                       method: str, precision: Optional[str], configs=None):
     """(dA, dB, dna2, dnb2) of one chunk of rows with global ids ``gids``:
     ``P^T A_chunk`` (k, n1), ``P^T B_chunk`` (k, n2) and the chunk's squared
     column norms, all float32, with ``P = projection_rows(key, gids, k)``
@@ -203,7 +204,8 @@ def chunk_contribution(key: torch.Tensor, plan, A_chunk: torch.Tensor,
     adds the scan backend's terms at ``block=c`` with the same float ops.
     On CPU tensors these are plain products; on CUDA tensors one
     ``ops.sketch_fused`` launch per matrix, whose squared norms are used as
-    the kernel summed them."""
+    the kernel summed them, with the launch configs ``configs`` (a
+    ``SketchConfigs``; None resolves them per launch)."""
     P = projection_rows(key, gids, k, method=method, plan=plan)   # (t, k)
     Ac, Bc = _cast(A_chunk, precision), _cast(B_chunk, precision)
     if Ac.device.type == "cpu":
@@ -211,15 +213,17 @@ def chunk_contribution(key: torch.Tensor, plan, A_chunk: torch.Tensor,
                 torch.sum(Ac.float() ** 2, dim=0),
                 torch.sum(Bc.float() ** 2, dim=0))
     from repro_torch.kernels import ops
+    cfg_A, cfg_B = (None, None) if configs is None else \
+        (configs.A[0], configs.B[0])
     dA, dna2 = ops.sketch_fused(_cast(P, precision).to(Ac.dtype).T, Ac,
-                                squared=True)
+                                squared=True, config=cfg_A)
     dB, dnb2 = ops.sketch_fused(_cast(P, precision).to(Bc.dtype).T, Bc,
-                                squared=True)
+                                squared=True, config=cfg_B)
     return dA, dB, dna2, dnb2
 
 
 def _scan_backend(key, A, B, k: int, *, method: str, block: int,
-                  precision: Optional[str]) -> SketchSummary:
+                  precision: Optional[str], configs=None) -> SketchSummary:
     """One pass over ``block``-row blocks; each block regenerates its slice
     of the projection from (key, global row ids), so the (k, d) operator
     never exists. The last block is padded with zero rows, whose signs are
@@ -243,55 +247,121 @@ def _scan_backend(key, A, B, k: int, *, method: str, block: int,
         dA, dB, dna2, dnb2 = chunk_contribution(
             key, plan, _pad_rows(A[lo:hi], block), _pad_rows(B[lo:hi], block),
             torch.arange(lo, hi, device=dev), k=k, method=method,
-            precision=precision)
+            precision=precision, configs=configs)
         As, Bs = As + dA, Bs + dB
         na2, nb2 = na2 + dna2, nb2 + dnb2
     return SketchSummary(As, Bs, torch.sqrt(na2), torch.sqrt(nb2))
 
 
 def _srht_blocked(X: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
-                  dp: int, k: int, precision: Optional[str]):
+                  dp: int, k: int, precision: Optional[str], configs=None):
     """(R H D X / sqrt(dp) * sqrt(dp / k), column norms of X), one
     ``ops.srht_block`` call per SRHT_COLUMN_BLOCK columns. On the card each
     call is one launch of the blocked FWHT's block mode: it writes only the
     k sampled rows of each transformed block, straight into the sketch, and
     takes the norms from its first pass's read of X (its own order of
     sums, float64 beyond a thread's float32); on the CPU the plain
-    composition (transform, row gather, rescale, ``column_norms``)."""
+    composition (transform, row gather, rescale, ``column_norms``).
+    ``configs`` holds one launch config per column block (None: each
+    call resolves its own)."""
     from repro_torch.kernels import ops
     n = X.shape[1]
     dev = X.device
     sketch = torch.empty((k, n), dtype=torch.float32, device=dev)
     norms = torch.empty((n,), dtype=torch.float32, device=dev)
-    for c0 in range(0, n, SRHT_COLUMN_BLOCK):
+    for i, c0 in enumerate(range(0, n, SRHT_COLUMN_BLOCK)):
         c1 = min(n, c0 + SRHT_COLUMN_BLOCK)
         ops.srht_block(_cast(X[:, c0:c1], precision), signs, rows, d_pad=dp,
-                       sketch=sketch, norms=norms, col0=c0)
+                       sketch=sketch, norms=norms, col0=c0,
+                       config=None if configs is None else configs[i])
     return sketch, norms
 
 
 def _cuda_backend(key, A, B, k: int, *, method: str, block: int,
-                  precision: Optional[str]) -> SketchSummary:
+                  precision: Optional[str], configs=None) -> SketchSummary:
     """The kernels: sketch_fused twice against one materialized (k, d) Pi
     for gaussian; for srht the blocked FWHT over column blocks of A, then
     of B (the JAX ``pallas`` backend's srht branch, without its padded
-    (dp, n) copies)."""
+    (dp, n) copies). ``configs`` (a ``SketchConfigs``; None resolves
+    them here) gives each launch its config."""
     from repro_torch.kernels import ops
-    del block
+    if configs is None:
+        configs = sketch_configs("cuda", method, k, block, precision, A, B)
     d = A.shape[0]
     if method == "gaussian":
         P = projection_rows(key, torch.arange(d, device=key.device), k).T
-        As, na = ops.sketch_fused(P, A, precision=precision)
-        Bs, nb = ops.sketch_fused(P, B, precision=precision)
+        As, na = ops.sketch_fused(P, A, precision=precision,
+                                  config=configs.A[0])
+        Bs, nb = ops.sketch_fused(P, B, precision=precision,
+                                  config=configs.B[0])
         return SketchSummary(As, Bs, na, nb)
     signs, rows, dp = srht_plan(key, d, k)
-    As, na = _srht_blocked(A, signs, rows, dp, k, precision)
-    Bs, nb = _srht_blocked(B, signs, rows, dp, k, precision)
+    As, na = _srht_blocked(A, signs, rows, dp, k, precision, configs.A)
+    Bs, nb = _srht_blocked(B, signs, rows, dp, k, precision, configs.B)
     return SketchSummary(As, Bs, na, nb)
 
 
 _BACKENDS = {"reference": _reference_backend, "scan": _scan_backend,
              "rows": _rows_backend, "cuda": _cuda_backend}
+
+
+class SketchConfigs(NamedTuple):
+    """The sketch kernel's launch configs for one call, in launch order:
+    one per column block of A and of B on the SRHT pass, one for every
+    launch otherwise (the Gaussian pass and the scan's blocks)."""
+
+    A: Tuple
+    B: Tuple
+
+
+def _cast_dtype(dtype: torch.dtype, precision: Optional[str]) -> torch.dtype:
+    return {None: dtype, "f32": torch.float32,
+            "bf16": torch.bfloat16}.get(precision, dtype)
+
+
+def sketch_configs(backend: str, method: str, k: int, block: int,
+                   precision: Optional[str], A: torch.Tensor,
+                   B: torch.Tensor, tuning=None) -> Optional[SketchConfigs]:
+    """Resolve, once, the config of every kernel launch a summary of (A, B)
+    (or of a stack of pairs) makes, as each ``ops`` wrapper would resolve
+    it: the ``cuda`` backend takes ``tuning``'s pinned config
+    (``sketch_fused`` for gaussian, ``blocked_fwht`` for srht) where it has
+    one, and every launch otherwise ``tuning.lookup`` at its own shape and
+    input dtype on A's device. The ``scan`` backend's blocks
+    (``sketch_fused`` on the card) ignore ``tuning``, as the JAX package's
+    non-kernel backends do. None for the backends that launch nothing."""
+    from repro_torch.kernels import tuning as _tuning
+    d = A.shape[-2]
+    if backend == "cuda" and method == "gaussian":
+        kernel, dtype = "sketch_fused", A.dtype
+
+        def shapes(n):
+            return [(k, d, n)]
+    elif backend == "cuda":
+        kernel, dtype = "blocked_fwht", _cast_dtype(A.dtype, precision)
+        dp = _next_pow2(d)
+
+        def shapes(n):
+            return [(dp, min(n - c0, SRHT_COLUMN_BLOCK))
+                    for c0 in range(0, n, SRHT_COLUMN_BLOCK)]
+    elif backend == "scan":
+        kernel, dtype = "sketch_fused", _cast_dtype(A.dtype, precision)
+
+        def shapes(n):
+            return [(k, block, n)]
+    else:
+        return None
+    pinned = tuning.config_for(kernel) \
+        if tuning is not None and backend == "cuda" else None
+    table = _tuning.backend_of(A.device)
+    dtype_bytes = _tuning.dtype_bytes_of(dtype)
+
+    def resolve(n):
+        return tuple(pinned if pinned is not None else
+                     _tuning.lookup(kernel, shape, dtype_bytes=dtype_bytes,
+                                    backend=table)
+                     for shape in shapes(n))
+    return SketchConfigs(resolve(A.shape[-1]), resolve(B.shape[-1]))
 
 
 def pair_keys(key: torch.Tensor, L: int) -> torch.Tensor:
@@ -301,10 +371,28 @@ def pair_keys(key: torch.Tensor, L: int) -> torch.Tensor:
     return key if key.ndim == 2 and key.shape[0] == L else prng.split(key, L)
 
 
+def _check_args(method: str, backend: str, A: torch.Tensor,
+                B: torch.Tensor) -> None:
+    if method not in METHODS:
+        raise ValueError(f"unknown sketch method {method!r} (use {METHODS})")
+    if backend == "distributed":
+        raise NotImplementedError(
+            "backend='distributed' is not ported yet (ROADMAP.md, Queue 1 "
+            "item 8)")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown summary backend {backend!r} "
+                         f"(use one of {BACKENDS})")
+    if A.ndim != B.ndim or A.ndim not in (2, 3) or \
+            A.shape[:-1] != B.shape[:-1]:
+        raise ValueError(f"A {tuple(A.shape)} and B {tuple(B.shape)} "
+                         f"disagree: expected (d, n1) and (d, n2), or "
+                         f"(L, d, n1) and (L, d, n2)")
+
+
 def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
                   *, method: str = "gaussian", backend: str = "reference",
                   block: int = 1024, precision: Optional[str] = None,
-                  probes: int = 0, cosketch: int = 0,
+                  probes: int = 0, cosketch: int = 0, tuning=None,
                   device="cuda") -> SketchSummary:
     """One-pass summary of (A, B): sketches (k, n) and exact column norms.
 
@@ -322,6 +410,10 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
     cosketch: retain an s-column Tropp range/co-range pair ``(A^T B) @
               Omega_c``, ``Psi_c @ (A^T B)`` (``core/refinement.py``:
               ``estimate_product(method='power')``).
+    tuning:   a ``kernels.tuning.TuningSpec`` pinning kernel configs: the
+              ``cuda`` backend launches with its ``sketch_fused`` (gaussian)
+              or ``blocked_fwht`` (srht) config, the other backends ignore
+              it; unpinned launches resolve through ``tuning.lookup``.
 
     Both blocks are plain PyTorch products over ``block``-row blocks, run
     after the backend whichever it is (as in the JAX package).
@@ -338,26 +430,23 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
     >>> (tuple(t.A_sketch.shape), tuple(t.probes.shape), tuple(t.cosketch_W.shape))
     ((16, 8), (8, 3), (5, 6))
     """
-    if method not in METHODS:
-        raise ValueError(f"unknown sketch method {method!r} (use {METHODS})")
-    if backend == "distributed":
-        raise NotImplementedError(
-            "backend='distributed' is not ported yet (ROADMAP.md, Queue 1 "
-            "item 8)")
-    if backend not in _BACKENDS:
-        raise ValueError(f"unknown summary backend {backend!r} "
-                         f"(use one of {BACKENDS})")
-    if A.ndim != B.ndim or A.ndim not in (2, 3) or \
-            A.shape[:-1] != B.shape[:-1]:
-        raise ValueError(f"A {tuple(A.shape)} and B {tuple(B.shape)} "
-                         f"disagree: expected (d, n1) and (d, n2), or "
-                         f"(L, d, n1) and (L, d, n2)")
+    _check_args(method, backend, A, B)
     dev = _device.resolve(device)
     key, A, B = key.to(dev), A.to(dev), B.to(dev)
+    configs = sketch_configs(backend, method, k, block, precision, A, B,
+                             tuning)
+    return _summarize(key, A, B, k, method=method, backend=backend,
+                      block=block, precision=precision, probes=probes,
+                      cosketch=cosketch, configs=configs)
 
+
+def _summarize(key, A, B, k: int, *, method, backend, block, precision,
+               probes, cosketch, configs) -> SketchSummary:
+    """``build_summary`` on arguments already checked and on one device,
+    with every launch config resolved."""
     def _one(kk, a, b):
         out = _BACKENDS[backend](kk, a, b, k, method=method, block=block,
-                                 precision=precision)
+                                 precision=precision, configs=configs)
         if probes:
             from repro_torch.core import error_engine
             out = error_engine.attach_probes(out, kk, a, b, probes,
@@ -372,6 +461,34 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
         return _one(key, A, B)
     keys = pair_keys(key, A.shape[0])
     return tree_stack([_one(keys[i], A[i], B[i]) for i in range(A.shape[0])])
+
+
+def summary_stage(spec, key: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                  tuning=None, *, configs: Optional[SketchConfigs] = None
+                  ) -> SketchSummary:
+    """The step-1 pass driven by a declarative spec, on A's device.
+
+    ``spec`` is any object with the ``SketchSpec`` fields (method, backend,
+    k, block, precision, probes, cosketch); ``core.pipeline`` owns the
+    concrete type. ``method='norms_only'`` is the sketch-free LELA first
+    pass (the key is unused). ``tuning`` rides the plan
+    (``PipelinePlan.tuning``), not the spec. ``configs``, the launch
+    configs the ``PipelineEngine`` resolved once when it built its cache
+    entry (``sketch_configs``), takes the place of ``tuning`` when given,
+    so that a warm call resolves nothing.
+    """
+    if spec.method == "norms_only":
+        return norms_only_summary(A, B)
+    _check_args(spec.method, spec.backend, A, B)
+    B = B.to(A.device)
+    if configs is None:
+        configs = sketch_configs(spec.backend, spec.method, spec.k,
+                                 spec.block, spec.precision, A, B, tuning)
+    return _summarize(key.to(A.device), A, B, spec.k,
+                      method=spec.method, backend=spec.backend,
+                      block=spec.block, precision=spec.precision,
+                      probes=spec.probes, cosketch=spec.cosketch,
+                      configs=configs)
 
 
 def norms_only_summary(A: torch.Tensor, B: torch.Tensor) -> SketchSummary:

@@ -735,3 +735,72 @@ def test_checkpoint_of_card_state_restores_on_the_cpu(card, tmp_path):
     for x, y in zip(on_card.finalize(resumed), on_card.finalize(direct)):
         if x is not None:
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The pipeline cache and the serving loop on the card
+# ---------------------------------------------------------------------------
+
+# Two runs of one call on the card: WAltMin's index_add_ atomics add in no
+# fixed order, float32 rounding that its T half-steps carry into U V^T:
+# held to 1e-4 relative, a tenth of the card-against-CPU UVT_TOL.
+RERUN_UVT_TOL = 1e-4
+
+def test_warm_engine_builds_nothing_on_the_card(card):
+    """A second identical call on the card is a cache hit with no build and
+    launches the same kernels; its factors equal the first call's to
+    float32 rounding (WAltMin's index_add_ atomics add in no fixed order),
+    its summary bit for bit. A CPU call of the same plan builds its own
+    entry."""
+    from repro_torch.core import pipeline
+    A, B = _planted(5, d=2000, n=200)
+    A, B = A.to(card), B.to(card)
+    eng = pipeline.PipelineEngine()
+    plan = pipeline.smppca_plan(r=5, k=512, m=20_000, T=6, backend="cuda")
+    ops.reset_launch_counts()
+    cold = eng.run(plan, prng.PRNGKey(0), A, B)
+    launches = dict(ops.LAUNCHES)
+    warm = eng.run(plan, prng.PRNGKey(0), A, B)
+    assert (eng.stats.traces, eng.stats.misses, eng.stats.hits) == (1, 1, 1)
+    assert launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
+                        "blocked_fwht": 0, "flash_attention": 0}
+    assert {k: 2 * v for k, v in launches.items()} == ops.LAUNCHES
+    assert torch.equal(cold.summary.A_sketch, warm.summary.A_sketch)
+    assert _uvt_rel(warm.estimate.factors, cold.estimate.factors) \
+        < RERUN_UVT_TOL
+    eng.run(plan, prng.PRNGKey(0), A.cpu(), B.cpu())
+    assert (eng.stats.traces, len(eng)) == (2, 2)
+
+
+@pytest.mark.parametrize("backend", ["scan", "cuda"])
+def test_dispatcher_batch_equals_requests_alone_on_the_card(card, backend):
+    """A bucket of four requests served as one batched call on the card:
+    each request's summary equals the request served alone, bit for bit;
+    its factors to float32 rounding (WAltMin's atomics), held to UVT_TOL:
+    at m = 6,000 samples of a 128 x 128 product its solves amplify the
+    atomics' rounding (1.1e-4 and 1.5e-4 relative measured on an H100)."""
+    from repro_torch.core import pipeline
+    from repro_torch.serve.scheduler import (
+        LoopConfig, PipelineWork, ServingLoop)
+    plan = pipeline.PipelinePlan(
+        sketch=pipeline.SketchSpec(k=128, backend=backend, block=1024,
+                                   probes=16),
+        estimation=pipeline.EstimationSpec(m=6000, T=4),
+        rank=pipeline.RankPolicy(r=5), key_layout="service", with_error=True)
+    pairs = [tuple(x.to(card) for x in _planted(10 + i, d=4096, n=128))
+             for i in range(4)]
+    keys = [prng.fold_in(prng.PRNGKey(1), i) for i in range(4)]
+    loop = ServingLoop(engine=pipeline.PipelineEngine(),
+                       config=LoopConfig(pad="pow2"))
+    fs = [loop.submit(k, A, B, work=PipelineWork(plan))
+          for k, (A, B) in zip(keys, pairs)]
+    assert loop.drain() == 1
+    alone = pipeline.PipelineEngine()
+    for f, k, (A, B) in zip(fs, keys, pairs):
+        got = f.result(timeout=120)
+        want = alone.run(plan, k, A, B)
+        for name in ("A_sketch", "B_sketch", "norm_A", "norm_B", "probes"):
+            assert torch.equal(getattr(got.summary, name),
+                               getattr(want.summary, name)), name
+        assert _uvt_rel(got.estimate.factors, want.estimate.factors) \
+            < UVT_TOL
