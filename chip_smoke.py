@@ -35,6 +35,19 @@ fails; nothing is caught:
    sampler's host-side CDF; a probe-estimated relative residual against
    its threshold; and the same SMP-PCA on card and CPU at a small size,
    which must agree;
+4b. the distributed path at the same full width on one NCCL rank
+   (``repro_torch.core.distributed``; a TCPStore on localhost, as
+   ``dist.multihost.initialize`` makes one): ``distributed_smppca`` (wall
+   time, launches 2 and 1, the memory it adds against phase 4's warm
+   call's, its probe residual beside phase 4's on the same W, its factors
+   against steps 2 and 3 run alone on the ``cuda`` backend's summary under
+   the same key), its summary
+   against the ``cuda`` backend's within ``SKETCH_TOL`` a column, the
+   all-reduce of its blocks (CUDA events), and
+   ``distributed_streaming_summary`` in 16,384-row slabs with probes and
+   co-sketch against a single-process ``StreamingSummarizer`` fed the same
+   slabs (bit for bit where the one-rank all-reduce leaves the bits alone;
+   held within ``SKETCH_TOL`` a column); ``distributed ...`` lines;
 5. kernel 2 (``sampled_rescaled_dot``) against its plain version on all
    of the slice's samples and on the same m drawn uniform on both sides,
    with m = 0 and with duplicates, each call made twice and equal bit for
@@ -120,11 +133,33 @@ fails; nothing is caught:
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
     after;
-16. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+16. the multi-host cell: this script started twice more
+    (``--multihost-child``), two processes on the one card joined through
+    a TCPStore on localhost (``dist.multihost.initialize`` from the REPRO_*
+    environment; gloo, which the exchange does not use), each
+    ``sharded_ingest``-ing its host shard of a d = 50,000, n = 100,000
+    pair that it makes on the card chunk by chunk from the seed, then
+    merging through the store with the f32 wire and with the gate's vote:
+    ingest time and rows/s a rank (one rank on the card at a time), the
+    ``sharded_ingest`` time (both at once), each merge timed alone after a
+    barrier, wire bytes, both ranks'
+    merged states equal (sha256), the f32 merge equal to the local
+    ``tree_merge`` of both partial states; a ``multihost`` line;
+17. gradient compression and the gradient tap at one granite-3-8b MLP
+    layer's widths (n_in = 4,096, n_out = 12,800, T = 8,192 tokens, the
+    JAX benchmark's construction): ``sketched_dense`` forward and backward
+    and ``decompress_tap`` (launches 2 and 1), ``compress_grads`` of the
+    true dW (1 and 1), each of these launches held against its plain
+    version on its own inputs afterwards (``SKETCH_TOL`` a column,
+    ``SAMPLED_TOL`` of the scale), ``cos_taps``, ``cos_AeqI``, the communication
+    fraction and times (CUDA events); dx within 1e-4 of the uncompressed
+    layer's and ``cos_taps > cos_AeqI``; a ``gradient layer`` line;
+18. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -256,6 +291,40 @@ SERVE_BACKENDS = ("cuda", "scan")
 TRAFFIC_BASE = dict(n_requests=16, k=64, m=1200, T=3, max_batch=8,
                     target_occupancy=4.0, pairs_per_shape=4)
 TRAFFIC_SHAPES = ((2048, 64, 48), (2048, 96, 64), (3072, 64, 64))
+# The distributed phase (4b): the phase-4 pair through
+# core/distributed.py on one NCCL rank; the stream in slabs of 16,384 rows
+# with phase 9's probes and co-sketch. The summary against the cuda
+# backend's: each column within 1e-4 of its largest entry (SKETCH_TOL). Its
+# factors against steps 2 and 3 run alone on the cuda backend's summary
+# under the same key, to WARM_UVT_TOL on an 8-column probe (WAltMin's
+# atomics); its probe residual under PROBE_RESIDUAL_MAX, printed beside
+# phase 4's on the same W but not held to it: distributed_smppca splits its
+# key as the JAX package's does (split(key) against smppca's split(key,
+# 3)), so it draws another sample, and residuals of this pair spread from
+# 0.061 to 0.078 across draws (this phase and phase 4 on an NVIDIA H100
+# 80GB HBM3). The memory its call adds to what is live before it within 0.25
+# GB of what phase 4's warm call added (NCCL's buffers lie outside torch's
+# allocator; the two paths each form one (d, k) projection and its
+# transposed copy).
+DIST_SLAB = 16_384
+DIST_ADDED_GB_SLACK = 0.25
+# The multi-host phase (16): two processes, each ingesting its host shard
+# of a d = 50,000, n = 100,000 planted pair made on the card per chunk from
+# the seed and the chunk's first row (no process holds the whole pair),
+# with 16 probes, in 4,096-row chunks, then merging through the store:
+# with wire='f32' and with the gate's vote at WIRE_TOL. Each child runs
+# under MULTIHOST_TIMEOUT seconds.
+MULTIHOST_D, MULTIHOST_N, MULTIHOST_CHUNK = 50_000, 100_000, 4096
+MULTIHOST_TIMEOUT = 300
+# The gradient phase (17): one granite-3-8b MLP layer's widths
+# (src/repro/configs/granite_3_8b.py: d_model 4,096, d_ff 12,800) under
+# benchmarks/run.py::grad_compression's construction (T = 8,192 tokens,
+# x of rank 16 plus noise, w with a planted rank-6 perturbation), the taps
+# with TapConfig(sketch_k=128, rank=8), the compressor with
+# CompressionConfig() (rank 8, k 128, m = 8 (n_in + n_out) 8, 4 ALS
+# iterations). dx is the uncompressed layer's: within 1e-4 relative.
+GRAD_N_IN, GRAD_N_OUT, GRAD_T, GRAD_K, GRAD_R = 4096, 12_800, 8192, 128, 8
+GRAD_DX_TOL = 1e-4
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -580,6 +649,83 @@ def sampled_check(ops, As, Bs, na, nb, rows, cols, label):
     return err
 
 
+@contextlib.contextmanager
+def recording(ops, *names):
+    """Keep each call of the named ``ops`` wrappers made while the block
+    runs, as (arguments, keywords, result), so that a path's own launches
+    can be held against the plain versions afterwards. The wrappers run and
+    count their launches as before."""
+    calls = {name: [] for name in names}
+    saved = {name: getattr(ops, name) for name in names}
+
+    def keep(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls[name].append((args, kw, out))
+            return out
+        return call
+    for name in names:
+        setattr(ops, name, keep(name, saved[name]))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+@torch.no_grad()
+def held_sketch(ops, calls, label):
+    """Each recorded ``sketch_fused`` call against the plain version on its
+    own inputs, held as ``sketch_check`` holds the kernel: every column
+    within SKETCH_TOL of its largest entry, the squared norms within
+    SKETCH_TOL relative. Returns the max abs err."""
+    errs = []
+    for (Pi, A), kw, (out, norm) in calls:
+        if kw.get("precision") == "bf16":
+            Pi, A = Pi.to(torch.bfloat16), A.to(torch.bfloat16)
+        ref_out, ref_norm2 = ops.KERNELS["sketch_fused"].plain(Pi, A)
+        norm2 = norm if kw.get("squared") else norm ** 2
+        diff = (out - ref_out).abs()
+        col_err = float((diff.amax(dim=0) / ref_out.abs().amax(dim=0)
+                         .clamp(min=1e-30)).max())
+        rel_n = float(((norm2 - ref_norm2).abs()
+                       / ref_norm2.clamp(min=1e-30)).max())
+        errs.append(float(diff.max()))
+        shape = tuple(Pi.shape) + (A.shape[1],)
+        print(f"sketch_fused held {label} k,d,n={shape}: max_abs_err="
+              f"{errs[-1]:.3e} column_err={col_err:.3e} norm2_rel_err="
+              f"{rel_n:.3e} (tol {SKETCH_TOL:.0e})", flush=True)
+        check(col_err <= SKETCH_TOL, f"sketch_fused {label} {shape}: "
+              f"column err {col_err}")
+        check(rel_n <= SKETCH_TOL, f"sketch_fused {label} norms {shape}: "
+              f"{rel_n}")
+    return max(errs, default=0.0)
+
+
+@torch.no_grad()
+def held_sampled(ops, calls, label):
+    """Each recorded ``sampled_rescaled_dot`` call against the plain
+    version on its own inputs, held as ``sampled_check`` holds the kernel:
+    every value within SAMPLED_TOL of its nA * nB scale. Returns the max
+    abs err."""
+    errs = []
+    for (As, Bs, na, nb, rows, cols), kw, out in calls:
+        if kw.get("precision") == "bf16":
+            As, Bs = As.to(torch.bfloat16), Bs.to(torch.bfloat16)
+        ref = ops.KERNELS["sampled_rescaled_dot"].plain(
+            As, Bs, na.float(), nb.float(), rows, cols)
+        diff = (out - ref).abs()
+        scaled = float((diff / (na[rows.long()] * nb[cols.long()])
+                        .clamp(min=1e-30)).max()) if out.numel() else 0.0
+        errs.append(float(diff.max()) if out.numel() else 0.0)
+        print(f"sampled_rescaled_dot held {label} n1,n2,k,m="
+              f"{(As.shape[0], Bs.shape[0], As.shape[1], rows.shape[0])}: "
+              f"max_abs_err={errs[-1]:.3e} scaled_err={scaled:.3e} "
+              f"(tol {SAMPLED_TOL:.0e})", flush=True)
+        check(scaled <= SAMPLED_TOL, f"sampled_dot {label}: {scaled}")
+    return max(errs, default=0.0)
+
+
 def flash_check(ops, q, k, v, causal, label, config=None, out=None):
     """Kernel 4 against its plain version on every row (``out``: the
     kernel's output if it ran already); returns the max abs err. Fails
@@ -694,8 +840,9 @@ def engine_full_width(ops, key, A, B, k, r, m, T, gen, waltmin_ms, dev):
     else on the first LELA_ROWS rows). Returns the numbers it printed."""
     from repro_torch import prng
     from repro_torch.core import (
-        baselines, error_engine, estimation_engine, lela, refinement,
-        sampling, summary_engine)
+        baselines, error_engine, estimation_engine, refinement, sampling,
+        summary_engine)
+    from repro_torch.core.lela import lela
     out = {}
     k_sketch, k_sample, _ = prng.split(key, 3)
     k_est = prng.fold_in(k_sample, 0)
@@ -831,7 +978,7 @@ def engine_full_width(ops, key, A, B, k, r, m, T, gen, waltmin_ms, dev):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    factors, ms = timed(lambda: lela.lela(key, Ar, Br, r=r, m=m, T=T,
+    factors, ms = timed(lambda: lela(key, Ar, Br, r=r, m=m, T=T,
                                           device=dev))
     launches = dict(ops.LAUNCHES)
     check(all(bool(torch.isfinite(x).all()) for x in factors),
@@ -1597,13 +1744,412 @@ def traffic_sweep(dev, card):
     return records
 
 
+def residual_on(A, B, factors, W) -> float:
+    """``probe_residual`` on a given W (n2, 8)."""
+    AtBW = A.T @ (B @ W)
+    UVtW = factors.U @ (factors.V.T @ W)
+    return float(torch.linalg.norm(AtBW - UVtW) / torch.linalg.norm(AtBW))
+
+
+def free_port() -> int:
+    """A free localhost TCP port, from the OS."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def distributed_full_width(ops, key, A, B, k, r, m, T, phase4, seed, dev,
+                           card):
+    """Phase 4b: the distributed path on one NCCL rank at full width.
+    ``phase4`` holds the warm call's factors and the memory it added.
+    Returns the launches of ``distributed_smppca`` and of the distributed
+    stream (counters set to 0 before each)."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch import prng
+    from repro_torch.core import distributed, summary_engine
+    from repro_torch.core.smppca import smppca_from_summary
+    from repro_torch.core.streaming import StreamingSummarizer
+    d, n = A.shape
+    t0 = time.perf_counter()
+    # what multihost.initialize does for a cell of more than one process:
+    # a TCPStore on localhost (this process serves it), then NCCL over it
+    store = tdist.TCPStore("127.0.0.1", free_port(), 1, is_master=True,
+                           timeout=datetime.timedelta(seconds=120))
+    tdist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    group = tdist.group.WORLD
+    one = torch.ones(1, device=dev)
+    tdist.all_reduce(one, group=group)      # NCCL's communicator, first use
+    torch.cuda.synchronize()
+    rec = dict(world_size=tdist.get_world_size(), backend=tdist.get_backend(),
+               init_s=time.perf_counter() - t0)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        f = distributed.distributed_smppca(group, key, A, B, r=r, k=k, m=m,
+                                           T=T, device=dev)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        rec["added_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                - before) / 1e9
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["phase4_added_peak_gb"] = phase4["added_peak_gb"]
+        rec["launches"] = launches
+        check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
+                           "blocked_fwht": 0, "flash_attention": 0},
+              f"launches per distributed_smppca call: {launches}")
+        check(tuple(f.U.shape) == (n, r) and bool(torch.isfinite(f.U).all())
+              and bool(torch.isfinite(f.V).all()),
+              "distributed factors: shape and finite")
+        W = torch.randn(n, 8, generator=torch.Generator(device=dev)
+                        .manual_seed(seed + 3), device=dev)
+        rec["probe_residual"] = residual_on(A, B, f, W)
+        rec["phase4_probe_residual"] = residual_on(A, B, phase4["factors"], W)
+        uvw = f.U @ (f.V.T @ W)
+        del f
+        # the summary of the pass against the cuda backend's, and the
+        # all-reduces of its blocks alone (CUDA events); steps 2 and 3 on
+        # the cuda backend's summary under the same key
+        k1, k2 = prng.split(key)
+        got = summary_engine.build_summary(k1, A, B, k, backend="distributed",
+                                           group=group, device=dev)
+        want = summary_engine.build_summary(k1, A, B, k, backend="cuda",
+                                            device=dev)
+        alone = smppca_from_summary(k2, want, r=r, m=m, T=T,
+                                    device=dev).factors
+        ref = alone.U @ (alone.V.T @ W)
+        rec["uvt_probe_rel_diff_vs_cuda_backend"] = float(
+            torch.linalg.norm(uvw - ref) / torch.linalg.norm(ref))
+        del alone, ref, uvw
+        rec["summary_column_err"] = max(
+            column_err(got.A_sketch, want.A_sketch),
+            column_err(got.B_sketch, want.B_sketch))
+        rec["summary_norm_rel_err"] = max(
+            float(((got.norm_A - want.norm_A).abs() / want.norm_A).max()),
+            float(((got.norm_B - want.norm_B).abs() / want.norm_B).max()))
+        rec["summary_bitwise_vs_cuda"] = _fields_equal(got, want)
+        blocks = [got.A_sketch, got.B_sketch, got.norm_A, got.norm_B]
+
+        def reduce():
+            for x in blocks:
+                tdist.all_reduce(x, group=group)
+        reduce()
+        rec["allreduce_ms"] = cuda_ms(reduce, reps=5)
+        rec["allreduce_bytes"] = sum(x.numel() * 4 for x in blocks)
+        del got, want, blocks
+        print(f"distributed smppca [{card}] " + json.dumps(rec), flush=True)
+        check(rec["summary_column_err"] <= SKETCH_TOL,
+              f"distributed summary against the cuda backend: "
+              f"{rec['summary_column_err']}")
+        check(rec["probe_residual"] < PROBE_RESIDUAL_MAX,
+              f"distributed probe residual {rec['probe_residual']}")
+        check(rec["uvt_probe_rel_diff_vs_cuda_backend"] < WARM_UVT_TOL,
+              f"distributed factors against the cuda backend's summary's: "
+              f"{rec['uvt_probe_rel_diff_vs_cuda_backend']}")
+        check(rec["added_peak_gb"] <= phase4["added_peak_gb"]
+              + DIST_ADDED_GB_SLACK,
+              f"distributed call's added memory {rec['added_peak_gb']} GB")
+        # the distributed stream against the single-process stream fed the
+        # same slabs
+        ops.reset_launch_counts()
+        s_dist, ms = timed(lambda: distributed.distributed_streaming_summary(
+            group, k1, A, B, k, slab=DIST_SLAB, probes=PROBES,
+            cosketch=COSKETCH, device=dev))
+        launches_stream = dict(ops.LAUNCHES)
+        summ = StreamingSummarizer(k, probes=PROBES, cosketch=COSKETCH,
+                                   device=dev)
+
+        def single():
+            st = summ.init(k1, (d, n, n))
+            for off in range(0, d, DIST_SLAB):
+                st = summ.update(st, A[off:off + DIST_SLAB],
+                                 B[off:off + DIST_SLAB], off)
+            return summ.finalize(st)
+        s_one, ms_one = timed(single)
+        bitwise = _fields_equal(s_dist, s_one)
+        errs = {name: column_err(getattr(s_dist, name), getattr(s_one, name))
+                for name in ("A_sketch", "B_sketch", "probes", "cosketch_Y",
+                             "cosketch_W")}
+        srec = dict(slab=DIST_SLAB, probes=PROBES, cosketch=COSKETCH, ms=ms,
+                    single_process_ms=ms_one, launches=launches_stream,
+                    bitwise_vs_single_process=bitwise, column_err=errs)
+        print(f"distributed stream [{card}] " + json.dumps(srec), flush=True)
+        check(launches_stream["sketch_fused"] == 2 * -(-d // DIST_SLAB),
+              f"distributed stream launches {launches_stream}")
+        check(all(e <= SKETCH_TOL for e in errs.values()),
+              f"distributed stream against the single-process stream: {errs}")
+        del s_dist, s_one
+    finally:
+        tdist.destroy_process_group()
+    return launches, launches_stream
+
+
+def multihost_rows(seed, lo, hi, n, dev):
+    """Rows [lo, hi) of a planted pair, made on the card from the seed and
+    ``lo`` alone (the same chunking gives the same rows in every
+    process)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed * 1_000_003 + lo)
+    return planted_pair(gen, hi - lo, n, dev)
+
+
+def multihost_child(seed: int) -> int:
+    """One process of phase 16's cell: join it (``multihost.initialize``
+    from the REPRO_* environment), build the other host's partial state,
+    then time this host's ingest while the other process waits (one rank on
+    the card at a time, as each host would have its own card),
+    ``sharded_ingest`` this host's shard on the card (both ranks at once),
+    then time the f32 merge and the gate's merge alone, each after a
+    barrier, and print one ``multihost_rank`` JSON line."""
+    import hashlib
+    import torch.distributed as tdist
+    from repro_torch import prng
+    from repro_torch.core import streaming
+    from repro_torch.dist import multihost
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    # the exchange goes through the store, not a collective: NCCL cannot
+    # hold two ranks on one card, so the group is gloo's
+    check(multihost.initialize(device="cpu", timeout=MULTIHOST_TIMEOUT),
+          "the multi-host cell is configured")
+    pid, nproc = multihost.process_topology()
+    d, n = MULTIHOST_D, MULTIHOST_N
+    key = prng.PRNGKey(seed, device=dev)
+    summ = streaming.StreamingSummarizer(512, probes=PROBES, device=dev)
+    shapes = (d, n, n)
+
+    def fetch(lo, hi):
+        return multihost_rows(seed, lo, hi, n, dev)
+
+    def ingest(h):
+        lo, hi = multihost.host_shard_range(d, hosts=nproc, host=h)
+        chunks = (fetch(off, min(off + MULTIHOST_CHUNK, hi))
+                  for off in range(lo, hi, MULTIHOST_CHUNK))
+        return summ.ingest(summ.init(key, shapes), chunks, row_offset=lo)
+
+    rec = dict(rank=pid, processes=nproc)
+    parts = [None] * nproc
+    for h in range(nproc):
+        if h != pid:
+            parts[h] = ingest(h)
+    for h in range(nproc):
+        tdist.barrier()
+        if h == pid:
+            parts[h], ms = timed(lambda: ingest(h))
+            lo, hi = multihost.host_shard_range(d, hosts=nproc, host=h)
+            rec["ingest_s"], rec["rows"] = ms / 1e3, hi - lo
+    rec["rows_per_s"] = rec["rows"] / rec["ingest_s"]
+    tdist.barrier()
+    ops.reset_launch_counts()
+    merged, ms = timed(lambda: multihost.sharded_ingest(
+        summ, key, shapes, fetch, chunk=MULTIHOST_CHUNK, wire="f32",
+        timeout=MULTIHOST_TIMEOUT))
+    rec["sharded_ingest_s"] = ms / 1e3
+    rec["launches"] = dict(ops.LAUNCHES)
+    rec["equals_local_tree_merge"] = all(_fields_equal(
+        merged, streaming.tree_merge(parts)).values())
+    rec["wire_bytes_f32"] = len(streaming.wire_pack(
+        streaming.compress_state(parts[pid], "f32")))
+    tdist.barrier()
+    again, ms = timed(lambda: multihost.cross_host_merge(
+        parts[pid], wire="f32", timeout=MULTIHOST_TIMEOUT))
+    rec["merge_f32_s"] = ms / 1e3
+    rec["merge_f32_equal"] = all(_fields_equal(merged, again).values())
+    del again
+    tdist.barrier()
+    gated, ms = timed(lambda: multihost.cross_host_merge(
+        parts[pid], tol=WIRE_TOL, timeout=MULTIHOST_TIMEOUT))
+    rec["merge_gate_s"] = ms / 1e3
+    spec, err = streaming.choose_wire_spec(parts[pid], WIRE_TOL)
+    rec.update(gate_vote=spec.sketch, gate_wire_error=err,
+               wire_bytes_gate_vote=len(streaming.wire_pack(
+                   streaming.compress_state(parts[pid], spec))),
+               gate_rel_err=float((gated.A_acc - merged.A_acc).abs().max()
+                                  / merged.A_acc.abs().max()))
+    digest = hashlib.sha256()
+    for x in merged:
+        if x is not None:
+            digest.update(x.detach().cpu().numpy().tobytes())
+    rec["sha256"] = digest.hexdigest()
+    rec["rows_seen"] = int(merged.rows_seen)
+    print("multihost_rank " + json.dumps(rec), flush=True)
+    return 0
+
+
+def multihost_cell(seed: int, card: str) -> dict:
+    """Phase 16: two processes of this script on the one card, joined
+    through a TCPStore on localhost (``multihost.initialize`` from the
+    REPRO_* environment), each under MULTIHOST_TIMEOUT seconds and killed
+    when it expires. Returns the launches of both ranks'
+    ``sharded_ingest``."""
+    env = dict(os.environ, REPRO_COORDINATOR=f"127.0.0.1:{free_port()}",
+               REPRO_NUM_PROCESSES="2", GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for rank in range(2):
+            log = open(os.path.join(tmp, f"rank{rank}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multihost-child", "--seed", str(seed)],
+                env=dict(env, REPRO_PROCESS_ID=str(rank)), stdout=log,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + MULTIHOST_TIMEOUT
+        try:
+            for p in procs:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"multi-host rank {rank} rc={p.returncode}:\n{out[-4000:]}")
+    ranks = [json.loads(next(line for line in out.splitlines()
+                             if line.startswith("multihost_rank "))
+                        .split(" ", 1)[1]) for out in outs]
+    rec = dict(d=MULTIHOST_D, n=MULTIHOST_N, k=512, probes=PROBES,
+               chunk=MULTIHOST_CHUNK, child_timeout_s=MULTIHOST_TIMEOUT,
+               cell_s=time.perf_counter() - t0,
+               ranks_bitwise_equal=ranks[0]["sha256"] == ranks[1]["sha256"],
+               ranks=ranks)
+    print(f"multihost [{card}] " + json.dumps(rec), flush=True)
+    check(rec["ranks_bitwise_equal"], "both ranks' merged states agree")
+    check(all(x["equals_local_tree_merge"] and x["merge_f32_equal"]
+              and x["rows_seen"] == MULTIHOST_D for x in ranks),
+          "the f32 merge is the local tree_merge of both partial states")
+    check(all(x["gate_rel_err"] <= 2e-2 for x in ranks),
+          "the gated merge within the quantization's tolerance")
+    return {name: sum(x["launches"][name] for x in ranks)
+            for name in ranks[0]["launches"]}
+
+
+def gradient_phase(ops, seed, dev, card):
+    """Phase 17: the gradient tap and the A = I compressor at one
+    granite-3-8b MLP layer's widths. Returns the launches of the taps'
+    backward and decompression, and of the compressor."""
+    from repro_torch import prng
+    from repro_torch.optim import grad_compression as gc
+    from repro_torch.train import sketched_dense as sd
+    n_in, n_out, T = GRAD_N_IN, GRAD_N_OUT, GRAD_T
+    key = prng.PRNGKey(seed, device=dev)
+    # benchmarks/run.py::grad_compression's construction, drawn with the
+    # port's keys on the card
+    kw, kx, kz, kp1, kp2 = prng.split(key, 5)
+    w_true = prng.normal(kw, (n_in, n_out)) * 0.05
+    w = w_true + (prng.normal(kp1, (n_in, 6))
+                  @ prng.normal(kp2, (6, n_out))) * 0.02
+    z = prng.normal(kz, (8, T // 8, 16))
+    E = prng.normal(prng.fold_in(kx, 1), (16, n_in))
+    x = z @ E + 0.05 * prng.normal(kx, (8, T // 8, n_in))
+    target = x @ w_true
+    del w_true, z, E
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def events(fn):
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    taps = {f: v.requires_grad_()
+            for f, v in sd.tap_init(n_in, n_out, GRAD_K, device=dev).items()}
+    wp, xp = w.clone().requires_grad_(), x.clone().requires_grad_()
+    ops.reset_launch_counts()
+
+    def tapped():
+        y = sd.sketched_dense(wp, taps, xp, key, GRAD_K, 1024)
+        torch.mean((y - target) ** 2).backward()
+    cfg = sd.TapConfig(sketch_k=GRAD_K, rank=GRAD_R)
+    with recording(ops, "sketch_fused", "sampled_rescaled_dot") as tap_calls:
+        _, tap_ms = events(tapped)
+        ghat, decompress_ms = events(lambda: sd.decompress_tap(
+            key, {f: v.grad for f, v in taps.items()}, cfg))
+    launches_taps = dict(ops.LAUNCHES)
+    w2, x2 = w.clone().requires_grad_(), x.clone().requires_grad_()
+    _, dense_ms = events(lambda: torch.mean((x2 @ w2 - target) ** 2)
+                         .backward())
+    dw_true, dx_ref = w2.grad, x2.grad
+    dx_rel = float(torch.linalg.norm(xp.grad - dx_ref)
+                   / torch.linalg.norm(dx_ref))
+
+    def cosine(a, b):
+        return float(torch.sum(a * b) / (torch.linalg.norm(a)
+                                         * torch.linalg.norm(b)))
+    cos_t = cosine(dw_true, ghat)
+    ops.reset_launch_counts()
+    grads = {"w": dw_true}
+    with recording(ops, "sketch_fused", "sampled_rescaled_dot") as comp_calls:
+        (out, _, stats), compress_ms = events(lambda: gc.compress_grads(
+            key, grads, gc.init_state(grads), gc.CompressionConfig()))
+    launches_comp = dict(ops.LAUNCHES)
+    # the path's own launches against the plain versions on their inputs
+    # (the taps' Pi.T with X and with dY, the compressor's Pi with dW, and
+    # the gathers at m = 8 (n_in + n_out) r); the plain versions launch
+    # nothing
+    held = dict(
+        sketch_taps=held_sketch(ops, tap_calls["sketch_fused"], "taps"),
+        sampled_taps=held_sampled(ops, tap_calls["sampled_rescaled_dot"],
+                                  "decompress_tap"),
+        sketch_compressor=held_sketch(ops, comp_calls["sketch_fused"],
+                                      "compressor"),
+        sampled_compressor=held_sampled(
+            ops, comp_calls["sampled_rescaled_dot"], "compress_grads"))
+    del tap_calls, comp_calls
+    cos_b = cosine(dw_true, out["w"])
+    comm = (GRAD_K * (n_in + n_out) + n_in + n_out) / (n_in * n_out)
+    rec = dict(n_in=n_in, n_out=n_out, T=T, k=GRAD_K, r=GRAD_R,
+               m_taps=8 * (n_in + n_out) * GRAD_R,
+               m_compressor=8 * (n_in + n_out) * gc.CompressionConfig().rank,
+               cos_taps=cos_t, cos_AeqI=cos_b, comm=comm,
+               compressor_comm_fraction=stats["comm_fraction"],
+               dx_rel_err=dx_rel, tap_fwd_bwd_ms=tap_ms,
+               decompress_tap_ms=decompress_ms, dense_fwd_bwd_ms=dense_ms,
+               compress_grads_ms=compress_ms, launches_taps=launches_taps,
+               launches_compressor=launches_comp, held_max_abs_err=held)
+    print(f"gradient layer [{card}] " + json.dumps(rec), flush=True)
+    check(launches_taps == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
+                            "blocked_fwht": 0, "flash_attention": 0},
+          f"tap path launches {launches_taps}")
+    check(launches_comp == {"sketch_fused": 1, "sampled_rescaled_dot": 1,
+                            "blocked_fwht": 0, "flash_attention": 0},
+          f"compressor launches {launches_comp}")
+    check(bool((wp.grad == 0).all()), "the tap layer's dW is zero")
+    check(dx_rel <= GRAD_DX_TOL, f"the tap layer's dx: {dx_rel}")
+    check(math.isfinite(cos_t) and math.isfinite(cos_b) and cos_t > cos_b,
+          f"cos_taps {cos_t} > cos_AeqI {cos_b}")
+    return launches_taps, launches_comp
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--multihost-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.multihost_child:
+        return multihost_child(args.seed)
+    script_t0 = time.perf_counter()
     from repro_torch import prng
     from repro_torch.core import (
         estimation_engine, pipeline, sampling, summary_engine)
@@ -1749,6 +2295,7 @@ def main(argv=None) -> int:
     before = dict(vars(engine.stats))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    live_warm = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = smppca(key, A, B, r=r, k=k, m=m, T=T, device=dev)
@@ -1797,6 +2344,13 @@ def main(argv=None) -> int:
     # card against CPU at a small size, and the test's error bound
     small_pair_check(smppca, spectral_error_vs_optimal, args.seed, r, dev,
                      "gaussian")
+
+    # 4b. the distributed path at full width, one NCCL rank ----------------
+    launches_dist, launches_dist_stream = distributed_full_width(
+        ops, key, A, B, k, r, m, T,
+        dict(factors=res.factors,
+             added_peak_gb=peak_warm_gb - live_warm / 1e9),
+        args.seed, dev, card)
 
     # 5. kernel 2 against its plain version ---------------------------------
     As_rows = summary.A_sketch.T.contiguous()
@@ -2138,19 +2692,30 @@ def main(argv=None) -> int:
     check(all(launches_tune[name] > 0 for name in ops.KERNELS),
           f"the tuner launched every kernel: {launches_tune}")
 
-    # 16. the kernels line and the last line --------------------------------
+    # 16. the multi-host cell: two processes on the one card ---------------
+    torch.cuda.empty_cache()
+    launches_multihost = multihost_cell(args.seed, card)
+
+    # 17. gradient compression and the gradient tap at a layer's width -----
+    launches_taps, launches_comp = gradient_phase(ops, args.seed, dev, card)
+    torch.cuda.empty_cache()
+
+    # 18. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path
     # and the stream's 4,096-row pass for kernel 1, the Gaussian path for
     # kernel 2, the SRHT path for kernel 3, the attention call for kernel
     # 4, and for each the serving phase's (the sweep, the traffic cells and
-    # the stream session)
+    # the stream session); then the distributed call and stream, both
+    # ranks' sharded ingest, the gradient tap and the compressor
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
-    for name in path_launches:
-        path_launches[name] += launches_serve[name]
+    for extra in (launches_serve, launches_dist, launches_dist_stream,
+                  launches_multihost, launches_taps, launches_comp):
+        for name in path_launches:
+            path_launches[name] += extra[name]
     kernels = []
     for name, mod in ops.KERNELS.items():
         t = timing[name]
@@ -2161,6 +2726,8 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(f"chip_smoke [{card}]: {time.perf_counter() - script_t0:.1f} s "
+          f"(build {build_s:.1f} s)", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -188,3 +188,43 @@ def window_state_to_numpy(state: WindowState) -> WindowState:
     return WindowState(key_to_numpy(state.key),
                        tuple(stream_state_to_numpy(b) for b in state.buckets),
                        tensor_to_numpy(state.head))
+
+
+def _tree_from_numpy(tree, device):
+    from repro_torch.core.types import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [tensor_from_numpy(x, device)
+                                 for x in tree_leaves(tree)])
+
+
+def _tree_to_numpy(tree):
+    from repro_torch.core.types import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [tensor_to_numpy(x)
+                                 for x in tree_leaves(tree)])
+
+
+def compression_state_from_numpy(state, device="cpu"):
+    """A JAX ``CompressionState`` (its residual tree and step as numpy
+    arrays, or as jax's own arrays) -> port: every residual on ``device``
+    but the 0-d ones, the step a 0-d int32 CPU tensor."""
+    from repro_torch.optim.grad_compression import CompressionState
+    err = _tree_from_numpy(state.err, device)
+    return CompressionState(err, tensor_from_numpy(state.step))
+
+
+def compression_state_to_numpy(state):
+    """Port ``CompressionState`` -> the same NamedTuple holding numpy
+    arrays in the same tree."""
+    from repro_torch.optim.grad_compression import CompressionState
+    return CompressionState(_tree_to_numpy(state.err),
+                            tensor_to_numpy(state.step))
+
+
+def taps_from_numpy(taps, device="cpu") -> dict:
+    """A tap dict ``{a, b, na2, nb2}`` (numpy arrays, or a tree of such
+    dicts) -> port tensors on ``device``."""
+    return _tree_from_numpy(taps, device)
+
+
+def taps_to_numpy(taps) -> dict:
+    """Port taps (a dict of tensors, or a tree of such dicts) -> numpy."""
+    return _tree_to_numpy(taps)

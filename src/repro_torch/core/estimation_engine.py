@@ -40,8 +40,9 @@ split once into (sample key, ALS key), the same on every backend.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -185,6 +186,27 @@ def _power(key, summary, r, *, m, T, use_splits, exact_pair, refine,
 _METHODS = {"rescaled_jl": _rescaled_jl, "lela_waltmin": _lela_waltmin,
             "direct_svd": _direct_svd, "power": _power}
 
+# One entry per (method, backend) cell: fn(key, summary, r, *, m, T,
+# use_splits, exact_pair, refine, tuning) -> EstimateResult.
+_REGISTRY: Dict[Tuple[str, str], Callable] = {
+    (method, backend): functools.partial(fn, backend=backend)
+    for method, fn in _METHODS.items() for backend in BACKENDS}
+
+
+def register_estimator(method: str, backend: str):
+    """Register ``fn(key, summary, r, *, m, T, use_splits, exact_pair,
+    refine, tuning)`` for one (method, backend) cell (a decorator;
+    registering an existing cell replaces it)."""
+    def _deco(fn):
+        _REGISTRY[(method, backend)] = fn
+        return fn
+    return _deco
+
+
+def estimators() -> tuple:
+    """All registered (method, backend) cells."""
+    return tuple(sorted(_REGISTRY))
+
 
 # ---------------------------------------------------------------------------
 # The entry point
@@ -220,12 +242,13 @@ def estimate_product(key: torch.Tensor, summary: SketchSummary, r: int, *,
              the gather kernel with its ``sampled_dot`` config, if pinned.
     device:  where to run; key, summary and exact_pair are moved there.
     """
-    if method not in METHODS:
+    if method not in {cell[0] for cell in _REGISTRY}:
         raise ValueError(
             f"unknown estimation method {method!r} (use one of {METHODS})")
-    if backend not in BACKENDS:
+    if (method, backend) not in _REGISTRY:
         raise ValueError(
-            f"unknown estimation backend {backend!r} (use one of {BACKENDS})")
+            f"unknown estimation backend {backend!r} for {method!r} (use "
+            f"one of {BACKENDS})")
     if refine is not None and method != "power":
         raise ValueError(
             f"refine= only applies to method='power', got method={method!r}")
@@ -249,9 +272,8 @@ def estimate_product(key: torch.Tensor, summary: SketchSummary, r: int, *,
     if m is None:
         m = default_m(int(summary.A_sketch.shape[-1]),
                       int(summary.B_sketch.shape[-1]), r)
-    fn = _METHODS[method]
-    kw = dict(m=m, T=T, use_splits=use_splits, refine=refine,
-              backend=backend, tuning=tuning)
+    fn = _REGISTRY[(method, backend)]
+    kw = dict(m=m, T=T, use_splits=use_splits, refine=refine, tuning=tuning)
 
     def _one(kk, s, pair):
         out = fn(kk, s, r, exact_pair=pair, **kw)

@@ -1,4 +1,4 @@
-"""The SVD every factorization of the port goes through.
+"""The SVD every factorization and spectral norm of the port goes through.
 
 On CUDA tensors ``torch.linalg.svd`` picks cuSOLVER's Jacobi routine
 (``gesvdj``) by default, which is less exact: on a 200 x 200 float32 matrix
@@ -18,3 +18,12 @@ def svd(M: torch.Tensor):
     if M.is_cuda:
         return torch.linalg.svd(M, full_matrices=False, driver="gesvd")
     return torch.linalg.svd(M, full_matrices=False)
+
+
+def spectral_norm(M: torch.Tensor) -> torch.Tensor:
+    """The largest singular value of M (a 0-d tensor), through cuSOLVER's
+    ``gesvd`` when M is on a CUDA device; on the CPU
+    ``torch.linalg.matrix_norm(M, ord=2)``."""
+    if M.is_cuda:
+        return torch.linalg.svdvals(M, driver="gesvd").amax(dim=-1)
+    return torch.linalg.matrix_norm(M, ord=2)

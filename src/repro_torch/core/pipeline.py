@@ -95,7 +95,7 @@ class SketchSpec(NamedTuple):
     """
 
     method: str = "gaussian"       # 'gaussian' | 'srht' | 'norms_only'
-    backend: str = "reference"     # summary_engine.BACKENDS
+    backend: str = "reference"     # summary_engine.backends()
     k: int = 128
     block: int = 1024
     precision: Optional[str] = None
@@ -270,14 +270,14 @@ def validate_plan(plan: PipelinePlan) -> None:
         raise ValueError(f"unknown sketch method {sk.method!r} "
                          f"(use {methods})")
     if sk.method != "norms_only":
+        if sk.backend not in summary_engine.backends():
+            raise ValueError(f"unknown summary backend {sk.backend!r} "
+                             f"(use one of {summary_engine.backends()})")
         if sk.backend == "distributed":
             raise ValueError(
                 "backend='distributed' needs a process group and is not "
-                "plan-compilable (and not ported yet: ROADMAP.md, Queue 1 "
-                "item 8)")
-        if sk.backend not in summary_engine.BACKENDS:
-            raise ValueError(f"unknown summary backend {sk.backend!r} "
-                             f"(use one of {summary_engine.BACKENDS})")
+                "plan-compilable: use build_summary(..., group=) or "
+                "core.distributed directly")
     if est.method not in estimation_engine.METHODS:
         raise ValueError(f"unknown estimation method {est.method!r} "
                          f"(use one of {estimation_engine.METHODS})")

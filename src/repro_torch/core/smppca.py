@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import estimation_engine, pipeline
-from repro_torch.core.linalg import svd
+from repro_torch.core.linalg import spectral_norm, svd
 from repro_torch.core.types import LowRankFactors, SketchSummary, SMPPCAResult
 
 
@@ -65,16 +65,15 @@ def spectral_error(A: torch.Tensor, B: torch.Tensor,
                    factors: LowRankFactors) -> torch.Tensor:
     """|| A^T B - U V^T ||_2 / || A^T B ||_2."""
     M = A.T @ B
-    err = torch.linalg.matrix_norm(M - factors.U @ factors.V.T, ord=2)
-    return err / torch.linalg.matrix_norm(M, ord=2)
+    return spectral_norm(M - factors.U @ factors.V.T) / spectral_norm(M)
 
 
 def spectral_error_vs_optimal(A: torch.Tensor, B: torch.Tensor, r: int,
                               factors: LowRankFactors):
     """(algorithm error, optimal rank-r error), both relative spectral norm."""
     M = A.T @ B
-    nM = torch.linalg.matrix_norm(M, ord=2)
+    nM = spectral_norm(M)
     U, s, Vt = svd(M)
     Mr = (U[:, :r] * s[:r]) @ Vt[:r]
-    return (torch.linalg.matrix_norm(M - factors.U @ factors.V.T, ord=2) / nM,
-            torch.linalg.matrix_norm(M - Mr, ord=2) / nM)
+    return (spectral_norm(M - factors.U @ factors.V.T) / nM,
+            spectral_norm(M - Mr) / nM)

@@ -2,7 +2,8 @@
 
 ``build_summary(key, A, B, k, method=..., backend=...)`` returns the
 ``SketchSummary`` (sketches and exact column norms) that sampling, estimation
-and completion consume. Four backends, one randomness contract:
+and completion consume. Five backends (``backends()``; ``register_backend``
+adds more), one randomness contract:
 
     reference    materialized projection operator, one dense product per
                  matrix (the oracle the other backends are tested against)
@@ -18,6 +19,9 @@ and completion consume. Four backends, one randomness contract:
                  (kernels/sketch_fused) for gaussian, the blocked FWHT
                  (kernels/hadamard) for srht; on CPU tensors they run their
                  plain versions
+    distributed  rows sharded over the ranks of a ``torch.distributed``
+                 group, each rank's shard one ``chunk_contribution``, then
+                 all-reduces (``core/distributed.py``; needs ``group=``)
 
 The contract is that of ``repro.core.summary_engine``:
 
@@ -30,20 +34,29 @@ The contract is that of ``repro.core.summary_engine``:
 
 Precision: ``precision='bf16'`` casts the inputs to bfloat16 while every
 sum stays float32; sketches and norms are float32.
+
+Two structured products are summarized here too, for the training side:
+``identity_product_summary`` (A = I stacked over workers, the gradient
+compressor's mapping) and ``tap_pair_summary`` (the gradient tap's
+(X, dY) pair).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as _device
 from repro_torch import prng
-from repro_torch.core.sketch import _next_pow2, _sqrt_f32, column_norms, pi_rows
+from repro_torch.core.sketch import (
+    _next_pow2, _sqrt_f32, column_norms, gaussian_pi, pi_rows)
 from repro_torch.core.types import SketchSummary, tree_stack
 
 METHODS = ("gaussian", "srht")
+# The backends that summarize in one process; ``backends()`` lists every
+# registered one, 'distributed' included.
 BACKENDS = ("reference", "scan", "rows", "cuda")
 
 # Columns per blocked_fwht call in the cuda backend's SRHT pass. The
@@ -207,19 +220,26 @@ def chunk_contribution(key: torch.Tensor, plan, A_chunk: torch.Tensor,
     the kernel summed them, with the launch configs ``configs`` (a
     ``SketchConfigs``; None resolves them per launch)."""
     P = projection_rows(key, gids, k, method=method, plan=plan)   # (t, k)
-    Ac, Bc = _cast(A_chunk, precision), _cast(B_chunk, precision)
-    if Ac.device.type == "cpu":
-        return (_sketch_dot(P, Ac, precision), _sketch_dot(P, Bc, precision),
-                torch.sum(Ac.float() ** 2, dim=0),
-                torch.sum(Bc.float() ** 2, dim=0))
-    from repro_torch.kernels import ops
     cfg_A, cfg_B = (None, None) if configs is None else \
         (configs.A[0], configs.B[0])
-    dA, dna2 = ops.sketch_fused(_cast(P, precision).to(Ac.dtype).T, Ac,
-                                squared=True, config=cfg_A)
-    dB, dnb2 = ops.sketch_fused(_cast(P, precision).to(Bc.dtype).T, Bc,
-                                squared=True, config=cfg_B)
+    dA, dna2 = _sketch_and_norms(P, A_chunk, precision, cfg_A)
+    dB, dnb2 = _sketch_and_norms(P, B_chunk, precision, cfg_B)
     return dA, dB, dna2, dnb2
+
+
+def _sketch_and_norms(P: torch.Tensor, X: torch.Tensor,
+                      precision: Optional[str], config=None):
+    """(P^T X (k, n), X's squared column norms (n,)) for P (t, k) and X
+    (t, n), float32: plain products on CPU tensors, one
+    ``ops.sketch_fused`` launch (``squared=True``, launch config
+    ``config``) on CUDA tensors, whose squared norms are used as the
+    kernel summed them."""
+    Xc = _cast(X, precision)
+    if Xc.device.type == "cpu":
+        return _sketch_dot(P, Xc, precision), torch.sum(Xc.float() ** 2, dim=0)
+    from repro_torch.kernels import ops
+    return ops.sketch_fused(_cast(P, precision).to(Xc.dtype).T, Xc,
+                            squared=True, config=config)
 
 
 def _scan_backend(key, A, B, k: int, *, method: str, block: int,
@@ -301,8 +321,43 @@ def _cuda_backend(key, A, B, k: int, *, method: str, block: int,
     return SketchSummary(As, Bs, na, nb)
 
 
-_BACKENDS = {"reference": _reference_backend, "scan": _scan_backend,
-             "rows": _rows_backend, "cuda": _cuda_backend}
+def _distributed_backend(key, A, B, k: int, *, method: str, block: int,
+                         precision: Optional[str], configs=None,
+                         group=None) -> SketchSummary:
+    """Rows sharded over the ranks of ``group`` (``core/distributed.py``):
+    A and B are the whole pair on every rank, each rank summarizes its own
+    shard."""
+    del block, configs
+    if group is None:
+        raise ValueError("backend='distributed' needs group=... (a process "
+                         "group, or an (outer, inner) pair of them)")
+    from repro_torch.core.distributed import distributed_sketch_summary
+    return distributed_sketch_summary(group, key, A, B, k, method=method,
+                                      precision=precision, device=A.device)
+
+
+_BACKENDS: Dict[str, Callable] = {
+    "reference": _reference_backend, "scan": _scan_backend,
+    "rows": _rows_backend, "cuda": _cuda_backend,
+    "distributed": _distributed_backend}
+
+
+def register_backend(name: str):
+    """Register ``fn(key, A, B, k, *, method, block, precision, configs,
+    **kw)`` as summary backend ``name`` (a decorator; an existing name is
+    replaced). ``configs`` is the resolved kernel launch configs (None for
+    a backend that launches nothing); a backend that does not act on it must
+    accept and ignore it. ``build_summary(group=...)`` reaches the backend
+    as ``group=``, and only when the caller gives one."""
+    def _deco(fn):
+        _BACKENDS[name] = fn
+        return fn
+    return _deco
+
+
+def backends() -> tuple:
+    """All registered summary backend names."""
+    return tuple(sorted(_BACKENDS))
 
 
 class SketchConfigs(NamedTuple):
@@ -375,13 +430,9 @@ def _check_args(method: str, backend: str, A: torch.Tensor,
                 B: torch.Tensor) -> None:
     if method not in METHODS:
         raise ValueError(f"unknown sketch method {method!r} (use {METHODS})")
-    if backend == "distributed":
-        raise NotImplementedError(
-            "backend='distributed' is not ported yet (ROADMAP.md, Queue 1 "
-            "item 8)")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown summary backend {backend!r} "
-                         f"(use one of {BACKENDS})")
+                         f"(use one of {backends()})")
     if A.ndim != B.ndim or A.ndim not in (2, 3) or \
             A.shape[:-1] != B.shape[:-1]:
         raise ValueError(f"A {tuple(A.shape)} and B {tuple(B.shape)} "
@@ -393,7 +444,7 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
                   *, method: str = "gaussian", backend: str = "reference",
                   block: int = 1024, precision: Optional[str] = None,
                   probes: int = 0, cosketch: int = 0, tuning=None,
-                  device="cuda") -> SketchSummary:
+                  group=None, device="cuda") -> SketchSummary:
     """One-pass summary of (A, B): sketches (k, n) and exact column norms.
 
     A: (d, n1), B: (d, n2), or stacked (L, d, n1) / (L, d, n2) for the
@@ -414,6 +465,10 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
               ``cuda`` backend launches with its ``sketch_fused`` (gaussian)
               or ``blocked_fwht`` (srht) config, the other backends ignore
               it; unpinned launches resolve through ``tuning.lookup``.
+    group:    required by ``backend='distributed'``: a ``torch.distributed``
+              process group, or an ``(outer, inner)`` pair for the
+              hierarchical reduce (``dist.multihost.host_groups``); A and B
+              are then the whole pair on every rank. No batched mode.
 
     Both blocks are plain PyTorch products over ``block``-row blocks, run
     after the backend whichever it is (as in the JAX package).
@@ -431,22 +486,30 @@ def build_summary(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor, k: int,
     ((16, 8), (8, 3), (5, 6))
     """
     _check_args(method, backend, A, B)
+    if group is not None and A.ndim == 3:
+        raise NotImplementedError(
+            "batched mode is not supported with a group (backend="
+            "'distributed')")
     dev = _device.resolve(device)
     key, A, B = key.to(dev), A.to(dev), B.to(dev)
     configs = sketch_configs(backend, method, k, block, precision, A, B,
                              tuning)
     return _summarize(key, A, B, k, method=method, backend=backend,
                       block=block, precision=precision, probes=probes,
-                      cosketch=cosketch, configs=configs)
+                      cosketch=cosketch, configs=configs, group=group)
 
 
 def _summarize(key, A, B, k: int, *, method, backend, block, precision,
-               probes, cosketch, configs) -> SketchSummary:
+               probes, cosketch, configs, group=None) -> SketchSummary:
     """``build_summary`` on arguments already checked and on one device,
-    with every launch config resolved."""
+    with every launch config resolved; ``group`` reaches the backend as a
+    keyword when it is given."""
+    extra = {} if group is None else {"group": group}
+
     def _one(kk, a, b):
         out = _BACKENDS[backend](kk, a, b, k, method=method, block=block,
-                                 precision=precision, configs=configs)
+                                 precision=precision, configs=configs,
+                                 **extra)
         if probes:
             from repro_torch.core import error_engine
             out = error_engine.attach_probes(out, kk, a, b, probes,
@@ -498,3 +561,63 @@ def norms_only_summary(A: torch.Tensor, B: torch.Tensor) -> SketchSummary:
         torch.zeros((0, A.shape[1]), dtype=torch.float32, device=A.device),
         torch.zeros((0, B.shape[1]), dtype=torch.float32, device=B.device),
         column_norms(A), column_norms(B))
+
+
+# ---------------------------------------------------------------------------
+# Structured-product summaries for the training side
+# ---------------------------------------------------------------------------
+
+def identity_product_summary(key: torch.Tensor, G: torch.Tensor, k: int, *,
+                             group=None, n_workers: int = 1,
+                             precision: Optional[str] = None,
+                             device="cuda") -> SketchSummary:
+    """Summary of the structured product A^T B with A = vstack_w(I), so that
+    A^T B = G = sum_w G_w: the gradient-compression mapping. A's sketch is
+    each worker's Pi slice itself and ||A_i|| = sqrt(W), so A is never
+    formed. G: (n1, n2), or stacked (L, n1, n2) (``key`` split L ways, or a
+    stack of L keys), on ``device``.
+
+    With ``group`` (a ``torch.distributed`` process group of the W =
+    ``n_workers`` workers), G is this worker's summand: its Pi comes from
+    ``fold_in(key, rank)`` and the sketches and squared norms are
+    all-reduced over the group (the paper's treeAggregate). On the card
+    ``Pi @ G`` and G's squared column norms are one ``ops.sketch_fused``
+    launch."""
+    dev = _device.resolve(device)
+    key, G = key.to(dev), G.to(dev)
+    if G.ndim == 3:
+        keys = pair_keys(key, G.shape[0])
+        return tree_stack([identity_product_summary(
+            keys[i], G[i], k, group=group, n_workers=n_workers,
+            precision=precision, device=dev) for i in range(G.shape[0])])
+    n1 = G.shape[0]
+    if group is not None:
+        key = prng.fold_in(key, dist.get_rank(group))
+    Gc = _cast(G, precision)
+    # one operator for both sides: the (possibly rounded) Pi that contracts
+    # with G is also what A's sketch reports (A's slice is I)
+    Pi = _cast(gaussian_pi(key, k, n1), precision).to(Gc.dtype)
+    A_sk = Pi.float()
+    B_sk, nb2 = _sketch_and_norms(Pi.T, Gc, precision)
+    if group is not None:
+        for x in (A_sk, B_sk, nb2):
+            dist.all_reduce(x, group=group)
+    return SketchSummary(
+        A_sk, B_sk,
+        torch.full((n1,), float(_sqrt_f32(n_workers)), dtype=torch.float32,
+                   device=dev),
+        torch.sqrt(nb2))
+
+
+def tap_pair_summary(key: torch.Tensor, X: torch.Tensor, Y: torch.Tensor,
+                     k: int, *, precision: Optional[str] = None):
+    """One-pass ``(Pi X, Pi Y, squared column norms of X, of Y)`` over X
+    (T, n1) and Y (T, n2) for the gradient tap, on X's device, with Pi =
+    ``normal(key, (T, k)) / sqrt(k)`` drawn whole over the token dimension.
+    Returns the raw tuple: taps carry squared norms, so summing them over
+    workers stays a plain sum. On the card two ``ops.sketch_fused``
+    launches."""
+    Pi = prng.normal(key.to(X.device), (X.shape[0], k)) / _sqrt_f32(k)
+    As, na2 = _sketch_and_norms(Pi, X, precision)
+    Bs, nb2 = _sketch_and_norms(Pi, Y, precision)
+    return As, Bs, na2, nb2

@@ -164,3 +164,42 @@ def tree_stack(trees):
     if isinstance(first, torch.Tensor):
         return torch.stack(trees)
     return type(first)(*(tree_stack(list(xs)) for xs in zip(*trees)))
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples (NamedTuples included)
+    in ``jax.tree.leaves``' order: dict keys sorted, None holds no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        children = [tree[key] for key in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        children = list(tree)
+    else:
+        return [tree]
+    return [leaf for child in children for leaf in tree_leaves(child)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` in
+    ``tree_leaves``' order (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            # sorted keys first, so the leaves come in their flat order
+            return {key: build(node[key]) for key in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            items = [build(child) for child in node]
+            if isinstance(node, list):
+                return items
+            return type(node)(*items) if hasattr(node, "_fields") \
+                else tuple(items)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

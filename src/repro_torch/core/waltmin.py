@@ -8,8 +8,8 @@ Sample splitting (Alg 2 line 3): Omega is split into 2T+1 subsets; the t-th
 half-iteration only sees subset 2t+1 / 2t+2, by masking.
 
 The JAX package has a jitted ``waltmin`` (a ``lax.scan``) and an eager
-``waltmin_reference`` with one body; PyTorch runs eagerly, so here they are
-one function. On CUDA, ``index_add_`` adds with atomics, whose order changes
+``waltmin_reference`` with one body; PyTorch runs eagerly, so here
+``waltmin_reference`` is ``waltmin``. On CUDA, ``index_add_`` adds with atomics, whose order changes
 from run to run: the factors agree across runs to float32 rounding, not bit
 for bit.
 """
@@ -155,3 +155,14 @@ def waltmin(key: torch.Tensor, samples: SampleSet, values: torch.Tensor,
         U = _qr(_ls_step(cols, rows, vals, _wmask(2 * t + 2), _qr(V), n1))
     V = _ls_step(rows, cols, vals, _wmask(2 * T - 1), U, n2)
     return LowRankFactors(U, V)
+
+
+def waltmin_reference(key: torch.Tensor, samples: SampleSet,
+                      values: torch.Tensor, n1: int, n2: int, r: int, T: int,
+                      norm_A: Optional[torch.Tensor] = None,
+                      use_splits: bool = True) -> LowRankFactors:
+    """Algorithm 2 as written on the page, T iteration pairs dispatched
+    eagerly: the JAX package's oracle for its jitted loop. The port's
+    ``waltmin`` is already that loop, so this is ``waltmin``."""
+    return waltmin(key, samples, values, n1, n2, r, T, norm_A=norm_A,
+                   use_splits=use_splits)

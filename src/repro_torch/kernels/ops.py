@@ -205,6 +205,15 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
     return out, (norm2 if squared else norm2.sqrt_())
 
 
+def sketch_summary_fused(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                         k: int, method: str = "gaussian",
+                         precision: str | None = None, device="cuda"):
+    """The kernel-backed summary: ``build_summary(..., backend='cuda')``."""
+    from repro_torch.core.summary_engine import build_summary
+    return build_summary(key, A, B, k, method=method, backend="cuda",
+                         precision=precision, device=device)
+
+
 def sampled_rescaled_dot(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
                          norm_A: torch.Tensor, norm_B: torch.Tensor,
                          rows: torch.Tensor, cols: torch.Tensor, *,

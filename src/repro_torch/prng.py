@@ -90,15 +90,32 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+# Counters one threefry call hashes under one key: jax's classic path
+# (``_threefry_random_bits_original``) draws larger sizes in blocks of
+# 2**32 - 1 counts, each under its own subkey.
+_BLOCK = _MASK
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32 random bits per element, int64 in [0, 2**32). A key stack (t, 2)
-    gives (t, *shape): one independent draw per key."""
+    gives (t, *shape): one independent draw per key.
+
+    Up to ``_BLOCK`` elements hash the counters 0..size-1 under ``key``;
+    beyond it, as in jax's classic path, ``key`` is split ``nblocks + 1``
+    ways, each of the first ``nblocks`` subkeys hashes ``_BLOCK`` counters,
+    the last one the remainder, and the blocks are concatenated."""
     shape = tuple(shape)
     size = math.prod(shape)
-    if size >= _MASK:
-        raise NotImplementedError(
-            "random_bits: draws of 2**32 - 1 or more elements per key")
-    bits = _hash(key, _iota(size, key.device))
+    nblocks, rem = divmod(size, _BLOCK)
+    if not nblocks:
+        bits = _hash(key, _iota(size, key.device))
+    else:
+        keys = _hash(key, _iota(2 * (nblocks + 1), key.device))
+        keys = keys.reshape(*key.shape[:-1], nblocks + 1, 2)
+        full = _iota(_BLOCK, key.device)
+        bits = torch.cat(
+            [_hash(keys[..., i, :], full) for i in range(nblocks)]
+            + [_hash(keys[..., nblocks, :], _iota(rem, key.device))], dim=-1)
     return bits.reshape(*key.shape[:-1], *shape)
 
 

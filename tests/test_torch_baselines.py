@@ -27,11 +27,15 @@ from repro.core import sampling as jax_sampling
 from repro.core import summary_engine as jax_summary
 from repro_torch import convert, prng
 from repro_torch.core import (
-    baselines, estimation_engine, lela, sampling, smppca, summary_engine)
+    baselines, estimation_engine, sampling, summary_engine)
 from repro_torch.core.refinement import RefineSpec
 from repro_torch.core.types import tree_index
 
 jax_smppca = importlib.import_module("repro.core.smppca")
+# the packages export the functions lela and smppca under the names of
+# their modules, so the modules are taken from the import system
+lela = importlib.import_module("repro_torch.core.lela")
+smppca = importlib.import_module("repro_torch.core.smppca")
 
 # Dense U V^T, relative Frobenius error: the methods without sampling
 # (float32 QR, SVD and products by other routines) within 1e-4; those that

@@ -483,10 +483,11 @@ def test_batched_on_the_card_matches_the_looped_cpu(card):
 
 
 def test_baselines_on_the_card_match_the_cpu(card):
-    from repro_torch.core import baselines, lela
+    from repro_torch.core import baselines
+    from repro_torch.core.lela import lela
     A, B = _planted()
-    for fn in (lambda dev: lela.lela(prng.PRNGKey(5), A, B, r=5, m=20_000,
-                                     T=6, device=dev),
+    for fn in (lambda dev: lela(prng.PRNGKey(5), A, B, r=5, m=20_000,
+                                T=6, device=dev),
                lambda dev: baselines.sketch_svd(prng.PRNGKey(5), A, B, r=5,
                                                 k=512, device=dev),
                lambda dev: baselines.product_of_pcas(prng.PRNGKey(5), A, B,
@@ -804,3 +805,137 @@ def test_dispatcher_batch_equals_requests_alone_on_the_card(card, backend):
                                getattr(want.summary, name)), name
         assert _uvt_rel(got.estimate.factors, want.estimate.factors) \
             < UVT_TOL
+
+
+# ---------------------------------------------------------------------------
+# spectral norms, the distributed pass, the training-side sketches
+# ---------------------------------------------------------------------------
+
+def test_spectral_norm_on_the_card_is_float32_accurate(card):
+    """``linalg.spectral_norm`` (cuSOLVER's gesvd on the card) against
+    float64 on the 200 x 200 matrix with a 1/i spectrum above: within 1e-6
+    of the largest singular value."""
+    from repro_torch.core.linalg import spectral_norm
+    gen = torch.Generator().manual_seed(0)
+    D = 1.0 / torch.arange(1, 201).float()
+    M = (torch.randn(200, 200, generator=gen) * D) @ torch.randn(
+        200, 200, generator=gen)
+    s64 = torch.linalg.svdvals(M.double())[0]
+    got = spectral_norm(M.to(card))
+    assert got.ndim == 0 and got.is_cuda
+    assert float((got.cpu().double() - s64).abs() / s64) < 1e-6
+
+
+# One NCCL rank on the card: distributed_sketch_summary and
+# distributed_smppca against the cuda backend and the card's own smppca
+# steps; run in a child process so the test process makes no group.
+_NCCL_CHILD = r"""
+import sys
+import numpy as np, torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+from repro_torch import prng
+from repro_torch.core import distributed, summary_engine
+from repro_torch.core.smppca import smppca_from_summary
+from repro_torch.kernels import ops
+torch.backends.cuda.matmul.allow_tf32 = False
+store = dist.FileStore(sys.argv[2], 1)
+dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+rng = np.random.default_rng(0)
+D = (1.0 / np.arange(1.0, 201.0)).astype(np.float32)
+A = torch.from_numpy(rng.standard_normal((2000, 200)).astype(np.float32) * D)
+B = A + 0.3 * torch.from_numpy(
+    rng.standard_normal((2000, 200)).astype(np.float32) * D)
+A, B = A.cuda(), B.cuda()
+key = prng.PRNGKey(0)
+for method in ("gaussian", "srht"):
+    ops.reset_launch_counts()
+    got = distributed.distributed_sketch_summary(
+        dist.group.WORLD, key, A, B, 512, method=method)
+    assert ops.LAUNCHES["sketch_fused"] == 2, ops.LAUNCHES
+    want = summary_engine.build_summary(key, A, B, 512, method=method,
+                                        backend="cuda")
+    for name in ("A_sketch", "B_sketch", "norm_A", "norm_B"):
+        g, w = getattr(got, name), getattr(want, name)
+        scale = w.abs().amax(dim=0)
+        assert bool(((g - w).abs() <= 1e-4 * scale).all()), (method, name)
+ops.reset_launch_counts()
+f = distributed.distributed_smppca(dist.group.WORLD, key, A, B, r=5, k=512,
+                                   m=40_000, T=6)
+assert ops.LAUNCHES == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
+                        "blocked_fwht": 0, "flash_attention": 0}, ops.LAUNCHES
+k1, k2 = prng.split(key)
+s = summary_engine.build_summary(k1, A, B, 512, backend="cuda")
+ref = smppca_from_summary(k2, s, r=5, m=40_000, T=6).factors
+g = (f.U @ f.V.T).cpu()
+w = (ref.U @ ref.V.T).cpu()
+assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) < 1e-3
+dist.destroy_process_group()
+print("NCCL_OK", flush=True)
+"""
+
+
+def test_distributed_at_world_size_one_on_the_card(card, tmp_path):
+    """One NCCL rank: the distributed pass (two ``sketch_fused`` launches)
+    within 1e-4 of each column's largest entry of the ``cuda`` backend's
+    summary, and ``distributed_smppca`` (launches 2 and 1) against the
+    card's own steps to UVT_TOL (WAltMin's atomics)."""
+    import pathlib
+    import subprocess
+    import sys
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    proc = subprocess.run([sys.executable, "-c", _NCCL_CHILD, str(src),
+                           str(tmp_path / "store")],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "NCCL_OK" in proc.stdout, \
+        proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+def test_identity_product_summary_on_the_card_matches_the_cpu(card):
+    """One ``sketch_fused`` launch (Pi @ G and G's squared norms) against
+    the CPU's plain products: per column within RTOL of its largest
+    entry, norms RTOL relative."""
+    from repro_torch.core.summary_engine import identity_product_summary
+    G = torch.randn(512, 768, generator=torch.Generator().manual_seed(3))
+    before = ops.LAUNCHES["sketch_fused"]
+    got = identity_product_summary(prng.PRNGKey(1), G, 128, n_workers=3,
+                                   device=card)
+    assert ops.LAUNCHES["sketch_fused"] == before + 1
+    want = identity_product_summary(prng.PRNGKey(1), G, 128, n_workers=3,
+                                    device="cpu")
+    assert torch.equal(got.norm_A.cpu(), want.norm_A)
+    for name in ("A_sketch", "B_sketch"):     # normals: an ulp apart at most
+        g, w = getattr(got, name).cpu(), getattr(want, name)
+        assert bool(((g - w).abs() <= RTOL * w.abs().amax(dim=0)).all())
+    torch.testing.assert_close(got.norm_B.cpu(), want.norm_B, rtol=RTOL,
+                               atol=0)
+
+
+def test_tap_pair_summary_on_the_card_matches_the_cpu(card):
+    """Two ``sketch_fused`` launches on Pi^T against the CPU's plain
+    products, and the tap layer's backward on the card: dW zero, dx the
+    plain product's."""
+    from repro_torch.core.summary_engine import tap_pair_summary
+    from repro_torch.train import sketched_dense as sd
+    gen = torch.Generator().manual_seed(4)
+    X, Y = torch.randn(4096, 256, generator=gen), torch.randn(
+        4096, 320, generator=gen)
+    before = ops.LAUNCHES["sketch_fused"]
+    got = tap_pair_summary(prng.PRNGKey(2), X.to(card), Y.to(card), 64)
+    assert ops.LAUNCHES["sketch_fused"] == before + 2
+    want = tap_pair_summary(prng.PRNGKey(2), X, Y, 64)
+    for g, w in zip(got[:2], want[:2]):
+        scale = w.abs().amax(dim=0)
+        assert bool(((g.cpu() - w).abs() <= RTOL * scale).all())
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g.cpu(), w, rtol=RTOL, atol=0)
+    w = (torch.randn(256, 320, generator=gen) * 0.05).to(card)
+    x = X.reshape(8, 512, 256).to(card).requires_grad_()
+    w.requires_grad_()
+    taps = {f: v.requires_grad_()
+            for f, v in sd.tap_init(256, 320, 64, device=card).items()}
+    torch.mean(sd.sketched_dense(w, taps, x, prng.PRNGKey(2), 64) ** 2
+               ).backward()
+    assert bool((w.grad == 0).all())
+    x2 = x.detach().clone().requires_grad_()
+    torch.mean((x2 @ w.detach()) ** 2).backward()
+    torch.testing.assert_close(x.grad, x2.grad, rtol=1e-4, atol=1e-6)

@@ -19,12 +19,14 @@ from repro.core import sampling as jax_sampling
 from repro.core import summary_engine as jax_summary
 from repro.kernels import ops as jax_ops
 from repro_torch import convert, prng
-from repro_torch.core import estimation_engine, estimator, sampling, waltmin
+from repro_torch.core import estimation_engine, estimator, sampling
 from repro_torch.core.refinement import RefineSpec
 from repro_torch.core.types import SampleSet
 from repro_torch.kernels import ops, sampled_dot
 
 jax_waltmin = importlib.import_module("repro.core.waltmin")
+# repro_torch.core exports the function waltmin under its module's name
+waltmin = importlib.import_module("repro_torch.core.waltmin")
 
 # Eq. (2) values are bounded by ||A_i|| ||B_j||; float32 dot products of k
 # terms in another order agree to 1e-5 of that scale.

@@ -132,13 +132,14 @@ def test_summary_backends_agree_and_merge():
 
 
 def test_unported_summary_options_raise():
-    """What is still unported raises and names ROADMAP.md: the distributed
-    backend. Merging summaries of which only one carries a probe or
-    co-sketch block is a ValueError, as in the JAX package; so are an
-    unknown method or backend and mismatched shapes."""
+    """The distributed backend without its process group is a ValueError
+    (the backend itself is tests/test_torch_distributed.py's). Merging
+    summaries of which only one carries a probe or co-sketch block is a
+    ValueError, as in the JAX package; so are an unknown method or backend
+    and mismatched shapes."""
     A, B = torch.randn(8, 3), torch.randn(8, 2)
     key = prng.PRNGKey(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="group"):
         summary_engine.build_summary(key, A, B, 4, backend="distributed",
                                      device="cpu")
     bare = summary_engine.build_summary(key, A, B, 4, device="cpu")
