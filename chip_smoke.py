@@ -154,7 +154,23 @@ fails; nothing is caught:
     ``SAMPLED_TOL`` of the scale), ``cos_taps``, ``cos_AeqI``, the communication
     fraction and times (CUDA events); dx within 1e-4 of the uncompressed
     layer's and ``cos_taps > cos_AeqI``; a ``gradient layer`` line;
-18. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+18. the LM path at full width: granite-3-8b (8.37e9 float32 parameters,
+    drawn on the card from the seed) through
+    ``repro_torch.launch.serve.init_model`` and ``serve.engine.Engine``,
+    three requests: (a) 4 prompts of 4,096 tokens and 32 greedy tokens,
+    twice (the same tokens both times), (b) 1 prompt of 32,768 tokens and
+    16 greedy tokens, (c) 2 prompts of 1,000 tokens (the padded route) and
+    8 tokens at temperature 0.8; each with its prefill time and tokens per
+    second, decode ms a token, peak memory, launches (counters set to 0
+    before each request and read after it: 40 ``flash_attention``
+    launches, nothing else) and attention routes (40 flash, 0 plain);
+    prefill plus step-by-step decode against the full-sequence forward
+    (4,096-token prompt, 16 steps, ``LM_DECODE_TOL``); layer 0's attention
+    on the model's weights at each request's shapes through the path's
+    call against the plain version within ``FLASH_TOL``, and its time; one
+    layer (block 0) at S = 1,024 on the card against the CPU; each
+    request's bounds on the card; ``lm ...`` lines;
+19. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -325,6 +341,22 @@ MULTIHOST_TIMEOUT = 300
 # iterations). dx is the uncompressed layer's: within 1e-4 relative.
 GRAD_N_IN, GRAD_N_OUT, GRAD_T, GRAD_K, GRAD_R = 4096, 12_800, 8192, 128, 8
 GRAD_DX_TOL = 1e-4
+# The LM phase (18): granite-3-8b at full width through
+# repro_torch.launch.serve, three requests (batch, prompt, new tokens,
+# temperature): train_4k's and prefill_32k's sequence lengths
+# (src/repro/configs/shapes.py) and a ragged prompt that takes the padded
+# route. Prefill plus decode against the full forward within the JAX
+# suite's bf16 tolerance (tests/models/test_archs.py::
+# test_prefill_decode_matches_forward: 0.15) at a 4,096-token prompt and
+# 16 steps. One layer on the card against the CPU at S = 1,024: bf16
+# compute on both, float32 sums in another order, so a value near a bf16
+# rounding edge rounds the other way now and then and moves what follows
+# by a bf16 ulp (0.4%); held within 1e-2 of the output's largest entry.
+LM_ARCH = "granite-3-8b"
+LM_REQUESTS = (("a", 4, 4096, 32, 0.0), ("b", 1, 32_768, 16, 0.0),
+               ("c", 2, 1000, 8, 0.8))
+LM_CHECK_PROMPT, LM_CHECK_STEPS, LM_DECODE_TOL = 4096, 16, 0.15
+LM_LAYER_S, LM_LAYER_TOL = 1024, 1e-2
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -2138,6 +2170,209 @@ def gradient_phase(ops, seed, dev, card):
     return launches_taps, launches_comp
 
 
+def lm_phase(ops, seed, dev, card):
+    """Phase 18: the LM path at full width (``launch.serve.init_model`` and
+    ``serve.engine.Engine`` on the card). Returns the launches of the
+    requests' runs (counters set to 0 before each and read after), and the
+    ``flash_attention`` call times on the path's shapes."""
+    from repro_torch import prng
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve.engine import Engine, ServeConfig
+    fa = ops.KERNELS["flash_attention"]
+    torch.cuda.empty_cache()
+    live_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    model, params, init_s = launch.init_model(LM_ARCH, seed=seed, device=dev)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in params.parameters())
+    n_blocks = sum(p.numel() for n, p in params.named_parameters()
+                   if n.startswith("groups."))
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    init = dict(arch=cfg.name, params=n_params, block_params=n_blocks,
+                param_gb=param_bytes / 1e9, live_before_gb=live_gb,
+                init_s=init_s,
+                init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"lm init [{card}] " + json.dumps(init), flush=True)
+    layers = sum(len(p) * c for p, c in cfg.groups)
+    path_launches = {name: 0 for name in ops.LAUNCHES}
+    reqs, prompts = {}, {}
+    for label, B, P, new, temp in LM_REQUESTS:
+        batch = launch.prompt_batch(model, B, P, seed)
+        prompts[label] = batch["tokens"]
+        eng = Engine(model, params, ServeConfig(max_new_tokens=new,
+                                                temperature=temp, seed=seed))
+        runs = []
+        for _ in range(2 if label == "a" else 1):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            attn.reset_route_counts()
+            out = eng.generate(batch)
+            launches, routes = dict(ops.LAUNCHES), dict(attn.ROUTES)
+            for name in path_launches:
+                path_launches[name] += launches[name]
+            t = eng.timings
+            rec = dict(batch=B, prompt=P, new_tokens=new, temperature=temp,
+                       prefill_s=t["prefill_s"],
+                       prefill_tokens_per_s=B * P / t["prefill_s"],
+                       decode_ms_per_token=1e3 * t["decode_s"]
+                       / t["decode_steps"],
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=launches, routes=routes)
+            print(f"lm request {label} [{card}] " + json.dumps(rec),
+                  flush=True)
+            check(launches == dict({n: 0 for n in launches},
+                                   flash_attention=layers),
+                  f"request {label}: {layers} flash launches a prefill, "
+                  f"nothing else: {launches}")
+            check(routes == {"flash": layers, "plain": 0},
+                  f"request {label}: every prefill attention on the flash "
+                  f"route: {routes}")
+            check(tuple(out.shape) == (B, P + new)
+                  and bool(torch.equal(out[:, :P], batch["tokens"]))
+                  and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+                  f"request {label}: tokens {tuple(out.shape)}")
+            runs.append(out)
+        if len(runs) == 2:
+            check(bool(torch.equal(runs[0], runs[1])),
+                  f"request {label}: two greedy runs give the same tokens")
+        reqs[label] = rec
+        del runs, out, batch, eng
+        torch.cuda.empty_cache()
+
+    # where a decode step's time goes: 4 steps at request (a)'s batch under
+    # torch.profiler, and the cast of every float32 weight to bf16 that a
+    # step makes (each dense_apply rounds its w), timed alone
+    label, B, P, *_ = LM_REQUESTS[0]
+    with torch.inference_mode():
+        caches = model.init_cache(B, P + 4)
+        _, caches = model.prefill(params, {"tokens": prompts[label]}, caches)
+        last = prompts[label][:, -1:]
+
+        def decode_steps():
+            for t in range(4):
+                model.decode_step(params, caches, last, P + t)
+        decode_steps()
+        _, trace = device_trace(decode_steps, "lm_decode",
+                                record_shapes=False)
+        del trace["waltmin_split"]
+
+        def cast_all():
+            for p in params.parameters():
+                p.to(torch.bfloat16)
+        cast_all()
+        trace.update(steps=4, batch=B, cache_len=P + 4,
+                     weight_cast_ms=cuda_ms(cast_all, reps=3))
+    del caches
+    torch.cuda.empty_cache()
+    print(f"trace lm_decode [{card}] " + json.dumps(trace), flush=True)
+
+    # prefill plus step-by-step decode against the full-sequence forward
+    check_prompt = LM_CHECK_PROMPT
+    S = check_prompt + LM_CHECK_STEPS
+    tokens = launch.prompt_batch(model, 1, S, seed + 1)["tokens"]
+    with torch.inference_mode():
+        full = model.forward(params, {"tokens": tokens})[..., :cfg.vocab_size]
+        caches = model.init_cache(1, S)
+        lg, caches = model.prefill(params, {"tokens": tokens[:, :check_prompt]},
+                                   caches)
+        errs = [float((lg[0, 0, :cfg.vocab_size]
+                       - full[0, check_prompt - 1]).abs().max())]
+        for t in range(check_prompt, S):
+            lg, caches = model.decode_step(params, caches, tokens[:, t:t + 1], t)
+            errs.append(float((lg[0, 0, :cfg.vocab_size]
+                               - full[0, t]).abs().max()))
+    del full, caches, lg
+    torch.cuda.empty_cache()
+    print(f"lm prefill+decode against the full forward, prompt "
+          f"{check_prompt}, {LM_CHECK_STEPS} steps: max err {max(errs):.4e} "
+          f"(tol {LM_DECODE_TOL})", flush=True)
+    check(max(errs) < LM_DECODE_TOL, f"prefill+decode vs forward: {errs}")
+
+    # layer 0's attention on the model's own weights, each request's
+    # shapes, through the path's call against the plain version; the
+    # kernel's time at the path's shapes
+    blk = params.groups[0][0][0]
+    cd = tt._cdtype(cfg)
+    flash_ms, held = {}, {}
+    with torch.inference_mode():
+        for label, B, P, *_ in LM_REQUESTS:
+            x = tt._embed_tokens(params, cfg, prompts[label])
+            h = common.norm_apply(cfg.norm, blk.norm1, x).to(cd)
+            q, k, v = attn.qkv_project(blk.attn, h, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.head_dim_,
+                                       torch.arange(P, device=dev),
+                                       cfg.rope_theta, cd)
+            del x, h
+            held[label] = flash_check(ops, q, k, v, True,
+                                      f"granite layer 0, request {label}",
+                                      out=attn.flash_prefill(q, k, v))
+            attn.flash_prefill(q, k, v)
+            flash_ms[label] = cuda_ms(lambda: attn.flash_prefill(q, k, v),
+                                      reps=1 if P >= 16_384 else 5)
+            del q, k, v
+    torch.cuda.empty_cache()
+
+    # one layer on the card against the CPU, the model's block 0
+    layer_s = LM_LAYER_S
+    x = tt._embed_tokens(params, cfg, prompts["a"][:1, :layer_s])
+    ctx = {"positions": torch.arange(layer_s, device=dev), "xattn_ctx": None}
+    cpu_blk = tt.make_block(cfg.groups[0][0][0], cfg, device="cpu")
+    cpu_blk.load_state_dict(blk.state_dict())
+    with torch.inference_mode():
+        y_card, _ = blk.seq(x, ctx)
+        y_cpu, _ = cpu_blk.seq(x.cpu(), {"positions": torch.arange(layer_s),
+                                         "xattn_ctx": None})
+    layer_err = float((y_card.cpu() - y_cpu).abs().max())
+    layer_scale = float(y_cpu.abs().max())
+    print(f"lm layer 0 card against CPU, S={layer_s}: max abs err "
+          f"{layer_err:.4e} of {layer_scale:.4e} (tol {LM_LAYER_TOL} of the "
+          f"largest)", flush=True)
+    check(layer_err <= LM_LAYER_TOL * layer_scale,
+          f"layer card vs CPU: {layer_err} of {layer_scale}")
+    del cpu_blk, x, y_card, y_cpu
+
+    # bounds on the card: a prefill's projections at the bf16 rate plus
+    # its attention calls at flash_attention's float32 bound (three TF32
+    # passes a product); a decode step reads the float32 parameters once
+    def attention_bound_ms(B, P):
+        flops = 2.0 * B * cfg.n_heads * P * P * cfg.head_dim_
+        elems = B * (2 * P * cfg.n_heads + 2 * P * cfg.n_kv_heads) \
+            * cfg.head_dim_
+        return bound(fa.PASSES[4] * flops, 4 * elems, PEAK_TF32_FLOPS)[0]
+    summary = dict(init)
+    for label, B, P, *_ in LM_REQUESTS:
+        rec = reqs[label]
+        proj_ms = 1e3 * 2.0 * n_blocks * B * P / PEAK_BF16_FLOPS
+        attn_ms = layers * attention_bound_ms(B, P)
+        rec.update(prefill_bound_s=(proj_ms + attn_ms) / 1e3,
+                   prefill_attention_bound_s=attn_ms / 1e3,
+                   decode_bound_ms=1e3 * param_bytes / HBM_BW,
+                   flash_ms_a_call=flash_ms[label],
+                   prefill_attention_s=layers * flash_ms[label] / 1e3,
+                   prefill_rest_s=rec["prefill_s"]
+                   - layers * flash_ms[label] / 1e3,
+                   layer0_flash_max_abs_err=held[label])
+        summary[label] = {kk: vv for kk, vv in rec.items()
+                          if kk not in ("launches", "routes")}
+    summary.update(decode_trace=dict(
+                       idle_share=trace["idle_share"],
+                       ms_a_step=trace["window_ms"] / 4,
+                       device_busy_ms_a_step=trace["device_busy_ms"] / 4,
+                       weight_cast_ms=trace["weight_cast_ms"]),
+                   forward_check_max_err=max(errs),
+                   layer_card_vs_cpu=dict(S=layer_s, max_abs_err=layer_err,
+                                          scale=layer_scale),
+                   path_launches=path_launches)
+    print(f"lm [{card}] " + json.dumps(summary), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return path_launches, max(held.values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2700,7 +2935,11 @@ def main(argv=None) -> int:
     launches_taps, launches_comp = gradient_phase(ops, args.seed, dev, card)
     torch.cuda.empty_cache()
 
-    # 18. the kernels line and the last line --------------------------------
+    # 18. the LM path at full width ------------------------------------------
+    launches_lm, err_lm = lm_phase(ops, args.seed, dev, card)
+    err_flash = max(err_flash, err_lm)
+
+    # 19. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path
@@ -2708,12 +2947,14 @@ def main(argv=None) -> int:
     # kernel 2, the SRHT path for kernel 3, the attention call for kernel
     # 4, and for each the serving phase's (the sweep, the traffic cells and
     # the stream session); then the distributed call and stream, both
-    # ranks' sharded ingest, the gradient tap and the compressor
+    # ranks' sharded ingest, the gradient tap and the compressor, and the
+    # LM requests' prefills
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
     for extra in (launches_serve, launches_dist, launches_dist_stream,
-                  launches_multihost, launches_taps, launches_comp):
+                  launches_multihost, launches_taps, launches_comp,
+                  launches_lm):
         for name in path_launches:
             path_launches[name] += extra[name]
     kernels = []

@@ -228,3 +228,146 @@ def taps_from_numpy(taps, device="cpu") -> dict:
 def taps_to_numpy(taps) -> dict:
     """Port taps (a dict of tensors, or a tree of such dicts) -> numpy."""
     return _tree_to_numpy(taps)
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and KV caches
+# ---------------------------------------------------------------------------
+#
+# The JAX package's LM parameters are nested dicts whose ``groups`` (and
+# ``enc.groups``) hold one tuple per group, one dict per pattern position,
+# each leaf stacked over the group's layers (count, ...). The port's
+# ``transformer.LM`` names the same leaf of layer c
+# ``groups.{gi}.{c}.{p}.<path>``; every other leaf has the same path in
+# both. Its caches are, per group, a list over layers of the pattern's
+# tuple of block caches, where the JAX package stacks each cache leaf over
+# the layers.
+
+def _split_group_name(name: str):
+    """``a.groups.gi.c.p.rest`` -> (prefix, gi, c, p, rest), or None for a
+    name outside the groups."""
+    parts = name.split(".")
+    if "groups" not in parts:
+        return None
+    i = parts.index("groups")
+    gi, c, p = (int(s) for s in parts[i + 1:i + 4])
+    return tuple(parts[:i]), gi, c, p, tuple(parts[i + 4:])
+
+
+def _walk(node, path):
+    for part in path:
+        node = node[part]
+    return node
+
+
+def _lm_leaf(tree, name: str) -> np.ndarray:
+    split = _split_group_name(name)
+    if split is None:
+        return np.asarray(_walk(tree, name.split(".")))
+    prefix, gi, c, p, rest = split
+    stacked = _walk(_walk(tree, prefix)["groups"][gi][p], rest)
+    return np.asarray(stacked)[c]
+
+
+def lm_params_from_numpy(tree, cfg, device="cpu"):
+    """The JAX package's LM parameter tree (numpy arrays, or jax's own) ->
+    a ``transformer.LM`` of ``cfg`` on ``device`` holding the same values,
+    each cast to the port's parameter dtype (the config's, as in JAX)."""
+    import torch
+    from repro_torch.models.transformer import LM
+    params = LM(cfg, device=device)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            arr = _lm_leaf(tree, name)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX leaf {arr.shape}, port "
+                                 f"{tuple(p.shape)}")
+            p.copy_(tensor_from_numpy(arr))
+    return params
+
+
+def _nested_set(tree: dict, path, value) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def lm_params_to_numpy(params) -> dict:
+    """A ``transformer.LM`` -> the JAX package's parameter tree of numpy
+    arrays: group leaves stacked over the layers, ``groups`` a list of
+    tuples."""
+    out: dict = {}
+    stacks: dict = {}
+    for name, p in params.named_parameters():
+        arr = tensor_to_numpy(p)
+        split = _split_group_name(name)
+        if split is None:
+            _nested_set(out, name.split("."), arr)
+            continue
+        prefix, gi, c, pi, rest = split
+        stacks.setdefault(prefix, {}).setdefault(gi, {}).setdefault(
+            pi, {}).setdefault(rest, {})[c] = arr
+    for prefix, groups in stacks.items():
+        tuples = []
+        for gi in sorted(groups):
+            slots = []
+            for pi in sorted(groups[gi]):
+                slot: dict = {}
+                for rest, layers in groups[gi][pi].items():
+                    _nested_set(slot, rest, np.stack(
+                        [layers[c] for c in sorted(layers)]))
+                slots.append(slot)
+            tuples.append(tuple(slots))
+        _nested_set(out, prefix + ("groups",), tuples)
+    return out
+
+
+def _map_cache(fn, node):
+    if isinstance(node, dict):
+        return {k: _map_cache(fn, v) for k, v in node.items()}
+    return fn(node)
+
+
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node
+
+
+def kv_cache_from_numpy(caches, device="cpu"):
+    """The JAX package's LM caches (per group a tuple of block caches with
+    leaves stacked over the layers; numpy or jax arrays) -> the port's
+    (per group a list over layers of block-cache tuples) on ``device``,
+    bf16 leaves bit for bit."""
+    out = []
+    for group in caches:
+        count = np.asarray(_first_leaf(group[0])).shape[0]
+        out.append([
+            tuple(_map_cache(lambda a: tensor_from_numpy(np.asarray(a)[c],
+                                                         device), blk)
+                  for blk in group)
+            for c in range(count)])
+    return out
+
+
+def kv_cache_to_numpy(caches):
+    """The port's LM caches -> the JAX package's layout of numpy arrays
+    (bfloat16 where numpy has it, else its bit patterns)."""
+    out = []
+    for group in caches:
+        slots = []
+        for p in range(len(group[0])):
+            layers = [layer[p] for layer in group]
+            slots.append(_map_cache(
+                lambda path: np.stack([tensor_to_numpy(_walk(lyr, path))
+                                       for lyr in layers]),
+                _paths(layers[0])))
+        out.append(tuple(slots))
+    return out
+
+
+def _paths(node, prefix=()):
+    """A cache dict with each leaf replaced by its path of keys."""
+    if isinstance(node, dict):
+        return {k: _paths(v, prefix + (k,)) for k, v in node.items()}
+    return prefix

@@ -1,0 +1,2 @@
+"""Command-line entry points: ``launch.serve`` (LM generation and sketch
+serving)."""

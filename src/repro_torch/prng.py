@@ -11,8 +11,8 @@ key tree (``jax_threefry_partitionable=False``):
   word lives in an int64 masked to 32 bits;
 * ``split``, ``fold_in`` and the random bits are ``threefry_2x32`` of a
   counter array, exactly as ``jax/_src/prng.py`` lays the counters out;
-* ``uniform``, ``normal``, ``randint``, ``bernoulli``, ``rademacher``,
-  ``permutation`` and ``choice`` apply ``jax/_src/random.py``'s
+* ``uniform``, ``normal``, ``gumbel``, ``randint``, ``bernoulli``,
+  ``rademacher``, ``permutation`` and ``choice`` apply ``jax/_src/random.py``'s
   bits-to-value transforms.
 
 Integer outputs (keys, bits, ``randint``, ``bernoulli``, ``rademacher``,
@@ -162,6 +162,14 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
     u = uniform(key, shape, lo, 1.0)
     return _erfinv(u) * math.sqrt(2.0)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32 with its default ``mode='low'``:
+    ``-log(-log(u))``, u uniform on [tiny, 1) (tiny the smallest normal
+    float32). The uniforms are jax's bit for bit; the logs are torch's."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int

@@ -1,32 +1,109 @@
-"""Sketch serving: ``SketchService``, a synchronous front end over the
-continuously batched ``serve.scheduler.ServingLoop``.
+"""Batched serving engines.
 
-The port of ``repro.serve.engine``'s ``SketchService`` and its stream
-sessions. ``submit``/``flush`` batch requests per shape bucket, each bucket
-one batched call through the ``core.pipeline.PipelineEngine`` cache, while
-the loop underneath adds admission control, deadlines, load shedding and
-tenant key namespacing for asynchronous callers. ``flush()`` returns each
-request's summary; ``flush_factors(r)`` the top-r factors of each A^T B.
-The LM generate loop (``repro.serve.engine.Engine``) is not here: it waits
-for the port of the LM stack.
+The port of ``repro.serve.engine``:
+
+``Engine``        LM serving: preallocated KV caches, prefill, then a
+                  decode loop, greedy or temperature sampling, under
+                  ``torch.inference_mode()`` on the model's device.
+``SketchService`` sketch serving: a synchronous front end over the
+                  continuously batched ``serve.scheduler.ServingLoop``.
+                  ``submit``/``flush`` batch requests per shape bucket,
+                  each bucket one batched call through the
+                  ``core.pipeline.PipelineEngine`` cache, while the loop
+                  underneath adds admission control, deadlines, load
+                  shedding and tenant key namespacing for asynchronous
+                  callers. ``flush()`` returns each request's summary;
+                  ``flush_factors(r)`` the top-r factors of each A^T B.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import device as _device
+from repro_torch import prng
 from repro_torch.core import pipeline, streaming
 from repro_torch.core.streaming import (
     StreamingSummarizer, StreamState, WindowedSummarizer, WindowState)
 from repro_torch.core.types import SketchSummary
+from repro_torch.models.factory import Model
 from repro_torch.serve.scheduler import (
     PipelineWork, ServedEstimate, ServeFuture, ServingLoop, SummaryWork,
     as_served)
 
-__all__ = ["SketchService", "ServedEstimate"]
+__all__ = ["Engine", "ServeConfig", "SketchService", "ServedEstimate"]
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0       # 0 -> greedy
+    seed: int = 0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Engine:
+    """Generates with a ``Model`` and its parameters (``Model.init_params``
+    or ``convert.lm_params_from_numpy``) on the model's device.
+
+    ``timings`` holds the last ``generate``'s host-clock seconds of the
+    prefill and of the decode loop (each ending in a synchronize on a CUDA
+    device) and its decode steps."""
+
+    def __init__(self, model: Model, params, cfg: ServeConfig = ServeConfig()):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        self.timings: Dict[str, float] = {}
+
+    def _sample(self, key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy ``argmax``, or ``jax.random.categorical(key, logits / T)``:
+        the argmax of the logits over T plus gumbel noise under key."""
+        if self.cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        noise = prng.gumbel(key, tuple(logits.shape))
+        return torch.argmax(noise + logits / self.cfg.temperature,
+                            dim=-1).to(torch.int32)
+
+    def generate(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """batch['tokens']: (B, P) prompts (+ stub-frontend aux inputs).
+        Returns the (B, P + max_new_tokens) int32 token matrix. The first
+        token is sampled under ``PRNGKey(seed)``, token t + 1 under that key
+        folded with 0, ..., t in turn; decode step t sits at position P + t."""
+        dev = self.model.device
+        batch = {name: t.to(dev) for name, t in batch.items()}
+        tokens = batch["tokens"]
+        B, P = tokens.shape
+        n_new = self.cfg.max_new_tokens
+        with torch.inference_mode():
+            caches = self.model.init_cache(B, P + n_new)
+            t0 = time.perf_counter()
+            logits, caches = self.model.prefill(self.params, batch, caches)
+            key = prng.PRNGKey(self.cfg.seed, device=dev)
+            cur = self._sample(key, logits[:, -1, :])[:, None]
+            _sync(dev)
+            t1 = time.perf_counter()
+            out = [tokens.to(torch.int32)]
+            for t in range(n_new - 1):
+                out.append(cur)
+                logits, caches = self.model.decode_step(self.params, caches,
+                                                        cur, P + t)
+                key = prng.fold_in(key, t)
+                cur = self._sample(key, logits[:, -1, :])[:, None]
+            out.append(cur)
+            result = torch.cat(out, dim=1)
+            _sync(dev)
+        self.timings = {"prefill_s": t1 - t0,
+                        "decode_s": time.perf_counter() - t1,
+                        "decode_steps": n_new - 1}
+        return result
 
 
 @dataclasses.dataclass

@@ -939,3 +939,139 @@ def test_tap_pair_summary_on_the_card_matches_the_cpu(card):
     x2 = x.detach().clone().requires_grad_()
     torch.mean((x2 @ w.detach()) ** 2).backward()
     torch.testing.assert_close(x.grad, x2.grad, rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the LM stack on the card
+# ---------------------------------------------------------------------------
+
+def _lm(name, device, cd="float32"):
+    """A reduced arch at head width 32 (a width flash_attention.cu
+    compiles), its parameters from PRNGKey(0) drawn on the CPU and moved
+    to ``device``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config(name).reduced(), head_dim=32,
+                              compute_dtype=cd)
+    params = build(cfg, device="cpu").init_params(prng.PRNGKey(0))
+    return build(cfg, device=device), params.to(device)
+
+
+def _lm_batch(cfg, device, B=2, S=100):
+    gen = torch.Generator().manual_seed(S)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen)}
+    for name, L in (("enc_frames", cfg.enc_context),
+                    ("img_embeds", cfg.n_img_tokens)):
+        if L:
+            batch[name] = (0.1 * torch.randn(B, L, cfg.d_model, generator=gen)
+                           ).bfloat16()
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+# float32 compute: the card's float32 GEMMs (TF32 off) and the kernel's
+# three split TF32 passes against the CPU, sums in another order: 1e-4 at
+# logits of scale 4. bf16 compute: the port's bf16 tolerance against JAX
+# (tests/test_torch_models.py), 0.05.
+LM_TOL = {"float32": 1e-4, "bfloat16": 0.05}
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_lm_on_the_card_matches_the_cpu(card, cd):
+    """Reduced granite-3-8b at head width 32: the full forward, the
+    prefill and 4 decode steps on the card against the CPU on the same
+    weights; a prefill of S = 100 (padded to the tile) launches the
+    kernel once a layer."""
+    from repro_torch.models import attention as attn
+    m_gpu, p_gpu = _lm("granite-3-8b", card, cd)
+    m_cpu, p_cpu = _lm("granite-3-8b", "cpu", cd)
+    b_gpu = _lm_batch(m_gpu.cfg, card)
+    b_cpu = {k: v.cpu() for k, v in b_gpu.items()}
+    layers = m_gpu.cfg.n_layers
+    with torch.inference_mode():
+        before = ops.LAUNCHES["flash_attention"]
+        attn.reset_route_counts()
+        full = m_gpu.forward(p_gpu, b_gpu)
+        assert ops.LAUNCHES["flash_attention"] == before + layers
+        assert attn.ROUTES == {"flash": layers, "plain": 0}
+        want = m_cpu.forward(p_cpu, b_cpu)
+        torch.testing.assert_close(full.cpu(), want, rtol=0, atol=LM_TOL[cd])
+        P = 96
+        outs = []
+        for m, p, b in ((m_gpu, p_gpu, b_gpu), (m_cpu, p_cpu, b_cpu)):
+            caches = m.init_cache(2, 100)
+            lg, caches = m.prefill(p, dict(b, tokens=b["tokens"][:, :P]),
+                                   caches)
+            steps = [lg[:, 0].cpu()]
+            for t in range(P, 100):
+                lg, caches = m.decode_step(p, caches,
+                                           b["tokens"][:, t:t + 1], t)
+                steps.append(lg[:, 0].cpu())
+            outs.append(torch.stack(steps))
+        torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=LM_TOL[cd])
+
+
+@pytest.mark.parametrize("name,flash,plain", [
+    ("granite-3-8b", 2, 0),          # causal self-attention
+    ("whisper-small", 2, 4),         # decoder flash; enc x2, cross x2 plain
+    ("llama-3.2-vision-11b", 8, 2),  # (attn x4, xattn) x 2
+])
+def test_attention_routes_on_the_card(card, name, flash, plain):
+    from repro_torch.models import attention as attn
+    m, p = _lm(name, card)
+    attn.reset_route_counts()
+    before = ops.LAUNCHES["flash_attention"]
+    with torch.inference_mode():
+        m.forward(p, _lm_batch(m.cfg, card, S=64))
+    assert attn.ROUTES == {"flash": flash, "plain": plain}
+    assert ops.LAUNCHES["flash_attention"] == before + flash
+
+
+def test_windowed_attention_takes_the_plain_route_on_the_card(card):
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = attention_qkv(gen, card, S=256, H=4, Hkv=2, Dh=64)
+    attn.reset_route_counts()
+    before = ops.LAUNCHES["flash_attention"]
+    got = attn.attention(q, k, v, causal=True, window=64)
+    assert attn.ROUTES == {"flash": 0, "plain": 1}
+    assert ops.LAUNCHES["flash_attention"] == before
+    want = attn.dense_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                                window=64)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def attention_qkv(gen, device, S, H, Hkv, Dh, B=2):
+    return (torch.randn(B, S, H, Dh, generator=gen, device=device),
+            torch.randn(B, S, Hkv, Dh, generator=gen, device=device),
+            torch.randn(B, S, Hkv, Dh, generator=gen, device=device))
+
+
+@pytest.mark.parametrize("S", [1000, 100, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_flash_route_matches_plain(card, S, dtype):
+    """S right-padded with zeros to the tile, one launch, sliced back:
+    the plain version on the unpadded sequence within FLASH_TOL."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=card).manual_seed(S)
+    q, k, v = (t.to(dtype) for t in attention_qkv(gen, card, S, 32, 8, 128))
+    before = ops.LAUNCHES["flash_attention"]
+    got = attn.flash_prefill(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert tuple(got.shape) == tuple(q.shape) and got.dtype == dtype
+    want = flash_attention.plain(q, k, v, True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_engine_on_the_card_matches_the_cpu(card):
+    """Greedy tokens of reduced granite (head width 32, float32 compute)
+    on the card equal the CPU's."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    outs = []
+    for dev in (card, "cpu"):
+        m, p = _lm("granite-3-8b", dev)
+        batch = _lm_batch(m.cfg, dev, S=40)
+        outs.append(Engine(m, p, ServeConfig(max_new_tokens=8)).generate(
+            batch).cpu())
+    assert torch.equal(outs[0], outs[1])
