@@ -170,12 +170,29 @@ fails; nothing is caught:
     call against the plain version within ``FLASH_TOL``, and its time; one
     layer (block 0) at S = 1,024 on the card against the CPU; each
     request's bounds on the card; ``lm ...`` lines;
-19. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+19. the MoE and recurrent families at full width, one model at a time,
+    each freed before the next, through the same entry points:
+    moonshot-v1-16b-a3b in bf16 parameters (28.4e9, 56.8 GB; 47 MoE layers
+    of 64 experts, top 6), requests (a) and (c) of phase 18, 48
+    ``flash_attention`` launches and no plain route a prefill, two runs of
+    (a) the same tokens, prefill plus decode against the forward and layer
+    1 (attn_moe) card against CPU, both in float32 compute at a capacity
+    that drops nothing on the same parameter tensors; recurrentgemma-9b
+    (float32, 41.8 GB) with 2 prompts of 4,096 (12 windowed attentions a
+    prefill on the plain route), prefill plus decode against the forward,
+    layer 0's RG-LRU scan against its step loop; xlstm-350m with 4 prompts
+    of 4,096 (the chunked mLSTM) and 2 of 1,000 (the single chunk),
+    prefill plus decode against the forward, layer 0's chunked mLSTM
+    against its step loop, one sLSTM layer's time loop timed and traced
+    (device events a step); each request's bounds; ``lm <arch> ...``
+    lines;
+20. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -357,6 +374,54 @@ LM_REQUESTS = (("a", 4, 4096, 32, 0.0), ("b", 1, 32_768, 16, 0.0),
                ("c", 2, 1000, 8, 0.8))
 LM_CHECK_PROMPT, LM_CHECK_STEPS, LM_DECODE_TOL = 4096, 16, 0.15
 LM_LAYER_S, LM_LAYER_TOL = 1024, 1e-2
+# The MoE and recurrent phase (19), one model at a time at full width.
+# moonshot-v1-16b-a3b (src/repro/configs/moonshot_v1_16b_a3b.py) in bf16
+# parameters (28.4e9 in 56.8 GB; 113.6 GB in float32 does not fit):
+# request (a) of phase 18 and its ragged (c); prefill_32k's 12.9 GB cache
+# and the MoE buffers at T = 32,768 do not fit beside the weights. Its
+# forward check runs in float32 compute at a capacity of n_experts / top_k
+# (C = T: nothing dropped; the JAX test's 8 leaves C = 0.75 T at 64
+# experts and top 6) on the same parameter tensors, batch 1, a 1,024-token
+# prompt and 8 steps. With random weights the deep layers' routers are
+# near ties (the smallest top-6 margins 1e-7 to 1e-6 of probability), so
+# float32 noise between the two paths routes some tokens to other
+# experts: tens a layer in the prompt, which reach the compared logits
+# through attention (1.5e-3 to 1.9e-3 at logits of scale 5.8 on the card,
+# where tests/models/test_archs.py's MoE test holds 2e-3 at one token of
+# two layers), and now and then a decoded token, from which on the steps
+# compute another branch (0.13): those are reported, the rest held within
+# 4e-3. Layer 1 (attn_moe) card against CPU in the same setting: float32
+# sums of 2,048 terms in other orders, the flash kernel's three split TF32
+# passes: within 1e-4 of the largest output on the tokens both devices
+# route alike, and at most 1% routed otherwise.
+# recurrentgemma-9b in float32 parameters: 2 prompts of 4,096 (a multiple
+# of the window, as the ring cache needs), 16 greedy tokens; layer 0's
+# scan against its step loop within test_archs.py's 1e-4. xlstm-350m: 4
+# prompts of 4,096 (the chunked mLSTM) and 2 of 1,000 (the single-chunk
+# form); layer 0's chunked mLSTM against its step loop within
+# test_archs.py's 5e-3 (plus 5e-3 of the value). Their forward checks
+# (recurrentgemma a 4,096-token prompt; xlstm a 1,024-token prompt, the
+# chunked form, against a 1,040-token single-chunk forward; 16 steps) are
+# held in float32 compute on the same parameter tensors, as moonshot's:
+# in bf16 compute a float32 difference between the two paths tips bf16
+# roundings that 38 and 24 layers of recurrences carry on (0.05 to 0.11
+# and 0.08 to 0.23 at logits of scale 6 on the card, where the JAX suite
+# holds 0.15 at two layers; reported beside). In float32 compute the
+# reference's bf16 gate products remain (the RG-LRU's gates, the mLSTM's
+# w_if, the sLSTM's recurrence): 2.0e-3 to 2.6e-3 and 6.6e-3 to 1.75e-2
+# measured, held within 1e-2 and 5e-2.
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_REQUESTS = (("a", 4, 4096, 32, 0.0), ("c", 2, 1000, 8, 0.8))
+MOE_CHECK_PROMPT, MOE_CHECK_STEPS, MOE_CHECK_TOL = 1024, 8, 4e-3
+MOE_LAYER_TOL = 1e-4
+RG_ARCH = "recurrentgemma-9b"
+RG_REQUESTS = (("a", 2, 4096, 16, 0.0),)
+RG_CHECK_PROMPT, RG_CHECK_STEPS, RG_DECODE_TOL = 4096, 16, 1e-2
+RG_SCAN_TOL = 1e-4
+XL_ARCH = "xlstm-350m"
+XL_REQUESTS = (("a", 4, 4096, 16, 0.0), ("c", 2, 1000, 16, 0.0))
+XL_CHECK_PROMPT, XL_CHECK_STEPS, XL_DECODE_TOL = 1024, 16, 5e-2
+XL_MLSTM_TOL = 5e-3
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -2170,36 +2235,22 @@ def gradient_phase(ops, seed, dev, card):
     return launches_taps, launches_comp
 
 
-def lm_phase(ops, seed, dev, card):
-    """Phase 18: the LM path at full width (``launch.serve.init_model`` and
-    ``serve.engine.Engine`` on the card). Returns the launches of the
-    requests' runs (counters set to 0 before each and read after), and the
-    ``flash_attention`` call times on the path's shapes."""
-    from repro_torch import prng
+def lm_requests(ops, model, params, requests, seed, card, tag, flash,
+                plain):
+    """Each of ``requests`` (label, batch, prompt, new tokens, temperature)
+    through ``Engine.generate`` on the card, request (a) twice (the same
+    tokens both times), counters set to 0 before each run and read after:
+    ``flash`` ``flash_attention`` launches and nothing else, routes
+    {"flash": flash, "plain": plain}. Prints a ``{tag} request ...`` line a
+    run; returns (the last run's record by label, the prompts by label,
+    the launches of all runs)."""
     from repro_torch.launch import serve as launch
     from repro_torch.models import attention as attn
-    from repro_torch.models import common
-    from repro_torch.models import transformer as tt
     from repro_torch.serve.engine import Engine, ServeConfig
-    fa = ops.KERNELS["flash_attention"]
-    torch.cuda.empty_cache()
-    live_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    model, params, init_s = launch.init_model(LM_ARCH, seed=seed, device=dev)
     cfg = model.cfg
-    n_params = sum(p.numel() for p in params.parameters())
-    n_blocks = sum(p.numel() for n, p in params.named_parameters()
-                   if n.startswith("groups."))
-    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    init = dict(arch=cfg.name, params=n_params, block_params=n_blocks,
-                param_gb=param_bytes / 1e9, live_before_gb=live_gb,
-                init_s=init_s,
-                init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"lm init [{card}] " + json.dumps(init), flush=True)
-    layers = sum(len(p) * c for p, c in cfg.groups)
     path_launches = {name: 0 for name in ops.LAUNCHES}
     reqs, prompts = {}, {}
-    for label, B, P, new, temp in LM_REQUESTS:
+    for label, B, P, new, temp in requests:
         batch = launch.prompt_batch(model, B, P, seed)
         prompts[label] = batch["tokens"]
         eng = Engine(model, params, ServeConfig(max_new_tokens=new,
@@ -2222,26 +2273,178 @@ def lm_phase(ops, seed, dev, card):
                        / t["decode_steps"],
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                        launches=launches, routes=routes)
-            print(f"lm request {label} [{card}] " + json.dumps(rec),
+            print(f"{tag} request {label} [{card}] " + json.dumps(rec),
                   flush=True)
             check(launches == dict({n: 0 for n in launches},
-                                   flash_attention=layers),
-                  f"request {label}: {layers} flash launches a prefill, "
-                  f"nothing else: {launches}")
-            check(routes == {"flash": layers, "plain": 0},
-                  f"request {label}: every prefill attention on the flash "
-                  f"route: {routes}")
+                                   flash_attention=flash),
+                  f"{tag} request {label}: {flash} flash launches a "
+                  f"prefill, nothing else: {launches}")
+            check(routes == {"flash": flash, "plain": plain},
+                  f"{tag} request {label}: routes a prefill {routes}")
             check(tuple(out.shape) == (B, P + new)
                   and bool(torch.equal(out[:, :P], batch["tokens"]))
                   and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
-                  f"request {label}: tokens {tuple(out.shape)}")
+                  f"{tag} request {label}: tokens {tuple(out.shape)}")
             runs.append(out)
         if len(runs) == 2:
             check(bool(torch.equal(runs[0], runs[1])),
-                  f"request {label}: two greedy runs give the same tokens")
+                  f"{tag} request {label}: two greedy runs give the same "
+                  f"tokens")
         reqs[label] = rec
         del runs, out, batch, eng
         torch.cuda.empty_cache()
+    return reqs, prompts, path_launches
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While open, each ``moe.moe_apply`` call also appends its tokens'
+    expert ids, (T, top_k) in ascending order, to the list it yields:
+    recomputed from the call's own router inputs by the same float32 ops,
+    so they are the ids the call uses."""
+    from repro_torch.models import moe
+    apply, routes = moe.moe_apply, []
+
+    def recording(p, x, *, top_k, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p.router.w.float(), dim=-1)
+        routes.append(moe.top_k_stable(probs, top_k)[1].sort(-1).values)
+        return apply(p, x, top_k=top_k, **kw)
+    moe.moe_apply = recording
+    try:
+        yield routes
+    finally:
+        moe.moe_apply = apply
+
+
+def lm_forward_check(model, params, prompt, steps, seed, tol, tag):
+    """Prefill of ``prompt`` tokens plus ``steps`` decode steps, batch 1,
+    against the full-sequence forward of the same tokens (the twin of
+    tests/models/test_archs.py::test_prefill_decode_matches_forward):
+    fails at ``tol`` or above (``tol=None``: reported only); returns (the
+    largest logit error held, a record). An MoE model's routes are recorded on both paths: from the
+    first decoded token that some layer routes to other experts than the
+    forward does (a near-tie that float32 noise tips), the steps compute
+    another branch of the function and are reported, not held; tokens of
+    the prompt routed otherwise are counted."""
+    from repro_torch.launch import serve as launch
+    cfg = model.cfg
+    S = prompt + steps
+    tokens = launch.prompt_batch(model, 1, S, seed + 1)["tokens"]
+    V = cfg.vocab_size
+    record = recorded_routes() if cfg.n_experts else \
+        contextlib.nullcontext([])
+    with torch.inference_mode(), record as routes:
+        full = model.forward(params, {"tokens": tokens})[..., :V]
+        fwd = list(routes)
+        caches = model.init_cache(1, S)
+        del routes[:]
+        lg, caches = model.prefill(params, {"tokens": tokens[:, :prompt]},
+                                   caches)
+        pre = list(routes)
+        errs = [float((lg[0, 0, :V] - full[0, prompt - 1]).abs().max())]
+        rerouted = []
+        for t in range(prompt, S):
+            del routes[:]
+            lg, caches = model.decode_step(params, caches, tokens[:, t:t + 1],
+                                           t)
+            errs.append(float((lg[0, 0, :V] - full[0, t]).abs().max()))
+            if any(not torch.equal(r[0], f[t]) for r, f in zip(routes, fwd)):
+                rerouted.append(t - prompt)
+        prompt_rerouted = sum(int((f[:prompt] != r).any(-1).sum())
+                              for f, r in zip(fwd, pre))
+    del full, caches, lg
+    torch.cuda.empty_cache()
+    held = errs[:1 + (rerouted[0] if rerouted else steps)]
+    rec = dict(prompt=prompt, steps=steps, max_err=max(held), tol=tol,
+               errs=errs, held_steps=len(held) - 1)
+    if cfg.n_experts:
+        rec.update(rerouted_steps=rerouted,
+                   prompt_tokens_rerouted=prompt_rerouted,
+                   route_decisions=len(fwd) * S)
+    print(f"{tag} prefill+decode against the full forward " + json.dumps(rec),
+          flush=True)
+    check(tol is None or max(held) < tol,
+          f"{tag} prefill+decode vs forward: {errs}")
+    return max(held), rec
+
+
+def lm_path_flash(ops, model, params, requests, prompts, dev):
+    """Layer 0's attention on the model's own weights at each request's
+    shapes, through the path's call (``attention.flash_prefill``) against
+    the plain version, and the call's time: ({label: ms}, {label: max abs
+    err})."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tt
+    cfg = model.cfg
+    blk = params.groups[0][0][0]
+    cd = tt._cdtype(cfg)
+    flash_ms, held = {}, {}
+    with torch.inference_mode():
+        for label, B, P, *_ in requests:
+            x = tt._embed_tokens(params, cfg, prompts[label])
+            h = common.norm_apply(cfg.norm, blk.norm1, x).to(cd)
+            q, k, v = attn.qkv_project(blk.attn, h, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.head_dim_,
+                                       torch.arange(P, device=dev),
+                                       cfg.rope_theta, cd)
+            del x, h
+            held[label] = flash_check(ops, q, k, v, True,
+                                      f"{cfg.name} layer 0, request {label}",
+                                      out=attn.flash_prefill(q, k, v))
+            attn.flash_prefill(q, k, v)
+            flash_ms[label] = cuda_ms(lambda: attn.flash_prefill(q, k, v),
+                                      reps=1 if P >= 16_384 else 5)
+            del q, k, v
+    torch.cuda.empty_cache()
+    return flash_ms, held
+
+
+def lm_init(arch, seed, dev, card, tag, **kw):
+    """``launch.serve.init_model`` on the card, with its time, bytes and
+    peak in a ``{tag} init`` line: (model, params, the record)."""
+    from repro_torch.launch import serve as launch
+    torch.cuda.empty_cache()
+    live_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    model, params, init_s = launch.init_model(arch, seed=seed, device=dev,
+                                              **kw)
+    n_blocks = sum(p.numel() for n, p in params.named_parameters()
+                   if n.startswith("groups."))
+    init = dict(arch=model.cfg.name, param_dtype=model.cfg.param_dtype,
+                params=sum(p.numel() for p in params.parameters()),
+                block_params=n_blocks,
+                param_gb=sum(p.numel() * p.element_size()
+                             for p in params.parameters()) / 1e9,
+                live_before_gb=live_gb, init_s=init_s,
+                init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{tag} init [{card}] " + json.dumps(init), flush=True)
+    return model, params, init
+
+
+def attention_bound_ms(cfg, B, P, fa) -> float:
+    """One causal attention call at flash_attention's float32 bound (three
+    TF32 passes a product)."""
+    flops = 2.0 * B * cfg.n_heads * P * P * cfg.head_dim_
+    elems = B * (2 * P * cfg.n_heads + 2 * P * cfg.n_kv_heads) * cfg.head_dim_
+    return bound(fa.PASSES[4] * flops, 4 * elems, PEAK_TF32_FLOPS)[0]
+
+
+def lm_phase(ops, seed, dev, card):
+    """Phase 18: the LM path at full width (``launch.serve.init_model`` and
+    ``serve.engine.Engine`` on the card). Returns the launches of the
+    requests' runs (counters set to 0 before each and read after), and the
+    largest error of the ``flash_attention`` calls held on the path's
+    shapes."""
+    from repro_torch.models import transformer as tt
+    fa = ops.KERNELS["flash_attention"]
+    model, params, init = lm_init(LM_ARCH, seed, dev, card, "lm")
+    cfg = model.cfg
+    n_blocks, param_bytes = init["block_params"], init["param_gb"] * 1e9
+    layers = sum(len(p) * c for p, c in cfg.groups)
+    reqs, prompts, path_launches = lm_requests(
+        ops, model, params, LM_REQUESTS, seed, card, "lm", layers, 0)
 
     # where a decode step's time goes: 4 steps at request (a)'s batch under
     # torch.profiler, and the cast of every float32 weight to bf16 that a
@@ -2270,53 +2473,13 @@ def lm_phase(ops, seed, dev, card):
     torch.cuda.empty_cache()
     print(f"trace lm_decode [{card}] " + json.dumps(trace), flush=True)
 
-    # prefill plus step-by-step decode against the full-sequence forward
-    check_prompt = LM_CHECK_PROMPT
-    S = check_prompt + LM_CHECK_STEPS
-    tokens = launch.prompt_batch(model, 1, S, seed + 1)["tokens"]
-    with torch.inference_mode():
-        full = model.forward(params, {"tokens": tokens})[..., :cfg.vocab_size]
-        caches = model.init_cache(1, S)
-        lg, caches = model.prefill(params, {"tokens": tokens[:, :check_prompt]},
-                                   caches)
-        errs = [float((lg[0, 0, :cfg.vocab_size]
-                       - full[0, check_prompt - 1]).abs().max())]
-        for t in range(check_prompt, S):
-            lg, caches = model.decode_step(params, caches, tokens[:, t:t + 1], t)
-            errs.append(float((lg[0, 0, :cfg.vocab_size]
-                               - full[0, t]).abs().max()))
-    del full, caches, lg
-    torch.cuda.empty_cache()
-    print(f"lm prefill+decode against the full forward, prompt "
-          f"{check_prompt}, {LM_CHECK_STEPS} steps: max err {max(errs):.4e} "
-          f"(tol {LM_DECODE_TOL})", flush=True)
-    check(max(errs) < LM_DECODE_TOL, f"prefill+decode vs forward: {errs}")
-
-    # layer 0's attention on the model's own weights, each request's
-    # shapes, through the path's call against the plain version; the
-    # kernel's time at the path's shapes
-    blk = params.groups[0][0][0]
-    cd = tt._cdtype(cfg)
-    flash_ms, held = {}, {}
-    with torch.inference_mode():
-        for label, B, P, *_ in LM_REQUESTS:
-            x = tt._embed_tokens(params, cfg, prompts[label])
-            h = common.norm_apply(cfg.norm, blk.norm1, x).to(cd)
-            q, k, v = attn.qkv_project(blk.attn, h, cfg.n_heads,
-                                       cfg.n_kv_heads, cfg.head_dim_,
-                                       torch.arange(P, device=dev),
-                                       cfg.rope_theta, cd)
-            del x, h
-            held[label] = flash_check(ops, q, k, v, True,
-                                      f"granite layer 0, request {label}",
-                                      out=attn.flash_prefill(q, k, v))
-            attn.flash_prefill(q, k, v)
-            flash_ms[label] = cuda_ms(lambda: attn.flash_prefill(q, k, v),
-                                      reps=1 if P >= 16_384 else 5)
-            del q, k, v
-    torch.cuda.empty_cache()
+    err_fwd, _ = lm_forward_check(model, params, LM_CHECK_PROMPT,
+                                  LM_CHECK_STEPS, seed, LM_DECODE_TOL, "lm")
+    flash_ms, held = lm_path_flash(ops, model, params, LM_REQUESTS, prompts,
+                                   dev)
 
     # one layer on the card against the CPU, the model's block 0
+    blk = params.groups[0][0][0]
     layer_s = LM_LAYER_S
     x = tt._embed_tokens(params, cfg, prompts["a"][:1, :layer_s])
     ctx = {"positions": torch.arange(layer_s, device=dev), "xattn_ctx": None}
@@ -2336,18 +2499,13 @@ def lm_phase(ops, seed, dev, card):
     del cpu_blk, x, y_card, y_cpu
 
     # bounds on the card: a prefill's projections at the bf16 rate plus
-    # its attention calls at flash_attention's float32 bound (three TF32
-    # passes a product); a decode step reads the float32 parameters once
-    def attention_bound_ms(B, P):
-        flops = 2.0 * B * cfg.n_heads * P * P * cfg.head_dim_
-        elems = B * (2 * P * cfg.n_heads + 2 * P * cfg.n_kv_heads) \
-            * cfg.head_dim_
-        return bound(fa.PASSES[4] * flops, 4 * elems, PEAK_TF32_FLOPS)[0]
+    # its attention calls at flash_attention's float32 bound; a decode step
+    # reads the float32 parameters once
     summary = dict(init)
     for label, B, P, *_ in LM_REQUESTS:
         rec = reqs[label]
         proj_ms = 1e3 * 2.0 * n_blocks * B * P / PEAK_BF16_FLOPS
-        attn_ms = layers * attention_bound_ms(B, P)
+        attn_ms = layers * attention_bound_ms(cfg, B, P, fa)
         rec.update(prefill_bound_s=(proj_ms + attn_ms) / 1e3,
                    prefill_attention_bound_s=attn_ms / 1e3,
                    decode_bound_ms=1e3 * param_bytes / HBM_BW,
@@ -2363,7 +2521,7 @@ def lm_phase(ops, seed, dev, card):
                        ms_a_step=trace["window_ms"] / 4,
                        device_busy_ms_a_step=trace["device_busy_ms"] / 4,
                        weight_cast_ms=trace["weight_cast_ms"]),
-                   forward_check_max_err=max(errs),
+                   forward_check_max_err=err_fwd,
                    layer_card_vs_cpu=dict(S=layer_s, max_abs_err=layer_err,
                                           scale=layer_scale),
                    path_launches=path_launches)
@@ -2371,6 +2529,324 @@ def lm_phase(ops, seed, dev, card):
     del params, model
     torch.cuda.empty_cache()
     return path_launches, max(held.values())
+
+
+def same_params(model, params, **overrides):
+    """The model under ``overrides`` of its config (another compute dtype
+    or capacity), on the same parameter tensors (no copy)."""
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tt
+    cfg = dataclasses.replace(model.cfg, **overrides)
+    other = tt.LM(cfg, device="meta")
+    with torch.inference_mode():      # the parameters are inference tensors
+        other.load_state_dict(params.state_dict(), assign=True)
+    return build(cfg, device=model.device), other
+
+
+def moe_serving(ops, seed, dev, card):
+    """Phase 19, moonshot-v1-16b-a3b at full width in bf16 parameters:
+    (the launches of its requests, the largest flash error held)."""
+    from repro_torch.models import transformer as tt
+    fa = ops.KERNELS["flash_attention"]
+    tag = f"lm {MOE_ARCH}"
+    model, params, init = lm_init(MOE_ARCH, seed, dev, card, tag,
+                                  param_dtype="bfloat16")
+    cfg = model.cfg
+    param_bytes = init["param_gb"] * 1e9
+    check(params.groups[1][0][0].moe.w_up.dtype == torch.bfloat16,
+          "moonshot's experts in bf16")
+    layers = cfg.n_layers
+    reqs, prompts, path_launches = lm_requests(
+        ops, model, params, MOE_REQUESTS, seed, card, tag, layers, 0)
+    flash_ms, held = lm_path_flash(ops, model, params, MOE_REQUESTS, prompts,
+                                   dev)
+
+    # where a decode step's time goes: 2 steps at request (a)'s batch
+    label, B, P, *_ = MOE_REQUESTS[0]
+    with torch.inference_mode():
+        caches = model.init_cache(B, P + 2)
+        _, caches = model.prefill(params, {"tokens": prompts[label]}, caches)
+        last = prompts[label][:, -1:]
+
+        def decode_steps():
+            for t in range(2):
+                model.decode_step(params, caches, last, P + t)
+        decode_steps()
+        _, trace = device_trace(decode_steps, "moe_decode",
+                                record_shapes=False)
+        del trace["waltmin_split"]
+    del caches
+    torch.cuda.empty_cache()
+    trace.update(steps=2, batch=B, cache_len=P + 2)
+    print(f"trace {tag} decode [{card}] " + json.dumps(trace), flush=True)
+
+    # float32 compute and a capacity that drops nothing, on the same
+    # parameter tensors: prefill plus decode against the forward, and
+    # layer 1 (the first attn_moe block) on the card against the CPU
+    m32, p32 = same_params(model, params, compute_dtype="float32",
+                           capacity_factor=cfg.n_experts / cfg.top_k)
+    err_fwd, fwd_rec = lm_forward_check(m32, p32, MOE_CHECK_PROMPT,
+                                        MOE_CHECK_STEPS, seed, MOE_CHECK_TOL,
+                                        tag)
+    blk = p32.groups[1][0][0]
+    S = MOE_CHECK_PROMPT
+    x = tt._embed_tokens(p32, m32.cfg, prompts["a"][:1, :S])
+    ctx = {"positions": torch.arange(S, device=dev), "xattn_ctx": None}
+    cpu_blk = tt.make_block("attn_moe", m32.cfg, device="cpu")
+    cpu_blk.load_state_dict(blk.state_dict())
+    with torch.inference_mode(), recorded_routes() as routes:
+        y_card, aux_card = blk.seq(x, ctx)
+        t0 = time.perf_counter()
+        y_cpu, aux_cpu = cpu_blk.seq(x.cpu(), {"positions": torch.arange(S),
+                                               "xattn_ctx": None})
+        cpu_s = time.perf_counter() - t0
+    # the MoE acts token by token after the attention: a token routed to
+    # other experts on the two devices (a near-tie) differs alone
+    same = (routes[0].cpu() == routes[1]).all(-1)
+    layer_err = float((y_card.cpu() - y_cpu)[0, same].abs().max())
+    layer_scale = float(y_cpu.abs().max())
+    n_rerouted = S - int(same.sum())
+    print(f"{tag} layer 1 (attn_moe, float32) card against CPU, S={S}: max "
+          f"abs err {layer_err:.4e} of {layer_scale:.4e} (tol "
+          f"{MOE_LAYER_TOL} of the largest) over the {S - n_rerouted} "
+          f"tokens routed alike ({n_rerouted} otherwise, at most "
+          f"{S // 100}), aux {float(aux_card):.6f} / {float(aux_cpu):.6f}, "
+          f"CPU {cpu_s:.1f} s", flush=True)
+    check(layer_err <= MOE_LAYER_TOL * layer_scale
+          and n_rerouted <= S // 100
+          and abs(float(aux_card) - float(aux_cpu)) <= 1e-5,
+          f"attn_moe layer card vs CPU: {layer_err} of {layer_scale}, "
+          f"{n_rerouted} tokens routed otherwise")
+    del cpu_blk, x, y_card, y_cpu, m32, p32, blk
+
+    # bounds: a prefill's active projections (attention, the dense first
+    # layer, the shared experts and top_k of n_experts routed ones) at the
+    # bf16 rate plus 48 attention calls at flash's float32 bound; a decode
+    # step reads every expert (the capacity dispatch runs all of them), so
+    # the whole 56.8 GB at the HBM rate
+    active = sum(p.numel() * (cfg.top_k / cfg.n_experts
+                              if n.split(".")[-1] in ("w_up", "w_gate",
+                                                      "w_down") else 1.0)
+                 for n, p in params.named_parameters()
+                 if n.startswith("groups."))
+    summary = dict(init, active_block_params=active)
+    for label, B, P, *_ in MOE_REQUESTS:
+        rec = reqs[label]
+        proj_ms = 1e3 * 2.0 * active * B * P / PEAK_BF16_FLOPS
+        attn_ms = layers * attention_bound_ms(cfg, B, P, fa)
+        rec.update(prefill_bound_s=(proj_ms + attn_ms) / 1e3,
+                   prefill_attention_bound_s=attn_ms / 1e3,
+                   decode_bound_ms=1e3 * param_bytes / HBM_BW,
+                   flash_ms_a_call=flash_ms[label],
+                   prefill_attention_s=layers * flash_ms[label] / 1e3,
+                   layer0_flash_max_abs_err=held[label])
+        summary[label] = {kk: vv for kk, vv in rec.items()
+                          if kk not in ("launches", "routes")}
+    summary.update(decode_trace=dict(
+                       idle_share=trace["idle_share"],
+                       ms_a_step=trace["window_ms"] / 2,
+                       device_busy_ms_a_step=trace["device_busy_ms"] / 2,
+                       device_events_a_step=trace["device_events"] / 2),
+                   forward_check=fwd_rec,
+                   layer1_card_vs_cpu=dict(S=S, max_abs_err=layer_err,
+                                           scale=layer_scale,
+                                           tokens_rerouted=n_rerouted),
+                   path_launches=path_launches)
+    print(f"{tag} [{card}] " + json.dumps(summary), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return path_launches, max(held.values())
+
+
+def rglru_serving(ops, seed, dev, card):
+    """Phase 19, recurrentgemma-9b at full width in float32 parameters:
+    its requests (windowed attention on the plain route), the forward
+    check and layer 0's scan against its step loop."""
+    from repro_torch.models import common, rglru
+    from repro_torch.models import transformer as tt
+    tag = f"lm {RG_ARCH}"
+    model, params, init = lm_init(RG_ARCH, seed, dev, card, tag)
+    cfg = model.cfg
+    param_bytes = init["param_gb"] * 1e9
+    n_attn = sum(p.count("local_attn") * c for p, c in cfg.groups)
+    reqs, prompts, path_launches = lm_requests(
+        ops, model, params, RG_REQUESTS, seed, card, tag, 0, n_attn)
+    # held in float32 compute on the same parameter tensors; the served
+    # bf16 compute reported beside it
+    m32, p32 = same_params(model, params, compute_dtype="float32")
+    err_fwd, fwd_rec = lm_forward_check(m32, p32, RG_CHECK_PROMPT,
+                                        RG_CHECK_STEPS, seed,
+                                        RG_DECODE_TOL, tag)
+    del m32, p32
+    _, bf16_rec = lm_forward_check(model, params, RG_CHECK_PROMPT,
+                                   RG_CHECK_STEPS, seed, None,
+                                   f"{tag} bf16")
+
+    # layer 0's RG-LRU: the scan over S tokens against the step loop
+    blk = params.groups[0][0][0]
+    cd = tt._cdtype(cfg)
+    with torch.inference_mode():
+        x = tt._embed_tokens(params, cfg, prompts["a"][:1])
+        h = common.norm_apply(cfg.norm, blk.norm1, x)
+        xin = common.dense_apply(blk.lru.w_in, h, cd)
+        xc, _ = rglru._causal_conv(blk.lru.conv_w.float(), xin)
+        (y_par, h_par), scan_ms = timed(lambda: rglru.rglru_seq(blk.lru, xc))
+        state = torch.zeros_like(h_par)
+        ys = []
+        t0 = time.perf_counter()
+        for t in range(xc.shape[1]):
+            y, state = rglru.rglru_step(blk.lru, xc[:, t], state)
+            ys.append(y)
+        torch.cuda.synchronize()
+        loop_ms = 1e3 * (time.perf_counter() - t0)
+        scan_err = max(float((y_par - torch.stack(ys, 1)).abs().max()),
+                       float((h_par - state).abs().max()))
+    print(f"{tag} layer 0 rglru_seq against the step loop, S="
+          f"{xc.shape[1]}: max abs err {scan_err:.4e} (tol {RG_SCAN_TOL}); "
+          f"scan {scan_ms:.2f} ms, loop {loop_ms:.1f} ms", flush=True)
+    check(scan_err <= RG_SCAN_TOL, f"rglru scan vs step: {scan_err}")
+    del x, h, xin, xc, y_par, ys
+
+    # bounds: every block product at the bf16 rate, plus the windowed
+    # attention (4 B H S min(S, window) Dh FLOP) at the float32 FMA rate;
+    # a decode step reads the float32 parameters once
+    n_blocks = init["block_params"]
+    summary = dict(init)
+    for label, B, P, *_ in RG_REQUESTS:
+        rec = reqs[label]
+        attn_flops = n_attn * 4.0 * B * cfg.n_heads * P * min(P, cfg.window) \
+            * cfg.head_dim_
+        rec.update(prefill_bound_s=2.0 * n_blocks * B * P / PEAK_BF16_FLOPS
+                   + attn_flops / PEAK_F32_FLOPS,
+                   decode_bound_ms=1e3 * param_bytes / HBM_BW)
+        summary[label] = {kk: vv for kk, vv in rec.items()
+                          if kk not in ("launches", "routes")}
+    summary.update(forward_check=fwd_rec, forward_check_bf16=bf16_rec,
+                   scan_vs_steps=dict(S=RG_CHECK_PROMPT, max_abs_err=scan_err,
+                                      scan_ms=scan_ms, loop_ms=loop_ms),
+                   path_launches=path_launches)
+    print(f"{tag} [{card}] " + json.dumps(summary), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return path_launches
+
+
+def xlstm_serving(ops, seed, dev, card):
+    """Phase 19, xlstm-350m at full width: its requests (no attention), the
+    forward check, layer 0's chunked mLSTM against its step loop, and the
+    sLSTM time loop traced."""
+    from repro_torch.models import common, xlstm
+    from repro_torch.models import transformer as tt
+    tag = f"lm {XL_ARCH}"
+    model, params, init = lm_init(XL_ARCH, seed, dev, card, tag)
+    cfg = model.cfg
+    param_bytes = init["param_gb"] * 1e9
+    reqs, prompts, path_launches = lm_requests(
+        ops, model, params, XL_REQUESTS, seed, card, tag, 0, 0)
+    # held in float32 compute on the same parameter tensors; the served
+    # bf16 compute reported beside it
+    m32, p32 = same_params(model, params, compute_dtype="float32")
+    err_fwd, fwd_rec = lm_forward_check(m32, p32, XL_CHECK_PROMPT,
+                                        XL_CHECK_STEPS, seed,
+                                        XL_DECODE_TOL, tag)
+    del m32, p32
+    _, bf16_rec = lm_forward_check(model, params, XL_CHECK_PROMPT,
+                                   XL_CHECK_STEPS, seed, None,
+                                   f"{tag} bf16")
+
+    cd = tt._cdtype(cfg)
+    mblk, sblk = params.groups[0][0]
+    with torch.inference_mode():
+        # layer 0's mLSTM: the chunked form over S tokens against the
+        # recurrence one step at a time
+        x = tt._embed_tokens(params, cfg, prompts["a"][:1])
+        h = common.norm_apply(cfg.norm, mblk.norm, x)
+        q, k, v, log_f, log_i, *_ = xlstm.mlstm_inputs(mblk.core, h,
+                                                       cfg.n_heads, cd)
+        (h_par, _), chunk_ms = timed(
+            lambda: xlstm._mlstm_chunk_parallel(q, k, v, log_f, log_i))
+        Dh = q.shape[-1]
+        C = torch.zeros(*q.shape[:2], Dh, Dh, device=dev)
+        n = torch.zeros(*q.shape[:2], Dh, device=dev)
+        m = torch.full(q.shape[:2], -1e30, device=dev)
+        err = torch.zeros((), device=dev)       # max |chunked - step|
+        excess = torch.zeros((), device=dev)    # max of it - tol |step|
+        for t in range(q.shape[2]):
+            m_new = torch.maximum(log_f[..., t] + m, log_i[..., t])
+            df = torch.exp(log_f[..., t] + m - m_new)
+            di = torch.exp(log_i[..., t] - m_new)
+            C = df[..., None, None] * C + di[..., None, None] \
+                * (k[..., t, :, None] * v[..., t, None, :])
+            n = df[..., None] * n + di[..., None] * k[..., t, :]
+            num = (q[..., t, None, :] @ C)[..., 0, :] / math.sqrt(Dh)
+            den = torch.maximum(torch.abs((n * q[..., t, :]).sum(-1))
+                                / math.sqrt(Dh), torch.exp(-m_new))
+            h_t = num / den[..., None]
+            diff = (h_par[..., t, :] - h_t).abs()
+            err = torch.maximum(err, diff.max())
+            excess = torch.maximum(excess, (diff - XL_MLSTM_TOL
+                                            * h_t.abs()).max())
+            m = m_new
+        mlstm_err, mlstm_excess = float(err), float(excess)
+        del q, k, v, log_f, log_i, h_par, C, n, x, h
+        # one sLSTM layer over request (a)'s prompts: time and launches
+        x = tt._embed_tokens(params, cfg, prompts["a"])
+        hs = common.norm_apply(cfg.norm, sblk.norm, x)
+        xlstm.slstm_block_seq(sblk.core, hs[:, :8], cd)
+        _, slstm_ms = timed(lambda: xlstm.slstm_block_seq(sblk.core, hs, cd))
+        _, slstm_trace = device_trace(
+            lambda: xlstm.slstm_block_seq(sblk.core, hs, cd), "slstm",
+            record_shapes=False)
+        del slstm_trace["waltmin_split"], x, hs
+    torch.cuda.empty_cache()
+    S = prompts["a"].shape[1]
+    print(f"{tag} layer 0 mLSTM chunked against the step loop, S={S}: max "
+          f"abs err {mlstm_err:.4e} (tol {XL_MLSTM_TOL} + {XL_MLSTM_TOL} "
+          f"|step|), chunked {chunk_ms:.2f} ms", flush=True)
+    check(mlstm_excess <= XL_MLSTM_TOL,
+          f"mLSTM chunked vs steps: {mlstm_err}")
+    slstm = dict(batch=prompts["a"].shape[0], S=S, ms=slstm_ms,
+                 device_events=slstm_trace["device_events"],
+                 launches_a_step=slstm_trace["device_events"] / S,
+                 idle_share=slstm_trace["idle_share"],
+                 top5=slstm_trace["top5"])
+    print(f"{tag} slstm layer [{card}] " + json.dumps(slstm), flush=True)
+
+    # bounds: every block product at the bf16 rate; a decode step reads
+    # the float32 parameters once
+    n_blocks = init["block_params"]
+    summary = dict(init)
+    for label, B, P, *_ in XL_REQUESTS:
+        rec = reqs[label]
+        rec.update(prefill_bound_s=2.0 * n_blocks * B * P / PEAK_BF16_FLOPS,
+                   decode_bound_ms=1e3 * param_bytes / HBM_BW)
+        summary[label] = {kk: vv for kk, vv in rec.items()
+                          if kk not in ("launches", "routes")}
+    summary.update(forward_check=fwd_rec, forward_check_bf16=bf16_rec,
+                   mlstm_chunked_vs_steps=dict(S=S, max_abs_err=mlstm_err,
+                                               chunked_ms=chunk_ms),
+                   slstm_layer=dict(ms=slstm_ms, launches_a_step=slstm[
+                       "launches_a_step"]),
+                   path_launches=path_launches)
+    print(f"{tag} [{card}] " + json.dumps(summary), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return path_launches
+
+
+def moe_recurrent_phase(ops, seed, dev, card):
+    """Phase 19: the MoE and recurrent families at full width, one model at
+    a time, each freed before the next. Returns the launches of their
+    requests and the largest flash error held on moonshot's shapes."""
+    t0 = time.perf_counter()
+    launches, err = moe_serving(ops, seed, dev, card)
+    for extra in (rglru_serving(ops, seed, dev, card),
+                  xlstm_serving(ops, seed, dev, card)):
+        for name in launches:
+            launches[name] += extra[name]
+    print(f"moe and recurrent phase [{card}]: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, err
 
 
 def main(argv=None) -> int:
@@ -2939,7 +3415,11 @@ def main(argv=None) -> int:
     launches_lm, err_lm = lm_phase(ops, args.seed, dev, card)
     err_flash = max(err_flash, err_lm)
 
-    # 19. the kernels line and the last line --------------------------------
+    # 19. the MoE and recurrent families at full width ----------------------
+    launches_moe, err_moe = moe_recurrent_phase(ops, args.seed, dev, card)
+    err_flash = max(err_flash, err_moe)
+
+    # 20. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path
@@ -2948,13 +3428,13 @@ def main(argv=None) -> int:
     # 4, and for each the serving phase's (the sweep, the traffic cells and
     # the stream session); then the distributed call and stream, both
     # ranks' sharded ingest, the gradient tap and the compressor, and the
-    # LM requests' prefills
+    # LM requests' prefills (granite's, then moonshot's)
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
     for extra in (launches_serve, launches_dist, launches_dist_stream,
                   launches_multihost, launches_taps, launches_comp,
-                  launches_lm):
+                  launches_lm, launches_moe):
         for name in path_launches:
             path_launches[name] += extra[name]
     kernels = []

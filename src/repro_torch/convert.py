@@ -241,7 +241,11 @@ def taps_to_numpy(taps) -> dict:
 # ``groups.{gi}.{c}.{p}.<path>``; every other leaf has the same path in
 # both. Its caches are, per group, a list over layers of the pattern's
 # tuple of block caches, where the JAX package stacks each cache leaf over
-# the layers.
+# the layers. The mapping goes by path, so it covers every block type: the
+# MoE leaves (``moe.router.w``, ``moe.w_up``, ..., ``moe.shared.*``), the
+# RG-LRU's (``lru.w_in.w``, ``lru.lam``, ...), the mLSTM's and sLSTM's
+# (``core.*``), and the recurrent caches ({h, conv}, {C, n, m, conv},
+# {h, c, n, m}) beside the KV caches.
 
 def _split_group_name(name: str):
     """``a.groups.gi.c.p.rest`` -> (prefix, gi, c, p, rest), or None for a

@@ -12,6 +12,7 @@ product in float32, as ``jax.lax.dot_general(...,
 preferred_element_type=float32)`` does: on the card one bf16 GEMM with a
 float32 output (``torch.mm(..., out_dtype=torch.float32)``), on the CPU the
 bf16-rounded operands upcast to float32 (their products are exact there).
+``bmm_f32`` does the same for a stack of products (the MoE experts).
 """
 from __future__ import annotations
 
@@ -38,6 +39,19 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor,
     else:
         y = x2.float() @ wc.float()
     return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def bmm_f32(x: torch.Tensor, w: torch.Tensor,
+            compute_dtype: torch.dtype) -> torch.Tensor:
+    """The batched ``matmul_f32``: x (e, c, d_in) @ w (e, d_in, d_out),
+    ``einsum('ecd,edf->ecf', ..., preferred_element_type=float32)``; on
+    the card one bf16 batched GEMM with a float32 output."""
+    x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if compute_dtype == torch.float32:
+        return torch.bmm(x, w)
+    if x.device.type == "cuda":
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
 
 
 class Dense(nn.Module):

@@ -1,0 +1,158 @@
+"""Mixture-of-Experts layer: top-k routing, capacity-bounded sort-based
+dispatch.
+
+The port of ``repro.models.moe``. ``moe_init`` becomes the ``MoE`` module
+(``router.w``, ``w_up``, ``w_gate``, ``w_down`` and the ``shared`` MLP, as
+the JAX tree names them) with ``reset(key)``; ``moe_apply`` a function of
+it. Dispatch, as in the JAX package:
+
+  1. router logits (float32) -> top-k (expert ids, gates) per token;
+  2. flatten the (T*k) assignments, sort them by expert id (stably);
+  3. rank within expert from a cumulative count over the sorted list; drop
+     ranks >= capacity C = ceil(T*k/E * capacity_factor);
+  4. write the kept tokens into an (E, C, d) buffer (kept slots are unique;
+     every dropped assignment goes to the spare row E*C);
+  5. batched expert products ``einsum('ecd,edf->ecf')`` in the compute
+     dtype with float32 results (``common.bmm_f32``: a library call, as the
+     JAX package computes them outside any Pallas kernel);
+  6. gather back, weight by gates, add the shared experts.
+
+Two choices keep the port equal to the reference where PyTorch promises
+less than XLA: the top k come from a stable descending sort, so ties
+(a zero router) pick the lower expert id as ``jax.lax.top_k`` does; and a
+token's k contributions are summed in a fixed order (ascending expert id,
+the order of ``segment_sum`` over the sorted list) instead of with
+``index_add_``, whose atomics on the card add in no fixed order, so two
+runs agree bit for bit.
+
+Capacity is the reference's too: a decode step at batch 4 has T = 4 and
+C = 1, so assignments are dropped there as they are in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import prng
+from repro_torch.models import common
+
+
+class MoE(nn.Module):
+    """The router (float32 whatever ``dtype`` is), the experts' stacked
+    ``w_up``, ``w_gate`` (when gated) and ``w_down``, and ``shared`` (an
+    MLP of width ``(shared_d_ff or d_ff) * n_shared``) when ``n_shared``."""
+
+    def __init__(self, d: int, d_ff: int, n_experts: int, *, n_shared: int = 0,
+                 shared_d_ff: int | None = None, gated: bool = True,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.router = common.Dense(d, n_experts, device=device)
+        self.w_up = nn.Parameter(torch.empty(n_experts, d, d_ff, **kw))
+        self.w_gate = (nn.Parameter(torch.empty(n_experts, d, d_ff, **kw))
+                       if gated else None)
+        self.w_down = nn.Parameter(torch.empty(n_experts, d_ff, d, **kw))
+        self.shared = (common.MLP(d, (shared_d_ff or d_ff) * n_shared,
+                                  gated=gated, **kw)
+                       if n_shared > 0 else None)
+
+    def reset(self, key: torch.Tensor) -> None:
+        """``moe_init``: ``kr, ke, ks = split(key, 3)``; the router from kr
+        scaled by 1/sqrt(d); ``w_up``, ``w_gate``, ``w_down`` from
+        ``fold_in(ke, 0)``, ``(ke, 1)``, ``(ke, 2)`` (the last scaled by
+        1/sqrt(d_ff)); the shared experts ``mlp_init(ks, ...)``."""
+        kr, ke, ks = prng.split(key.to(self.w_up.device), 3)
+        E, d, d_ff = self.w_up.shape
+        self.router.reset(kr)
+        with torch.no_grad():
+            self.w_up.copy_(prng.normal(prng.fold_in(ke, 0), (E, d, d_ff))
+                            * (1.0 / math.sqrt(d)))
+            if self.w_gate is not None:
+                self.w_gate.copy_(prng.normal(prng.fold_in(ke, 1),
+                                              (E, d, d_ff))
+                                  * (1.0 / math.sqrt(d)))
+            self.w_down.copy_(prng.normal(prng.fold_in(ke, 2), (E, d_ff, d))
+                              * (1.0 / math.sqrt(d_ff)))
+        if self.shared is not None:
+            self.shared.reset(ks)
+
+
+def top_k_stable(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest values, then
+    their indices, equal values in ascending index order."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, act: str = "silu",
+              compute_dtype=torch.bfloat16):
+    """x: (B, S, d) -> (out (B, S, d) float32, aux_loss float32 scalar)."""
+    B, S, d = x.shape
+    T = B * S
+    E = p.w_up.shape[0]
+    dev = x.device
+    xt = x.reshape(T, d)
+
+    # --- routing -----------------------------------------------------------
+    logits = xt.float() @ p.router.w.float()                    # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, eids = top_k_stable(probs, top_k)                    # (T, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = probs.mean(0)
+    ce = F.one_hot(eids[:, 0], E).float().mean(0)
+    aux = E * torch.sum(me * ce)
+
+    # --- sort-based capacity assignment -------------------------------------
+    C = int(math.ceil(T * top_k / E * capacity_factor))
+    flat_e = eids.reshape(-1)                                   # (T*k,)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(top_k)
+    flat_g = gates.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    idx = torch.arange(T * top_k, device=dev)
+    counts = torch.bincount(se, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = idx - starts[se]
+    keep = rank < C
+    slot = torch.where(keep, se * C + rank, E * C)              # E*C = dropped
+
+    # --- dispatch ------------------------------------------------------------
+    # Kept slots are unique and every dropped assignment writes zeros to row
+    # E*C, so the indexed write is the reference's scatter-add exactly.
+    buf = torch.zeros((E * C + 1, d), dtype=compute_dtype, device=dev)
+    buf[slot] = (xt[st] * keep[:, None]).to(compute_dtype)
+    h = buf[:E * C].reshape(E, C, d)
+
+    # --- expert FFNs ---------------------------------------------------------
+    up = common.bmm_f32(h, p.w_up, compute_dtype)
+    if p.w_gate is not None:
+        g = common.bmm_f32(h, p.w_gate, compute_dtype)
+        hidden = common.ACTIVATIONS[act](g) * up
+    else:
+        hidden = common.ACTIVATIONS[act](up)
+    out_e = common.bmm_f32(hidden.to(compute_dtype), p.w_down,
+                           compute_dtype)                        # (E, C, d)
+
+    # --- combine -------------------------------------------------------------
+    out_flat = torch.cat([out_e.reshape(E * C, d),
+                          torch.zeros((1, d), device=dev)])
+    back = out_flat[slot] * (sg * keep)[:, None]                # (T*k, d)
+    # segment_sum over the sorted list: token t's contributions in the order
+    # they hold there (ascending expert id), added one after another
+    where = torch.empty_like(order)
+    where[order] = idx
+    rows = torch.sort(where.reshape(T, top_k), dim=1).values    # (T, k)
+    out = back[rows[:, 0]]
+    for j in range(1, top_k):
+        out = out + back[rows[:, j]]
+
+    if p.shared is not None:
+        out = out + common.mlp_apply(p.shared, xt, act, compute_dtype)
+    return out.reshape(B, S, d).float(), aux
+

@@ -1,5 +1,6 @@
-"""LM assembly for the attention families: decoder-only, encoder-decoder
-(whisper) and the VLM's interleaved cross-attention.
+"""LM assembly: decoder-only, encoder-decoder (whisper), the VLM's
+interleaved cross-attention, MoE, hybrid (RG-LRU and local attention) and
+recurrent (xLSTM) stacks.
 
 The port of ``repro.models.transformer``. A model is a sequence of
 *groups*; each group is (pattern, count) where the pattern is a tuple of
@@ -21,11 +22,13 @@ and ``block_cache_init(btype, cfg, batch, max_len, device)``.
 ctx carries positions and the cross-attention context (encoder output or
 image patch embeddings; both stubs feed precomputed embeddings).
 
-Block types ported: ``attn``, ``attn_dense_first``, ``enc`` and
-``local_attn`` (one class with ``causal``, ``window_attr`` and
-``d_ff_attr``), ``xattn`` and ``dec_xattn``. ``attn_moe``, ``rglru``,
-``mlstm`` and ``slstm`` raise ``NotImplementedError``: ROADMAP Queue 1
-item 10b.
+Block types: ``attn``, ``attn_dense_first``, ``enc`` and ``local_attn``
+(one class with ``causal``, ``window_attr`` and ``d_ff_attr``), ``xattn``,
+``dec_xattn``, ``attn_moe`` (self-attention and the MoE FFN of
+``models/moe.py``, its aux loss returned from ``seq`` and ``prefill``),
+``rglru`` (``models/rglru.py``), ``mlstm`` and ``slstm``
+(``models/xlstm.py``). A recurrent block's cache is a dict of its state,
+whose shapes do not depend on ``max_len``.
 
 Caches are written in place (the decode loop owns them) and returned.
 The forward runs without rematerialization: the port has no training
@@ -41,10 +44,8 @@ from torch import nn
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, moe, rglru, xlstm
 from repro_torch.train import sketched_dense as sd
-
-_UNPORTED = ("attn_moe", "rglru", "mlstm", "slstm")
 
 
 def _cdtype(cfg: ArchConfig):
@@ -64,6 +65,12 @@ def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
+def _mlp_branch(cfg, norm, mlp, x):
+    """The pre-norm MLP branch of a residual block, in the compute dtype."""
+    h = common.norm_apply(cfg.norm, norm, x).to(_cdtype(cfg))
+    return common.mlp_apply(mlp, h, cfg.act, _cdtype(cfg))
+
+
 # ===========================================================================
 # Block implementations
 # ===========================================================================
@@ -75,16 +82,9 @@ class AttnBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, *, causal=True, window_attr=None,
                  d_ff_attr="d_ff", device="cuda"):
         super().__init__()
-        self.cfg = cfg
-        self.causal = causal
-        self.window = getattr(cfg, window_attr) if window_attr else None
+        self._init_attention(cfg, causal, window_attr, device)
         d_ff = getattr(cfg, d_ff_attr) or cfg.d_ff
         pd = _pdtype(cfg)
-        self.norm1 = common.norm_init(cfg.norm, cfg.d_model, device)
-        self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.head_dim_, dtype=pd, bias=cfg.attn_bias,
-                                   device=device)
-        self.norm2 = common.norm_init(cfg.norm, cfg.d_model, device)
         self.mlp = common.MLP(cfg.d_model, d_ff, gated=cfg.gated_mlp, dtype=pd,
                               bias=cfg.attn_bias, device=device)
         if cfg.sketched_mlp:
@@ -95,6 +95,18 @@ class AttnBlock(nn.Module):
                 sd.tap_init(cfg.d_model, d_ff, tk, device=device))
             self.mlp.down.taps = nn.ParameterDict(
                 sd.tap_init(d_ff, cfg.d_model, tk, device=device))
+
+    def _init_attention(self, cfg, causal, window_attr, device):
+        """``norm1``, ``attn`` and ``norm2``: what every self-attention
+        block holds beside its FFN."""
+        self.cfg = cfg
+        self.causal = causal
+        self.window = getattr(cfg, window_attr) if window_attr else None
+        self.norm1 = common.norm_init(cfg.norm, cfg.d_model, device)
+        self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim_, dtype=_pdtype(cfg),
+                                   bias=cfg.attn_bias, device=device)
+        self.norm2 = common.norm_init(cfg.norm, cfg.d_model, device)
 
     def reset(self, key: torch.Tensor) -> None:
         k1, k2, _, _ = prng.split(key, 4)
@@ -129,9 +141,7 @@ class AttnBlock(nn.Module):
         return o, cache
 
     def _mlp(self, x):
-        cfg = self.cfg
-        h = common.norm_apply(cfg.norm, self.norm2, x).to(_cdtype(cfg))
-        return common.mlp_apply(self.mlp, h, cfg.act, _cdtype(cfg))
+        return _mlp_branch(self.cfg, self.norm2, self.mlp, x)
 
     def seq(self, x, ctx):
         cfg = self.cfg
@@ -151,6 +161,45 @@ class AttnBlock(nn.Module):
         o, cache = self._attend(x, ctx, cache=cache, pos=pos)
         x = x + o
         return x + self._mlp(x), cache
+
+
+class MoEBlock(AttnBlock):
+    """Self-attention + MoE FFN. Its init splits the key in 2 (attention,
+    experts), not in 4 as ``AttnBlock``'s does."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        nn.Module.__init__(self)
+        self._init_attention(cfg, True, None, device)
+        self.moe = moe.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                           n_shared=cfg.n_shared_experts, gated=cfg.gated_mlp,
+                           dtype=_pdtype(cfg), device=device)
+
+    def reset(self, key: torch.Tensor) -> None:
+        k1, k2 = prng.split(key)
+        self.attn.reset(k1)
+        self.moe.reset(k2)
+
+    def _ffn(self, x):
+        cfg = self.cfg
+        h = common.norm_apply(cfg.norm, self.norm2, x)
+        out, aux = moe.moe_apply(self.moe, h, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 act=cfg.act, compute_dtype=_cdtype(cfg))
+        return x + out, aux
+
+    def seq(self, x, ctx):
+        o, _ = self._attend(x, ctx)
+        return self._ffn(x + o)
+
+    def prefill(self, x, ctx, cache):
+        o, cache = self._attend(x, ctx, cache=cache, build_cache=True)
+        x, aux = self._ffn(x + o)
+        return x, aux, cache
+
+    def step(self, x, cache, pos, ctx):
+        o, cache = self._attend(x, ctx, cache=cache, pos=pos)
+        x, _ = self._ffn(x + o)
+        return x, cache
 
 
 class CrossBlock(nn.Module):
@@ -288,6 +337,121 @@ class DecXAttnBlock(AttnBlock):
         return x, {"self": self_cache, "cross": cache["cross"]}
 
 
+class RGLRUBlock(nn.Module):
+    """RecurrentGemma block: RG-LRU mixer + MLP, both pre-norm residual."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        pd = _pdtype(cfg)
+        self.norm1 = common.norm_init(cfg.norm, cfg.d_model, device)
+        self.lru = rglru.RGLRU(cfg.d_model, cfg.lru_width or cfg.d_model,
+                               dtype=pd, device=device)
+        self.norm2 = common.norm_init(cfg.norm, cfg.d_model, device)
+        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                              dtype=pd, device=device)
+
+    def reset(self, key: torch.Tensor) -> None:
+        k1, k2 = prng.split(key)
+        self.lru.reset(k1)
+        self.mlp.reset(k2)
+
+    def _mlp(self, x):
+        return _mlp_branch(self.cfg, self.norm2, self.mlp, x)
+
+    def seq(self, x, ctx):
+        h = common.norm_apply(self.cfg.norm, self.norm1, x)
+        x = x + rglru.rglru_block_seq(self.lru, h, _cdtype(self.cfg))
+        return x + self._mlp(x), _zero(x.device)
+
+    def prefill(self, x, ctx, cache):
+        """The sequence in its parallel form; the final h and the conv
+        state (in the cache's dtype) handed to decode."""
+        cd = _cdtype(self.cfg)
+        h = common.norm_apply(self.cfg.norm, self.norm1, x)
+        y, h_final, gate, conv_state = rglru.block_front(self.lru, h, cd)
+        x = x + common.dense_apply(self.lru.w_out, (y * gate).to(cd), cd)
+        cache["h"].copy_(h_final)
+        cache["conv"].copy_(conv_state)
+        return x + self._mlp(x), _zero(x.device), cache
+
+    def step(self, x, cache, pos, ctx):
+        h = common.norm_apply(self.cfg.norm, self.norm1, x)
+        o, cache = rglru.rglru_block_step(self.lru, h, cache,
+                                          _cdtype(self.cfg))
+        x = x + o
+        return x + self._mlp(x), cache
+
+
+class MLSTMBlock(nn.Module):
+    """Pre-norm residual mLSTM; its init draws from the unsplit key."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = common.norm_init(cfg.norm, cfg.d_model, device)
+        self.core = xlstm.MLSTM(cfg.d_model, cfg.n_heads,
+                                proj_factor=cfg.proj_factor,
+                                dtype=_pdtype(cfg), device=device)
+
+    def reset(self, key: torch.Tensor) -> None:
+        self.core.reset(key)
+
+    def seq(self, x, ctx):
+        h = common.norm_apply(self.cfg.norm, self.norm, x)
+        return x + xlstm.mlstm_block_seq(self.core, h, self.cfg.n_heads,
+                                         _cdtype(self.cfg)), _zero(x.device)
+
+    def prefill(self, x, ctx, cache):
+        h = common.norm_apply(self.cfg.norm, self.norm, x)
+        o, state = xlstm.mlstm_block_seq(self.core, h, self.cfg.n_heads,
+                                         _cdtype(self.cfg), return_state=True)
+        for name, t in state.items():
+            cache[name].copy_(t)
+        return x + o, _zero(x.device), cache
+
+    def step(self, x, cache, pos, ctx):
+        h = common.norm_apply(self.cfg.norm, self.norm, x)
+        o, cache = xlstm.mlstm_block_step(self.core, h, cache,
+                                          self.cfg.n_heads, _cdtype(self.cfg))
+        return x + o, cache
+
+
+class SLSTMBlock(nn.Module):
+    """Pre-norm residual sLSTM (a loop over time). The reference's
+    ``constrain_activations`` hook is a sharding hint that changes nothing
+    on one device, and the port does not shard yet."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = common.norm_init(cfg.norm, cfg.d_model, device)
+        self.core = xlstm.SLSTM(cfg.d_model, cfg.n_heads, dtype=_pdtype(cfg),
+                                device=device)
+
+    def reset(self, key: torch.Tensor) -> None:
+        self.core.reset(key)
+
+    def seq(self, x, ctx):
+        h = common.norm_apply(self.cfg.norm, self.norm, x)
+        return x + xlstm.slstm_block_seq(self.core, h,
+                                         _cdtype(self.cfg)), _zero(x.device)
+
+    def prefill(self, x, ctx, cache):
+        h = common.norm_apply(self.cfg.norm, self.norm, x)
+        o, state = xlstm.slstm_block_seq(self.core, h, _cdtype(self.cfg),
+                                         return_state=True)
+        for name, t in state.items():
+            cache[name].copy_(t)
+        return x + o, _zero(x.device), cache
+
+    def step(self, x, cache, pos, ctx):
+        h = common.norm_apply(self.cfg.norm, self.norm, x)
+        o, cache = xlstm.slstm_block_step(self.core, h, cache,
+                                          _cdtype(self.cfg))
+        return x + o, cache
+
+
 BLOCKS = {
     "attn": lambda cfg, device: AttnBlock(cfg, causal=True, device=device),
     "attn_dense_first": lambda cfg, device: AttnBlock(
@@ -295,20 +459,16 @@ BLOCKS = {
     "enc": lambda cfg, device: AttnBlock(cfg, causal=False, device=device),
     "local_attn": lambda cfg, device: AttnBlock(
         cfg, causal=True, window_attr="window", device=device),
+    "attn_moe": MoEBlock,
     "xattn": CrossBlock,
     "dec_xattn": DecXAttnBlock,
+    "rglru": RGLRUBlock,
+    "mlstm": MLSTMBlock,
+    "slstm": SLSTMBlock,
 }
 
 
-def _unported(btype: str, cfg: ArchConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"block type {btype!r} of {cfg.name} is not ported yet (ROADMAP "
-        f"Queue 1 item 10b: moe, rglru, xlstm)")
-
-
 def make_block(btype: str, cfg: ArchConfig, device="cuda") -> nn.Module:
-    if btype in _UNPORTED:
-        raise _unported(btype, cfg)
     return BLOCKS[btype](cfg, device)
 
 
@@ -316,10 +476,18 @@ def block_cache_init(btype: str, cfg: ArchConfig, batch: int, max_len: int,
                      device="cuda"):
     """The zero cache of one block: a self-attention KV cache of max_len
     rows (a window's rows for ``local_attn``), a cross-attention cache of
-    the context's length, or both for ``dec_xattn``; bf16 under bf16
-    compute."""
-    if btype in _UNPORTED:
-        raise _unported(btype, cfg)
+    the context's length, or both for ``dec_xattn``, bf16 under bf16
+    compute; a recurrent block's state (``rglru``: {h, conv}, ``mlstm``:
+    {C, n, m, conv}, ``slstm``: {h, c, n, m})."""
+    if btype == "rglru":
+        return rglru.rglru_block_cache_init(batch, cfg.lru_width or cfg.d_model,
+                                            _cdtype(cfg), device)
+    if btype == "mlstm":
+        di = int(cfg.d_model * cfg.proj_factor)
+        return xlstm.mlstm_cache_init(batch, cfg.n_heads, di // cfg.n_heads,
+                                      di, device)
+    if btype == "slstm":
+        return xlstm.slstm_cache_init(batch, cfg.d_model, device)
     kw = dict(dtype=_cdtype(cfg), device=device)
     nkv, dh = cfg.n_kv_heads, cfg.head_dim_
     if btype == "xattn":

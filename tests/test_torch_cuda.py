@@ -974,6 +974,7 @@ def _lm_batch(cfg, device, B=2, S=100):
 # logits of scale 4. bf16 compute: the port's bf16 tolerance against JAX
 # (tests/test_torch_models.py), 0.05.
 LM_TOL = {"float32": 1e-4, "bfloat16": 0.05}
+RECURRENT_TOL = 5e-3
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
@@ -1075,3 +1076,73 @@ def test_engine_on_the_card_matches_the_cpu(card):
         outs.append(Engine(m, p, ServeConfig(max_new_tokens=8)).generate(
             batch).cpu())
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("name,flash,plain", [
+    ("moonshot-v1-16b-a3b", 3, 0),   # attn_dense_first + attn_moe x 2
+    ("recurrentgemma-9b", 0, 2),     # (rglru, rglru, local_attn) x 2
+    ("xlstm-350m", 0, 0),            # (mlstm, slstm) x 2: no attention
+])
+def test_moe_and_recurrent_lm_on_the_card_match_the_cpu(card, name, flash,
+                                                        plain):
+    """Reduced MoE, hybrid and recurrent archs (head width 32, float32
+    compute): the forward's routes and flash launches, two forwards on the
+    card equal bit for bit (the MoE's fixed-order combine, no atomics), and
+    the forward, a prefill and 4 decode steps against the CPU. The RG-LRU
+    and xLSTM blocks take some products in bf16 whatever the compute dtype
+    (the gates, as the reference does), where float32 noise between the
+    devices tips a bf16 rounding now and then: those two are held to
+    RECURRENT_TOL (measured 7e-4 and 3e-4 at logits of scale 4)."""
+    tol = LM_TOL["float32"] if name.startswith("moonshot") else RECURRENT_TOL
+    from repro_torch.models import attention as attn
+    m_gpu, p_gpu = _lm(name, card)
+    m_cpu, p_cpu = _lm(name, "cpu")
+    b_gpu = _lm_batch(m_gpu.cfg, card, S=64)
+    b_cpu = {k: v.cpu() for k, v in b_gpu.items()}
+    with torch.inference_mode():
+        before = ops.LAUNCHES["flash_attention"]
+        attn.reset_route_counts()
+        full = m_gpu.forward(p_gpu, b_gpu)
+        assert attn.ROUTES == {"flash": flash, "plain": plain}
+        assert ops.LAUNCHES["flash_attention"] == before + flash
+        assert torch.equal(full, m_gpu.forward(p_gpu, b_gpu))
+        want = m_cpu.forward(p_cpu, b_cpu)
+        torch.testing.assert_close(full.cpu(), want, rtol=0, atol=tol)
+        P = 60
+        outs = []
+        for m, p, b in ((m_gpu, p_gpu, b_gpu), (m_cpu, p_cpu, b_cpu)):
+            caches = m.init_cache(2, 64)
+            lg, caches = m.prefill(p, dict(b, tokens=b["tokens"][:, :P]),
+                                   caches)
+            steps = [lg[:, 0].cpu()]
+            for t in range(P, 64):
+                lg, caches = m.decode_step(p, caches,
+                                           b["tokens"][:, t:t + 1], t)
+                steps.append(lg[:, 0].cpu())
+            outs.append(torch.stack(steps))
+        torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=tol)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(card):
+    """One MoE layer at moonshot's expert width (64 experts of d_ff 1,408,
+    top 6, 2 shared, d 2,048) in bf16 parameters and compute: the batched
+    bf16 products with float32 outputs on the card against the CPU's
+    upcast operands, and two runs equal bit for bit. The float32 sums run
+    in another order, so a hidden activation near a bf16 rounding edge
+    rounds the other way now and then: within 2 bf16 ulps of the value
+    plus half an ulp of the largest output (test_torch_models.py's bf16
+    criterion)."""
+    from repro_torch.models import moe
+    p = moe.MoE(2048, 1408, 64, n_shared=2, dtype=torch.bfloat16,
+                device="cpu").requires_grad_(False)
+    p.reset(prng.PRNGKey(5))
+    x = torch.randn(2, 96, 2048, generator=torch.Generator().manual_seed(5))
+    kw = dict(top_k=6, act="silu", compute_dtype=torch.bfloat16)
+    want, aux_cpu = moe.moe_apply(p, x, **kw)
+    p_gpu = p.to(card)
+    got, aux = moe.moe_apply(p_gpu, x.to(card), **kw)
+    again, _ = moe.moe_apply(p_gpu, x.to(card), **kw)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), want, rtol=2.0 ** -6,
+                               atol=2.0 ** -8 * float(want.abs().max()))
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)

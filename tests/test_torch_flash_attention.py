@@ -134,7 +134,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 65
+    assert int(res.stdout.split()[-1]) >= 68
 
 
 def test_port_sources_name_no_jax_import():

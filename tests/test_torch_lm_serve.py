@@ -47,10 +47,10 @@ def test_greedy_generation_deterministic():
 
 
 def test_engine_matches_stepwise_argmax():
-    """Engine greedy tokens == a manual prefill + decode argmax loop (the
-    JAX suite's twin runs on xlstm-350m, whose blocks wait for ROADMAP item
-    10b; this one runs on phi3-mini)."""
-    cfg = get_config("phi3-mini-3.8b").reduced()
+    """The twin of tests/models/test_moe_serve.py's: Engine greedy tokens
+    == a manual prefill + decode argmax loop, on reduced xlstm-350m (its
+    caches the recurrent states of mLSTM and sLSTM)."""
+    cfg = get_config("xlstm-350m").reduced()
     m = build(cfg, device="cpu")
     params = m.init_params(prng.PRNGKey(1))
     toks = prng.randint(prng.PRNGKey(2), (1, 8), 0, cfg.vocab_size)
@@ -69,7 +69,8 @@ def test_engine_matches_stepwise_argmax():
 
 
 @pytest.mark.parametrize("name", ["phi3-mini-3.8b", "whisper-small",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b",
+                                  "moonshot-v1-16b-a3b", "recurrentgemma-9b"])
 def test_greedy_tokens_equal_the_jax_engine(name):
     with jax.threefry_partitionable(False):
         jcfg = _f32(name, jax_get_config)
@@ -175,3 +176,19 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build("phi3-mini-3.8b")
+
+
+def test_init_model_takes_a_parameter_dtype():
+    """``init_model(..., param_dtype="bfloat16")``: the experts in bf16,
+    the router float32, and the Engine serves it (reduced moonshot)."""
+    model, params, _ = launch_serve.init_model(
+        "moonshot-v1-16b-a3b", reduced=True, device="cpu",
+        param_dtype="bfloat16")
+    assert model.cfg.param_dtype == "bfloat16"
+    layer = params.groups[1][0][0].moe
+    assert layer.w_up.dtype == torch.bfloat16
+    assert layer.router.w.dtype == torch.float32
+    batch = launch_serve.prompt_batch(model, 2, 8, seed=1)
+    out = Engine(model, params, ServeConfig(max_new_tokens=3)).generate(batch)
+    assert tuple(out.shape) == (2, 11)
+    assert torch.equal(out[:, :8], batch["tokens"])
