@@ -186,7 +186,29 @@ fails; nothing is caught:
     against its step loop, one sLSTM layer's time loop timed and traced
     (device events a step); each request's bounds; ``lm <arch> ...``
     lines;
-20. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+20. training at full width: phi3-mini-3.8b (3.82e9 float32 parameters,
+    drawn on the card from the seed by ``Trainer``'s own init; bf16
+    compute, remat) through ``train.Trainer`` on ``SyntheticLM`` batches of
+    2 x 4,096 tokens in 2 microbatches, AdamW as ``launch/train.py``
+    builds it: (a) no compression, 2 steps; (b) SMP-PCA taps on the MLP,
+    3 steps, the last under ``device_trace`` (idle share, top device
+    operations, WAltMin's split); (a) freed before (b). Each step's wall
+    time, tokens/s, loss, ``grad_norm``, launches (``sketch_fused`` 256
+    and ``sampled_rescaled_dot`` 64 a taps step), attention routes (no
+    flash under grad), the share spent in ``decompress_tapped_params``,
+    peak memory; step 1's loss against the same parameters' no_grad loss,
+    every gradient nonzero (the taps' zeroed ones aside), every tapped dW
+    of rank 8, the first tapped layer's dW against the completion on the
+    CPU of the same taps (finalized on the card) and key within 1e-3, the
+    parameters changed, and (b)'s first two kernel calls of each kind held
+    against their plain versions (``Trainer`` with ``max_retries=0``: a
+    failed check is never retried); (c) granite-3-8b reduced
+    at head width 64 (the flash route without grad) in float32: one train
+    step on the card against the CPU, loss, ``grad_norm`` and every
+    gradient within 1e-4; (d) ``launch.train --reduced`` on the card: the
+    loss falls over 20 steps, a fault at step 12 recovers from step 10's
+    checkpoint, a second Trainer resumes at 20; ``train ...`` lines;
+21. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -422,6 +444,39 @@ XL_ARCH = "xlstm-350m"
 XL_REQUESTS = (("a", 4, 4096, 16, 0.0), ("c", 2, 1000, 16, 0.0))
 XL_CHECK_PROMPT, XL_CHECK_STEPS, XL_DECODE_TOL = 1024, 16, 5e-2
 XL_MLSTM_TOL = 5e-3
+# The training phase (20): phi3-mini-3.8b (src/repro/configs/
+# phi3_mini_3_8b.py, arXiv:2404.14219: 32 layers, d 3,072, 32 heads of 96,
+# d_ff 8,192, vocab 32,064) at full width and depth, float32 parameters,
+# bf16 compute, remat; B = 2 sequences of phi3-mini-4k's 4,096 tokens in 2
+# microbatches; AdamW as launch/train.py builds it (warmup_cosine(1e-3,
+# 1, steps), weight decay 0.01, float32 moments). (a) no compression, 2
+# steps (cut from 3 to keep the phase near its budget: the trace of (b)'s
+# last step takes 48 to 59 s on an H100), and (b) SMP-PCA taps on the MLP
+# (TapConfig(): k 64, rank 8, T 4), 3 steps. Step 1's loss against the
+# same parameters' no_grad loss: a mean of 8,192 log-probabilities in bf16
+# compute on both sides, float32 sums in other orders (the loss chunks and
+# remat change none of the arithmetic): within 1e-3. A tapped dW is rank
+# 8: the 9th singular value of dW Omega (Omega 16 Gaussian columns) within
+# TRAIN_RANK_TOL of the first. One tapped layer's dW is the reconstruction
+# under its key: against decompress_tap on the CPU from the same taps and
+# key within TRAIN_TAP_TOL of the leaf's largest entry. The taps go over bit
+# for bit, the summary's norms are the card's and the draws are the same
+# (the CDF is summed on the host, the uniform bits are jax-exact), so only
+# float32 sums in other orders differ, and 1e-3 is the bound the CPU tests
+# hold the port's taps to against JAX's. One moved draw of 720,896 moves
+# this layer's rank-8 completion by 2.6% of that entry (its top singular
+# values are close), and a wrong key by 0.70, printed beside it.
+# Trainer runs with max_retries=0, so a failed check ends the script.
+# (c) granite-3-8b reduced at head_dim 64 (flash's width), float32
+# compute: one train step on the card against the CPU, loss, grad_norm and
+# each gradient within 1e-4 relative (float32 sums in other orders).
+# (d) launch.train --reduced on the card: 20 steps, a fault at step 12
+# with checkpoints every 10, then a second Trainer resumes at 20.
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_B, TRAIN_S, TRAIN_MB = 2, 4096, 2
+TRAIN_STEPS_A, TRAIN_STEPS_B = 2, 3
+TRAIN_LOSS_TOL, TRAIN_RANK_TOL, TRAIN_CPU_TOL = 1e-3, 1e-4, 1e-4
+TRAIN_TAP_TOL = 1e-3
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -747,18 +802,20 @@ def sampled_check(ops, As, Bs, na, nb, rows, cols, label):
 
 
 @contextlib.contextmanager
-def recording(ops, *names):
+def recording(ops, *names, limit=None):
     """Keep each call of the named ``ops`` wrappers made while the block
-    runs, as (arguments, keywords, result), so that a path's own launches
-    can be held against the plain versions afterwards. The wrappers run and
-    count their launches as before."""
+    runs (the first ``limit`` of each, when given), as (arguments,
+    keywords, result), so that a path's own launches can be held against
+    the plain versions afterwards. The wrappers run and count their
+    launches as before."""
     calls = {name: [] for name in names}
     saved = {name: getattr(ops, name) for name in names}
 
     def keep(name, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
-            calls[name].append((args, kw, out))
+            if limit is None or len(calls[name]) < limit:
+                calls[name].append((args, kw, out))
             return out
         return call
     for name in names:
@@ -2849,6 +2906,357 @@ def moe_recurrent_phase(ops, seed, dev, card):
     return launches, err
 
 
+@contextlib.contextmanager
+def timed_decompress(sink: list, capture: dict | None = None):
+    """Time each ``decompress_tapped_params`` call of the train step (to a
+    synchronize) into ``sink``, in seconds. With an empty ``capture``, the
+    first call's key, config, gradient names and the taps of its first
+    tapped layer (by name) are copied to the CPU into it before the call
+    zeroes them."""
+    from repro_torch.train import sketched_dense as sd
+    saved = sd.decompress_tapped_params
+
+    def call(key, grads, cfg):
+        if capture is not None and not capture:
+            prefix = min(n[:-len(".taps.a")] for n in grads
+                         if n.endswith(".taps.a"))
+            capture.update(prefix=prefix, key=key.cpu(), cfg=cfg,
+                           names=list(grads), taps={
+                               f: grads[f"{prefix}.taps.{f}"].to(
+                                   "cpu", copy=True)
+                               for f in sd.TAP_FIELDS})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved(key, grads, cfg)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+    sd.decompress_tapped_params = call
+    try:
+        yield sink
+    finally:
+        sd.decompress_tapped_params = saved
+
+
+def tapped_rank_err(grads, names, gen) -> float:
+    """The largest sigma_9 / sigma_1 of dW Omega over the tapped layers
+    (Omega: 16 Gaussian columns): 0 up to float32 rounding when every
+    tapped dW is the rank-8 reconstruction."""
+    worst = 0.0
+    for prefix in names:
+        g = grads[prefix + ".w"]
+        omega = torch.randn(g.shape[1], 16, generator=gen, device=g.device)
+        sv = torch.linalg.svdvals(g @ omega)
+        check(float(sv[0]) > 0, f"{prefix}: a zero reconstruction")
+        worst = max(worst, float(sv[8] / sv[0]))
+    return worst
+
+
+def tapped_vs_cpu(grads, cap) -> dict:
+    """The captured layer's ``w`` gradient from the card against the
+    SMP-PCA completion on the CPU (the kernels' plain versions) of the
+    same taps under the key ``tap_keys`` gives it, as the largest error
+    over the leaf's largest entry; beside it the same for a wrong key
+    (``fold_in(key, 1)``), the size of the error the check is there to
+    catch. The summary is finalized on the card and moved to the CPU:
+    the CPU's vectorized ``torch.sqrt`` is an ulp off the card's
+    correctly rounded one on some norms, which moves inverse-CDF draws."""
+    from repro_torch import prng
+    from repro_torch.core import streaming
+    from repro_torch.core.smppca import smppca_from_summary
+    from repro_torch.core.types import SketchSummary
+    from repro_torch.train import sketched_dense as sd
+    t0 = time.perf_counter()
+    k = sd.tap_keys(cap["key"], cap["names"])[cap["prefix"]]
+    got = grads[cap["prefix"] + ".w"]
+    summary = streaming.finalize_state(sd.tap_state(
+        {f: v.to(got.device) for f, v in cap["taps"].items()}))
+    summary = SketchSummary(*(None if x is None else x.cpu()
+                              for x in summary))
+    cfg = cap["cfg"]
+    m = int(cfg.sample_factor * (summary.n1 + summary.n2) * cfg.rank)
+    got = got.cpu()
+    scale = float(got.abs().max().clamp(min=1e-30))
+
+    def err(key):
+        f = smppca_from_summary(key, summary, r=cfg.rank, m=m,
+                                T=cfg.als_iters, device="cpu").factors
+        return float((got - f.U @ f.V.T).abs().max()) / scale
+    return dict(layer=cap["prefix"], rel_err=err(k),
+                wrong_key_rel_err=err(prng.fold_in(k, 1)),
+                cpu_s=time.perf_counter() - t0)
+
+
+def train_run(ops, label, comp, seed, dev, card, steps, trace=False):
+    """One phase-20 run: ``Trainer`` on phi3-mini-3.8b at full width for
+    ``steps`` steps, each step timed (to a synchronize) with its launches
+    and attention routes (counters set to 0 before each step). Step 1 is
+    checked against the no_grad loss of the same parameters and its
+    gradients held (every parameter but the taps nonzero; the tapped
+    ones of rank 8); the parameters must change. With ``trace`` the last
+    step runs under ``device_trace``. Returns (the run's record, the
+    launches of its steps, the recorded kernel calls of its first step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+    from repro_torch.train import sketched_dense as sd
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    if comp == "taps":
+        cfg = dataclasses.replace(cfg, sketched_mlp=True)
+    model = build(cfg, device=dev)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, batch_size=TRAIN_B,
+                       seq_len=TRAIN_S, seed=seed, device=str(dev))
+    opt = AdamW(lr=warmup_cosine(1e-3, max(steps // 10, 1), steps),
+                weight_decay=0.01)
+    trainer = Trainer(model.loss, opt, data,
+                      TrainConfig(microbatches=TRAIN_MB, compression=comp),
+                      TrainerConfig(num_steps=steps, log_every=steps,
+                                    max_retries=0),
+                      model.init_params, seed=seed)
+    inner = trainer.step_fn
+    rec = dict(label=label, arch=cfg.name, compression=comp, B=TRAIN_B,
+               S=TRAIN_S, microbatches=TRAIN_MB, steps=[])
+    total = {name: 0 for name in ops.LAUNCHES}
+    snap, recorded, decomp, cap = {}, {}, [], {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def step(state, batch):
+        named = dict(state.params.named_parameters())
+        # set only once step 1's checks have passed: a failed step raises
+        # (max_retries=0), and a step after it is never taken for step 1
+        first = "step1_checked" not in rec
+        if first:
+            rec["init_s"] = time.perf_counter() - t_run
+            rec["param_gb"] = sum(p.numel() * p.element_size()
+                                  for p in named.values()) / 1e9
+            with torch.no_grad():
+                rec["nograd_loss"] = float(model.loss(state.params, batch))
+            last = f"groups.0.{cfg.groups[0][1] - 1}.0"
+            snap.update({n: named[n][:8].clone() for n in (
+                "embed.table", "groups.0.0.0.attn.wq.w", last + ".mlp.up.w",
+                last + ".norm2.scale")})
+        ops.reset_launch_counts()
+        attn.reset_route_counts()
+        del decomp[:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if first:
+                recorded.update(stack.enter_context(recording(
+                    ops, "sketch_fused", "sampled_rescaled_dot", limit=2)))
+            stack.enter_context(timed_decompress(
+                decomp, cap if first else None))
+            if trace and len(rec["steps"]) == steps - 1:
+                out, rec["trace"] = device_trace(
+                    lambda: inner(state, batch), f"train step {label}",
+                    record_shapes=False)
+            else:
+                out = inner(state, batch)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        new, metrics = out
+        s = dict(step=len(rec["steps"]), s=dt, tokens_per_s=TRAIN_B * TRAIN_S
+                 / dt, loss=float(metrics["loss"]),
+                 grad_norm=float(metrics["grad_norm"]),
+                 lr=float(metrics["lr"]), decompress_s=sum(decomp),
+                 decompress_share=sum(decomp) / dt,
+                 launches=dict(ops.LAUNCHES), routes=dict(attn.ROUTES),
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rec["steps"].append(s)
+        for name in total:
+            total[name] += ops.LAUNCHES[name]
+        print(f"train {label} step [{card}] " + json.dumps(s), flush=True)
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]),
+              f"train {label}: loss {s['loss']}, grad_norm {s['grad_norm']}")
+        check(s["routes"]["flash"] == 0, f"train {label}: flash under grad")
+        if first:
+            check(abs(s["loss"] - rec["nograd_loss"]) <= TRAIN_LOSS_TOL,
+                  f"train {label}: step 1's loss {s['loss']} against the "
+                  f"no_grad loss {rec['nograd_loss']}")
+            grads = {n: p.grad for n, p in named.items()}
+            zero = [n for n, g in grads.items()
+                    if ".taps." not in n and not bool(g.any())]
+            check(not zero, f"train {label}: zero gradients {zero[:4]}")
+            tapped = sorted(n[:-len(".taps.a")] for n in grads
+                            if n.endswith(".taps.a"))
+            if tapped:
+                rec["tapped_layers"] = len(tapped)
+                rec["tapped_rank_err"] = tapped_rank_err(grads, tapped, gen)
+                check(rec["tapped_rank_err"] <= TRAIN_RANK_TOL,
+                      f"train {label}: tapped dW rank err "
+                      f"{rec['tapped_rank_err']}")
+                rec["tapped_vs_cpu"] = tapped_vs_cpu(grads, cap)
+                print(f"train {label} tapped layer vs CPU [{card}] "
+                      + json.dumps(rec["tapped_vs_cpu"]), flush=True)
+                check(rec["tapped_vs_cpu"]["rel_err"] <= TRAIN_TAP_TOL,
+                      f"train {label}: tapped dW against the CPU's "
+                      f"{rec['tapped_vs_cpu']}")
+            rec["step1_checked"] = True
+        return out
+
+    trainer.step_fn = step
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    state = trainer.run()
+    rec["run_s"] = time.perf_counter() - t_run
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    named = dict(state.params.named_parameters())
+    same = [n for n, before in snap.items()
+            if torch.equal(named[n][:8], before)]
+    check(not same, f"train {label}: parameters unchanged {same}")
+    check(int(state.step) == steps, f"train {label}: {int(state.step)} steps")
+    rec["losses"] = [h["loss"] for h in trainer.metrics_history]
+    print(f"train {label} [{card}] " + json.dumps(
+        {k: v for k, v in rec.items() if k != "steps"}), flush=True)
+    del state, named, trainer, model, inner
+    torch.cuda.empty_cache()
+    return rec, total, recorded
+
+
+def train_card_vs_cpu(dev, card):
+    """(c): one train step of granite-3-8b reduced at head_dim 64 (the
+    flash kernel's width), float32 compute, on the card against the CPU.
+    The card's forward without grad takes the flash route; the step's
+    attention the plain one."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), head_dim=64,
+                              compute_dtype="float32")
+    out = {}
+    for d in ("cpu", dev):
+        model = build(cfg, device=d)
+        params = model.init_params(prng.PRNGKey(0, device=d))
+        opt = AdamW(lr=warmup_cosine(1e-3, 1, 10), weight_decay=0.01)
+        state = init_state(prng.PRNGKey(1, device=d), params, opt,
+                           TrainConfig(microbatches=2))
+        batch = SyntheticLM(vocab_size=cfg.vocab_size, batch_size=4,
+                            seq_len=64, device=str(d)).batch(0)
+        attn.reset_route_counts()
+        with torch.no_grad():
+            model.forward(params, batch)
+        fwd_routes = dict(attn.ROUTES)
+        attn.reset_route_counts()
+        _, metrics = make_train_step(model.loss, opt,
+                                     TrainConfig(microbatches=2))(state, batch)
+        out[str(torch.device(d).type)] = dict(
+            metrics={k: float(v) for k, v in metrics.items()},
+            grads={n: p.grad.detach().cpu() for n, p in
+                   params.named_parameters()},
+            fwd_routes=fwd_routes, step_routes=dict(attn.ROUTES))
+    cpu, gpu = out["cpu"], out["cuda"]
+    rel = {k: abs(gpu["metrics"][k] - cpu["metrics"][k])
+           / max(abs(cpu["metrics"][k]), 1e-30) for k in ("loss", "grad_norm")}
+    grad_rel = max(float((gpu["grads"][n] - g).abs().max()
+                         / g.abs().max().clamp(min=1e-30))
+                   for n, g in cpu["grads"].items())
+    rec = dict(arch=cfg.name, head_dim=64, loss_rel=rel["loss"],
+               grad_norm_rel=rel["grad_norm"], grad_rel_max=grad_rel,
+               card_forward_routes=gpu["fwd_routes"],
+               card_step_routes=gpu["step_routes"])
+    print(f"train card_vs_cpu [{card}] " + json.dumps(rec), flush=True)
+    check(gpu["fwd_routes"]["flash"] > 0, "(c): no flash route without grad")
+    check(gpu["step_routes"]["flash"] == 0, "(c): flash route under grad")
+    check(max(rel.values()) <= TRAIN_CPU_TOL and grad_rel <= TRAIN_CPU_TOL,
+          f"(c): card against CPU {rec}")
+
+
+def train_launcher(dev, card):
+    """(d): ``launch.train --reduced`` on the card: 20 steps through its
+    ``main`` (the loss falls); 20 steps with a fault at step 12 and
+    checkpoints every 10 (recovered); a second Trainer resumes at 20."""
+    import io
+    from repro_torch.launch import train as launch
+    with tempfile.TemporaryDirectory() as td:
+        argv = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "20",
+                "--device", str(dev), "--ckpt-dir", os.path.join(td, "a")]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            launch.main(argv)
+        main_s = time.perf_counter() - t0
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(res["steps"] == 20 and res["last_loss"] < res["first_loss"],
+              f"(d): launch.train {res}")
+        args = launch.parser().parse_args(
+            ["--arch", TRAIN_ARCH, "--reduced", "--steps", "20",
+             "--device", str(dev), "--ckpt-dir", os.path.join(td, "b")])
+        tr = launch.make_trainer(args)
+        tr.cfg.ckpt_every = 10
+        fired = []
+
+        def hook(step):
+            if step == 12 and not fired:
+                fired.append(step)
+                raise RuntimeError("simulated preemption")
+        state = tr.run(fault_hook=hook)
+        check(int(state.step) == 20 and fired == [12],
+              f"(d): recovery at step {int(state.step)}, fired {fired}")
+        args.steps = 30
+        tr2 = launch.make_trainer(args)
+        state = tr2.run()
+        resumed = tr2.metrics_history[0]["step"]
+        check(int(state.step) == 30 and resumed == 20,
+              f"(d): resumed at {resumed}, ended at {int(state.step)}")
+    rec = dict(main=res, main_s=main_s, fault_at=12, resumed_at=resumed)
+    print(f"train launcher [{card}] " + json.dumps(rec), flush=True)
+
+
+def train_phase(ops, seed, dev, card):
+    """Phase 20: phi3-mini-3.8b training at full width, (a) without and
+    (b) with SMP-PCA taps, each freed before the next; (c) the reduced
+    step card against CPU; (d) launch.train. Returns the launches of (a)
+    and (b)'s steps and the largest error of (b)'s first step's recorded
+    kernel calls held against the plain versions."""
+    t0 = time.perf_counter()
+    rec_a, launches, _ = train_run(ops, "a", "none", seed, dev, card,
+                                   TRAIN_STEPS_A)
+    rec_b, launches_b, calls = train_run(ops, "b", "taps", seed, dev, card,
+                                         TRAIN_STEPS_B, trace=True)
+    for name in launches:
+        launches[name] += launches_b[name]
+    check(launches_b["sketch_fused"] > 0
+          and launches_b["sampled_rescaled_dot"] > 0,
+          f"(b): the taps path launched {launches_b}")
+    errs = dict(
+        sketch_fused=held_sketch(ops, calls["sketch_fused"], "train taps"),
+        sampled_rescaled_dot=held_sampled(
+            ops, calls["sampled_rescaled_dot"], "train decompress_tap"))
+    del calls
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(dev, card)
+    train_launcher(dev, card)
+    from repro_torch.configs import get_config
+    n = get_config(TRAIN_ARCH).n_params()
+    tokens = TRAIN_B * TRAIN_S
+    summary = dict(
+        params=n, tokens_a_step=tokens,
+        # forward, the remat forward and the backward's two products: 8
+        # FLOP a parameter a token, at the bf16 rate
+        step_bound_s=8.0 * n * tokens / PEAK_BF16_FLOPS,
+        a_step_s=[s["s"] for s in rec_a["steps"]],
+        b_step_s=[s["s"] for s in rec_b["steps"]],
+        a_peak_gb=rec_a["peak_gb"], b_peak_gb=rec_b["peak_gb"],
+        b_launches_a_step=rec_b["steps"][-1]["launches"],
+        b_decompress_share=[s["decompress_share"] for s in rec_b["steps"]],
+        b_trace=rec_b.get("trace"),
+        # the traced step runs slower than the others (the profiler on the
+        # host): its device time against the untraced warm step 2
+        b_busy_share_of_step_2=rec_b["trace"]["device_busy_ms"] / 1e3
+        / rec_b["steps"][1]["s"],
+        phase_s=time.perf_counter() - t0)
+    print(f"train phase [{card}] " + json.dumps(summary), flush=True)
+    return launches, errs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3419,7 +3827,12 @@ def main(argv=None) -> int:
     launches_moe, err_moe = moe_recurrent_phase(ops, args.seed, dev, card)
     err_flash = max(err_flash, err_moe)
 
-    # 20. the kernels line and the last line --------------------------------
+    # 20. training at full width --------------------------------------------
+    launches_train, err_train = train_phase(ops, args.seed, dev, card)
+    err_sketch = max(err_sketch, err_train["sketch_fused"])
+    err_sampled = max(err_sampled, err_train["sampled_rescaled_dot"])
+
+    # 21. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path
@@ -3427,14 +3840,15 @@ def main(argv=None) -> int:
     # kernel 2, the SRHT path for kernel 3, the attention call for kernel
     # 4, and for each the serving phase's (the sweep, the traffic cells and
     # the stream session); then the distributed call and stream, both
-    # ranks' sharded ingest, the gradient tap and the compressor, and the
-    # LM requests' prefills (granite's, then moonshot's)
+    # ranks' sharded ingest, the gradient tap and the compressor, the LM
+    # requests' prefills (granite's, then moonshot's), and the training
+    # steps (the taps' sketches and their decompression)
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
     for extra in (launches_serve, launches_dist, launches_dist_stream,
                   launches_multihost, launches_taps, launches_comp,
-                  launches_lm, launches_moe):
+                  launches_lm, launches_moe, launches_train):
         for name in path_launches:
             path_launches[name] += extra[name]
     kernels = []

@@ -264,13 +264,32 @@ def _walk(node, path):
     return node
 
 
-def _lm_leaf(tree, name: str) -> np.ndarray:
+def _as_array(leaf):
+    return leaf if torch.is_tensor(leaf) else np.asarray(leaf)
+
+
+def lm_leaf(tree, name: str):
+    """The leaf of the port's parameter ``name`` in a tree of the JAX
+    package's layout (numpy or jax arrays, or tensors): layer c of a stacked
+    group leaf, else the leaf at the same path."""
     split = _split_group_name(name)
     if split is None:
-        return np.asarray(_walk(tree, name.split(".")))
+        return _as_array(_walk(tree, name.split(".")))
     prefix, gi, c, p, rest = split
     stacked = _walk(_walk(tree, prefix)["groups"][gi][p], rest)
-    return np.asarray(stacked)[c]
+    return _as_array(stacked)[c]
+
+
+def jax_path(name: str):
+    """(path, layer) of the port's parameter ``name`` in the JAX package's
+    tree: its dict keys and list/tuple indices in order, and the layer
+    index of a stacked group leaf (None outside the groups).
+    ``groups.0.5.0.mlp.up.w`` -> (("groups", 0, 0, "mlp", "up", "w"), 5)."""
+    split = _split_group_name(name)
+    if split is None:
+        return tuple(name.split(".")), None
+    prefix, gi, c, p, rest = split
+    return prefix + ("groups", gi, p) + rest, c
 
 
 def lm_params_from_numpy(tree, cfg, device="cpu"):
@@ -282,7 +301,7 @@ def lm_params_from_numpy(tree, cfg, device="cpu"):
     params = LM(cfg, device=device)
     with torch.no_grad():
         for name, p in params.named_parameters():
-            arr = _lm_leaf(tree, name)
+            arr = lm_leaf(tree, name)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: JAX leaf {arr.shape}, port "
                                  f"{tuple(p.shape)}")
@@ -296,21 +315,20 @@ def _nested_set(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def lm_params_to_numpy(params) -> dict:
-    """A ``transformer.LM`` -> the JAX package's parameter tree of numpy
-    arrays: group leaves stacked over the layers, ``groups`` a list of
-    tuples."""
+def lm_tree(named: dict, stack) -> dict:
+    """Leaves under the port's parameter names -> the JAX package's tree:
+    each group leaf ``stack``-ed over the layers (``np.stack`` or
+    ``torch.stack``), ``groups`` a list of tuples."""
     out: dict = {}
     stacks: dict = {}
-    for name, p in params.named_parameters():
-        arr = tensor_to_numpy(p)
+    for name, leaf in named.items():
         split = _split_group_name(name)
         if split is None:
-            _nested_set(out, name.split("."), arr)
+            _nested_set(out, name.split("."), leaf)
             continue
         prefix, gi, c, pi, rest = split
         stacks.setdefault(prefix, {}).setdefault(gi, {}).setdefault(
-            pi, {}).setdefault(rest, {})[c] = arr
+            pi, {}).setdefault(rest, {})[c] = leaf
     for prefix, groups in stacks.items():
         tuples = []
         for gi in sorted(groups):
@@ -318,12 +336,20 @@ def lm_params_to_numpy(params) -> dict:
             for pi in sorted(groups[gi]):
                 slot: dict = {}
                 for rest, layers in groups[gi][pi].items():
-                    _nested_set(slot, rest, np.stack(
-                        [layers[c] for c in sorted(layers)]))
+                    _nested_set(slot, rest,
+                                stack([layers[c] for c in sorted(layers)]))
                 slots.append(slot)
             tuples.append(tuple(slots))
         _nested_set(out, prefix + ("groups",), tuples)
     return out
+
+
+def lm_params_to_numpy(params) -> dict:
+    """A ``transformer.LM`` -> the JAX package's parameter tree of numpy
+    arrays: group leaves stacked over the layers, ``groups`` a list of
+    tuples."""
+    return lm_tree({name: tensor_to_numpy(p)
+                    for name, p in params.named_parameters()}, np.stack)
 
 
 def _map_cache(fn, node):
@@ -375,3 +401,87 @@ def _paths(node, prefix=()):
     if isinstance(node, dict):
         return {k: _paths(v, prefix + (k,)) for k, v in node.items()}
     return prefix
+
+
+# ---------------------------------------------------------------------------
+# training state
+# ---------------------------------------------------------------------------
+#
+# The JAX package's ``TrainState(params, opt=AdamWState(step, mu, nu), comp,
+# step, key)`` holds its parameters and moments in the parameter tree's
+# layout, and its compression state (``()`` or a ``CompressionState``
+# whose residuals are in that layout too). The port's ``TrainState`` holds
+# an ``LM`` module and its moments as dicts under the module's parameter
+# names; its ``comp`` keeps the JAX layout (the compressor walks that tree).
+# A checkpoint of either package stores the JAX layout.
+
+def _tree_map(fn, tree):
+    from repro_torch.core.types import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
+
+
+def train_state_layout(state, leaf, stack):
+    """The port's ``TrainState`` in the JAX package's layout, each tensor
+    through ``leaf`` and each group's layers through ``stack``."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.train_step import TrainState
+    named = dict(state.params.named_parameters())
+
+    def tree(leaves):
+        return lm_tree({n: leaf(leaves[n]) for n in named}, stack)
+    return TrainState(
+        tree(named),
+        AdamWState(leaf(state.opt.step), tree(state.opt.mu),
+                   tree(state.opt.nu)),
+        _tree_map(leaf, state.comp) if state.comp else (),
+        leaf(state.step), leaf(state.key))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` -> the JAX package's layout as numpy: the
+    parameter tree, ``AdamWState(step, mu, nu)`` in that tree, ``comp``,
+    the step and the key data (uint32)."""
+    out = train_state_layout(state, tensor_to_numpy, np.stack)
+    return out._replace(key=key_to_numpy(state.key))
+
+
+def load_train_state(state, tree) -> None:
+    """Write a JAX-layout training state ``tree`` (numpy arrays, jax's, or
+    CPU tensors; bf16 as numpy's bfloat16 or as tensors) into the port's
+    ``state`` in place: parameters, moments, residuals, counters, key."""
+    def put(dst, src):
+        src = src if torch.is_tensor(src) else tensor_from_numpy(src)
+        dst.copy_(src)
+    with torch.no_grad():
+        for name, p in state.params.named_parameters():
+            put(p, lm_leaf(tree.params, name))
+            put(state.opt.mu[name], lm_leaf(tree.opt.mu, name))
+            put(state.opt.nu[name], lm_leaf(tree.opt.nu, name))
+        if state.comp:
+            from repro_torch.core.types import tree_leaves
+            for dst, src in zip(tree_leaves(state.comp),
+                                tree_leaves(tree.comp)):
+                put(dst, src)
+        put(state.opt.step, tree.opt.step)
+        put(state.step, tree.step)
+        key = np.asarray(tree.key).astype(np.int64)
+        state.key.copy_(torch.from_numpy(key))
+
+
+def train_state_from_numpy(state, cfg, device="cpu"):
+    """A JAX ``TrainState`` (numpy arrays, or jax's) -> the port's, on
+    ``device``: an ``LM`` of ``cfg`` holding the parameters, the moments in
+    their stored dtype, ``comp`` on ``device``, the counters as 0-d int32
+    CPU tensors."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.train_step import TrainState
+    params = lm_params_from_numpy(state.params, cfg, device)
+    moments = [{name: tensor_from_numpy(lm_leaf(tree, name), device)
+                for name, _ in params.named_parameters()}
+               for tree in (state.opt.mu, state.opt.nu)]
+    comp = compression_state_from_numpy(state.comp, device) \
+        if len(state.comp) else ()
+    return TrainState(params,
+                      AdamWState(tensor_from_numpy(state.opt.step), *moments),
+                      comp, tensor_from_numpy(state.step),
+                      key_from_numpy(state.key, device))

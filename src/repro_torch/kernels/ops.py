@@ -404,7 +404,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wrapper's ``jnp.repeat`` gives it; the kernel reads k and v in place.
     Blocks are ``min(block, S)`` of the resolved config and must divide S.
     The kernel reads float32 or bf16 (a config's ``precision``, else bf16
-    when q, k and v all are); the arithmetic is float32."""
+    when q, k and v all are); the arithmetic is float32. It is forward
+    only: with grad mode on and an input that requires grad it raises,
+    rather than return an output cut off from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under no_grad or "
+            "inference_mode, or take the plain route "
+            "(models.attention.route(..., needs_grad=True))")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or \
             k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "

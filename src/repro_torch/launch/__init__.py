@@ -1,2 +1,2 @@
 """Command-line entry points: ``launch.serve`` (LM generation and sketch
-serving)."""
+serving) and ``launch.train`` (LM training)."""

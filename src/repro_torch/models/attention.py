@@ -14,9 +14,12 @@ place:
   (``flash_prefill``): under the causal mask no real query sees a padded
   key, so the padding changes nothing.
 * ``"plain"``: everything else (bidirectional, cross-attention, windowed,
-  another head width, and every tensor on the CPU), as the JAX package
-  computes it in plain JAX: dense masked attention up to
-  ``CHUNK_THRESHOLD`` tokens, the chunked online softmax above.
+  another head width, every tensor on the CPU, and every call whose
+  output autograd must differentiate), as the JAX package computes it in
+  plain JAX: dense masked attention up to ``CHUNK_THRESHOLD`` tokens, the
+  chunked online softmax above. Training runs its attention through
+  autograd there, as the JAX package's training runs ``chunked_attention``
+  under ``jax.grad``; the kernel is forward only in both packages.
 
 ``ROUTES`` counts the attention calls of each route
 (``reset_route_counts()`` sets them to 0), beside ``ops.LAUNCHES``. Decode
@@ -57,11 +60,14 @@ def reset_route_counts() -> None:
         ROUTES[name] = 0
 
 
-def route(device: torch.device, causal: bool, window, head_dim: int) -> str:
+def route(device: torch.device, causal: bool, window, head_dim: int,
+          needs_grad: bool = False) -> str:
     """``"flash"`` for causal, unwindowed attention on a CUDA device at a
-    head width the kernel compiles, else ``"plain"``."""
+    head width the kernel compiles, else ``"plain"``. ``needs_grad`` (the
+    call is recorded for a backward pass) takes the plain route: the
+    kernel has no backward, as the JAX package's has none."""
     if (torch.device(device).type == "cuda" and causal and window is None
-            and head_dim in _flash.HEAD_DIMS):
+            and head_dim in _flash.HEAD_DIMS and not needs_grad):
         return "flash"
     return "plain"
 
@@ -228,7 +234,9 @@ def attention(q, k, v, *, causal=True, window=None,
               scores_dtype=torch.float32):
     """Self-attention over one sequence (Sq == Skv), by ``route``."""
     Dh = q.shape[-1]
-    kind = route(q.device, causal, window, Dh)
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    kind = route(q.device, causal, window, Dh, needs_grad)
     ROUTES[kind] += 1
     if kind == "flash":
         return flash_prefill(q, k, v)

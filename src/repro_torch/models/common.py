@@ -10,8 +10,9 @@ plain function that applies it. Parameters are allocated on ``device``
 ``dense_apply`` rounds x and w to the compute dtype and returns the
 product in float32, as ``jax.lax.dot_general(...,
 preferred_element_type=float32)`` does: on the card one bf16 GEMM with a
-float32 output (``torch.mm(..., out_dtype=torch.float32)``), on the CPU the
-bf16-rounded operands upcast to float32 (their products are exact there).
+float32 output (``torch.mm(..., out_dtype=torch.float32)``, given a
+backward pass by ``_F32Out``), on the CPU the bf16-rounded operands upcast
+to float32 (their products are exact there).
 ``bmm_f32`` does the same for a stack of products (the MoE experts).
 """
 from __future__ import annotations
@@ -26,6 +27,51 @@ from torch import nn
 from repro_torch import prng
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (2-d, or a stack of 3-d) of one dtype, summed in float32 into
+    a float32 result: on the card one GEMM of that dtype with a float32
+    output; elsewhere the operands upcast (products of bf16 values are
+    exact in float32)."""
+    if a.device.type == "cuda":
+        mm = torch.mm if a.ndim == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _F32Out(torch.autograd.Function):
+    """``torch.mm``/``torch.bmm(x, w, out_dtype=float32)`` of bf16 operands
+    on the card, with the backward pass those library calls lack.
+
+    The reference's jaxpr for the gradient of ``dot_general(x, w,
+    preferred_element_type=float32)`` of bf16 x and w multiplies the
+    float32 cotangent by the other bf16 operand (``preferred_element_type
+    =float32``) and converts the result to bf16. XLA on the CPU evaluates
+    that mixed product in float32, as the port's CPU path does (autograd
+    through the upcast operands). On a TPU at ``Precision.DEFAULT``, which
+    the JAX package never overrides, a float32 operand of a matmul is
+    rounded to bf16 for one bf16 pass. The card follows the TPU: the
+    cotangent rounded to the operands' dtype, then one GEMM of that dtype
+    for dx and one for dw, each summed in float32 and rounded to its
+    operand's dtype. The two readings differ by that rounding of the
+    cotangent (2**-8 of each entry) carried through the product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g = gy.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g, w.transpose(-1, -2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x.transpose(-1, -2), g).to(w.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor,
                compute_dtype: torch.dtype) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out), both rounded to ``compute_dtype``,
@@ -35,7 +81,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor,
     if compute_dtype == torch.float32:
         y = x2 @ wc
     elif x2.device.type == "cuda":
-        y = torch.mm(x2, wc, out_dtype=torch.float32)
+        y = _F32Out.apply(x2, wc)
     else:
         y = x2.float() @ wc.float()
     return y.reshape(*x.shape[:-1], w.shape[1])
@@ -50,7 +96,7 @@ def bmm_f32(x: torch.Tensor, w: torch.Tensor,
     if compute_dtype == torch.float32:
         return torch.bmm(x, w)
     if x.device.type == "cuda":
-        return torch.bmm(x, w, out_dtype=torch.float32)
+        return _F32Out.apply(x, w)
     return torch.bmm(x.float(), w.float())
 
 

@@ -31,8 +31,9 @@ Block types: ``attn``, ``attn_dense_first``, ``enc`` and ``local_attn``
 whose shapes do not depend on ``max_len``.
 
 Caches are written in place (the decode loop owns them) and returned.
-The forward runs without rematerialization: the port has no training
-step yet, and inference keeps no activations.
+Under autograd with ``cfg.remat`` (the default) each layer's forward runs
+again in the backward pass (``_group_seq``), so training keeps one tensor
+a layer; inference keeps no activations.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
@@ -540,12 +542,35 @@ def _group_init(group: nn.ModuleList, key: torch.Tensor) -> None:
             blk.reset(k)
 
 
-def _group_seq(group, x, ctx):
+def _slot_seq(slot, x, ctx):
+    aux = _zero(x.device)
+    for blk in slot:
+        x, a = blk.seq(x, ctx)
+        aux = aux + a
+    return x, aux
+
+
+def _group_seq(group, cfg, x, ctx):
+    """The group's layers in order. Under autograd with ``cfg.remat`` each
+    slot (one scan step of the JAX package) runs under a non-reentrant
+    ``checkpoint``, the counterpart of ``jax.checkpoint(body,
+    policy=nothing_saveable)``: only the slot's input is kept, and its
+    forward runs again, under grad, in the backward pass. (The reentrant
+    form would run the first forward under ``no_grad``, which takes the
+    flash route, and the recompute under grad, which takes the plain one.)
+    ``remat_policy="save_attn_out"`` is not ported: it raises."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
     aux = _zero(x.device)
     for slot in group:
-        for blk in slot:
-            x, a = blk.seq(x, ctx)
-            aux = aux + a
+        if remat:
+            x, a = checkpoint(_slot_seq, slot, x, ctx, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _slot_seq(slot, x, ctx)
+        aux = aux + a
     return x, aux
 
 
@@ -638,7 +663,7 @@ def _encode(params: LM, cfg, enc_input):
     dev = enc_input.device
     x = enc_input.float() + common.sinusoidal_positions(S, cfg.d_model, dev)
     ctx = {"positions": torch.arange(S, device=dev), "xattn_ctx": None}
-    x, _ = _group_seq(params.enc.groups[0], x, ctx)
+    x, _ = _group_seq(params.enc.groups[0], cfg, x, ctx)
     return common.norm_apply(cfg.norm, params.enc.final_norm, x)
 
 
@@ -656,7 +681,7 @@ def _backbone(params: LM, cfg, x, ctx, mode="seq", caches=None, pos=None):
     new_caches = []
     for gi, group in enumerate(params.groups):
         if mode == "seq":
-            x, aux = _group_seq(group, x, ctx)
+            x, aux = _group_seq(group, cfg, x, ctx)
             aux_total = aux_total + aux
         elif mode == "prefill":
             x, cache = _group_prefill(group, caches[gi], x, ctx)

@@ -1,4 +1,6 @@
-"""repro_torch.train: the gradient-tap dense layer (``sketched_dense``).
-(The JAX package's train step and trainer are not ported yet.)
-"""
+"""repro_torch.train: the train step, the Trainer and the gradient-tap
+dense layer (``sketched_dense``)."""
 from repro_torch.train import sketched_dense  # noqa: F401
+from repro_torch.train.train_step import (  # noqa: F401
+    TrainConfig, TrainState, init_state, make_train_step)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: F401

@@ -125,32 +125,103 @@ def decompress_tap(key: torch.Tensor, tap_grads: Dict[str, torch.Tensor],
     return res.factors.U @ res.factors.V.T
 
 
+def _layer_keys(key: torch.Tensor, leaf_paths, layers):
+    """The key the JAX package's tree walk gives each tapped layer.
+    ``leaf_paths``: every leaf's path in the tree (its dict keys and
+    list/tuple indices); ``layers``: ``{path of a {'w', 'taps'} node:
+    count}``, count the layers of a stacked group or None. Down a path the
+    key takes ``fold_in`` of each entry's index among its dict's sorted
+    keys, or of its list index; a stacked group's key is then ``split(key,
+    count)``, one a layer. Returns ``{path: key or (count, 2) keys}``."""
+    children: Dict[tuple, set] = {}
+    for path in leaf_paths:
+        for i in range(len(path)):
+            children.setdefault(path[:i], set()).add(path[i])
+    out = {}
+    for path, count in layers.items():
+        k = key
+        for i, part in enumerate(path):
+            idx = part if isinstance(part, int) else \
+                sorted(children[path[:i]]).index(part)
+            k = prng.fold_in(k, idx)
+        out[path] = k if count is None else prng.split(k, count)
+    return out
+
+
+def _leaves(node, path=()):
+    if isinstance(node, dict):
+        for kk, vv in node.items():
+            yield from _leaves(vv, path + (kk,))
+    elif isinstance(node, (list, tuple)):
+        for i, vv in enumerate(node):
+            yield from _leaves(vv, path + (i,))
+    else:
+        yield path, node
+
+
 def decompress_tapped_grads(key: torch.Tensor, grads, cfg: TapConfig):
     """Walk a gradient tree; wherever a dict holds {'w', 'taps'}, put the
-    SMP-PCA reconstruction in place of the zero dW and zero the taps.
-    Subtrees take ``fold_in(key, i)`` over a dict's sorted items or a
-    list's entries; a stacked (L, ...) layer group takes ``split(subkey,
-    L)``, one key a layer."""
-    def walk(subkey, node):
-        if isinstance(node, dict) and "taps" in node and "w" in node:
+    SMP-PCA reconstruction in place of the zero dW and zero the taps, each
+    layer under its key from ``_layer_keys`` (a stacked (L, ...) group,
+    one key a layer)."""
+    leaves = dict(_leaves(grads))
+    layers = {p[:-2]: (v.shape[0] if v.ndim == 3 else None)
+              for p, v in leaves.items()
+              if p[-2:] == ("taps", "a") and p[:-2] + ("w",) in leaves}
+    keys = _layer_keys(key, leaves, layers)
+
+    def walk(path, node):
+        if path in keys:
             node = dict(node)
-            taps = node["taps"]
-            if taps["a"].ndim == 3:     # a stacked layer group
-                keys = prng.split(subkey, taps["a"].shape[0])
+            taps, k = node["taps"], keys[path]
+            if layers[path] is not None:
                 recon = torch.stack([
-                    decompress_tap(keys[i], {f: taps[f][i] for f in taps},
-                                   cfg) for i in range(keys.shape[0])])
+                    decompress_tap(k[i], {f: taps[f][i] for f in taps}, cfg)
+                    for i in range(layers[path])])
             else:
-                recon = decompress_tap(subkey, taps, cfg)
+                recon = decompress_tap(k, taps, cfg)
             node["w"] = recon.to(node["w"].dtype)
             node["taps"] = {f: torch.zeros_like(v) for f, v in taps.items()}
             return node
         if isinstance(node, dict):
-            return {kk: walk(prng.fold_in(subkey, i), vv)
-                    for i, (kk, vv) in enumerate(sorted(node.items()))}
+            return {kk: walk(path + (kk,), vv) for kk, vv in node.items()}
         if isinstance(node, (list, tuple)):
-            walked = [walk(prng.fold_in(subkey, i), vv)
-                      for i, vv in enumerate(node)]
-            return type(node)(walked)
+            return type(node)(walk(path + (i,), vv)
+                              for i, vv in enumerate(node))
         return node
-    return walk(key, grads)
+    return walk((), grads)
+
+
+def tap_keys(key: torch.Tensor, names) -> Dict[str, torch.Tensor]:
+    """The key ``decompress_tapped_grads`` gives each tapped layer of a
+    gradient tree in the JAX package's layout, from the port's parameter
+    names alone (no stacked tree is formed): ``{prefix: key}`` for each
+    layer whose parameters ``prefix.w`` and ``prefix.taps.*`` exist, e.g.
+    ``groups.0.5.0.mlp.up``, its path taken from ``convert.jax_path``."""
+    from repro_torch import convert
+    paths, tapped, counts = [], {}, {}
+    for name in names:
+        path, c = convert.jax_path(name)
+        paths.append(path)
+        if name.endswith(".taps.a"):
+            tapped[name[:-len(".taps.a")]] = (path[:-2], c)
+            if c is not None:
+                counts[path[:-2]] = counts.get(path[:-2], 0) + 1
+    keys = _layer_keys(key, paths, {p: counts.get(p) for p, _ in
+                                    tapped.values()})
+    return {prefix: keys[p] if c is None else keys[p][c]
+            for prefix, (p, c) in tapped.items()}
+
+
+@torch.no_grad()
+def decompress_tapped_params(key: torch.Tensor, grads: Dict[str, torch.Tensor],
+                             cfg: TapConfig) -> None:
+    """``decompress_tapped_grads`` on gradients held under the port's
+    parameter names, in place: each tapped layer's ``w`` gradient becomes
+    the SMP-PCA reconstruction under its key (``tap_keys``) and its taps'
+    gradients are zeroed."""
+    for prefix, k in tap_keys(key, grads).items():
+        taps = {f: grads[f"{prefix}.taps.{f}"] for f in TAP_FIELDS}
+        grads[prefix + ".w"].copy_(decompress_tap(k, taps, cfg))
+        for t in taps.values():
+            t.zero_()

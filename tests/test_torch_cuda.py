@@ -1146,3 +1146,94 @@ def test_moe_layer_on_the_card_matches_the_cpu(card):
     torch.testing.assert_close(got.cpu(), want, rtol=2.0 ** -6,
                                atol=2.0 ** -8 * float(want.abs().max()))
     torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)
+
+
+# Training on the card against the CPU, float32 compute: float32 sums in
+# other orders (TF32 off), 1e-4 of each gradient leaf's largest entry, as
+# chip_smoke.py's phase 20 (c) holds a whole train step.
+TRAIN_GRAD_RTOL = 1e-4
+
+
+def _grads(model, params, batch):
+    loss = model.loss(params, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                  params.named_parameters()}
+
+
+def test_training_attention_on_the_card_matches_the_cpu(card):
+    """Granite reduced at head width 64, which the flash kernel compiles:
+    inference on the card takes the flash route, ``loss.backward()`` the
+    plain one, and every gradient (the attention projections' included)
+    equals the CPU's. Before the route took the grad flag, the kernel's
+    output had no grad_fn and wq, wk and wv got no gradient on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config("granite-3-8b").reduced(),
+                              head_dim=64, compute_dtype="float32")
+    params = build(cfg, device="cpu").init_params(prng.PRNGKey(0))
+    batch = _lm_batch(cfg, "cpu", S=64)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    m_gpu, p_gpu = build(cfg, device=card), copy_module(params, card)
+    b_gpu = {k: v.to(card) for k, v in batch.items()}
+    attn.reset_route_counts()
+    with torch.no_grad():
+        m_gpu.forward(p_gpu, b_gpu)
+    assert attn.ROUTES == {"flash": cfg.n_layers, "plain": 0}
+    attn.reset_route_counts()
+    before = ops.LAUNCHES["flash_attention"]
+    loss_gpu, g_gpu = _grads(m_gpu, p_gpu, b_gpu)
+    assert attn.ROUTES == {"flash": 0, "plain": cfg.n_layers}
+    assert ops.LAUNCHES["flash_attention"] == before
+    loss_cpu, g_cpu = _grads(build(cfg, device="cpu"), params, batch)
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for n, g in g_cpu.items():
+        assert bool(g_gpu[n].any()) == bool(g.any()), n
+        torch.testing.assert_close(
+            g_gpu[n], g, rtol=0,
+            atol=TRAIN_GRAD_RTOL * float(g.abs().max().clamp(min=1e-30)),
+            msg=n)
+    assert bool(g_gpu["groups.0.0.0.attn.wq.w"].any())
+
+
+def copy_module(module, device):
+    """A copy of ``module`` on ``device`` (the original stays put)."""
+    import copy
+    return copy.deepcopy(module).to(device)
+
+
+def test_flash_attention_under_grad_raises_on_the_card(card):
+    q = torch.randn(1, 128, 2, 64, device=card, requires_grad=True)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES["flash_attention"] == before
+    with torch.no_grad():
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+
+
+def test_bf16_training_on_the_card_reaches_every_parameter(card):
+    """bf16 compute: the card's bf16 GEMMs with float32 outputs get their
+    backward from ``common._F32Out`` (torch's ``mm(..., out_dtype=)`` has
+    none). Every parameter gets a finite nonzero gradient, within a bf16
+    rounding of the cotangent (2**-6 of each leaf's largest entry) of the
+    CPU's, which upcasts the bf16 operands."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b").reduced(),
+                              compute_dtype="bfloat16")
+    params = build(cfg, device="cpu").init_params(prng.PRNGKey(0))
+    batch = _lm_batch(cfg, "cpu", S=64)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    _, g_gpu = _grads(build(cfg, device=card), copy_module(params, card),
+                      {k: v.to(card) for k, v in batch.items()})
+    _, g_cpu = _grads(build(cfg, device="cpu"), params, batch)
+    for n, g in g_cpu.items():
+        assert bool(torch.isfinite(g_gpu[n]).all()) and bool(g_gpu[n].any()), n
+        torch.testing.assert_close(
+            g_gpu[n], g, rtol=0,
+            atol=2.0 ** -6 * float(g.abs().max().clamp(min=1e-30)), msg=n)

@@ -224,6 +224,47 @@ def test_dense_apply_matches_jax(cd, bias):
     _close(_np(got), want, 1e-5, "dense")
 
 
+@pytest.mark.parametrize("batched", [False, True])
+def test_f32out_backward_against_jax(batched):
+    """The card's backward for bf16 GEMMs with float32 outputs
+    (``common._F32Out``, run here through its CPU products): the cotangent
+    rounded to bf16, then bf16 products summed in float32. It equals that
+    rule exactly, and JAX's ``vjp`` of ``dot_general(...,
+    preferred_element_type=float32)`` on the CPU (which keeps the float32
+    cotangent) within that rounding: 2**-8 |ct| carried through |w| (|x|),
+    plus the two results' bf16 roundings, 2**-8 of each."""
+    rng = np.random.default_rng(7)
+    lead = (3,) if batched else ()
+    x = rng.standard_normal(lead + (24, 40)).astype(np.float32)
+    w = rng.standard_normal(lead + (40, 56)).astype(np.float32)
+    ct = rng.standard_normal(lead + (24, 56)).astype(np.float32)
+    dims = (((x.ndim - 1,), (w.ndim - 2,)),
+            (((0,), (0,)) if batched else ((), ())))
+    _, vjp = jax.vjp(lambda a, b: jax.lax.dot_general(
+        a, b, dims, preferred_element_type=jnp.float32),
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(ct))]
+    xt, wt = (_t(a).to(torch.bfloat16).requires_grad_() for a in (x, w))
+    y = tcommon._F32Out.apply(xt, wt)
+    assert y.dtype == torch.float32
+    y.backward(_t(ct))
+    g = _t(ct).to(torch.bfloat16).float()
+    xf, wf = xt.detach().float(), wt.detach().float()
+    rule = [(g @ wf.transpose(-1, -2)).to(torch.bfloat16),
+            (xf.transpose(-1, -2) @ g).to(torch.bfloat16)]
+    ct_abs = np.abs(ct)
+    carried = [ct_abs @ np.abs(_np(wf)).swapaxes(-1, -2),
+               np.abs(_np(xf)).swapaxes(-1, -2) @ ct_abs]
+    for got, exact, ref, spread in zip((xt.grad, wt.grad), rule, want,
+                                       carried):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, exact)
+        err = np.abs(_np(got) - ref)
+        bound = 2.0 ** -8 * (spread + np.abs(_np(got)) + np.abs(ref)) * 1.01
+        assert (err <= bound).all(), float((err - bound).max())
+        assert err.max() > 0        # the roundings differ somewhere
+
+
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
 def test_norms_match_jax(kind):
     rng = np.random.default_rng(2)
@@ -335,6 +376,11 @@ def test_route_is_a_function_of_device_causal_window_and_head_width():
     assert tattn.route(cuda, True, None, 96) == "plain"       # phi3-mini
     assert tattn.route(cuda, True, None, 16) == "plain"       # reduced
     assert tattn.route(cpu, True, None, 128) == "plain"
+    # under autograd: the kernel has no backward
+    assert tattn.route(cuda, True, None, 128, needs_grad=False) == "flash"
+    for dh in (32, 64, 128):
+        assert tattn.route(cuda, True, None, dh, needs_grad=True) == "plain"
+    assert tattn.route(cpu, True, None, 128, needs_grad=True) == "plain"
 
 
 @pytest.mark.parametrize("S", [100, 128, 200])
@@ -590,7 +636,7 @@ def test_bf16_parameters_match_jax(cd):
     tree = jax.tree.map(np.asarray, jp)
     own = build(pcfg, device="cpu").init_params(prng.PRNGKey(0))
     for n, p in own.named_parameters():
-        leaf = convert._lm_leaf(tree, n)
+        leaf = convert.lm_leaf(tree, n)
         assert str(p.dtype).split(".")[-1] == str(leaf.dtype), n
         err = np.abs(_np(p) - leaf.astype(np.float32))
         # bf16 leaves equal but for the odd normal an ulp off on a bf16
