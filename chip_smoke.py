@@ -208,7 +208,15 @@ fails; nothing is caught:
     gradient within 1e-4; (d) ``launch.train --reduced`` on the card: the
     loss falls over 20 steps, a fault at step 12 recovers from step 10's
     checkpoint, a second Trainer resumes at 20; ``train ...`` lines;
-21. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+21. ``save_attn_out`` remat and the step's roofline (``remat ...``
+    lines): (a) phase 20 (a)'s first step again, on the same parameters
+    and batch, with ``remat_policy="save_attn_out"``: its loss equal to
+    (a)'s, its gradients at ``TRAIN_PROBE`` within ``REMAT_GRAD_TOL`` of
+    (a)'s, its time and peak beside (a)'s; (b) ``roofline.trace_analyzer``
+    on (a)'s step on one device (traced on ``meta``, the card's route):
+    counted FLOPs and bytes, ``model_flops``, the ``Roofline`` terms, and
+    the share of its step time that (a)'s measured warm step reaches;
+22. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -477,6 +485,15 @@ TRAIN_B, TRAIN_S, TRAIN_MB = 2, 4096, 2
 TRAIN_STEPS_A, TRAIN_STEPS_B = 2, 3
 TRAIN_LOSS_TOL, TRAIN_RANK_TOL, TRAIN_CPU_TOL = 1e-3, 1e-4, 1e-4
 TRAIN_TAP_TOL = 1e-3
+# phase 21 (a): the gradients' first rows compared with phase 20 (a)'s, at
+# the embedding, the head, and the first, middle and last layers
+TRAIN_PROBE = ("embed.table", "head.w", "final_norm.scale") + tuple(
+    f"groups.0.{c}.0.{p}" for c in (0, 15, 31)
+    for p in ("attn.wq.w", "attn.wo.w", "mlp.down.w", "norm1.scale"))
+# the same forward and backward, save_attn_out's saved attention output in
+# place of its recompute: equal in exact arithmetic; held to 1e-6 of each
+# probe's largest entry
+REMAT_GRAD_TOL = 1e-6
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -2987,15 +3004,18 @@ def tapped_vs_cpu(grads, cap) -> dict:
                 cpu_s=time.perf_counter() - t0)
 
 
-def train_run(ops, label, comp, seed, dev, card, steps, trace=False):
+def train_run(ops, label, comp, seed, dev, card, steps, trace=False,
+              probe=None):
     """One phase-20 run: ``Trainer`` on phi3-mini-3.8b at full width for
     ``steps`` steps, each step timed (to a synchronize) with its launches
     and attention routes (counters set to 0 before each step). Step 1 is
     checked against the no_grad loss of the same parameters and its
     gradients held (every parameter but the taps nonzero; the tapped
     ones of rank 8); the parameters must change. With ``trace`` the last
-    step runs under ``device_trace``. Returns (the run's record, the
-    launches of its steps, the recorded kernel calls of its first step)."""
+    step runs under ``device_trace``. ``probe`` (a dict) receives step 1's
+    gradients at ``TRAIN_PROBE`` (their first rows, on the host). Returns
+    (the run's record, the launches of its steps, the recorded kernel
+    calls of its first step)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import attention as attn
@@ -3081,6 +3101,8 @@ def train_run(ops, label, comp, seed, dev, card, steps, trace=False):
             zero = [n for n, g in grads.items()
                     if ".taps." not in n and not bool(g.any())]
             check(not zero, f"train {label}: zero gradients {zero[:4]}")
+            if probe is not None:
+                probe.update(grad_probe(named))
             tapped = sorted(n[:-len(".taps.a")] for n in grads
                             if n.endswith(".taps.a"))
             if tapped:
@@ -3115,6 +3137,11 @@ def train_run(ops, label, comp, seed, dev, card, steps, trace=False):
     del state, named, trainer, model, inner
     torch.cuda.empty_cache()
     return rec, total, recorded
+
+
+def grad_probe(named) -> dict:
+    """The first rows of the gradients at ``TRAIN_PROBE``, on the host."""
+    return {n: named[n].grad[:8].detach().float().cpu() for n in TRAIN_PROBE}
 
 
 def train_card_vs_cpu(dev, card):
@@ -3214,11 +3241,13 @@ def train_phase(ops, seed, dev, card):
     """Phase 20: phi3-mini-3.8b training at full width, (a) without and
     (b) with SMP-PCA taps, each freed before the next; (c) the reduced
     step card against CPU; (d) launch.train. Returns the launches of (a)
-    and (b)'s steps and the largest error of (b)'s first step's recorded
-    kernel calls held against the plain versions."""
+    and (b)'s steps, the largest error of (b)'s first step's recorded
+    kernel calls held against the plain versions, (a)'s record and its
+    step 1's gradient probe."""
     t0 = time.perf_counter()
+    probe = {}
     rec_a, launches, _ = train_run(ops, "a", "none", seed, dev, card,
-                                   TRAIN_STEPS_A)
+                                   TRAIN_STEPS_A, probe=probe)
     rec_b, launches_b, calls = train_run(ops, "b", "taps", seed, dev, card,
                                          TRAIN_STEPS_B, trace=True)
     for name in launches:
@@ -3254,7 +3283,142 @@ def train_phase(ops, seed, dev, card):
         / rec_b["steps"][1]["s"],
         phase_s=time.perf_counter() - t0)
     print(f"train phase [{card}] " + json.dumps(summary), flush=True)
-    return launches, errs
+    return launches, errs, rec_a, probe
+
+
+def remat_step(ops, seed, dev, card, rec_a, probe):
+    """Phase 21 (a): phase 20 (a)'s first step again, on the same
+    parameters (``fold_in(PRNGKey(seed), 1)``, as its ``Trainer`` drew
+    them) and batch (``SyntheticLM`` step 0), with
+    ``remat_policy="save_attn_out"``: its loss equals (a)'s, its gradients
+    at ``TRAIN_PROBE`` are held to (a)'s within ``REMAT_GRAD_TOL`` of
+    each probe's largest entry; its time and peak beside (a)'s."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              remat_policy="save_attn_out")
+    model = build(cfg, device=dev)
+    key = prng.PRNGKey(seed)
+    params = model.init_params(prng.fold_in(key, 1).to(dev))
+    opt = AdamW(lr=warmup_cosine(1e-3, max(TRAIN_STEPS_A // 10, 1),
+                                 TRAIN_STEPS_A), weight_decay=0.01)
+    tcfg = TrainConfig(microbatches=TRAIN_MB)
+    state = init_state(prng.fold_in(key, 2).to(dev), params, opt, tcfg)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, batch_size=TRAIN_B,
+                        seq_len=TRAIN_S, seed=seed, device=str(dev)).batch(0)
+    step = make_train_step(model.loss, opt, tcfg)
+    ops.reset_launch_counts()
+    attn.reset_route_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    named = dict(params.named_parameters())
+    got = grad_probe(named)
+    grad_err = max(float((got[n] - probe[n]).abs().max()
+                         / probe[n].abs().max().clamp(min=1e-30))
+                   for n in TRAIN_PROBE)
+    a1 = rec_a["steps"][0]
+    a2 = rec_a["steps"][-1]
+    rec = dict(arch=cfg.name, remat_policy=cfg.remat_policy, B=TRAIN_B,
+               S=TRAIN_S, microbatches=TRAIN_MB, step_s=dt,
+               a_step1_s=a1["s"], a_warm_step_s=a2["s"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               a_peak_gb=rec_a["peak_gb"],
+               # each layer's float32 (B/mb, S, d) attention output kept
+               expected_added_gb=cfg.n_layers * TRAIN_B // TRAIN_MB * TRAIN_S
+               * cfg.d_model * 4 / 1e9,
+               loss=float(metrics["loss"]), a_loss=a1["loss"],
+               grad_norm=float(metrics["grad_norm"]),
+               a_grad_norm=a1["grad_norm"], grad_probe_rel_err=grad_err,
+               grad_tol=REMAT_GRAD_TOL, launches=dict(ops.LAUNCHES),
+               routes=dict(attn.ROUTES))
+    print(f"remat save_attn_out [{card}] " + json.dumps(rec), flush=True)
+    check(rec["loss"] == rec["a_loss"],
+          f"21 (a): loss {rec['loss']} against (a)'s {rec['a_loss']}")
+    check(grad_err <= REMAT_GRAD_TOL,
+          f"21 (a): gradients against (a)'s: {grad_err}")
+    check(rec["routes"]["flash"] == 0, "21 (a): flash under grad")
+    del state, params, named, model, metrics
+    torch.cuda.empty_cache()
+    return rec
+
+
+def step_roofline(seed, card, rec_a):
+    """Phase 21 (b): ``roofline.trace_analyzer`` on phase 20 (a)'s step
+    (phi3-mini-3.8b, its B, S and microbatches, no taps), on one device:
+    traced on ``meta`` tensors, which take the card's route (bf16 GEMMs
+    with float32 outputs, the plain attention under grad), so nothing is
+    allocated on the card. The counted FLOPs and bytes, ``model_flops``,
+    the ``Roofline`` terms, and the share of the roofline step time that
+    (a)'s measured warm step reaches."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.roofline import analysis as roof
+    from repro_torch.roofline import trace_analyzer
+    from repro_torch.train import TrainConfig, TrainState, make_train_step
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    model = build(cfg, device="meta")
+    params = model.param_shapes()
+    named = dict(params.named_parameters())
+    zeros = lambda: {n: torch.zeros(p.shape, device="meta")
+                     for n, p in named.items()}
+    state = TrainState(params, AdamWState(torch.zeros((), dtype=torch.int32),
+                                          zeros(), zeros()),
+                       (), torch.zeros((), dtype=torch.int32),
+                       prng.PRNGKey(seed))
+    opt = AdamW(lr=warmup_cosine(1e-3, max(TRAIN_STEPS_A // 10, 1),
+                                 TRAIN_STEPS_A), weight_decay=0.01)
+    step = make_train_step(model.loss, opt,
+                           TrainConfig(microbatches=TRAIN_MB))
+    batch = {k: torch.zeros((TRAIN_B, TRAIN_S), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    cost = trace_analyzer.analyze(step, state, batch)
+    tokens = TRAIN_B * TRAIN_S
+    mf = roof.model_flops("train", cfg.n_active_params(), tokens)
+    rl = roof.Roofline(flops=cost.flops, bytes_accessed=cost.bytes,
+                       coll_bytes=0.0, model_flops_per_device=mf, chips=1)
+    measured = rec_a["steps"][-1]["s"]
+    top = sorted(cost.by_op.items(), key=lambda kv: -kv[1][2])[:8]
+    rec = dict(arch=cfg.name, B=TRAIN_B, S=TRAIN_S, microbatches=TRAIN_MB,
+               ops=cost.ops, flops=cost.flops, bytes=cost.bytes,
+               model_flops=mf, roofline=rl.as_dict(),
+               measured_step_s=measured,
+               roofline_share=rl.step_time / measured,
+               top_bytes={n: dict(calls=c, flops=f, bytes=b)
+                          for n, (c, f, b) in top},
+               trace_s=time.perf_counter() - t0)
+    print(f"remat step_roofline [{card}] " + json.dumps(rec), flush=True)
+    check(cost.flops > mf and cost.bytes > 0,
+          f"21 (b): counted {cost.flops} FLOPs against 6ND {mf}")
+    return rec
+
+
+def remat_phase(ops, seed, dev, card, rec_a, probe):
+    """Phase 21: (a) ``save_attn_out`` against phase 20 (a), (b) the
+    analyzer's roofline of phase 20 (a)'s step."""
+    t0 = time.perf_counter()
+    a = remat_step(ops, seed, dev, card, rec_a, probe)
+    b = step_roofline(seed, card, rec_a)
+    print(f"remat phase [{card}] " + json.dumps(dict(
+        save_attn_out_step_s=a["step_s"], full_step_s=a["a_step1_s"],
+        save_attn_out_peak_gb=a["peak_gb"], full_peak_gb=a["a_peak_gb"],
+        roofline_step_s=b["roofline"]["step_time_lb_s"],
+        measured_step_s=b["measured_step_s"],
+        roofline_share=b["roofline_share"],
+        phase_s=time.perf_counter() - t0)), flush=True)
 
 
 def main(argv=None) -> int:
@@ -3828,11 +3992,15 @@ def main(argv=None) -> int:
     err_flash = max(err_flash, err_moe)
 
     # 20. training at full width --------------------------------------------
-    launches_train, err_train = train_phase(ops, args.seed, dev, card)
+    launches_train, err_train, rec_a, probe = train_phase(
+        ops, args.seed, dev, card)
     err_sketch = max(err_sketch, err_train["sketch_fused"])
     err_sampled = max(err_sampled, err_train["sampled_rescaled_dot"])
 
-    # 21. the kernels line and the last line --------------------------------
+    # 21. save_attn_out remat and the step's roofline -----------------------
+    remat_phase(ops, args.seed, dev, card, rec_a, probe)
+
+    # 22. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path

@@ -42,6 +42,7 @@ import torch.distributed as dist
 from repro_torch import device as _device
 from repro_torch import prng
 from repro_torch.core import error_engine, refinement
+from repro_torch.core.linalg import sqrt_f32
 from repro_torch.core.streaming import (
     StreamingSummarizer, StreamState, _check_row_bounds, _count, merge_states)
 from repro_torch.core.summary_engine import (
@@ -155,7 +156,7 @@ def distributed_sketch_summary(group, key: torch.Tensor, A: torch.Tensor,
         precision=precision)
     As, Bs = _block_psum(dA, levels), _block_psum(dB, levels)
     na2, nb2 = _scalar_psum(na2, levels), _scalar_psum(nb2, levels)
-    return SketchSummary(As, Bs, torch.sqrt(na2), torch.sqrt(nb2))
+    return SketchSummary(As, Bs, sqrt_f32(na2), sqrt_f32(nb2))
 
 
 def distributed_streaming_update(group, summarizer: StreamingSummarizer,

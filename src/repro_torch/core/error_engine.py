@@ -30,7 +30,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import estimator
-from repro_torch.core.linalg import svd
+from repro_torch.core.linalg import svd, sqrt_f32
 from repro_torch.core.summary_engine import _cast, _pad_rows
 from repro_torch.core.types import ErrorEstimate, LowRankFactors, SketchSummary
 
@@ -153,17 +153,17 @@ def estimate_error(summary: SketchSummary, factors: LowRankFactors, *,
     z = _Z95 if confidence == 0.95 else float(
         torch.special.ndtri(torch.tensor(0.5 + confidence / 2.0)))
     if p >= 2:
-        stderr = torch.std(sq, correction=1) / torch.sqrt(
+        stderr = torch.std(sq, correction=1) / sqrt_f32(
             torch.tensor(float(p), device=sq.device))
     else:
         stderr = torch.tensor(float("inf"), device=sq.device)
-    frob_lo = torch.sqrt(torch.clamp(frob_sq - z * stderr, min=0.0))
-    frob_hi = torch.sqrt(frob_sq + z * stderr)
-    w_norms = torch.sqrt(torch.sum(omega.float() ** 2, dim=0))
-    spectral = torch.max(torch.sqrt(sq) / torch.clamp(w_norms, min=_EPS))
+    frob_lo = sqrt_f32(torch.clamp(frob_sq - z * stderr, min=0.0))
+    frob_hi = sqrt_f32(frob_sq + z * stderr)
+    w_norms = sqrt_f32(torch.sum(omega.float() ** 2, dim=0))
+    spectral = torch.max(sqrt_f32(sq) / torch.clamp(w_norms, min=_EPS))
     # ||A^T B||_F from the same probes (unbiased, same argument)
-    m_frob = torch.sqrt(torch.mean(torch.sum(probes.float() ** 2, dim=0)))
-    frob = torch.sqrt(frob_sq)
+    m_frob = sqrt_f32(torch.mean(torch.sum(probes.float() ** 2, dim=0)))
+    frob = sqrt_f32(frob_sq)
     return ErrorEstimate(frob, frob_sq, frob_lo, frob_hi, spectral,
                          frob / torch.clamp(m_frob, min=_EPS))
 
@@ -212,8 +212,8 @@ def _rank_curve(summary: SketchSummary, r_max: int, refine=None):
     base = torch.sum(probes ** 2, dim=0)               # (p,)
     deltas = Z ** 2 - 2.0 * c * Z
     errsq = torch.clamp(base[None, :] + torch.cumsum(deltas, dim=0), min=0.0)
-    m_frob = torch.sqrt(torch.mean(base))
-    rel = torch.sqrt(torch.mean(errsq, dim=1)) / torch.clamp(m_frob, min=_EPS)
+    m_frob = sqrt_f32(torch.mean(base))
+    rel = sqrt_f32(torch.mean(errsq, dim=1)) / torch.clamp(m_frob, min=_EPS)
     return rel, U, s, Vt
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.linalg import sqrt_f32
 from repro_torch.core.types import SketchSummary
 
 _EPS = 1e-12
@@ -22,8 +23,8 @@ def rescaled_entries(summary: SketchSummary, rows: torch.Tensor,
     Ai = summary.A_sketch[:, rows]              # (k, m)
     Bj = summary.B_sketch[:, cols]              # (k, m)
     dots = torch.sum(Ai * Bj, dim=0)            # (m,)
-    sa = torch.sqrt(torch.sum(Ai ** 2, dim=0))
-    sb = torch.sqrt(torch.sum(Bj ** 2, dim=0))
+    sa = sqrt_f32(torch.sum(Ai ** 2, dim=0))
+    sb = sqrt_f32(torch.sum(Bj ** 2, dim=0))
     scale = (summary.norm_A[rows] * summary.norm_B[cols]) / \
         torch.clamp(sa * sb, min=_EPS)
     return dots * scale
@@ -38,8 +39,8 @@ def plain_jl_entries(summary: SketchSummary, rows: torch.Tensor,
 
 def rescaled_matrix(summary: SketchSummary) -> torch.Tensor:
     """Dense M~ = D_A (A~^T B~) D_B. Small-n tests only."""
-    sa = torch.sqrt(torch.sum(summary.A_sketch ** 2, dim=0))
-    sb = torch.sqrt(torch.sum(summary.B_sketch ** 2, dim=0))
+    sa = sqrt_f32(torch.sum(summary.A_sketch ** 2, dim=0))
+    sb = sqrt_f32(torch.sum(summary.B_sketch ** 2, dim=0))
     da = summary.norm_A / torch.clamp(sa, min=_EPS)
     db = summary.norm_B / torch.clamp(sb, min=_EPS)
     return (summary.A_sketch.T @ summary.B_sketch) * da[:, None] * db[None, :]

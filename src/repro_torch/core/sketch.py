@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import prng
+from repro_torch.core.linalg import sqrt_f32
 from repro_torch.core.types import SketchSummary
 
 
@@ -33,7 +34,7 @@ def pi_rows(key: torch.Tensor, row_idx: torch.Tensor, k: int) -> torch.Tensor:
 
 def _sqrt_f32(k: float) -> torch.Tensor:
     """sqrt(k) rounded as ``jnp.sqrt(k)`` rounds it: in float32."""
-    return torch.sqrt(torch.tensor(float(k), dtype=torch.float32))
+    return sqrt_f32(torch.tensor(float(k), dtype=torch.float32))
 
 
 def _next_pow2(x: int) -> int:
@@ -81,7 +82,7 @@ def srht_sketch(key: torch.Tensor, X: torch.Tensor, k: int) -> torch.Tensor:
 
 def column_norms(X: torch.Tensor) -> torch.Tensor:
     """Exact L2 column norms, accumulated in float32."""
-    return torch.sqrt(torch.sum(X.float() ** 2, dim=0))
+    return sqrt_f32(torch.sum(X.float() ** 2, dim=0))
 
 
 def merge_summaries(a: SketchSummary, b: SketchSummary) -> SketchSummary:
@@ -94,8 +95,8 @@ def merge_summaries(a: SketchSummary, b: SketchSummary) -> SketchSummary:
     return SketchSummary(
         a.A_sketch + b.A_sketch,
         a.B_sketch + b.B_sketch,
-        torch.sqrt(a.norm_A ** 2 + b.norm_A ** 2),
-        torch.sqrt(a.norm_B ** 2 + b.norm_B ** 2),
+        sqrt_f32(a.norm_A ** 2 + b.norm_A ** 2),
+        sqrt_f32(a.norm_B ** 2 + b.norm_B ** 2),
         probes=merge_probes(a.probes, b.probes),
         probe_omega=a.probe_omega,
         cosketch_Y=merge_cosketch(a.cosketch_Y, b.cosketch_Y),

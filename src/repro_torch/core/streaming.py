@@ -85,6 +85,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch import prng
 from repro_torch.core import error_engine, refinement
+from repro_torch.core.linalg import sqrt_f32
 from repro_torch.core.summary_engine import (
     METHODS, chunk_contribution, srht_plan)
 from repro_torch.core.types import SketchSummary
@@ -307,7 +308,7 @@ def finalize_state(state: StreamState) -> SketchSummary:
     the *decayed* product as of ``t_state``."""
     state = _settle_state(state)
     return SketchSummary(state.A_acc, state.B_acc,
-                         torch.sqrt(state.na2), torch.sqrt(state.nb2),
+                         sqrt_f32(state.na2), sqrt_f32(state.nb2),
                          probes=state.probe_acc, probe_omega=state.omega,
                          cosketch_Y=state.cosketch_Y,
                          cosketch_W=state.cosketch_W,
@@ -872,8 +873,8 @@ def wire_error(state: StreamState, spec: Union[WireSpec, str]) -> float:
     w = settled.omega
     dev = _sketch_probe(rt, w) - _sketch_probe(settled, w)
     wn2 = torch.sum(w.float() ** 2, dim=0)
-    frob_dev = torch.sqrt(torch.mean(torch.sum(dev ** 2, dim=0) / wn2))
-    frob_m = torch.sqrt(torch.mean(
+    frob_dev = sqrt_f32(torch.mean(torch.sum(dev ** 2, dim=0) / wn2))
+    frob_m = sqrt_f32(torch.mean(
         torch.sum(settled.probe_acc ** 2, dim=0) / wn2))
     return float(frob_dev / torch.clamp(frob_m, min=1e-30))
 

@@ -50,6 +50,7 @@ import torch.distributed as dist
 
 from repro_torch import device as _device
 from repro_torch import prng
+from repro_torch.core.linalg import sqrt_f32
 from repro_torch.core.sketch import (
     _next_pow2, _sqrt_f32, column_norms, gaussian_pi, pi_rows)
 from repro_torch.core.types import SketchSummary, tree_stack
@@ -270,7 +271,7 @@ def _scan_backend(key, A, B, k: int, *, method: str, block: int,
             precision=precision, configs=configs)
         As, Bs = As + dA, Bs + dB
         na2, nb2 = na2 + dna2, nb2 + dnb2
-    return SketchSummary(As, Bs, torch.sqrt(na2), torch.sqrt(nb2))
+    return SketchSummary(As, Bs, sqrt_f32(na2), sqrt_f32(nb2))
 
 
 def _srht_blocked(X: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
@@ -606,7 +607,7 @@ def identity_product_summary(key: torch.Tensor, G: torch.Tensor, k: int, *,
         A_sk, B_sk,
         torch.full((n1,), float(_sqrt_f32(n_workers)), dtype=torch.float32,
                    device=dev),
-        torch.sqrt(nb2))
+        sqrt_f32(nb2))
 
 
 def tap_pair_summary(key: torch.Tensor, X: torch.Tensor, Y: torch.Tensor,

@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.linalg import sqrt_f32
+
 
 class SketchSummary(NamedTuple):
     """One-pass summary of (A, B), Algorithm 1 step 1.
@@ -52,12 +54,12 @@ class SketchSummary(NamedTuple):
     @property
     def frob_A(self) -> torch.Tensor:
         """Frobenius norm of A (from the retained column norms)."""
-        return torch.sqrt(torch.sum(self.norm_A ** 2))
+        return sqrt_f32(torch.sum(self.norm_A ** 2))
 
     @property
     def frob_B(self) -> torch.Tensor:
         """Frobenius norm of B (from the retained column norms)."""
-        return torch.sqrt(torch.sum(self.norm_B ** 2))
+        return sqrt_f32(torch.sum(self.norm_B ** 2))
 
     @property
     def n_probes(self) -> int:

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import sampling
-from repro_torch.core.linalg import svd
+from repro_torch.core.linalg import svd, sqrt_f32
 from repro_torch.core.types import LowRankFactors, SampleSet
 
 _RIDGE = 1e-8
@@ -32,7 +32,7 @@ def _qr(X: torch.Tensor) -> torch.Tensor:
 
 
 def _sqrt_f32(r: int) -> torch.Tensor:
-    return torch.sqrt(torch.tensor(float(r), dtype=torch.float32))
+    return sqrt_f32(torch.tensor(float(r), dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +80,7 @@ def coo_topr_svd(key: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
 def _trim_rows(U: torch.Tensor, norm_col: torch.Tensor, r: int) -> torch.Tensor:
     """Alg 2 step 6: zero rows whose norm exceeds 8 sqrt(r) ||A_i||/||A||_F,
     then re-orthonormalize. Guards the incoherence Lemma C.2 needs."""
-    frob = torch.sqrt(torch.sum(norm_col ** 2))
+    frob = sqrt_f32(torch.sum(norm_col ** 2))
     thresh = 8.0 * _sqrt_f32(r).to(U.device) * norm_col / \
         torch.clamp(frob, min=1e-12)
     row_norm = torch.linalg.vector_norm(U, dim=1)

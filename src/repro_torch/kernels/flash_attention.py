@@ -113,6 +113,34 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, S, Dh).transpose(1, 2)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_trace",
+                         mutates_args=())
+def trace(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          causal: bool) -> torch.Tensor:
+    """The kernel's output, shape and dtype only, for a trace on ``meta``
+    tensors (the dry run): it computes nothing, and
+    ``roofline.trace_analyzer`` counts the kernel's work from its
+    operands."""
+    if q.device.type != "meta":
+        raise ValueError("flash_attention trace: meta tensors only")
+    return torch.empty_like(q)
+
+
+@trace.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def trace_cost(q, k, v, causal: bool):
+    """(FLOPs, bytes) of one launch: the two products, ``2 S^2 Dh`` a head
+    each (half of that under ``causal``, where the kernel stops at the
+    diagonal tile), and q, k, v read and the output written once."""
+    B, S, H, Dh = q.shape
+    flops = 4.0 * B * H * S * k.shape[1] * Dh * (0.5 if causal else 1.0)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    return flops, nbytes
+
+
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the argument and result types of the library's entry points."""
     for name in _ENTRY.values():

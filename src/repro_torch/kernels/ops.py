@@ -41,6 +41,7 @@ import subprocess
 import torch
 
 from repro_torch import prng
+from repro_torch.core.linalg import sqrt_f32
 from repro_torch.core.sketch import _next_pow2, _sqrt_f32
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import hadamard as _hadamard
@@ -191,7 +192,7 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
         Pi, A = Pi.to(torch.bfloat16), A.to(torch.bfloat16)
     if _on_cpu(Pi, A):
         out, norm2 = _sketch_fused.plain(Pi, A)
-        return out, (norm2 if squared else torch.sqrt(norm2))
+        return out, (norm2 if squared else sqrt_f32(norm2))
     if max(k, n) >= 2 ** 31:
         raise ValueError("sketch_fused: k and n must be below 2**31")
     if k == 0 or d == 0 or n == 0:
@@ -202,7 +203,7 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
     lib = _library("sketch_fused")
     out, norm2 = _sketch_fused.launch(lib, Pi, A)
     LAUNCHES["sketch_fused"] += 1
-    return out, (norm2 if squared else norm2.sqrt_())
+    return out, (norm2 if squared else sqrt_f32(norm2))
 
 
 def sketch_summary_fused(key: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

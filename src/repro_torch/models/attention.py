@@ -22,7 +22,11 @@ place:
   under ``jax.grad``; the kernel is forward only in both packages.
 
 ``ROUTES`` counts the attention calls of each route
-(``reset_route_counts()`` sets them to 0), beside ``ops.LAUNCHES``. Decode
+(``reset_route_counts()`` sets them to 0), beside ``ops.LAUNCHES``.
+Tensors on the ``meta`` device (the dry run's shape-only trace) take the
+card's route; there the flash route is ``kernels.flash_attention.trace``,
+an op that computes nothing and whose work the dry run's analyzer counts
+as the kernel's. Decode
 (one token against the cache) is plain PyTorch on every device, as it is
 plain JAX in the reference, and counts no route.
 
@@ -34,6 +38,7 @@ plain route honours it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
@@ -42,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import prng
+from repro_torch.dist import sharding
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops, tuning
 from repro_torch.models import common
@@ -62,11 +68,12 @@ def reset_route_counts() -> None:
 
 def route(device: torch.device, causal: bool, window, head_dim: int,
           needs_grad: bool = False) -> str:
-    """``"flash"`` for causal, unwindowed attention on a CUDA device at a
-    head width the kernel compiles, else ``"plain"``. ``needs_grad`` (the
+    """``"flash"`` for causal, unwindowed attention on a CUDA (or ``meta``)
+    device at a head width the kernel compiles, else ``"plain"``. ``needs_grad`` (the
     call is recorded for a backward pass) takes the plain route: the
     kernel has no backward, as the JAX package's has none."""
-    if (torch.device(device).type == "cuda" and causal and window is None
+    if (torch.device(device).type in ("cuda", "meta") and causal
+            and window is None
             and head_dim in _flash.HEAD_DIMS and not needs_grad):
         return "flash"
     return "plain"
@@ -101,9 +108,12 @@ def qkv_project(p: Attention, x: torch.Tensor, n_heads: int, n_kv: int,
                 head_dim: int, positions: torch.Tensor, rope_theta,
                 compute_dtype=torch.bfloat16):
     B, S, _ = x.shape
-    q = common.dense_apply(p.wq, x, compute_dtype).reshape(B, S, n_heads, head_dim)
-    k = common.dense_apply(p.wk, x, compute_dtype).reshape(B, S, n_kv, head_dim)
-    v = common.dense_apply(p.wv, x, compute_dtype).reshape(B, S, n_kv, head_dim)
+    q = sharding.fit_heads(common.dense_apply(p.wq, x, compute_dtype),
+                           n_heads).reshape(B, S, n_heads, head_dim)
+    k = sharding.fit_heads(common.dense_apply(p.wk, x, compute_dtype),
+                           n_kv).reshape(B, S, n_kv, head_dim)
+    v = sharding.fit_heads(common.dense_apply(p.wv, x, compute_dtype),
+                           n_kv).reshape(B, S, n_kv, head_dim)
     if rope_theta is not None:
         q = common.apply_rope(q, positions, rope_theta)
         k = common.apply_rope(k, positions, rope_theta)
@@ -221,6 +231,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     resolved tile's larger block, which the call is then given, and the
     output sliced back to S rows."""
     B, S, H, Dh = q.shape
+    if q.device.type == "meta":
+        return _flash.trace(q, k, v, True)
     config = tuning.lookup("flash_attention", (B * H, S, Dh),
                            dtype_bytes=tuning.dtype_bytes_of(q),
                            backend=tuning.backend_of(q.device))
@@ -230,14 +242,26 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     return ops.flash_attention(q, k, v, causal=True, config=config)[:, :S]
 
 
+#: (batch, heads) dims of q, k, v and the output, for ``local_over``
+_BH = ((0, 2),) * 3
+
+
 def attention(q, k, v, *, causal=True, window=None,
               scores_dtype=torch.float32):
-    """Self-attention over one sequence (Sq == Skv), by ``route``."""
+    """Self-attention over one sequence (Sq == Skv), by ``route``. Under
+    DTensor it runs on each device's batch and heads
+    (``dist.sharding.local_over``)."""
     Dh = q.shape[-1]
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     kind = route(q.device, causal, window, Dh, needs_grad)
     ROUTES[kind] += 1
+    fn = functools.partial(_attention, kind=kind, causal=causal,
+                           window=window, scores_dtype=scores_dtype)
+    return sharding.local_over(fn, (q, k, v), _BH, (0, 2))
+
+
+def _attention(q, k, v, *, kind, causal, window, scores_dtype):
     if kind == "flash":
         return flash_prefill(q, k, v)
     S = q.shape[1]
@@ -252,7 +276,9 @@ def cross_attention(q, k, v):
     """Bidirectional attention of q against a context's k and v (another
     length): the plain route, ``dense_attention``."""
     ROUTES["plain"] += 1
-    return dense_attention(q, k, v, causal=False)
+    return sharding.local_over(
+        functools.partial(dense_attention, causal=False), (q, k, v), _BH,
+        (0, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -296,11 +322,16 @@ def decode_attention(q: torch.Tensor, cache: Dict[str, torch.Tensor], pos, *,
     in place (query head h against KV head ``h // (H // Hkv)``), in
     float32.
     """
+    fn = functools.partial(_decode_attention, pos=int(pos), window=window)
+    return sharding.local_over(fn, (q, cache["k"], cache["v"]), _BH, (0, 2))
+
+
+def _decode_attention(q, k, v, *, pos, window):
     B, _, H, Dh = q.shape
-    L, Hkv = cache["k"].shape[1], cache["k"].shape[2]
+    L, Hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Hkv, H // Hkv, Dh)
-    k = cache["k"].float()
-    v = cache["v"].float()
+    k = k.float()
+    v = v.float()
     s = torch.einsum("bgrd,bkgd->bgrk", qg, k) / math.sqrt(Dh)
     slot = torch.arange(L, device=q.device)
     pos = int(pos)

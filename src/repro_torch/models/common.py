@@ -14,6 +14,10 @@ float32 output (``torch.mm(..., out_dtype=torch.float32)``, given a
 backward pass by ``_F32Out``), on the CPU the bf16-rounded operands upcast
 to float32 (their products are exact there).
 ``bmm_f32`` does the same for a stack of products (the MoE experts).
+Tensors on the ``meta`` device (the dry run's shape-only trace,
+``launch.dryrun``) take the card's route. A weight that is a DTensor is
+used as FSDP uses it, its data-parallel shards gathered
+(``dist.sharding.gather_dp``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import prng
+from repro_torch.dist import sharding
+
+
+def _card_route(t: torch.Tensor) -> bool:
+    """True on the card and on ``meta`` tensors, which trace its route."""
+    return t.device.type in ("cuda", "meta")
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -32,7 +42,7 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a float32 result: on the card one GEMM of that dtype with a float32
     output; elsewhere the operands upcast (products of bf16 values are
     exact in float32)."""
-    if a.device.type == "cuda":
+    if _card_route(a):
         mm = torch.mm if a.ndim == 2 else torch.bmm
         return mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
@@ -77,10 +87,10 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor,
     """x (..., d_in) @ w (d_in, d_out), both rounded to ``compute_dtype``,
     summed in float32 into a float32 result."""
     x2 = x.reshape(-1, x.shape[-1]).to(compute_dtype)
-    wc = w.to(compute_dtype)
+    wc = sharding.gather_dp(w).to(compute_dtype)
     if compute_dtype == torch.float32:
         y = x2 @ wc
-    elif x2.device.type == "cuda":
+    elif _card_route(x2):
         y = _F32Out.apply(x2, wc)
     else:
         y = x2.float() @ wc.float()
@@ -92,10 +102,10 @@ def bmm_f32(x: torch.Tensor, w: torch.Tensor,
     """The batched ``matmul_f32``: x (e, c, d_in) @ w (e, d_in, d_out),
     ``einsum('ecd,edf->ecf', ..., preferred_element_type=float32)``; on
     the card one bf16 batched GEMM with a float32 output."""
-    x, w = x.to(compute_dtype), w.to(compute_dtype)
+    x, w = x.to(compute_dtype), sharding.gather_dp(w).to(compute_dtype)
     if compute_dtype == torch.float32:
         return torch.bmm(x, w)
-    if x.device.type == "cuda":
+    if _card_route(x):
         return _F32Out.apply(x, w)
     return torch.bmm(x.float(), w.float())
 
@@ -296,10 +306,10 @@ class Embedding(nn.Module):
 
 
 def embed_apply(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.table[tokens.long()]
+    return sharding.gather_dp(p.table)[tokens.long()]
 
 
 def unembed_apply(p: Embedding, x: torch.Tensor,
                   compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Tied read-out: logits = x @ table^T, float32."""
-    return matmul_f32(x, p.table.T, compute_dtype)
+    return matmul_f32(x, sharding.gather_dp(p.table).T, compute_dtype)

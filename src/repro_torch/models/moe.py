@@ -90,7 +90,86 @@ def top_k_stable(probs: torch.Tensor, k: int):
 def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, act: str = "silu",
               compute_dtype=torch.bfloat16):
-    """x: (B, S, d) -> (out (B, S, d) float32, aux_loss float32 scalar)."""
+    """x: (B, S, d) -> (out (B, S, d) float32, aux_loss float32 scalar).
+    Under DTensor (``_moe_sharded``) each data-parallel shard routes its
+    own tokens."""
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, act=act,
+              compute_dtype=compute_dtype)
+    from repro_torch.dist import sharding
+    mesh = sharding._dtensor_mesh((x,))
+    if mesh is not None:
+        return _moe_sharded(p, x, mesh, **kw)
+    return _moe_local(p, x, **kw)
+
+
+def _moe_sharded(p: MoE, x, mesh, **kw):
+    """The MoE on each device's tokens: the sort, the capacity and the
+    dispatch do not shard op by op, so each data-parallel shard routes its
+    own tokens (capacity from its own count) against the experts' weights
+    gathered over the data axes (FSDP) and split over ``model`` on d_ff
+    (the experts' products, as the shared MLP's, then sum over ``model``:
+    the output is a partial sum there, the aux loss an average over the
+    data axes)."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist import sharding
+    names = list(mesh.mesh_dim_names)
+    sizes = sharding.mesh_sizes(mesh)
+    dp, rem = [], x.shape[0]
+    for a in names:
+        if a in ("pod", "data") and rem % sizes[a] == 0:
+            dp.append(a)
+            rem //= sizes[a]
+
+    def pl(dp_dim=None, tp_dim=None, tp_partial=False, dp_partial=False):
+        out = []
+        for a in names:
+            if a in dp and dp_dim is not None:
+                out.append(Shard(dp_dim))
+            elif a in dp and dp_partial:
+                out.append(Partial("avg"))
+            elif a == "model" and tp_partial:
+                out.append(Partial())
+            elif a == "model" and tp_dim is not None:
+                out.append(Shard(tp_dim))
+            else:
+                out.append(Replicate())
+        return tuple(out)
+
+    sh = p.shared
+    weights = [p.router.w, p.w_up, p.w_gate, p.w_down]
+    wpl = [pl(), pl(tp_dim=2), pl(tp_dim=2), pl(tp_dim=1)]
+    if sh is not None:
+        weights += [sh.up.w, sh.gate.w if sh.gate is not None else None,
+                    sh.down.w]
+        wpl += [pl(tp_dim=1), pl(tp_dim=1), pl(tp_dim=0)]
+    keep = [i for i, w in enumerate(weights) if w is not None]
+
+    def local(xl, *ws):
+        full = [None] * len(weights)
+        for i, w in zip(keep, ws):
+            full[i] = w
+        dense = lambda w: SimpleNamespace(w=w, b=None)
+        q = SimpleNamespace(router=dense(full[0]), w_up=full[1],
+                            w_gate=full[2], w_down=full[3], shared=None)
+        if sh is not None:
+            q.shared = SimpleNamespace(
+                up=dense(full[4]), down=dense(full[6]),
+                gate=dense(full[5]) if full[5] is not None else None)
+        return _moe_local(q, xl, **kw)
+
+    fn = local_map(local, out_placements=(pl(0, tp_partial=True),
+                                          pl(dp_partial=True)),
+                   in_placements=(pl(0),) + tuple(wpl[i] for i in keep),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, *(weights[i] for i in keep))
+
+
+def _moe_local(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
+               act: str, compute_dtype):
     B, S, d = x.shape
     T = B * S
     E = p.w_up.shape[0]
@@ -116,7 +195,9 @@ def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
     idx = torch.arange(T * top_k, device=dev)
-    counts = torch.bincount(se, minlength=E)
+    # the assignments per expert (``bincount``, which has no meta kernel)
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     rank = idx - starts[se]
     keep = rank < C

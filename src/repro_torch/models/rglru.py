@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import prng
+from repro_torch.core.linalg import sqrt_f32
+from repro_torch.dist import sharding
 from repro_torch.models import common
 
 _C = 8.0
@@ -115,7 +117,7 @@ def _gates(p: RGLRU, xc: torch.Tensor):
 def _a_b(p: RGLRU, x: torch.Tensor):
     log_a, gate_i = _gates(p, x.float())
     a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0)) \
+    b = sqrt_f32(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0)) \
         * gate_i * x.float()
     return a, b
 
@@ -133,7 +135,11 @@ def rglru_seq(p: RGLRU, x: torch.Tensor, h0: torch.Tensor | None = None,
     a, b = _a_b(p, x)
     if h0 is not None:
         b[:, 0, :] += a[:, 0, :] * h0
-    _, h = associative_scan(_combine, (a, b))
+    # elementwise over (batch, width): under DTensor each device scans its
+    # shard (the strided writes do not shard op by op)
+    h = sharding.local_over(
+        lambda a_, b_: associative_scan(_combine, (a_, b_))[1], (a, b),
+        ((0, 2), (0, 2)), (0, 2))
     return h, h[:, -1, :]
 
 

@@ -33,18 +33,22 @@ whose shapes do not depend on ``max_len``.
 Caches are written in place (the decode loop owns them) and returned.
 Under autograd with ``cfg.remat`` (the default) each layer's forward runs
 again in the backward pass (``_group_seq``), so training keeps one tensor
-a layer; inference keeps no activations.
+a layer (``remat_policy="full"``), or that and each attention block's
+output (``"save_attn_out"``); inference keeps no activations.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe, rglru, xlstm
 from repro_torch.train import sketched_dense as sd
@@ -65,6 +69,62 @@ def _sdtype(cfg: ArchConfig):
 
 def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def constrain_act(cfg: ArchConfig, x, spec):
+    """Optional activation sharding constraint (keeps the batch axis
+    sharded through recurrent loops where DTensor would otherwise
+    replicate it): ``x`` redistributed to ``spec`` (a tuple of mesh axis
+    names or None a dim; names the mesh lacks read as None) on the mesh
+    registered in ``dist.meshctx``. A no-op unless
+    ``cfg.constrain_activations``, a mesh is registered and ``x`` is a
+    DTensor."""
+    if not cfg.constrain_activations:
+        return x
+    from repro_torch.dist import meshctx
+    mesh = meshctx.get_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.dist import sharding
+    resolved = tuple(s if (s is None or s in mesh.mesh_dim_names) else None
+                     for s in spec)
+    return x.redistribute(mesh, sharding.placements(mesh, resolved))
+
+
+@torch.library.custom_op("repro_torch::attn_out", mutates_args=())
+def attn_out(o: torch.Tensor) -> torch.Tensor:
+    """A copy of ``o``: the tag of an attention block's output, which the
+    ``save_attn_out`` remat policy keeps (``checkpoint_name(o,
+    "attn_out")`` in the JAX package)."""
+    return o.clone()
+
+
+@attn_out.register_fake
+def _(o):
+    return torch.empty_like(o)
+
+
+attn_out.register_autograd(lambda ctx, g: g)
+
+
+def _save_attn_out(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``save_attn_out``: keep the
+    tagged attention outputs, recompute everything else."""
+    if op is torch.ops.repro_torch.attn_out.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _tag_attn_out(cfg, o):
+    """``o`` tagged for ``save_attn_out`` when that policy is remat's
+    under autograd, else ``o`` itself."""
+    if (cfg.remat and cfg.remat_policy == "save_attn_out"
+            and torch.is_grad_enabled()):
+        return attn_out(o)
+    return o
 
 
 def _mlp_branch(cfg, norm, mlp, x):
@@ -148,7 +208,7 @@ class AttnBlock(nn.Module):
     def seq(self, x, ctx):
         cfg = self.cfg
         o, _ = self._attend(x, ctx)
-        x = x + o
+        x = x + _tag_attn_out(cfg, o)
         if cfg.sketched_mlp and hasattr(self.mlp.up, "taps"):
             h = common.norm_apply(cfg.norm, self.norm2, x).to(_cdtype(cfg))
             return x + _sketched_mlp_apply(self.mlp, h, cfg, ctx), _zero(x.device)
@@ -234,10 +294,12 @@ class CrossBlock(nn.Module):
         cfg = self.cfg
         cd = _cdtype(cfg)
         B, L, _ = ctx_seq.shape
-        k = common.dense_apply(self.attn.wk, ctx_seq.to(cd), cd) \
-            .reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
-        v = common.dense_apply(self.attn.wv, ctx_seq.to(cd), cd) \
-            .reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
+        k = sharding.fit_heads(
+            common.dense_apply(self.attn.wk, ctx_seq.to(cd), cd),
+            cfg.n_kv_heads).reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
+        v = sharding.fit_heads(
+            common.dense_apply(self.attn.wv, ctx_seq.to(cd), cd),
+            cfg.n_kv_heads).reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
         return k.to(cd), v.to(cd)
 
     def _cross(self, x, k, v):
@@ -245,8 +307,9 @@ class CrossBlock(nn.Module):
         cd = _cdtype(cfg)
         B, S, _ = x.shape
         h = common.norm_apply(cfg.norm, self.norm1, x)
-        q = common.dense_apply(self.attn.wq, h.to(cd), cd) \
-            .reshape(B, S, cfg.n_heads, cfg.head_dim_)
+        q = sharding.fit_heads(
+            common.dense_apply(self.attn.wq, h.to(cd), cd),
+            cfg.n_heads).reshape(B, S, cfg.n_heads, cfg.head_dim_)
         o = attn.cross_attention(q, k, v)
         o = o.reshape(B, S, cfg.n_heads * cfg.head_dim_)
         o = common.dense_apply(self.attn.wo, o.to(cd), cd)
@@ -296,10 +359,12 @@ class DecXAttnBlock(AttnBlock):
         cfg = self.cfg
         cd = _cdtype(cfg)
         B, L, _ = enc.shape
-        k = common.dense_apply(self.xattn.wk, enc.to(cd), cd) \
-            .reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
-        v = common.dense_apply(self.xattn.wv, enc.to(cd), cd) \
-            .reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
+        k = sharding.fit_heads(
+            common.dense_apply(self.xattn.wk, enc.to(cd), cd),
+            cfg.n_kv_heads).reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
+        v = sharding.fit_heads(
+            common.dense_apply(self.xattn.wv, enc.to(cd), cd),
+            cfg.n_kv_heads).reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
         return k, v
 
     def _xattend(self, x, k, v):
@@ -307,8 +372,9 @@ class DecXAttnBlock(AttnBlock):
         cd = _cdtype(cfg)
         B, S, _ = x.shape
         h = common.norm_apply(cfg.norm, self.normx, x)
-        q = common.dense_apply(self.xattn.wq, h.to(cd), cd) \
-            .reshape(B, S, cfg.n_heads, cfg.head_dim_)
+        q = sharding.fit_heads(
+            common.dense_apply(self.xattn.wq, h.to(cd), cd),
+            cfg.n_heads).reshape(B, S, cfg.n_heads, cfg.head_dim_)
         o = attn.cross_attention(q, k, v)
         o = o.reshape(B, S, cfg.n_heads * cfg.head_dim_)
         return common.dense_apply(self.xattn.wo, o.to(cd), cd)
@@ -420,9 +486,10 @@ class MLSTMBlock(nn.Module):
 
 
 class SLSTMBlock(nn.Module):
-    """Pre-norm residual sLSTM (a loop over time). The reference's
-    ``constrain_activations`` hook is a sharding hint that changes nothing
-    on one device, and the port does not shard yet."""
+    """Pre-norm residual sLSTM (a loop over time). With
+    ``cfg.constrain_activations`` its gate buffer is held to the batch
+    sharding (``constrain_act``), as in the JAX package; on one device the
+    hook changes nothing."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
@@ -435,9 +502,12 @@ class SLSTMBlock(nn.Module):
         self.core.reset(key)
 
     def seq(self, x, ctx):
-        h = common.norm_apply(self.cfg.norm, self.norm, x)
-        return x + xlstm.slstm_block_seq(self.core, h,
-                                         _cdtype(self.cfg)), _zero(x.device)
+        cfg = self.cfg
+        h = common.norm_apply(cfg.norm, self.norm, x)
+        cons = (lambda t, spec: constrain_act(cfg, t, spec)) \
+            if cfg.constrain_activations else None
+        return x + xlstm.slstm_block_seq(self.core, h, _cdtype(cfg),
+                                         constrain=cons), _zero(x.device)
 
     def prefill(self, x, ctx, cache):
         h = common.norm_apply(self.cfg.norm, self.norm, x)
@@ -558,16 +628,23 @@ def _group_seq(group, cfg, x, ctx):
     forward runs again, under grad, in the backward pass. (The reentrant
     form would run the first forward under ``no_grad``, which takes the
     flash route, and the recompute under grad, which takes the plain one.)
-    ``remat_policy="save_attn_out"`` is not ported: it raises."""
+    ``remat_policy="save_attn_out"`` (``save_only_these_names("attn_out")``
+    in the JAX package) keeps each attention block's tagged output besides:
+    a selective checkpoint whose policy saves the ``attn_out`` op's output
+    and recomputes every other op."""
     remat = cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
+    if remat and cfg.remat_policy not in ("full", "save_attn_out"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         "('full' or 'save_attn_out')")
+    kw = {}
+    if remat and cfg.remat_policy == "save_attn_out":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_attn_out)
     aux = _zero(x.device)
     for slot in group:
         if remat:
             x, a = checkpoint(_slot_seq, slot, x, ctx, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False, **kw)
         else:
             x, a = _slot_seq(slot, x, ctx)
         aux = aux + a
@@ -731,6 +808,12 @@ def lm_forward(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     return _logits(params, cfg, x)
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's negative log-likelihood of its label."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
 def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
             ) -> torch.Tensor:
     """Mean next-token cross entropy, sequence-chunked over the (huge) vocab
@@ -750,8 +833,11 @@ def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     total = _zero(dev)
     for s0 in range(0, S, ck):
         logits = _logits(params, cfg, x[:, s0:s0 + ck])
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, labels[:, s0:s0 + ck, None].long())[..., 0]
+        # per token: under DTensor each device takes its own rows, the
+        # vocab whole (the gather's backward would build the chunk's
+        # whole gradient on every device)
+        nll = sharding.local_over(_nll, (logits, labels[:, s0:s0 + ck]),
+                                  ((0, None), (0, None)), (0, None))
         total = total + torch.sum(nll)
     loss = total / (B * S)
     if cfg.n_experts:

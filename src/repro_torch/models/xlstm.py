@@ -19,9 +19,9 @@ Prefill uses the chunkwise-parallel form when S is a multiple of
 space with -inf and start the stabilizer at -1e30, as the reference does.
 
 sLSTM keeps per-unit scalar state (c, n, m) and is sequential: a Python
-loop over time, the state in float32. The reference's ``constrain`` hook
-(a GSPMD sharding hint for the gate buffer) changes nothing on one device
-and is not ported until the port shards.
+loop over time, the state in float32. Its ``constrain`` hook holds the
+gate buffer to a sharding (``transformer.constrain_act``, a DTensor
+redistribution); on one device it changes nothing.
 
 The bf16 defaults of the reference are kept: ``w_if`` is a float32
 parameter but its product runs in ``dense_apply``'s default bf16, and so
@@ -30,6 +30,7 @@ does the sLSTM's recurrent product.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict
 
 import torch
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import prng
+from repro_torch.dist import sharding
 from repro_torch.models import common
 
 MLSTM_CHUNK = 256
@@ -169,9 +171,15 @@ def mlstm_inputs(p: MLSTM, x: torch.Tensor, n_heads: int,
     state = torch.zeros((B, 3, di), dtype=xi.dtype, device=x.device)
     xp = torch.cat([state, xi.float()], dim=1)
     xc = F.silu(_conv4(p.conv_w, xp, S))
-    q = common.dense_apply(p.wq, xc, compute_dtype).reshape(B, S, n_heads, dh)
-    k = common.dense_apply(p.wk, xc, compute_dtype).reshape(B, S, n_heads, dh)
-    v = common.dense_apply(p.wv, xi, compute_dtype).reshape(B, S, n_heads, dh)
+    q = sharding.fit_heads(
+        common.dense_apply(p.wq, xc, compute_dtype),
+        n_heads).reshape(B, S, n_heads, dh)
+    k = sharding.fit_heads(
+        common.dense_apply(p.wk, xc, compute_dtype),
+        n_heads).reshape(B, S, n_heads, dh)
+    v = sharding.fit_heads(
+        common.dense_apply(p.wv, xi, compute_dtype),
+        n_heads).reshape(B, S, n_heads, dh)
     if_gates = common.dense_apply(p.w_if, xc)           # (B, S, 2H) float32
     log_i, log_f = torch.chunk(if_gates, 2, dim=-1)
     log_f = F.logsigmoid(log_f)
@@ -188,10 +196,13 @@ def mlstm_block_seq(p: MLSTM, x: torch.Tensor, n_heads: int,
     B, S, d = x.shape
     q, k, v, log_f, log_i, gate, xp = mlstm_inputs(p, x, n_heads,
                                                    compute_dtype)
-    if S % MLSTM_CHUNK == 0 and S > MLSTM_CHUNK:
-        h, (C, n, m) = _mlstm_chunk_parallel(q, k, v, log_f, log_i)
-    else:
-        h, (C, n, m) = _mlstm_chunk_parallel_single(q, k, v, log_f, log_i)
+    core = _mlstm_chunk_parallel if S % MLSTM_CHUNK == 0 and \
+        S > MLSTM_CHUNK else _mlstm_chunk_parallel_single
+    # per (batch, head): under DTensor each device runs its shard's chunks
+    bh = (0, 1)
+    h, C, n, m = sharding.local_over(
+        lambda *a: (lambda hh, st: (hh,) + st)(*core(*a)),
+        (q, k, v, log_f, log_i), (bh,) * 5, (bh,) * 4)
     h = h.transpose(1, 2).reshape(B, S, gate.shape[-1])
     h = common.rmsnorm_apply(p.norm, h)
     out = h * F.silu(gate.float())
@@ -221,9 +232,15 @@ def mlstm_block_step(p: MLSTM, x_t: torch.Tensor, cache, n_heads: int,
     dh = di // n_heads
     xp = torch.cat([cache["conv"], xi.float()], dim=1)
     xc = F.silu(_conv4(p.conv_w, xp, 1))
-    q = common.dense_apply(p.wq, xc, compute_dtype).reshape(B, n_heads, dh)
-    k = common.dense_apply(p.wk, xc, compute_dtype).reshape(B, n_heads, dh)
-    v = common.dense_apply(p.wv, xi, compute_dtype).reshape(B, n_heads, dh)
+    q = sharding.fit_heads(
+        common.dense_apply(p.wq, xc, compute_dtype),
+        n_heads).reshape(B, n_heads, dh)
+    k = sharding.fit_heads(
+        common.dense_apply(p.wk, xc, compute_dtype),
+        n_heads).reshape(B, n_heads, dh)
+    v = sharding.fit_heads(
+        common.dense_apply(p.wv, xi, compute_dtype),
+        n_heads).reshape(B, n_heads, dh)
     if_g = common.dense_apply(p.w_if, xc)[:, 0]         # (B, 2H)
     log_i, log_f = torch.chunk(if_g, 2, dim=-1)
     log_f = F.logsigmoid(log_f)
@@ -299,24 +316,39 @@ def slstm_cache_init(batch: int, d: int, device="cuda"
 
 
 def slstm_block_seq(p: SLSTM, x: torch.Tensor, compute_dtype=torch.bfloat16,
-                    return_state: bool = False):
+                    return_state: bool = False, constrain=None):
     """sLSTM block over a sequence (a loop over time). x: (B, S, d);
-    return_state=True also returns the final (h, c, n, m)."""
+    return_state=True also returns the final (h, c, n, m).
+    ``constrain(t, spec)``: optional activation-sharding hook, applied to
+    the (B, S, 4d) gate buffer with ("data", None, None)."""
     B, S, d = x.shape
     gates = common.dense_apply(p.w_gates, x, compute_dtype)  # (B, S, 4d)
-    st = slstm_cache_init(B, d, x.device)
+    if constrain is not None:
+        gates = constrain(gates, ("data", None, None))
+    # under DTensor each device runs its batch rows' loop
+    hseq, h, c, n, m = sharding.local_over(
+        _slstm_loop, (gates, p.r_gates.w), ((0, None), (None, None)),
+        ((0, None),) * 5)
+    hseq = common.rmsnorm_apply(p.norm, hseq)
+    out = common.mlp_apply(p.w_ff, hseq.to(compute_dtype), "silu",
+                           compute_dtype)
+    if return_state:
+        return out, {"h": h, "c": c, "n": n, "m": m}
+    return out
+
+
+def _slstm_loop(gates: torch.Tensor, r_w: torch.Tensor):
+    """The sLSTM recurrence over gates (B, S, 4d) with recurrent weight
+    ``r_w``: (h over time (B, S, d), and the final h, c, n, m)."""
+    B, S, d4 = gates.shape
+    p = SimpleNamespace(r_gates=SimpleNamespace(w=r_w, b=None))
+    st = slstm_cache_init(B, d4 // 4, gates.device)
     h, state = st["h"], (st["c"], st["n"], st["m"])
     hs = []
     for t in range(S):
         h, state = _slstm_cell(p, gates[:, t], h, state)
         hs.append(h)
-    hseq = common.rmsnorm_apply(p.norm, torch.stack(hs, dim=1))
-    out = common.mlp_apply(p.w_ff, hseq.to(compute_dtype), "silu",
-                           compute_dtype)
-    if return_state:
-        c, n, m = state
-        return out, {"h": h, "c": c, "n": n, "m": m}
-    return out
+    return (torch.stack(hs, dim=1), h) + tuple(state)
 
 
 def slstm_block_step(p: SLSTM, x_t: torch.Tensor, cache,

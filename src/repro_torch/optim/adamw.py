@@ -23,6 +23,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.linalg import sqrt_f32
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor                   # () int32, on the CPU
@@ -82,7 +84,7 @@ class AdamW:
                     (g32 * (1 - b2)).mul_(g32))
                 m.copy_(m32)
                 v.copy_(v32)
-            delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(self.eps))
+            delta = (m32 / bc1).div_(sqrt_f32(v32 / bc2).add_(self.eps))
             if p.ndim >= 2 and self.weight_decay:
                 delta.add_(p.to(torch.float32) * self.weight_decay)
             if p.dtype == torch.float32:
@@ -99,4 +101,4 @@ def global_norm(tree) -> torch.Tensor:
     total = torch.zeros((), dtype=torch.float32)
     for leaf in leaves:
         total = total + torch.sum(torch.square(leaf.to(torch.float32)))
-    return torch.sqrt(total)
+    return sqrt_f32(total)

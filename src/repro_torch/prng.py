@@ -149,7 +149,8 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
     more exact and so differs from jax by up to 2e-5 in the tails)."""
     w = -torch.log1p(-x * x)
     centre = w < 5.0
-    w = torch.where(centre, w - 2.5, torch.sqrt(w) - 3.0)
+    from repro_torch.core.linalg import sqrt_f32
+    w = torch.where(centre, w - 2.5, sqrt_f32(w) - 3.0)
     p = torch.zeros_like(x)
     for c_centre, c_tail in zip(_ERFINV_CENTRE, _ERFINV_TAIL):
         p = torch.where(centre, c_centre, c_tail) + p * w

@@ -1,1 +1,2 @@
-"""Roofline terms for the H100 (``analysis``)."""
+"""Roofline terms for the H100 (``analysis``) and the per-device counts of a
+traced step that feed them (``trace_analyzer``)."""

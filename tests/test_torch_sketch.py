@@ -109,6 +109,33 @@ def test_build_summary_matches_jax_pallas(backend, precision):
     assert all(x is None for x in got[4:])
 
 
+def test_build_summary_norms_are_jax_roots_bit_for_bit():
+    """On the CPU ``torch.sqrt`` of float32 is an ulp off on some inputs;
+    the port's roots (``core.linalg.sqrt_f32``) are ``jnp.sqrt``'s. Each
+    column holds two entries, so its squared norm is one rounded sum in
+    both packages, and every column's is one that ``torch.sqrt``
+    misrounds: the norms equal the JAX package's bit for bit."""
+    rng = np.random.default_rng(7)
+    a = rng.uniform(1, 10, (2, 4096)).astype(np.float32)
+    sq = a[0] * a[0] + a[1] * a[1]
+    bad = np.flatnonzero(torch.sqrt(torch.from_numpy(sq)).numpy()
+                         != np.sqrt(sq))
+    assert len(bad) >= 16
+    A = np.zeros((64, len(bad)), np.float32)
+    A[3], A[40] = a[0, bad], a[1, bad]
+    B = A[:, ::-1].copy()
+    with jax.threefry_partitionable(False):
+        want = jax_summary.build_summary(jax.random.PRNGKey(5),
+                                         jnp.asarray(A), jnp.asarray(B), 16)
+    got = summary_engine.build_summary(
+        prng.PRNGKey(5), torch.from_numpy(A), torch.from_numpy(B), 16,
+        device="cpu")
+    for got_x, want_x in zip(got[2:4], want[2:4]):
+        np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))
+    naive = torch.sqrt(torch.from_numpy(sq[bad])).numpy()
+    assert (naive != np.asarray(want[2])).all()
+
+
 def test_summary_backends_agree_and_merge():
     """reference and cuda backends agree on CPU; summaries of two row
     shards merge to the summary of the whole (same global row ids)."""

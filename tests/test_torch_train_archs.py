@@ -175,16 +175,114 @@ def test_remat_gives_the_same_gradients(case_name):
 
 
 def test_save_attn_out_policy_is_not_ported():
+    """The policy now runs (it raised before it was ported); a policy
+    the port does not know raises, and inference keeps no activations
+    under either."""
     cfg = dataclasses.replace(get_config("phi3-mini-3.8b").reduced(),
                               remat=True, remat_policy="save_attn_out")
     m = build(cfg, device="cpu")
     params = m.init_params(prng.PRNGKey(0))
     batch = {k: convert.tensor_from_numpy(v)
              for k, v in _batch(cfg, seed=1).items()}
-    with pytest.raises(NotImplementedError, match="save_attn_out"):
-        m.loss(params, batch)
+    assert torch.isfinite(m.loss(params, batch))
+    bad = build(dataclasses.replace(cfg, remat_policy="dots"), device="cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        bad.loss(params, batch)
     with torch.no_grad():          # inference keeps no activations
-        assert torch.isfinite(m.loss(params, batch))
+        assert torch.isfinite(bad.loss(params, batch))
+
+
+SAVE_ATTN_ARCHS = ("phi3-mini-3.8b", "recurrentgemma-9b")
+
+
+@pytest.mark.parametrize("name", SAVE_ATTN_ARCHS)
+def test_save_attn_out_gradients_match_full_and_jax(name):
+    """``remat_policy="save_attn_out"`` (an attention arch and a hybrid
+    one): loss and every gradient equal the port's ``full`` remat bit for
+    bit, and JAX's ``save_attn_out`` gradients within this file's
+    tolerance."""
+    kw = dict(compute_dtype="float32", remat=True)
+    with jax.threefry_partitionable(False):
+        jcfg = dataclasses.replace(jax_get_config(name).reduced(),
+                                   remat_policy="save_attn_out", **kw)
+        m = jax_build(jcfg)
+        tree = jax.tree.map(np.asarray, m.init_params(jax.random.PRNGKey(0)))
+        batch = _batch(jcfg, seed=len(name))
+        jloss, jgrads = jax.jit(jax.value_and_grad(m.loss))(
+            jax.tree.map(jnp.asarray, tree),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    out = {}
+    for policy in ("full", "save_attn_out"):
+        cfg = dataclasses.replace(get_config(name).reduced(),
+                                  remat_policy=policy, **kw)
+        params = convert.lm_params_from_numpy(tree, cfg, "cpu")
+        loss = build(cfg, device="cpu").loss(
+            params, {k: convert.tensor_from_numpy(v)
+                     for k, v in batch.items()})
+        loss.backward()
+        out[policy] = (float(loss.detach()),
+                       {n: p.grad for n, p in params.named_parameters()})
+    (l0, g0), (l1, g1) = out["full"], out["save_attn_out"]
+    assert l0 == l1
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=0, atol=0, msg=n)
+    assert abs(l1 - float(jloss)) <= LOSS_TOL
+    jleaves = jax.tree.leaves(jgrads)
+    floor = SCALE_FLOOR * max(float(np.abs(np.asarray(g)).max())
+                              for g in jleaves)
+    rtol = BF16_GATE_RTOL if name == "recurrentgemma-9b" else GRAD_RTOL
+    for n, g in g1.items():
+        want = np.asarray(convert.lm_leaf(jgrads, n), np.float32)
+        scale = max(float(np.abs(want).max()), floor)
+        assert float(np.abs(g.numpy() - want).max()) <= rtol * scale, n
+
+
+def _saved_bytes(cfg, batch, monkeypatch):
+    """(bytes autograd saves through ``saved_tensors_hooks`` in one loss
+    forward, each storage once; bytes the selective checkpoint's policy
+    keeps), on the parameters of PRNGKey(0) (a block reads its policy
+    from the config it was built with)."""
+    from repro_torch.models import transformer
+    kept = []
+    policy = transformer._save_attn_out
+
+    def counting(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        if out == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            kept.append(args[0].numel() * args[0].element_size())
+        return out
+
+    seen = {}
+
+    def pack(t):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    m = build(cfg, device="cpu")
+    params = m.init_params(prng.PRNGKey(0))
+    with monkeypatch.context() as mp:
+        mp.setattr(transformer, "_save_attn_out", counting)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = m.loss(params, batch)
+        loss.backward()
+    return sum(seen.values()), sum(kept)
+
+
+def test_save_attn_out_saves_exactly_the_attention_outputs(monkeypatch):
+    """Under ``save_attn_out`` the checkpointed slots keep what ``full``
+    keeps (each slot's input and what autograd saves outside the slots,
+    read through ``saved_tensors_hooks``) and besides exactly one float32
+    (B, S, d) attention output a layer (read through the policy)."""
+    base = dataclasses.replace(get_config("phi3-mini-3.8b").reduced(),
+                               remat=True)
+    batch = {k: convert.tensor_from_numpy(v)
+             for k, v in _batch(base, seed=2).items()}
+    hooks_full, kept_full = _saved_bytes(base, batch, monkeypatch)
+    cfg = dataclasses.replace(base, remat_policy="save_attn_out")
+    hooks_sao, kept_sao = _saved_bytes(cfg, batch, monkeypatch)
+    assert kept_full == 0
+    assert hooks_sao == hooks_full
+    assert kept_sao == base.n_layers * B * S * base.d_model * 4
 
 
 def test_attention_under_grad_takes_the_plain_route():
