@@ -216,7 +216,22 @@ fails; nothing is caught:
     on (a)'s step on one device (traced on ``meta``, the card's route):
     counted FLOPs and bytes, ``model_flops``, the ``Roofline`` terms, and
     the share of its step time that (a)'s measured warm step reaches;
-22. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+22. four more archs served at full width, one at a time, each freed
+    before the next, in their configured float32 parameters drawn on the
+    card from the seed, through the same entry points: phi3-mini-3.8b,
+    starcoder2-15b, llama-3.2-vision-11b and whisper-small, phase 18's
+    requests (a) twice (the same tokens) and (c), each prefill's
+    ``flash_attention`` launches and attention routes checked (phi3 0 and
+    32 plain; starcoder2 40 flash; llama 32 flash, 8 plain
+    cross-attentions; whisper 12 flash, 24 plain: the encoder's and the
+    cross-attentions), prefill plus decode against the forward within
+    ``LM_DECODE_TOL``, the kernel on layer 0's weights at each request's
+    shapes against its plain version (starcoder2's GQA 12:1 at Dh 128,
+    llama's (32, 8), whisper's Dh 64), layer 0 card against CPU, and
+    llama's first cross-attention layer and whisper's first encoder
+    layer, each within ``LM_LAYER_TOL``; the stub inputs drawn from the
+    seed for the checks; each request's bounds; ``lm <arch> ...`` lines;
+23. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -452,6 +467,22 @@ XL_ARCH = "xlstm-350m"
 XL_REQUESTS = (("a", 4, 4096, 16, 0.0), ("c", 2, 1000, 16, 0.0))
 XL_CHECK_PROMPT, XL_CHECK_STEPS, XL_DECODE_TOL = 1024, 16, 5e-2
 XL_MLSTM_TOL = 5e-3
+# The four archs served at full width (phase 22), one at a time, each in
+# its configured float32 parameters (phi3-mini-3.8b 15.3 GB,
+# starcoder2-15b 63.8, llama-3.2-vision-11b 39.2, whisper-small 1.1) and
+# freed before the next: phase 18's requests (a) twice and (c), with the
+# flash and plain attention calls a prefill routes (phi3's Dh 96 is not a
+# width the kernel compiles; llama's 8 cross-attentions, whisper's 12
+# encoder and 12 cross-attentions are bidirectional: the plain route).
+# Prefill plus decode against the forward and the layers card against CPU
+# at phase 18's tolerances, the stub inputs (whisper's 1,500 frames,
+# llama's 1,600 image tokens) drawn from the seed and llama's
+# cross-attention gates opened (at the parity tests' 0.7 and -0.4: at 0
+# they erase the block) for the checks.
+SERVE_ARCHS = (("phi3-mini-3.8b", 0, 32), ("starcoder2-15b", 40, 0),
+               ("llama-3.2-vision-11b", 32, 8), ("whisper-small", 12, 24))
+SERVE_REQUESTS = (("a", 4, 4096, 32, 0.0), ("c", 2, 1000, 8, 0.8))
+XATTN_GATES = (("gate_attn", 0.7), ("gate_mlp", -0.4))
 # The training phase (20): phi3-mini-3.8b (src/repro/configs/
 # phi3_mini_3_8b.py, arXiv:2404.14219: 32 layers, d 3,072, 32 heads of 96,
 # d_ff 8,192, vocab 32,064) at full width and depth, float32 parameters,
@@ -2401,19 +2432,20 @@ def lm_forward_check(model, params, prompt, steps, seed, tol, tag):
     forward does (a near-tie that float32 noise tips), the steps compute
     another branch of the function and are reported, not held; tokens of
     the prompt routed otherwise are counted."""
-    from repro_torch.launch import serve as launch
     cfg = model.cfg
     S = prompt + steps
-    tokens = launch.prompt_batch(model, 1, S, seed + 1)["tokens"]
+    batch = seeded_batch(model, 1, S, seed + 1)
+    tokens = batch["tokens"]
     V = cfg.vocab_size
     record = recorded_routes() if cfg.n_experts else \
         contextlib.nullcontext([])
     with torch.inference_mode(), record as routes:
-        full = model.forward(params, {"tokens": tokens})[..., :V]
+        full = model.forward(params, batch)[..., :V]
         fwd = list(routes)
         caches = model.init_cache(1, S)
         del routes[:]
-        lg, caches = model.prefill(params, {"tokens": tokens[:, :prompt]},
+        lg, caches = model.prefill(params, dict(batch,
+                                                tokens=tokens[:, :prompt]),
                                    caches)
         pre = list(routes)
         errs = [float((lg[0, 0, :V] - full[0, prompt - 1]).abs().max())]
@@ -2427,7 +2459,7 @@ def lm_forward_check(model, params, prompt, steps, seed, tol, tag):
                 rerouted.append(t - prompt)
         prompt_rerouted = sum(int((f[:prompt] != r).any(-1).sum())
                               for f, r in zip(fwd, pre))
-    del full, caches, lg
+    del full, caches, lg, batch
     torch.cuda.empty_cache()
     held = errs[:1 + (rerouted[0] if rerouted else steps)]
     rec = dict(prompt=prompt, steps=steps, max_err=max(held), tol=tol,
@@ -2497,12 +2529,92 @@ def lm_init(arch, seed, dev, card, tag, **kw):
     return model, params, init
 
 
-def attention_bound_ms(cfg, B, P, fa) -> float:
-    """One causal attention call at flash_attention's float32 bound (three
-    TF32 passes a product)."""
-    flops = 2.0 * B * cfg.n_heads * P * P * cfg.head_dim_
-    elems = B * (2 * P * cfg.n_heads + 2 * P * cfg.n_kv_heads) * cfg.head_dim_
+def seeded_batch(model, B, S, seed) -> dict:
+    """``launch.serve.prompt_batch``'s prompts, with its zero stub inputs
+    (whisper's frames, llama's image embeddings) replaced by 0.1 N(0, 1)
+    draws from the seed, in their dtype: on zeros every cross-attention's
+    softmax is uniform, which no check would see through."""
+    from repro_torch.launch import serve as launch
+    batch = launch.prompt_batch(model, B, S, seed)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    for name, t in batch.items():
+        if name != "tokens":
+            batch[name] = (0.1 * torch.randn(t.shape, generator=gen,
+                                             device=t.device)).to(t.dtype)
+    return batch
+
+
+def attention_bound_ms(cfg, B, P, fa, kv_len=None) -> float:
+    """One attention call at flash_attention's float32 bound (three TF32
+    passes a product): causal over P tokens, or, given ``kv_len``, P
+    queries against that many context rows, unmasked (a cross-attention,
+    an encoder's self-attention)."""
+    kv = P if kv_len is None else kv_len
+    flops = (2.0 if kv_len is None else 4.0) * B * cfg.n_heads * P * kv \
+        * cfg.head_dim_
+    elems = B * (2 * P * cfg.n_heads + 2 * kv * cfg.n_kv_heads) * cfg.head_dim_
     return bound(fa.PASSES[4] * flops, 4 * elems, PEAK_TF32_FLOPS)[0]
+
+
+def prefill_bound(model, params, B, P, fa) -> dict:
+    """A prefill's least time on the card: each weight's product at the
+    bf16 rate over the rows it applies to (a prompt token; a context row
+    for the cross-attention K and V, the encoder and the image projection;
+    one row a sequence for the head, which scores the last token), plus
+    every attention call at flash_attention's float32 bound (causal
+    self-attention over the prompt, cross-attention against the context,
+    the encoder's over its frames)."""
+    from repro_torch.models import transformer as tt
+    cfg = model.cfg
+    L = cfg.enc_context if cfg.is_encdec else cfg.n_img_tokens
+    ctx_kv = set()
+    for name, mod in params.named_modules():
+        if isinstance(mod, (tt.CrossBlock, tt.DecXAttnBlock)):
+            a = "attn" if isinstance(mod, tt.CrossBlock) else "xattn"
+            ctx_kv |= {f"{name}.{a}.wk.w", f"{name}.{a}.wv.w"}
+    flops = 0.0
+    for name, p in params.named_parameters():
+        if p.ndim < 2 or name.startswith("embed."):
+            continue                # norms, biases, gates; a table lookup
+        rows = B if name.startswith("head.") else B * L if (
+            name in ctx_kv or name.startswith(("enc.", "img_proj."))) \
+            else B * P
+        flops += 2.0 * p.numel() * rows
+    attn_ms = 0.0
+    for pattern, count in cfg.groups:
+        for btype in pattern:
+            if btype in ("attn", "attn_moe", "dec_xattn"):
+                attn_ms += count * attention_bound_ms(cfg, B, P, fa)
+            if btype in ("xattn", "dec_xattn"):
+                attn_ms += count * attention_bound_ms(cfg, B, P, fa, L)
+    if cfg.is_encdec:
+        attn_ms += cfg.n_enc_layers * attention_bound_ms(cfg, B, L, fa, L)
+    return dict(prefill_bound_s=flops / PEAK_BF16_FLOPS + attn_ms / 1e3,
+                prefill_attention_bound_s=attn_ms / 1e3)
+
+
+def layer_check(blk, btype, cfg, x, xattn_ctx, tag, label) -> dict:
+    """One block's ``seq`` on the card against a copy of it on the CPU,
+    over x (B, S, d) at positions 0..S-1 with the cross-attention context
+    ``xattn_ctx`` (or None): the largest error, held within
+    ``LM_LAYER_TOL`` of the CPU output's largest entry."""
+    from repro_torch.models import transformer as tt
+    S = x.shape[1]
+    cpu_blk = tt.make_block(btype, cfg, device="cpu")
+    cpu_blk.load_state_dict(blk.state_dict())
+    with torch.inference_mode():
+        y_card, _ = blk.seq(x, {"positions": torch.arange(S, device=x.device),
+                                "xattn_ctx": xattn_ctx})
+        y_cpu, _ = cpu_blk.seq(x.cpu(), {
+            "positions": torch.arange(S),
+            "xattn_ctx": None if xattn_ctx is None else xattn_ctx.cpu()})
+    err = float((y_card.cpu() - y_cpu).abs().max())
+    scale = float(y_cpu.abs().max())
+    print(f"{tag} {label} card against CPU, S={S}: max abs err {err:.4e} of "
+          f"{scale:.4e} (tol {LM_LAYER_TOL} of the largest)", flush=True)
+    check(err <= LM_LAYER_TOL * scale,
+          f"{tag} {label} card vs CPU: {err} of {scale}")
+    return dict(S=S, max_abs_err=err, scale=scale)
 
 
 def lm_phase(ops, seed, dev, card):
@@ -2515,7 +2627,7 @@ def lm_phase(ops, seed, dev, card):
     fa = ops.KERNELS["flash_attention"]
     model, params, init = lm_init(LM_ARCH, seed, dev, card, "lm")
     cfg = model.cfg
-    n_blocks, param_bytes = init["block_params"], init["param_gb"] * 1e9
+    param_bytes = init["param_gb"] * 1e9
     layers = sum(len(p) * c for p, c in cfg.groups)
     reqs, prompts, path_launches = lm_requests(
         ops, model, params, LM_REQUESTS, seed, card, "lm", layers, 0)
@@ -2553,24 +2665,10 @@ def lm_phase(ops, seed, dev, card):
                                    dev)
 
     # one layer on the card against the CPU, the model's block 0
-    blk = params.groups[0][0][0]
-    layer_s = LM_LAYER_S
-    x = tt._embed_tokens(params, cfg, prompts["a"][:1, :layer_s])
-    ctx = {"positions": torch.arange(layer_s, device=dev), "xattn_ctx": None}
-    cpu_blk = tt.make_block(cfg.groups[0][0][0], cfg, device="cpu")
-    cpu_blk.load_state_dict(blk.state_dict())
-    with torch.inference_mode():
-        y_card, _ = blk.seq(x, ctx)
-        y_cpu, _ = cpu_blk.seq(x.cpu(), {"positions": torch.arange(layer_s),
-                                         "xattn_ctx": None})
-    layer_err = float((y_card.cpu() - y_cpu).abs().max())
-    layer_scale = float(y_cpu.abs().max())
-    print(f"lm layer 0 card against CPU, S={layer_s}: max abs err "
-          f"{layer_err:.4e} of {layer_scale:.4e} (tol {LM_LAYER_TOL} of the "
-          f"largest)", flush=True)
-    check(layer_err <= LM_LAYER_TOL * layer_scale,
-          f"layer card vs CPU: {layer_err} of {layer_scale}")
-    del cpu_blk, x, y_card, y_cpu
+    x = tt._embed_tokens(params, cfg, prompts["a"][:1, :LM_LAYER_S])
+    layer = layer_check(params.groups[0][0][0], cfg.groups[0][0][0], cfg, x,
+                        None, "lm", "layer 0")
+    del x
 
     # bounds on the card: a prefill's projections at the bf16 rate plus
     # its attention calls at flash_attention's float32 bound; a decode step
@@ -2578,10 +2676,7 @@ def lm_phase(ops, seed, dev, card):
     summary = dict(init)
     for label, B, P, *_ in LM_REQUESTS:
         rec = reqs[label]
-        proj_ms = 1e3 * 2.0 * n_blocks * B * P / PEAK_BF16_FLOPS
-        attn_ms = layers * attention_bound_ms(cfg, B, P, fa)
-        rec.update(prefill_bound_s=(proj_ms + attn_ms) / 1e3,
-                   prefill_attention_bound_s=attn_ms / 1e3,
+        rec.update(prefill_bound(model, params, B, P, fa),
                    decode_bound_ms=1e3 * param_bytes / HBM_BW,
                    flash_ms_a_call=flash_ms[label],
                    prefill_attention_s=layers * flash_ms[label] / 1e3,
@@ -2596,9 +2691,7 @@ def lm_phase(ops, seed, dev, card):
                        device_busy_ms_a_step=trace["device_busy_ms"] / 4,
                        weight_cast_ms=trace["weight_cast_ms"]),
                    forward_check_max_err=err_fwd,
-                   layer_card_vs_cpu=dict(S=layer_s, max_abs_err=layer_err,
-                                          scale=layer_scale),
-                   path_launches=path_launches)
+                   layer_card_vs_cpu=layer, path_launches=path_launches)
     print(f"lm [{card}] " + json.dumps(summary), flush=True)
     del params, model
     torch.cuda.empty_cache()
@@ -3421,6 +3514,94 @@ def remat_phase(ops, seed, dev, card, rec_a, probe):
         phase_s=time.perf_counter() - t0)), flush=True)
 
 
+def arch_serving(ops, arch, flash, plain, seed, dev, card):
+    """Phase 22, one arch at full width in its float32 parameters:
+    ``SERVE_REQUESTS`` with ``flash`` kernel launches and ``flash`` and
+    ``plain`` attention routes a prefill, prefill plus decode against the
+    forward, the kernel at the path's shapes, and layers card against CPU:
+    layer 0, llama's first cross-attention layer, whisper's first encoder
+    layer. Returns (the requests' launches, the largest flash error)."""
+    from repro_torch.models import transformer as tt
+    fa = ops.KERNELS["flash_attention"]
+    tag = f"lm {arch}"
+    model, params, init = lm_init(arch, seed, dev, card, tag)
+    cfg = model.cfg
+    check(all(p.dtype == torch.float32 for p in params.parameters()),
+          f"{tag}: float32 parameters as configured")
+    reqs, prompts, path_launches = lm_requests(
+        ops, model, params, SERVE_REQUESTS, seed, card, tag, flash, plain)
+    with torch.inference_mode():      # the parameters are inference tensors
+        for mod in params.modules():
+            if isinstance(mod, tt.CrossBlock):
+                for gate, val in XATTN_GATES:
+                    getattr(mod, gate).fill_(val)
+    _, fwd_rec = lm_forward_check(model, params, LM_CHECK_PROMPT,
+                                  LM_CHECK_STEPS, seed, LM_DECODE_TOL, tag)
+    flash_ms, held = ({}, {}) if not flash else lm_path_flash(
+        ops, model, params, SERVE_REQUESTS, prompts, dev)
+
+    # layers on the card against the CPU at S = LM_LAYER_S, the context
+    # drawn from the seed as an activation (whisper's encoder output,
+    # llama's projected image tokens)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L = cfg.enc_context if cfg.is_encdec else cfg.n_img_tokens
+    xctx = torch.randn(1, L, cfg.d_model, generator=gen, device=dev) \
+        if L else None
+    x = tt._embed_tokens(params, cfg, prompts["a"][:1, :LM_LAYER_S])
+    pattern = cfg.groups[0][0]
+    checks = [("layer 0", 0, pattern[0])] + [
+        (f"layer {i} (xattn)", i, b) for i, b in enumerate(pattern)
+        if b == "xattn"][:1]
+    layers = {label: layer_check(
+        params.groups[0][0][i], btype, cfg, x,
+        xctx if btype in ("xattn", "dec_xattn") else None, tag, label)
+        for label, i, btype in checks}
+    if cfg.is_encdec:
+        frames = torch.randn(1, L, cfg.d_model, generator=gen, device=dev)
+        layers["encoder layer 0"] = layer_check(
+            params.enc.groups[0][0][0], "enc", cfg, frames, None, tag,
+            "encoder layer 0")
+        del frames
+    del x, xctx
+
+    # bounds: the prefill's products at the bf16 rate plus its attention
+    # calls at flash_attention's float32 bound; a decode step reads the
+    # float32 parameters once
+    summary = dict(init)
+    for label, B, P, *_ in SERVE_REQUESTS:
+        rec = reqs[label]
+        rec.update(prefill_bound(model, params, B, P, fa),
+                   decode_bound_ms=1e3 * init["param_gb"] * 1e9 / HBM_BW)
+        if flash:
+            rec.update(flash_ms_a_call=flash_ms[label],
+                       prefill_flash_s=flash * flash_ms[label] / 1e3,
+                       layer0_flash_max_abs_err=held[label])
+        summary[label] = {kk: vv for kk, vv in rec.items()
+                          if kk not in ("launches", "routes")}
+    summary.update(forward_check=fwd_rec, layer_checks=layers,
+                   path_launches=path_launches)
+    print(f"{tag} [{card}] " + json.dumps(summary), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return path_launches, max(held.values(), default=0.0)
+
+
+def archs_phase(ops, seed, dev, card):
+    """Phase 22: ``SERVE_ARCHS`` at full width, one at a time, each freed
+    before the next. Returns the launches of their requests and the
+    largest flash error held on their shapes."""
+    t0 = time.perf_counter()
+    launches, err = {name: 0 for name in ops.LAUNCHES}, 0.0
+    for arch, flash, plain in SERVE_ARCHS:
+        extra, e = arch_serving(ops, arch, flash, plain, seed, dev, card)
+        for name in launches:
+            launches[name] += extra[name]
+        err = max(err, e)
+    print(f"archs phase [{card}]: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4000,7 +4181,11 @@ def main(argv=None) -> int:
     # 21. save_attn_out remat and the step's roofline -----------------------
     remat_phase(ops, args.seed, dev, card, rec_a, probe)
 
-    # 22. the kernels line and the last line --------------------------------
+    # 22. four more archs served at full width -------------------------------
+    launches_archs, err_archs = archs_phase(ops, args.seed, dev, card)
+    err_flash = max(err_flash, err_archs)
+
+    # 23. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path
@@ -4009,14 +4194,16 @@ def main(argv=None) -> int:
     # 4, and for each the serving phase's (the sweep, the traffic cells and
     # the stream session); then the distributed call and stream, both
     # ranks' sharded ingest, the gradient tap and the compressor, the LM
-    # requests' prefills (granite's, then moonshot's), and the training
-    # steps (the taps' sketches and their decompression)
+    # requests' prefills (granite's, then moonshot's), the training steps
+    # (the taps' sketches and their decompression), and phase 22's
+    # prefills (starcoder2's, llama's, whisper's)
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
     for extra in (launches_serve, launches_dist, launches_dist_stream,
                   launches_multihost, launches_taps, launches_comp,
-                  launches_lm, launches_moe, launches_train):
+                  launches_lm, launches_moe, launches_train,
+                  launches_archs):
         for name in path_launches:
             path_launches[name] += extra[name]
     kernels = []

@@ -27,8 +27,9 @@ Tensors on the ``meta`` device (the dry run's shape-only trace) take the
 card's route; there the flash route is ``kernels.flash_attention.trace``,
 an op that computes nothing and whose work the dry run's analyzer counts
 as the kernel's. Decode
-(one token against the cache) is plain PyTorch on every device, as it is
-plain JAX in the reference, and counts no route.
+(one token against the cache, or against a cross-attention's context) is
+plain PyTorch on every device, as it is plain JAX in the reference, and
+counts no route.
 
 q, k and v reach attention in float32 (``common.dense_apply`` returns
 float32), so the kernel takes its float32 route (three split TF32 passes a
@@ -272,10 +273,13 @@ def _attention(q, k, v, *, kind, causal, window, scores_dtype):
                              scores_dtype=scores_dtype)
 
 
-def cross_attention(q, k, v):
+def cross_attention(q, k, v, *, decode: bool = False):
     """Bidirectional attention of q against a context's k and v (another
-    length): the plain route, ``dense_attention``."""
-    ROUTES["plain"] += 1
+    length): the plain route, ``dense_attention``. A decode step's call
+    (``decode``: its token against the cached context) counts no route, as
+    decode's self-attention counts none."""
+    if not decode:
+        ROUTES["plain"] += 1
     return sharding.local_over(
         functools.partial(dense_attention, causal=False), (q, k, v), _BH,
         (0, 2))

@@ -302,7 +302,7 @@ class CrossBlock(nn.Module):
             cfg.n_kv_heads).reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
         return k.to(cd), v.to(cd)
 
-    def _cross(self, x, k, v):
+    def _cross(self, x, k, v, decode=False):
         cfg = self.cfg
         cd = _cdtype(cfg)
         B, S, _ = x.shape
@@ -310,7 +310,7 @@ class CrossBlock(nn.Module):
         q = sharding.fit_heads(
             common.dense_apply(self.attn.wq, h.to(cd), cd),
             cfg.n_heads).reshape(B, S, cfg.n_heads, cfg.head_dim_)
-        o = attn.cross_attention(q, k, v)
+        o = attn.cross_attention(q, k, v, decode=decode)
         o = o.reshape(B, S, cfg.n_heads * cfg.head_dim_)
         o = common.dense_apply(self.attn.wo, o.to(cd), cd)
         return torch.tanh(self.gate_attn) * o
@@ -337,7 +337,7 @@ class CrossBlock(nn.Module):
         return x, _zero(x.device), cache
 
     def step(self, x, cache, pos, ctx):
-        x = x + self._cross(x, cache["k"], cache["v"])
+        x = x + self._cross(x, cache["k"], cache["v"], decode=True)
         return x + self._mlp(x), cache
 
 
@@ -367,7 +367,7 @@ class DecXAttnBlock(AttnBlock):
             cfg.n_kv_heads).reshape(B, L, cfg.n_kv_heads, cfg.head_dim_)
         return k, v
 
-    def _xattend(self, x, k, v):
+    def _xattend(self, x, k, v, decode=False):
         cfg = self.cfg
         cd = _cdtype(cfg)
         B, S, _ = x.shape
@@ -375,7 +375,7 @@ class DecXAttnBlock(AttnBlock):
         q = sharding.fit_heads(
             common.dense_apply(self.xattn.wq, h.to(cd), cd),
             cfg.n_heads).reshape(B, S, cfg.n_heads, cfg.head_dim_)
-        o = attn.cross_attention(q, k, v)
+        o = attn.cross_attention(q, k, v, decode=decode)
         o = o.reshape(B, S, cfg.n_heads * cfg.head_dim_)
         return common.dense_apply(self.xattn.wo, o.to(cd), cd)
 
@@ -400,7 +400,8 @@ class DecXAttnBlock(AttnBlock):
     def step(self, x, cache, pos, ctx):
         o, self_cache = self._attend(x, ctx, cache=cache["self"], pos=pos)
         x = x + o
-        x = x + self._xattend(x, cache["cross"]["k"], cache["cross"]["v"])
+        x = x + self._xattend(x, cache["cross"]["k"], cache["cross"]["v"],
+                              decode=True)
         x = x + self._mlp(x)
         return x, {"self": self_cache, "cross": cache["cross"]}
 

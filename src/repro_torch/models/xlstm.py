@@ -21,7 +21,9 @@ space with -inf and start the stabilizer at -1e30, as the reference does.
 sLSTM keeps per-unit scalar state (c, n, m) and is sequential: a Python
 loop over time, the state in float32. Its ``constrain`` hook holds the
 gate buffer to a sharding (``transformer.constrain_act``, a DTensor
-redistribution); on one device it changes nothing.
+redistribution); on one device it changes nothing. The dry run's analyzer
+counts one step of the loop S times (``_SLSTMTrace``) instead of tracing
+S steps on ``meta`` tensors.
 
 The bf16 defaults of the reference are kept: ``w_if`` is a float32
 parameter but its product runs in ``dense_apply``'s default bf16, and so
@@ -40,6 +42,7 @@ from torch import nn
 from repro_torch import prng
 from repro_torch.dist import sharding
 from repro_torch.models import common
+from repro_torch.roofline import trace_analyzer
 
 MLSTM_CHUNK = 256
 _M0 = -1e30          # the stabilizer's start
@@ -337,18 +340,104 @@ def slstm_block_seq(p: SLSTM, x: torch.Tensor, compute_dtype=torch.bfloat16,
     return out
 
 
+def _recurrent(r_w: torch.Tensor) -> SimpleNamespace:
+    """The cell's view of an ``SLSTM``: its recurrent weight alone."""
+    return SimpleNamespace(r_gates=SimpleNamespace(w=r_w, b=None))
+
+
 def _slstm_loop(gates: torch.Tensor, r_w: torch.Tensor):
     """The sLSTM recurrence over gates (B, S, 4d) with recurrent weight
-    ``r_w``: (h over time (B, S, d), and the final h, c, n, m)."""
+    ``r_w``: (h over time (B, S, d), and the final h, c, n, m). Traced on
+    ``meta`` tensors under ``roofline.trace_analyzer``, one step stands for
+    all S (``_SLSTMTrace``)."""
+    if gates.device.type == "meta":
+        analyzer = trace_analyzer.current()
+        if analyzer is not None:
+            return _SLSTMTrace.apply(gates, r_w, analyzer)
     B, S, d4 = gates.shape
-    p = SimpleNamespace(r_gates=SimpleNamespace(w=r_w, b=None))
+    p = _recurrent(r_w)
     st = slstm_cache_init(B, d4 // 4, gates.device)
     h, state = st["h"], (st["c"], st["n"], st["m"])
     hs = []
-    for t in range(S):
-        h, state = _slstm_cell(p, gates[:, t], h, state)
+    for g in gates.unbind(1):
+        h, state = _slstm_cell(p, g, h, state)
         hs.append(h)
     return (torch.stack(hs, dim=1), h) + tuple(state)
+
+
+class _SLSTMTrace(torch.autograd.Function):
+    """``_slstm_loop`` as the dry run counts it, the counterpart of the
+    HLO analyzer's trip count: one time step traced and counted S times
+    (``TraceAnalyzer.scaled``), in the forward and in the backward; what
+    the loop runs once (the state's init, the stack of h, the stack of the
+    gates' gradient) counted once. Shapes and dtypes are the loop's; on
+    ``meta`` tensors there are no values to compute. Under autograd it
+    holds S times the bytes a step saves for the backward, as the loop
+    does. The backward counts a middle step: the gradients it receives
+    from the next step, added to h's from the stack, and the recurrent
+    weight's gradient accumulated. The first and last steps do a little
+    less (no gradient for the initial state, none from a step after the
+    last), so the loop run step by step counts a few ops fewer, a number
+    that does not grow with S."""
+
+    @staticmethod
+    def forward(ctx, gates, r_w, analyzer):
+        B, S, d4 = gates.shape
+        st = slstm_cache_init(B, d4 // 4, gates.device)
+        with analyzer.scaled(S):
+            h, state = _slstm_cell(_recurrent(r_w), gates[:, 0], st["h"],
+                                   (st["c"], st["n"], st["m"]))
+        ctx.analyzer = analyzer
+        ctx.set_materialize_grads(False)
+        saved = ()
+        if any(ctx.needs_input_grad[:2]):
+            with analyzer.scaled(0):
+                nbytes = _step_graph(gates, r_w)[2]
+            saved = (torch.empty(S * nbytes, dtype=torch.uint8,
+                                 device=gates.device),)
+        ctx.save_for_backward(gates, r_w, *saved)
+        return (torch.stack([h] * S, dim=1), h) + tuple(state)
+
+    @staticmethod
+    def backward(ctx, g_hseq, *g_final):
+        gates, r_w = ctx.saved_tensors[:2]
+        S = gates.shape[1]
+        analyzer = ctx.analyzer
+        with torch.enable_grad():
+            with analyzer.scaled(0):        # one step's graph, uncounted
+                leaves, outs, _ = _step_graph(gates, r_w)
+                nxt = [torch.empty_like(o) for o in outs]
+            with analyzer.scaled(S):
+                if g_hseq is not None:
+                    nxt[0] = g_hseq[:, 0] + nxt[0]
+                grads = torch.autograd.grad(outs, leaves, nxt)
+                d_w = torch.empty_like(r_w) + grads[1]
+        return torch.stack([grads[0]] * S, dim=1), d_w, None
+
+
+def _step_graph(gates, r_w):
+    """One sLSTM step under autograd on leaves: the gates' first step,
+    ``r_w`` and an empty state (h, c, n, m). Returns (the leaves, the
+    step's h, c, n, m, the bytes of the tensors it saves for its backward
+    that it allocates)."""
+    B, _, d4 = gates.shape
+    state0 = [torch.empty((B, d4 // 4), device=gates.device)
+              for _ in range(4)]
+    leaves = [t.detach().requires_grad_()
+              for t in [gates[:, 0], r_w] + state0]
+    inputs = {t.untyped_storage()._cdata for t in leaves}
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st._cdata not in inputs:
+            saved[st._cdata] = st.nbytes()
+        return t
+    g_t, w, h0, c0, n0, m0 = leaves
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+            pack, lambda t: t):
+        h, state = _slstm_cell(_recurrent(w), g_t, h0, (c0, n0, m0))
+    return leaves, (h,) + tuple(state), sum(saved.values())
 
 
 def slstm_block_step(p: SLSTM, x_t: torch.Tensor, cache,

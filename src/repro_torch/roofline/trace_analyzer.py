@@ -30,6 +30,13 @@ the plain route's S^2 scores, and the remat tag
 (``models.transformer.attn_out``) counts nothing, as ``checkpoint_name``
 is no op in HLO.
 
+A loop whose steps are alike can be traced once and counted as many
+times as it runs, as the HLO analyzer multiplies a while loop's body by
+its trip count: ``TraceAnalyzer.scaled(n)`` multiplies every op counted
+under it by n (0 counts nothing), and ``current()`` finds the analyzer a
+model is traced under (the sLSTM's time loop on ``meta`` tensors,
+``models.xlstm``).
+
 On the CPU, ``models.common._mm_f32`` upcasts bf16 operands to float32 and
 multiplies those; on the card (and on ``meta`` tensors, which trace the
 card's route) it is one bf16 GEMM with a float32 output
@@ -37,12 +44,14 @@ card's route) it is one bf16 GEMM with a float32 output
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (
+    TorchDispatchMode, _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.roofline import analysis
@@ -176,6 +185,17 @@ class TraceAnalyzer(TorchDispatchMode):
         super().__init__()
         self.cost = Cost()
         self.axis_of_group = dict(axis_of_group or {})
+        self.scale = 1
+
+    @contextlib.contextmanager
+    def scaled(self, n: int):
+        """Count each op run inside n times (nested: the product)."""
+        outer = self.scale
+        self.scale = outer * n
+        try:
+            yield
+        finally:
+            self.scale = outer
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -192,17 +212,35 @@ class TraceAnalyzer(TorchDispatchMode):
         if name.endswith("_"):
             name = name[:-1]                # in place: as its functional op
         c = self.cost
-        if name in _VIEWS:
+        if name in _VIEWS or self.scale == 0:
             return
-        c.ops += 1
+        n = self.scale
+        c.ops += n
         flops0, bytes0 = c.flops, c.bytes
+        coll0, ncoll0 = c.coll_bytes, len(c.collectives)
         try:
             self._count_op(func, name, args, kwargs, out)
         finally:
+            if n != 1:
+                self._repeat(n - 1, c.flops - flops0, c.bytes - bytes0,
+                             c.coll_bytes - coll0, c.collectives[ncoll0:])
             row = c.by_op.setdefault(name, [0, 0.0, 0.0])
-            row[0] += 1
+            row[0] += n
             row[1] += c.flops - flops0
             row[2] += c.bytes - bytes0
+
+    def _repeat(self, k, flops, nbytes, coll_bytes, collectives) -> None:
+        """Count an op's ``flops``, ``nbytes`` and ``collectives`` k more
+        times."""
+        c = self.cost
+        c.flops += k * flops
+        c.bytes += k * nbytes
+        c.coll_bytes += k * coll_bytes
+        for op, b, axis in collectives:
+            c.coll_by_op[op] += k * b
+            if axis is not None:
+                c.coll_by_axis[axis] += k * b
+        c.collectives.extend(list(collectives) * k)
 
     def _count_op(self, func, name, args, kwargs, out) -> None:
         c = self.cost
@@ -259,6 +297,14 @@ class TraceAnalyzer(TorchDispatchMode):
 def _is_dtensor(types) -> bool:
     from torch.distributed.tensor import DTensor
     return any(issubclass(t, DTensor) for t in types)
+
+
+def current() -> Optional[TraceAnalyzer]:
+    """The innermost active ``TraceAnalyzer``, or None."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, TraceAnalyzer):
+            return mode
+    return None
 
 
 def axes_of_mesh(mesh) -> Dict[str, str]:

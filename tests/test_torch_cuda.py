@@ -945,15 +945,16 @@ def test_tap_pair_summary_on_the_card_matches_the_cpu(card):
 # the LM stack on the card
 # ---------------------------------------------------------------------------
 
-def _lm(name, device, cd="float32"):
+def _lm(name, device, cd="float32", **overrides):
     """A reduced arch at head width 32 (a width flash_attention.cu
-    compiles), its parameters from PRNGKey(0) drawn on the CPU and moved
-    to ``device``."""
+    compiles) unless ``overrides`` say otherwise, its parameters from
+    PRNGKey(0) drawn on the CPU and moved to ``device``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build
-    cfg = dataclasses.replace(get_config(name).reduced(), head_dim=32,
-                              compute_dtype=cd)
+    cfg = dataclasses.replace(get_config(name).reduced(),
+                              **dict(dict(head_dim=32, compute_dtype=cd),
+                                     **overrides))
     params = build(cfg, device="cpu").init_params(prng.PRNGKey(0))
     return build(cfg, device=device), params.to(device)
 
@@ -1012,14 +1013,22 @@ def test_lm_on_the_card_matches_the_cpu(card, cd):
         torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=LM_TOL[cd])
 
 
+#: the reduced configs' head layout where the route test needs the full
+#: arch's: starcoder2-15b's GQA 12:1, phi3-mini-3.8b's head width 96
+ROUTE_OVERRIDES = {"starcoder2-15b": dict(n_heads=12, n_kv_heads=1),
+                   "phi3-mini-3.8b": dict(head_dim=96)}
+
+
 @pytest.mark.parametrize("name,flash,plain", [
     ("granite-3-8b", 2, 0),          # causal self-attention
     ("whisper-small", 2, 4),         # decoder flash; enc x2, cross x2 plain
     ("llama-3.2-vision-11b", 8, 2),  # (attn x4, xattn) x 2
+    ("starcoder2-15b", 2, 0),        # GQA 12:1 on the kernel
+    ("phi3-mini-3.8b", 0, 2),        # Dh 96: not a width the kernel compiles
 ])
 def test_attention_routes_on_the_card(card, name, flash, plain):
     from repro_torch.models import attention as attn
-    m, p = _lm(name, card)
+    m, p = _lm(name, card, **ROUTE_OVERRIDES.get(name, {}))
     attn.reset_route_counts()
     before = ops.LAUNCHES["flash_attention"]
     with torch.inference_mode():

@@ -70,7 +70,8 @@ def test_engine_matches_stepwise_argmax():
 
 @pytest.mark.parametrize("name", ["phi3-mini-3.8b", "whisper-small",
                                   "llama-3.2-vision-11b",
-                                  "moonshot-v1-16b-a3b", "recurrentgemma-9b"])
+                                  "moonshot-v1-16b-a3b", "recurrentgemma-9b",
+                                  "starcoder2-15b"])
 def test_greedy_tokens_equal_the_jax_engine(name):
     with jax.threefry_partitionable(False):
         jcfg = _f32(name, jax_get_config)
@@ -91,6 +92,23 @@ def test_greedy_tokens_equal_the_jax_engine(name):
     got = Engine(m, params, ServeConfig(max_new_tokens=6)).generate(
         {k: convert.tensor_from_numpy(np.asarray(v)) for k, v in batch.items()})
     assert np.array_equal(got.numpy(), want), (got.numpy(), want)
+
+
+@pytest.mark.parametrize("name,plain", [
+    ("llama-3.2-vision-11b", 8 + 2),      # (attn x4, xattn) x 2
+    ("whisper-small", 2 + 2 + 2)])        # decoder, encoder, cross
+def test_decode_counts_no_attention_route(name, plain):
+    """``attention.ROUTES`` counts a prefill's calls: a request's decode
+    steps, cross-attention to the cached context included, count none (on
+    the CPU every call takes the plain route)."""
+    from repro_torch.models import attention as attn
+    m = build(get_config(name).reduced(), device="cpu")
+    params = m.init_params(prng.PRNGKey(0))
+    batch = launch_serve.prompt_batch(m, 2, 8, seed=1)
+    attn.reset_route_counts()
+    out = Engine(m, params, ServeConfig(max_new_tokens=4)).generate(batch)
+    assert tuple(out.shape) == (2, 12)
+    assert attn.ROUTES == {"flash": 0, "plain": plain}
 
 
 @pytest.mark.parametrize("shape", [(2, 512), (3, 49408)])
