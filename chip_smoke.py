@@ -231,13 +231,40 @@ fails; nothing is caught:
     llama's first cross-attention layer and whisper's first encoder
     layer, each within ``LM_LAYER_TOL``; the stub inputs drawn from the
     seed for the checks; each request's bounds; ``lm <arch> ...`` lines;
-23. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+23. the examples on the card: the twins of the five ``examples/*.py``
+    (``examples/*_torch.py``) called in process through their ``main`` on
+    ``cuda`` at the originals' defaults, each with its launches (counters
+    set to 0 before and read after each) and wall time:
+    ``quickstart_torch`` (d = 20,000, n = 400; its spectral errors within
+    ``EXAMPLE_ERR_RTOL`` of the same twin on the CPU, SMP-PCA's at or
+    above the optimal, at least one ``sampled_rescaled_dot`` launch);
+    ``streaming_cooccurrence_torch`` (the restored checkpoint equal to the
+    saved state bit for bit, the summary within ``SKETCH_TOL`` and the
+    spectral error within ``EXAMPLE_ERR_RTOL`` of the CPU run, launches of
+    ``sketch_fused`` and ``sampled_rescaled_dot``);
+    ``gradient_compression_torch`` (``EXAMPLE_GC_STEPS`` = 30 steps of
+    each mode, the one cut: every loss falls, the three first losses
+    within ``EXAMPLE_FIRST_LOSS_TOL``, the taps launch both kernels); ``train_lm_torch`` (300 steps into a fresh
+    checkpoint directory: the loss falls, checkpoints at 100, 200 and
+    300); ``serve_lm_torch`` for each of the ten archs (reduced: (4, 64)
+    tokens in the vocabulary; the default arch with ``--sketch-demo``:
+    2,048 rows, U and V (96, 4)); each twin's every ``sketch_fused`` and
+    ``sampled_rescaled_dot`` call, copied at the call, held against the
+    plain version on its own inputs afterwards (``example held ...``
+    lines; their errors go into the kernels line), and no other kernel
+    launched; the Trainers run with ``max_retries=0``; then ``python
+    examples/quickstart_torch.py`` with no arguments as a subprocess;
+    ``example ...`` and ``examples phase`` lines;
+24. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
+import importlib.util
+import io
 import json
 import math
 import os
@@ -525,6 +552,26 @@ TRAIN_PROBE = ("embed.table", "head.w", "final_norm.scale") + tuple(
 # place of its recompute: equal in exact arithmetic; held to 1e-6 of each
 # probe's largest entry
 REMAT_GRAD_TOL = 1e-6
+# Phase 23, the examples' twins (examples/*_torch.py) at the originals'
+# defaults. Card against the same twin on the CPU (same keys; float32 sums
+# in other orders, WAltMin's atomic adds): the spectral errors within 1e-3
+# relative; the stream's sketches within SKETCH_TOL a column, its norms
+# within SKETCH_TOL relative. gradient_compression's three modes start from
+# one initialisation on one batch: their first losses within 1e-4.
+EXAMPLE_ERR_RTOL = 1e-3
+EXAMPLE_FIRST_LOSS_TOL = 1e-4
+# gradient_compression_torch's --steps: its default 60 took 78.9 s of a
+# 151.4 s phase (NVIDIA H100 80GB HBM3, 700 W; lowrank 54.0 s, host-bound);
+# 30 keep the phase near 120 s, and every mode's loss still falls (on the
+# CPU lowrank goes from 6.693 to 6.442 in 30 steps). The cut is here and
+# not on train_lm's 300 host-bound steps, whose check names its checkpoints
+# at 100, 200 and 300; the 30 steps repeat the 60's shapes, and each of
+# their launches is held against the plain version.
+EXAMPLE_GC_STEPS = 30
+# the examples' default arch, run once with --sketch-demo
+EXAMPLE_SERVE_DEMO_ARCH = "phi3-mini-3.8b"
+# the bare `python examples/quickstart_torch.py` (about 20 s on an H100)
+EXAMPLE_SUBPROCESS_TIMEOUT = 300
 # granite-3-8b's attention (src/repro/configs/granite_3_8b.py: 32 heads, 8
 # KV heads, d_model 4096) and the sequence lengths of prefill_32k and
 # train_4k (src/repro/configs/shapes.py).
@@ -850,20 +897,30 @@ def sampled_check(ops, As, Bs, na, nb, rows, cols, label):
 
 
 @contextlib.contextmanager
-def recording(ops, *names, limit=None):
+def recording(ops, *names, limit=None, copy=False):
     """Keep each call of the named ``ops`` wrappers made while the block
     runs (the first ``limit`` of each, when given), as (arguments,
     keywords, result), so that a path's own launches can be held against
-    the plain versions afterwards. The wrappers run and count their
-    launches as before."""
+    the plain versions afterwards. With ``copy``, the tensors are kept as
+    copies made at the call, for a path that may later change its inputs
+    or results in place. The wrappers run and count their launches as
+    before."""
     calls = {name: [] for name in names}
     saved = {name: getattr(ops, name) for name in names}
+
+    def kept(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(kept(v) for v in x)
+        return x
 
     def keep(name, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
             if limit is None or len(calls[name]) < limit:
-                calls[name].append((args, kw, out))
+                calls[name].append((kept(args), kw, kept(out)) if copy
+                                   else (args, kw, out))
             return out
         return call
     for name in names:
@@ -3602,6 +3659,289 @@ def archs_phase(ops, seed, dev, card):
     return launches, err
 
 
+def load_example(stem: str):
+    """``examples/<stem>.py`` as a module (its ``main`` guarded, not run)."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{stem}", os.path.join(ROOT, "examples", f"{stem}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quiet(fn):
+    """fn() with its printed lines dropped (the CPU reference runs, the
+    holds)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+# the kernels the twins launch; every call of them in a twin's card run is
+# held against the plain version on its own inputs
+EXAMPLE_HELD = ("sketch_fused", "sampled_rescaled_dot")
+
+
+def counted(ops, fn, label):
+    """(fn(), its kernel launches, its wall seconds to a synchronize, the
+    largest abs err of each held kernel): the launch counters set to 0
+    just before the call and read just after. Every call of
+    ``EXAMPLE_HELD`` in the run is kept, copied at the call (inside the
+    wall time), and held afterwards on its own inputs by ``held_sketch``
+    and ``held_sampled``, with one line for the run in place of theirs."""
+    ops.reset_launch_counts()
+    with recording(ops, *EXAMPLE_HELD, copy=True) as calls:
+        out, ms = timed(fn)
+    launches = dict(ops.LAUNCHES)
+    check(all(n == 0 for name, n in launches.items()
+              if name not in EXAMPLE_HELD),
+          f"{label}: no kernel launched but {EXAMPLE_HELD}: {launches}")
+    err = quiet(lambda: {
+        "sketch_fused": held_sketch(ops, calls["sketch_fused"], label),
+        "sampled_rescaled_dot": held_sampled(
+            ops, calls["sampled_rescaled_dot"], label)})
+    # the largest output entry beside each max abs err: its scale
+    largest = {name: max((float(y.abs().max()) for _, _, res in calls[name]
+                          for y in [res[0] if isinstance(res, tuple) else res]
+                          if y.numel()), default=0.0)
+               for name in EXAMPLE_HELD}
+    print(f"example held {label}: " + json.dumps({
+        name: dict(launches=launches[name], held=len(calls[name]),
+                   max_abs_err=err[name], largest=largest[name])
+        for name in EXAMPLE_HELD}), flush=True)
+    return out, launches, ms / 1e3, err
+
+
+def merged(*errs) -> dict:
+    """The largest of each held kernel's errors."""
+    return {name: max((e[name] for e in errs), default=0.0)
+            for name in EXAMPLE_HELD}
+
+
+def no_retries(mod) -> None:
+    """A loaded twin's ``Trainer`` without retries: a step that fails
+    raises and ends the script instead of restarting from a checkpoint."""
+    mod.TrainerConfig = functools.partial(mod.TrainerConfig, max_retries=0)
+
+
+def on_card(tag: str, *tensors) -> None:
+    check(all(t.device.type == "cuda" for t in tensors),
+          f"{tag}: the results lie on the card")
+
+
+def example_quickstart(ops, card):
+    """quickstart_torch on the card, against its CPU run. Returns the card
+    run's result and launches."""
+    qs = load_example("quickstart_torch")
+    got, launches, wall, err = counted(
+        ops, lambda: qs.main(["--device", "cuda"]), "quickstart")
+    t0 = time.perf_counter()
+    cpu = quiet(lambda: qs.main(["--device", "cpu"]))
+    cpu_s = time.perf_counter() - t0
+    on_card("quickstart", got["result"].factors.U, got["estimate"].factors.U,
+            got["summary"].A_sketch)
+    check(all(math.isfinite(got[name]) for name in ("err", "opt", "err_svd"))
+          and got["err"] >= got["opt"],
+          f"quickstart: finite errors, SMP-PCA's {got['err']} at or above "
+          f"the optimal {got['opt']}")
+    rel = {name: abs(got[name] - cpu[name]) / cpu[name]
+           for name in ("err", "opt", "err_svd")}
+    check(max(rel.values()) <= EXAMPLE_ERR_RTOL,
+          f"quickstart: card errors within {EXAMPLE_ERR_RTOL} of the CPU's: "
+          f"{rel}")
+    check(launches["sampled_rescaled_dot"] >= 1,
+          f"quickstart launched sampled_rescaled_dot: {launches}")
+    print(f"example quickstart [{card}] " + json.dumps(dict(
+        wall_s=wall, cpu_wall_s=cpu_s, launches=launches,
+        err=got["err"], opt=got["opt"], err_svd=got["err_svd"],
+        cpu_err=cpu["err"], cpu_opt=cpu["opt"], cpu_err_svd=cpu["err_svd"],
+        rel_to_cpu=rel)), flush=True)
+    return got, launches, wall, err
+
+
+def example_quickstart_bare(card, card_err):
+    """``PYTHONPATH=src python examples/quickstart_torch.py``, no
+    arguments: the bare command line on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join("examples", "quickstart_torch.py")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH="src"),
+        capture_output=True, text=True, timeout=EXAMPLE_SUBPROCESS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bare quickstart_torch.py exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    check(len(lines) == 6 and lines[2].startswith("SMP-PCA spectral error"),
+          f"bare quickstart_torch.py printed the quickstart's lines: {lines}")
+    err, opt = (float(line.split(":")[1]) for line in lines[2:4])
+    check(math.isfinite(err) and err >= opt
+          and abs(err - card_err) <= EXAMPLE_ERR_RTOL * card_err + 5e-5,
+          f"bare quickstart_torch.py: error {err} (optimal {opt}) against "
+          f"the in-process card run's {card_err}")
+    print(f"example quickstart bare [{card}] " + json.dumps(dict(
+        wall_s=wall, lines=lines)), flush=True)
+    return wall
+
+
+def example_streaming(ops, card):
+    """streaming_cooccurrence_torch on the card, against its CPU run."""
+    st = load_example("streaming_cooccurrence_torch")
+    got, launches, wall, err = counted(
+        ops, lambda: st.main(["--device", "cuda"]), "streaming")
+    cpu = quiet(lambda: st.main(["--device", "cpu"]))
+    saved, restored = got["checkpointed"]
+    check(all((x is None) == (y is None) and (x is None or (
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)))
+        for x, y in zip(saved, restored)),
+        "streaming: the restored state equals the saved one bit for bit")
+    summary = got["summary"]
+    on_card("streaming", summary.A_sketch, got["result"].factors.U)
+    errs = {name: column_err(getattr(summary, name).cpu(),
+                             getattr(cpu["summary"], name))
+            for name in ("A_sketch", "B_sketch")}
+    errs.update({name: column_err(getattr(summary, name).cpu()[None],
+                                  getattr(cpu["summary"], name)[None])
+                 for name in ("norm_A", "norm_B")})
+    check(max(errs.values()) <= SKETCH_TOL,
+          f"streaming: the card's summary within {SKETCH_TOL} of the CPU's: "
+          f"{errs}")
+    rel = {name: abs(got[name] - cpu[name]) / cpu[name]
+           for name in ("err", "opt")}
+    check(rel["err"] <= EXAMPLE_ERR_RTOL,
+          f"streaming: spectral error within {EXAMPLE_ERR_RTOL} of the "
+          f"CPU's: {rel}")
+    check(launches["sketch_fused"] >= 1
+          and launches["sampled_rescaled_dot"] >= 1,
+          f"streaming launched sketch_fused and sampled_rescaled_dot: "
+          f"{launches}")
+    print(f"example streaming_cooccurrence [{card}] " + json.dumps(dict(
+        wall_s=wall, launches=launches, err=got["err"], opt=got["opt"],
+        cpu_err=cpu["err"], cpu_opt=cpu["opt"], rel_to_cpu=rel,
+        summary_err=errs)), flush=True)
+    return launches, wall, err
+
+
+def example_gradient_compression(ops, card):
+    """gradient_compression_torch's main on the card, its ``run`` wrapped
+    to count, time and hold each mode's launches."""
+    gc = load_example("gradient_compression_torch")
+    no_retries(gc)
+    real_run, modes, errs = gc.run, {}, []
+
+    def run(mode, steps, device):
+        curve, launches, wall, err = counted(
+            ops, lambda: real_run(mode, steps, device),
+            f"gradient_compression {mode}")
+        modes[mode] = dict(steps=len(curve), first=curve[0], last=curve[-1],
+                           launches=launches, wall_s=wall)
+        errs.append(err)
+        return curve
+
+    gc.run = run
+    t0 = time.perf_counter()
+    curves = gc.main(["--steps", str(EXAMPLE_GC_STEPS), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    firsts = [c[0] for c in curves.values()]
+    check(all(rec["steps"] == EXAMPLE_GC_STEPS and rec["last"] < rec["first"]
+              for rec in modes.values()) and len(modes) == 3,
+          f"gradient_compression: each mode's loss falls over "
+          f"{EXAMPLE_GC_STEPS} steps: {modes}")
+    check(max(firsts) - min(firsts) <= EXAMPLE_FIRST_LOSS_TOL,
+          f"gradient_compression: first losses within "
+          f"{EXAMPLE_FIRST_LOSS_TOL}: {firsts}")
+    taps = modes["taps"]["launches"]
+    check(taps["sketch_fused"] >= 1 and taps["sampled_rescaled_dot"] >= 1,
+          f"gradient_compression: taps launched sketch_fused and "
+          f"sampled_rescaled_dot: {taps}")
+    launches = {name: sum(rec["launches"][name] for rec in modes.values())
+                for name in ops.LAUNCHES}
+    print(f"example gradient_compression [{card}] " + json.dumps(dict(
+        wall_s=wall, modes=modes)), flush=True)
+    return launches, wall, merged(*errs)
+
+
+def example_train_lm(ops, card):
+    """train_lm_torch on the card into a fresh checkpoint directory."""
+    tl = load_example("train_lm_torch")
+    no_retries(tl)
+    with tempfile.TemporaryDirectory() as ckpt:
+        out, launches, wall, err = counted(
+            ops, lambda: tl.main(["--device", "cuda", "--ckpt-dir", ckpt]),
+            "train_lm")
+        on_disk = sorted(int(name[5:]) for name in os.listdir(ckpt)
+                         if re.fullmatch(r"step_\d+", name))
+    check(out["steps"] == 300 and out["loss_last"] < out["loss_first"]
+          and {100, 200, 300} <= set(on_disk),
+          f"train_lm: 300 steps, the loss falls, checkpoints at 100, 200 "
+          f"and 300: {out}, {on_disk}")
+    print(f"example train_lm [{card}] " + json.dumps(dict(
+        wall_s=wall, launches=launches, checkpoints=on_disk, **out)),
+        flush=True)
+    return launches, wall, err
+
+
+def example_serve_lm(ops, card):
+    """serve_lm_torch on the card for every arch at the original's
+    defaults, the default arch with --sketch-demo."""
+    from repro_torch.configs import get_config, list_archs
+    sv = load_example("serve_lm_torch")
+    launches = {name: 0 for name in ops.LAUNCHES}
+    archs, errs, t0 = {}, [], time.perf_counter()
+    for arch in list_archs():
+        demo = arch == EXAMPLE_SERVE_DEMO_ARCH
+        argv = ["--arch", arch, "--device", "cuda"] + (
+            ["--sketch-demo"] if demo else [])
+        out, got, wall, err = counted(ops, lambda: sv.main(argv),
+                                      f"serve_lm {arch}")
+        errs.append(err)
+        tokens, vocab = out["tokens"], get_config(arch).reduced().vocab_size
+        on_card(f"serve_lm {arch}", tokens)
+        check(tuple(tokens.shape) == (4, 64)
+              and int(tokens.min()) >= 0 and int(tokens.max()) < vocab,
+              f"serve_lm {arch}: (4, 32 + 32) tokens in the vocabulary: "
+              f"{tuple(tokens.shape)}")
+        if demo:
+            est = out["sketch"]
+            on_card("serve_lm sketch session", est.factors.U)
+            check(out["sketch_rows"] == 2048
+                  and tuple(est.factors.U.shape) == (96, 4)
+                  and tuple(est.factors.V.shape) == (96, 4),
+                  f"serve_lm --sketch-demo: 2,048 rows, U and V (96, 4)")
+            check(got["sketch_fused"] >= 1
+                  and got["sampled_rescaled_dot"] >= 1,
+                  f"serve_lm --sketch-demo launched sketch_fused and "
+                  f"sampled_rescaled_dot: {got}")
+        archs[arch] = dict(wall_s=wall, launches=got)
+        for name in launches:
+            launches[name] += got[name]
+    wall = time.perf_counter() - t0
+    print(f"example serve_lm [{card}] " + json.dumps(dict(
+        wall_s=wall, archs=archs)), flush=True)
+    return launches, wall, merged(*errs)
+
+
+def examples_phase(ops, card):
+    """Phase 23: the five twins of examples/*.py on the card, in process,
+    then the bare quickstart command. Returns their launches and the
+    largest abs err of their held launches."""
+    t0 = time.perf_counter()
+    qs, qs_launches, qs_wall, qs_err = example_quickstart(ops, card)
+    walls, errs = {"quickstart": qs_wall}, [qs_err]
+    launches = dict(qs_launches)
+    for name, fn in (("streaming_cooccurrence", example_streaming),
+                     ("gradient_compression", example_gradient_compression),
+                     ("train_lm", example_train_lm),
+                     ("serve_lm", example_serve_lm)):
+        extra, walls[name], err = fn(ops, card)
+        errs.append(err)
+        for kernel in launches:
+            launches[kernel] += extra[kernel]
+    walls["quickstart_bare"] = example_quickstart_bare(card, qs["err"])
+    err = merged(*errs)
+    print(f"examples phase [{card}] " + json.dumps(dict(
+        walls, launches=launches, held_max_abs_err=err,
+        phase_s=time.perf_counter() - t0)), flush=True)
+    return launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4185,7 +4525,12 @@ def main(argv=None) -> int:
     launches_archs, err_archs = archs_phase(ops, args.seed, dev, card)
     err_flash = max(err_flash, err_archs)
 
-    # 23. the kernels line and the last line --------------------------------
+    # 23. the examples' twins on the card -----------------------------------
+    launches_examples, err_examples = examples_phase(ops, card)
+    err_sketch = max(err_sketch, err_examples["sketch_fused"])
+    err_sampled = max(err_sampled, err_examples["sampled_rescaled_dot"])
+
+    # 24. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
             "blocked_fwht": err_fwht, "flash_attention": err_flash}
     # each kernel's launches on the paths that run it: the Gaussian path
@@ -4195,15 +4540,15 @@ def main(argv=None) -> int:
     # the stream session); then the distributed call and stream, both
     # ranks' sharded ingest, the gradient tap and the compressor, the LM
     # requests' prefills (granite's, then moonshot's), the training steps
-    # (the taps' sketches and their decompression), and phase 22's
-    # prefills (starcoder2's, llama's, whisper's)
+    # (the taps' sketches and their decompression), phase 22's prefills
+    # (starcoder2's, llama's, whisper's), and the examples' twins
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
     for extra in (launches_serve, launches_dist, launches_dist_stream,
                   launches_multihost, launches_taps, launches_comp,
                   launches_lm, launches_moe, launches_train,
-                  launches_archs):
+                  launches_archs, launches_examples):
         for name in path_launches:
             path_launches[name] += extra[name]
     kernels = []

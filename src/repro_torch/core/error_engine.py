@@ -143,6 +143,25 @@ def estimate_error(summary: SketchSummary, factors: LowRankFactors, *,
     mean, the interval a normal approximation over the p samples (sample
     std, ddof=1; one probe gives [0, inf)), and the spectral proxy ``max_j
     ||R w_j|| / ||w_j||`` a lower-bound estimator of ``||R||_2``.
+
+    >>> import torch
+    >>> from repro_torch import prng
+    >>> from repro_torch.core.summary_engine import build_summary
+    >>> from repro_torch.core.estimation_engine import estimate_product
+    >>> key = prng.PRNGKey(0)
+    >>> A = prng.normal(key, (256, 20))
+    >>> B = prng.normal(prng.fold_in(key, 1), (256, 16))
+    >>> s = build_summary(key, A, B, 64, probes=16, device="cpu")
+    >>> tuple(s.probes.shape), tuple(s.probe_omega.shape)   # 16 probes
+    ((20, 16), (16, 16))
+    >>> res = estimate_product(prng.fold_in(key, 2), s, r=4, m=600, T=3,
+    ...                        device="cpu")
+    >>> err = estimate_error(s, res.factors)
+    >>> true = float(torch.linalg.norm(A.T @ B - res.factors.dense()))
+    >>> bool(0.5 * true < float(err.frob_est) < 2.0 * true)
+    True
+    >>> bool(err.frob_lo <= err.frob_est <= err.frob_hi)
+    True
     """
     _require_probes(summary)
     probes, omega = summary.probes, summary.probe_omega
@@ -227,7 +246,26 @@ def adaptive_rank(summary: SketchSummary, tol: float,
     dent its monotonicity near the noise floor); when no rank within
     ``r_max`` meets ``tol`` the result is ``r_max``. ``refine`` gates on
     the Tropp-refined reconstruction (needs a co-sketch; candidate ranks are
-    then capped by the co-sketch width)."""
+    then capped by the co-sketch width).
+
+    >>> import torch
+    >>> from repro_torch import prng
+    >>> from repro_torch.core.summary_engine import build_summary
+    >>> key = prng.PRNGKey(0)
+    >>> W, _ = torch.linalg.qr(prng.normal(key, (512, 12)))
+    >>> M = (prng.normal(prng.fold_in(key, 1), (12, 10))
+    ...      * torch.tensor([10.0, 6.0, 0.1, 0.05, 0.02, 0.01, 0.005, 0.002,
+    ...                      0.001, 0.0005])[None, :])
+    >>> A, B = W, W @ M              # A^T B == M: rank ~2 + tiny tail
+    >>> res = adaptive_rank(build_summary(key, A, B, 128, probes=24,
+    ...                                   device="cpu"), tol=0.3, r_max=8)
+    >>> (res.r, tuple(res.factors.U.shape), tuple(res.curve.shape))
+    (2, (12, 2), (8,))
+    >>> bool(res.error.rel_est <= 0.3)       # the chosen rank meets the gate
+    True
+    >>> bool(res.curve[res.r - 2] > 0.3)     # ... and is the smallest that does
+    True
+    """
     _require_probes(summary)
     q = min(summary.n1, summary.n2)
     if refine is not None:

@@ -241,6 +241,19 @@ def estimate_product(key: torch.Tensor, summary: SketchSummary, r: int, *,
     tuning:  a ``kernels.tuning.TuningSpec``: the cuda backend launches
              the gather kernel with its ``sampled_dot`` config, if pinned.
     device:  where to run; key, summary and exact_pair are moved there.
+
+    >>> from repro_torch import prng
+    >>> from repro_torch.core.summary_engine import build_summary
+    >>> key = prng.PRNGKey(0)
+    >>> A = prng.normal(key, (128, 12))
+    >>> B = prng.normal(prng.fold_in(key, 1), (128, 10))
+    >>> summary = build_summary(key, A, B, 32, device="cpu")  # step 1
+    >>> res = estimate_product(prng.fold_in(key, 2), summary, r=3,
+    ...                        m=400, T=2, device="cpu")      # steps 2-3
+    >>> (tuple(res.factors.U.shape), tuple(res.factors.V.shape))
+    ((12, 3), (10, 3))
+    >>> tuple(res.samples.rows.shape)                       # the Omega sample
+    (400,)
     """
     if method not in {cell[0] for cell in _REGISTRY}:
         raise ValueError(

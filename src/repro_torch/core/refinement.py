@@ -134,7 +134,19 @@ def attach_cosketch(summary: SketchSummary, key: torch.Tensor,
                     block: int = 1024,
                     precision: Optional[str] = None) -> SketchSummary:
     """Retain an s-column co-sketch on a summary: the stage
-    ``build_summary(..., cosketch=s)`` runs after any backend."""
+    ``build_summary(..., cosketch=s)`` runs after any backend.
+
+    >>> from repro_torch import prng
+    >>> key = prng.PRNGKey(0)
+    >>> A = prng.normal(key, (64, 6))
+    >>> B = prng.normal(prng.fold_in(key, 1), (64, 4))
+    >>> from repro_torch.core.summary_engine import build_summary
+    >>> s = build_summary(key, A, B, 8, cosketch=3, device="cpu")
+    >>> (tuple(s.cosketch_Y.shape), tuple(s.cosketch_W.shape))  # l = 2s + 1
+    ((6, 3), (7, 4))
+    >>> (tuple(s.cosketch_omega.shape), tuple(s.cosketch_psi.shape))
+    ((4, 3), (7, 6))
+    """
     omega = cosketch_omega(key, B.shape[-1], s)
     psi = cosketch_psi(key, A.shape[-1], s)
     Y, W = cosketch_pass(omega, psi, A, B, block=block, precision=precision)
@@ -190,7 +202,20 @@ def refined_svd(summary: SketchSummary, refine: RefineSpec, r_max: int
 
 def refine_factors(summary: SketchSummary, r: int,
                    refine: RefineSpec) -> LowRankFactors:
-    """Rank-r factors of A^T B from the refined reconstruction."""
+    """Rank-r factors of A^T B from the refined reconstruction.
+
+    >>> import torch
+    >>> from repro_torch import prng
+    >>> from repro_torch.core.summary_engine import build_summary
+    >>> key = prng.PRNGKey(0)
+    >>> W0, _ = torch.linalg.qr(prng.normal(key, (256, 10)))
+    >>> M = prng.normal(prng.fold_in(key, 1), (10, 8))
+    >>> A, B = W0, W0 @ M                       # A^T B == M exactly
+    >>> s = build_summary(key, A, B, 32, cosketch=8, device="cpu")
+    >>> f = refine_factors(s, 3, RefineSpec(iters=1, method='power'))
+    >>> (tuple(f.U.shape), tuple(f.V.shape))
+    ((10, 3), (8, 3))
+    """
     require_cosketch(summary)
     U, sv, Vt = refined_svd(summary, refine, r)
     return LowRankFactors(U * sv, Vt.T)

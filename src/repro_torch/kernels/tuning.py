@@ -36,6 +36,9 @@ inherit the caller's precision. The kernel names are the JAX package's
 >>> all(tuning.smem_bytes(c, (8, 1024, 128)) <= tuning.SMEM_BUDGET_BYTES
 ...     for c in cands)
 True
+>>> best = tuning.rank_candidates("sketch_fused", (64, 1024, 256))[0]
+>>> best == tuning.rank_candidates("sketch_fused", (64, 1024, 256))[0]
+True
 """
 from __future__ import annotations
 
@@ -126,7 +129,15 @@ DEFAULTS: Dict[str, KernelConfig] = {
 
 class TuningSpec(NamedTuple):
     """A hashable bundle of per-kernel configs: at most one per kernel;
-    ``config_for`` returns it, or None (resolve through the table)."""
+    ``config_for`` returns it, or None (resolve through the table).
+
+    >>> from repro_torch.kernels.tuning import KernelConfig, TuningSpec
+    >>> ts = TuningSpec((KernelConfig("sketch_fused", (128, 64)),))
+    >>> ts.config_for("sketch_fused").block
+    (128, 64)
+    >>> ts.config_for("blocked_fwht") is None
+    True
+    """
 
     configs: Tuple[KernelConfig, ...] = ()
 
@@ -487,7 +498,17 @@ def table_key(kernel: str, shape: Tuple[int, ...],
 
 @dataclasses.dataclass
 class TuningTable:
-    """Persisted winners: ``{table_key: config dict}`` + provenance."""
+    """Persisted winners: ``{table_key: config dict}`` + provenance.
+
+    >>> from repro_torch.kernels.tuning import KernelConfig, TuningTable
+    >>> t = TuningTable(backend="cpu")
+    >>> t.put("sketch_fused", (64, 1000, 300),
+    ...       KernelConfig("sketch_fused", (128, 64)))
+    >>> t.get("sketch_fused", (64, 1024, 512)).block    # same pow2 bucket
+    (128, 64)
+    >>> t.get("sketch_fused", (64, 4096, 512)) is None  # unknown bucket
+    True
+    """
 
     backend: str = "any"
     version: int = TABLE_VERSION
