@@ -58,13 +58,17 @@ fails; nothing is caught:
    bf16 inputs; kernel 2 on both draws, with the time one B row a sample
    takes from L2 at the card's L2 read rate (``tools/kernel_probe.py``);
 7. the SRHT path (``method='srht'``) at the same full width, through
-   kernels 3 and 2: launch counts, peak memory, probe residual, per-stage
+   kernels 3 and 2: launch counts, every block-mode call in the cluster
+   form (``hadamard.BLOCK_FORMS``), peak memory, probe residual, per-stage
    times of a staged run, SRHT step 1 split into the plan and the block
    calls (CUDA events) with the memory it adds, beside the composition the
    block mode replaced, and card against CPU at the small size;
 8. the timing of kernel 3's block mode at its call shape (float32 and
-   bf16), beside its plain version, its bound, the full mode and the
-   composition it replaced;
+   bf16), beside its plain version, its bound, the bytes it moves and
+   their rate, its two-pass form in turns with its cluster form, the
+   cluster kernel's registers, shared memory and spills (``-Xptxas -v``)
+   and the clusters the card holds, the full mode and the composition it
+   replaced;
 9. the rest of the estimation engine at the same full width, on the same A
    and B: ``build_summary(..., backend='cuda', probes=16, cosketch=10)``
    (launches, time split into sketch, probes and co-sketch with CUDA
@@ -663,6 +667,25 @@ def flash_resources(lib) -> dict:
     return out
 
 
+def cluster_resources(lib, log_l1: int = 8, log_l2: int = 8) -> dict:
+    """Registers, static shared memory and spilled bytes of the block
+    mode's cluster-form kernel ``srht_cluster<float, log_l1, log_l2>``,
+    from the ``-Xptxas -v`` report kept beside the library."""
+    log = lib.with_name(lib.name + ".log").read_text()
+    out, inst = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inst = f"srht_clusterIfLi{log_l1}ELi{log_l2}E" in line
+        elif inst and "spill stores" in line:
+            out["spill_bytes"] = int(
+                re.search(r"(\d+) bytes spill stores", line)[1])
+        elif inst and "Used" in line:
+            out["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            out["static_smem_bytes"] = int(m[1]) if m else 0
+    return out
+
+
 def planted_pair(gen, d, n, device, decay=1.0, corr=0.3):
     """The paper's generator (tests/conftest.py::planted_pair): A = G D,
     B = A + corr * G' D with D_ii = 1/i^decay, drawn on ``device``."""
@@ -730,16 +753,21 @@ def srht_block_check(ops, X, signs, rows, dp, label):
     equal bit for bit, the norms within NORM_RTOL, and a second call equal
     to the first. Returns (the sketch's max abs err, the norms' max
     relative err)."""
+    fw = ops.KERNELS["blocked_fwht"]
+    form = fw.block_plan(X.shape[0], dp, X.dtype, rows.shape[0]).form
+    before = dict(fw.BLOCK_FORMS)
     got_s, got_n = ops.srht_block(X, signs, rows, d_pad=dp)
     again_s, again_n = ops.srht_block(X, signs, rows, d_pad=dp)
-    ref_s, ref_n = ops.KERNELS["blocked_fwht"].plain_block(X, signs, rows, dp)
+    check(fw.BLOCK_FORMS[form] == before[form] + 2,
+          f"srht_block {label}: two launches in the {form} form")
+    ref_s, ref_n = fw.plain_block(X, signs, rows, dp)
     torch.cuda.synchronize()
     err = float((got_s - ref_s).abs().max())
     rel = float(((got_n - ref_n).abs() / ref_n.clamp(min=1e-30)).max())
     equal = bool(torch.equal(got_s, ref_s))
     rerun = bool(torch.equal(got_s, again_s) and torch.equal(got_n, again_n))
     print(f"srht_block check {label} d={X.shape[0]} d_pad={dp} "
-          f"n={X.shape[1]} k={rows.shape[0]} "
+          f"n={X.shape[1]} k={rows.shape[0]} form={form} "
           f"{str(X.dtype).split('.')[-1]}: sketch equal={equal} "
           f"(max_abs_err={err:.3e}), norms max_rel_err={rel:.3e} (tol "
           f"{NORM_RTOL:.0e}), second call equal={rerun}", flush=True)
@@ -4254,6 +4282,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches_srht = dict(ops.LAUNCHES)
+    forms_srht = dict(ops.KERNELS["blocked_fwht"].BLOCK_FORMS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     blocks = -(-n // width)
     print(f"smppca srht d={d} (dp={dp}) n1=n2={n} k={k} r={r} m={m} T={T}: "
@@ -4263,6 +4292,10 @@ def main(argv=None) -> int:
     check(launches_srht == {"sketch_fused": 0, "sampled_rescaled_dot": 1,
                             "blocked_fwht": 2 * blocks, "flash_attention": 0},
           f"launches per smppca(method='srht') call: {launches_srht}")
+    print(f"smppca srht block forms {forms_srht}", flush=True)
+    check(forms_srht == {"cluster": 2 * blocks, "two_pass": 0},
+          f"every srht_block call of the SRHT path in the cluster form: "
+          f"{forms_srht}")
     check(peak_gb < SRHT_PEAK_GB_MAX, f"srht peak memory {peak_gb} GB")
     U, V = res.factors
     check(tuple(U.shape) == (n, r) and tuple(V.shape) == (n, r),
@@ -4292,6 +4325,18 @@ def main(argv=None) -> int:
     k3_ms, k3_plain = turns(
         lambda: fw.plain_block(X3, signs, plan_rows, dp),
         lambda: ops.srht_block(X3, signs, plan_rows, d_pad=dp), reps=3)
+    # the two-pass form at the same shape, in turns with the cluster form
+    from repro_torch.core.sketch import _sqrt_f32
+    lib3 = ops._library("blocked_fwht")
+    rdp, rdpk = float(_sqrt_f32(dp)), float(_sqrt_f32(dp / k))
+    s3, n3 = torch.empty((k, width), device=dev), torch.empty(width, device=dev)
+    rows32 = plan_rows.to(torch.int32)
+    k3_cluster, k3_two_pass = turns(
+        lambda: fw.launch_block(lib3, X3, signs, rows32, dp, rdp, rdpk, s3,
+                                n3, form="two_pass"),
+        lambda: fw.launch_block(lib3, X3, signs, rows32, dp, rdp, rdpk, s3,
+                                n3, form="cluster"), reps=3)
+    plan3 = fw.block_plan(d, dp, X3.dtype, k)
     X3b = X3.to(torch.bfloat16)
     ops.srht_block(X3b, signs, plan_rows, d_pad=dp)
     k3b_ms = cuda_ms(lambda: ops.srht_block(X3b, signs, plan_rows, d_pad=dp),
@@ -4312,10 +4357,24 @@ def main(argv=None) -> int:
                       PEAK_F32_FLOPS)[0]
     full_bound = bound(adds, 4.0 * (d * width + d + dp * width),
                        PEAK_F32_FLOPS)[0]
+    # the bytes the cluster form moves: those of the bound (it reads X
+    # once and keeps the intermediate on chip; the sampled-row indices it
+    # reads are k int32 a CTA, from L2)
+    k3_bytes = 4.0 * (d * width + d + k * width + width)
     # no single PyTorch call computes a Walsh-Hadamard transform
     timing["blocked_fwht"] = dict(kernel_ms=k3_ms, plain_ms=k3_plain,
                                   library_ms=None, bound_ms=k3_bound,
-                                  bound_by=k3_by, bf16_ms=k3b_ms,
+                                  bound_by=k3_by, form=plan3.form,
+                                  bytes_per_call=k3_bytes,
+                                  gbps=k3_bytes / k3_ms / 1e6,
+                                  cluster_turns_ms=k3_cluster,
+                                  two_pass_turns_ms=k3_two_pass,
+                                  cluster_smem_bytes=plan3.smem,
+                                  cluster_slots=fw.cluster_slots(
+                                      lib3, d, dp, X3.dtype, k),
+                                  ptxas=cluster_resources(
+                                      ops.library_path("blocked_fwht")),
+                                  bf16_ms=k3b_ms,
                                   bf16_bound_ms=k3b_bound, full_mode_ms=full_ms,
                                   full_mode_bound_ms=full_bound,
                                   composition_ms=comp_ms)

@@ -62,9 +62,11 @@ BACKENDS = ("reference", "scan", "rows", "cuda")
 
 # Columns per blocked_fwht call in the cuda backend's SRHT pass. The
 # transform acts on each column alone, so the pass never holds a padded or
-# transformed (dp, n) copy of A or B; on the card the kernel's block mode
-# holds one block's (dp, SRHT_COLUMN_BLOCK) float32 intermediate (2.1 GB at
-# dp = 65,536) and its float64 norm partials (16 MB).
+# transformed (dp, n) copy of A or B. On the card the kernel's block mode
+# keeps a block's intermediate in shared memory where dp takes two passes
+# (its cluster form: no scratch); at other shapes (its two-pass form) it
+# holds one block's (dp, SRHT_COLUMN_BLOCK) float32 intermediate and float64
+# norm partials in device memory.
 SRHT_COLUMN_BLOCK = 8192
 
 
@@ -280,7 +282,7 @@ def _srht_blocked(X: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
     ``ops.srht_block`` call per SRHT_COLUMN_BLOCK columns. On the card each
     call is one launch of the blocked FWHT's block mode: it writes only the
     k sampled rows of each transformed block, straight into the sketch, and
-    takes the norms from its first pass's read of X (its own order of
+    takes the norms from its read of X (its own order of
     sums, float64 beyond a thread's float32); on the CPU the plain
     composition (transform, row gather, rescale, ``column_norms``).
     ``configs`` holds one launch config per column block (None: each

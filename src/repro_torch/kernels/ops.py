@@ -65,9 +65,12 @@ _LIBS: dict = {}
 
 
 def reset_launch_counts() -> None:
-    """Set every launch counter to 0."""
+    """Set every launch counter to 0, and ``hadamard.BLOCK_FORMS`` (the
+    block mode's launches by form) with them."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for form in _hadamard.BLOCK_FORMS:
+        _hadamard.BLOCK_FORMS[form] = 0
 
 
 def _nvcc() -> str:
@@ -317,10 +320,12 @@ def srht_block(X: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
 
     X (d, n) float32 or bfloat16 as for ``blocked_fwht`` with ``d_pad``;
     rows (k,) integer, each in [0, d_pad). On the card one ``blocked_fwht``
-    launch: the kernel's block mode, which writes only the k rows (equal
-    bit for bit to the plain composition) and adds the norms into its first
-    pass (in its own order, float64 beyond a thread's float32 sum, so they
-    may differ from the plain float32 sums by float32 rounding)."""
+    launch: the kernel's block mode, in the form ``hadamard.block_plan``
+    picks (counted in ``hadamard.BLOCK_FORMS``), which writes only the k
+    rows (equal bit for bit to the plain composition) and adds the norms
+    from its read of X (in its own order, float64 beyond a thread's float32
+    sum, so they may differ from the plain float32 sums by float32
+    rounding)."""
     if X.ndim != 2 or signs.shape != (X.shape[0],) or rows.ndim != 1:
         raise ValueError(f"srht_block: X {tuple(X.shape)}, signs "
                          f"{tuple(signs.shape)} and rows "

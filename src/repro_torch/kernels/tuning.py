@@ -261,7 +261,8 @@ class RooflineCost:
 
 
 def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
-                  dtype_bytes: int = 4) -> RooflineCost:
+                  dtype_bytes: int = 4,
+                  srht: Optional[Tuple[int, int]] = None) -> RooflineCost:
     """The static model the ranking runs on: the bytes and FLOP of the
     kernel as its source does the work: the tensor-core passes of
     ``sketch_fused`` (three for float32 inputs, one for bf16) and of
@@ -272,9 +273,16 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
     (``sketch_fused``: one CTA; ``flash_attention``: its ptxas counts).
     ``flash_attention`` is modelled causal, as ``measure_config`` runs it:
     a q-tile works through the k-tiles up to its diagonal.
+    ``srht=(rows, k)`` prices ``blocked_fwht``'s SRHT block mode instead
+    of its full mode: X (rows, n) padded to the shape's d, k sampled rows,
+    in the form ``hadamard.block_plan`` picks. The cluster form reads X
+    once and writes the k rows and n norms (its intermediate stays on
+    chip, one CTA an SM); the two-pass form also writes its intermediate
+    and reads it back.
     """
     validate_config(cfg)
     ds = _itemsize(cfg.precision, dtype_bytes)
+    plan = None
     if cfg.kernel == "sketch_fused":
         k, d, n = shape
         bn = cfg.block[0]
@@ -286,12 +294,22 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
     elif cfg.kernel == "blocked_fwht":
         d, n = shape
         passes, radix = _fwht_radix(d, cfg.block[0])
-        # the full mode, which the tuner measures (the SRHT block mode
-        # shares its passes and CTAs): pass 1 reads X and writes float32;
-        # later passes read and write it
-        hbm = d * n * ds + 4 * d * n + 8 * d * n * (passes - 1) + 4 * d
         flops = float(d) * max(d - 1, 0).bit_length() * n
         ctas = (d // radix) * -(-n // cfg.block[1])
+        if srht is None:
+            # the full mode, which the tuner measures: pass 1 reads X and
+            # writes float32; later passes read and write it
+            hbm = d * n * ds + 4 * d * n + 8 * d * n * (passes - 1) + 4 * d
+        else:
+            rows, k = srht
+            plan = _hadamard.block_plan(
+                rows, d, torch.bfloat16 if ds == 2 else torch.float32, k)
+            # X and the signs read, the k rows and n norms written
+            hbm = rows * n * ds + 4 * rows + 4 * (k + 1) * n
+            if plan.form == "cluster":
+                ctas = plan.ctas * -(-n // plan.cols)
+            else:
+                hbm += 8 * rows * n * (passes - 1)
     elif cfg.kernel == "sampled_dot":
         n1, n2, k, m = shape
         cblock = _sampled_dot.column_block(k, ds, n2)
@@ -321,6 +339,9 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
             else PEAK_F32_FLOPS)
     per_sm = min(THREADS_PER_SM // _threads(cfg, shape),
                  SMEM_PER_SM // (smem_bytes(cfg, shape) + SMEM_RESERVED))
+    if plan is not None and plan.form == "cluster":
+        per_sm = min(THREADS_PER_SM // _hadamard.CLUSTER_THREADS,
+                     SMEM_PER_SM // (plan.smem + SMEM_RESERVED))
     if cfg.kernel == "sketch_fused":
         per_sm = min(per_sm, _sketch_fused.CTAS_PER_SM)
     elif cfg.kernel == "flash_attention":

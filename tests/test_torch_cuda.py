@@ -263,6 +263,87 @@ def test_srht_block_kernel_edges(card, d, d_pad, k):
     torch.testing.assert_close(got_n, want_n, rtol=1e-6, atol=0)
 
 
+def _cluster_edge(dtype, k=512) -> int:
+    """The largest d (a multiple of 256) whose strip fits the cluster form
+    at d_pad = 65,536 with k sampled rows."""
+    d = 256
+    while hadamard.block_plan(d + 256, 65_536, dtype, k).form == "cluster":
+        d += 256
+    return d
+
+
+# (d, d_pad, n, k, layout): layout "tma" takes a column slice of a matrix
+# whose row stride and base are 16-byte aligned (tiles by TMA), "copies" a
+# slice one column in (element copies)
+CLUSTER_CASES = [
+    (50_000, 65_536, 300, 512, "tma"),     # the slice's d, a few hundred
+    (50_000, 65_536, 13, 512, "tma"),      # n not a multiple of 8
+    (50_000, 65_536, 5, 512, "tma"),       # n < 8
+    (777, 1024, 64, 512, "tma"),           # d not a multiple of the radix
+    ("edge", 65_536, 40, 512, "tma"),      # the largest d that fits
+    ("past", 65_536, 40, 512, "tma"),      # one 256-row group more
+    (50_000, 65_536, 37, 512, "copies"),   # a row stride off 16 bytes
+    (50_000, 65_536, 24, 1, "tma"),        # k = 1
+    (4000, 4096, 24, 4096, "tma"),         # every lo sampled
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,d_pad,n,k,layout", CLUSTER_CASES)
+def test_srht_block_cluster_form_matches_plain(card, d, d_pad, n, k, layout,
+                                               dtype):
+    """The block mode's cluster form (and, one group past its capacity, the
+    two-pass form) against the plain version, into a wider sketch at a
+    column offset: the sketch bit for bit, the norms within 1e-6 relative,
+    a second call's bits equal, one launch in the form ``block_plan``
+    names."""
+    if d in ("edge", "past"):
+        d = _cluster_edge(dtype, k) + (256 if d == "past" else 0)
+    form = hadamard.block_plan(d, d_pad, dtype, k).form
+    assert form == ("two_pass" if d_pad == 65_536
+                    and d > _cluster_edge(dtype, k) else "cluster")
+    gen = torch.Generator(device=card).manual_seed(d + n + k)
+    pitch = -(-(n + 1) // 8) * 8              # 32 bytes a row in float32
+    wide = torch.randn(d, pitch, generator=gen, device=card).to(dtype)
+    X = wide[:, :n] if layout == "tma" else wide[:, 1:n + 1]
+    signs = torch.randint(0, 2, (d,), generator=gen, device=card) * 2.0 - 1
+    rows = torch.randperm(d_pad, generator=gen, device=card)[:k].int()
+    col0 = 3
+    sketch = torch.full((k, n + 7), 7.0, device=card)
+    norms = torch.full((n + 7,), 7.0, device=card)
+    ops.reset_launch_counts()
+    got_s, got_n = ops.srht_block(X, signs, rows, d_pad=d_pad, sketch=sketch,
+                                  norms=norms, col0=col0)
+    assert ops.LAUNCHES["blocked_fwht"] == 1
+    assert hadamard.BLOCK_FORMS == {"cluster": int(form == "cluster"),
+                                    "two_pass": int(form == "two_pass")}
+    want_s, want_n = hadamard.plain_block(X, signs, rows, d_pad)
+    assert torch.equal(got_s, want_s)
+    torch.testing.assert_close(got_n, want_n, rtol=1e-6, atol=0)
+    assert bool((sketch[:, :col0] == 7.0).all()
+                and (sketch[:, col0 + n:] == 7.0).all())
+    assert bool((norms[:col0] == 7.0).all() and (norms[col0 + n:] == 7.0).all())
+    again = ops.srht_block(X, signs, rows, d_pad=d_pad)
+    assert torch.equal(again[0], got_s) and torch.equal(again[1], got_n)
+    assert hadamard.BLOCK_FORMS[form] == 2
+
+
+def test_srht_block_cluster_form_is_refused_where_it_does_not_fit(card):
+    """Asked for the cluster form one group past its capacity, or at one
+    pass, the source refuses the launch and the wrapper raises."""
+    lib = ops._library("blocked_fwht")
+    for d, d_pad in ((_cluster_edge(torch.float32, 8) + 256, 65_536),
+                     (200, 256)):
+        X = torch.randn(d, 16, device=card)
+        signs = torch.ones(d, device=card)
+        rows = torch.arange(8, device=card, dtype=torch.int32)
+        with pytest.raises(RuntimeError, match="cluster kernel launch"):
+            hadamard.launch_block(lib, X, signs, rows, d_pad, 1.0, 1.0,
+                                  torch.empty(8, 16, device=card),
+                                  torch.empty(16, device=card),
+                                  form="cluster")
+
+
 def test_srht_smppca_on_the_card_matches_the_cpu(card):
     rng = np.random.default_rng(1)
     d, n, r = 2000, 200, 5

@@ -256,6 +256,68 @@ def test_radices_are_the_sources_split(d_pad):
     assert logs == sorted(logs, reverse=True)
 
 
+def _cluster_smem(d, size, k, L1=256, lo=32, C=8, S=3, w1=8):
+    """The cluster form's shared memory a CTA at d_pad = 65,536, as the
+    source lays it out: the TMA ring, the live blocks of z, the mbarriers,
+    the norms' sums, the row table's counts and one int a sampled row."""
+    live = -(-d // L1)
+    small = 16 * S + 8 * C + 8 * w1 * C + 4 * (3 * lo + 2)
+    return S * L1 * C * size + live * lo * C * 4 + small + 4 * k
+
+
+@pytest.mark.parametrize("dtype,size", [(torch.float32, 4),
+                                        (torch.bfloat16, 2)])
+def test_block_plan_takes_the_cluster_form_at_the_slice_shape(dtype, size):
+    """d = 50,000 padded to 65,536 with k = 512, the SRHT pass's call shape:
+    the cluster form, 8 columns a cluster of 8 CTAs, each holding the
+    strip's 196 live blocks of 256 rows (200,704 bytes) and its ring."""
+    plan = hadamard.block_plan(50_000, 65_536, dtype, 512)
+    assert plan == hadamard.BlockPlan("cluster", 8, 8,
+                                      _cluster_smem(50_000, size, 512))
+    assert plan.smem == {4: 228_344, 2: 216_056}[size]
+    assert plan.smem <= hadamard.SMEM_MAX == 232_448
+
+
+@pytest.mark.parametrize("dtype,size", [(torch.float32, 4),
+                                        (torch.bfloat16, 2)])
+@pytest.mark.parametrize("k", [1, 512, 2048])
+def test_block_plan_capacity_edge(dtype, size, k):
+    """The largest d whose strip fits a CTA's 227 KB takes the cluster
+    form, and one 256-row block more takes the two-pass form."""
+    edge = max(d for d in range(256, 65_537, 256)
+               if _cluster_smem(d, size, k) <= hadamard.SMEM_MAX)
+    assert hadamard.block_plan(edge, 65_536, dtype, k).form == "cluster"
+    for d in (edge + 1, edge + 256):
+        assert hadamard.block_plan(d, 65_536, dtype, k).form == "two_pass"
+    assert edge == {(4, 1): 51_712, (4, 512): 51_200, (4, 2048): 49_664,
+                    (2, 1): 54_784, (2, 512): 54_272,
+                    (2, 2048): 52_736}[size, k]
+
+
+@pytest.mark.parametrize("d,d_pad,k", [
+    (70_000, 131_072, 512),   # three passes
+    (50_000, 131_072, 64),    # d_pad past 65,536
+    (200, 256, 16),           # one pass
+    (256, 256, 256),
+    (1, 1, 1),
+    (50_000, 65_536, 65_536),  # a row table that does not fit
+])
+def test_block_plan_keeps_the_two_pass_form(d, d_pad, k):
+    """Shapes outside the cluster form's: more or fewer than two passes,
+    or a CTA that cannot hold the strip and its table."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = hadamard.block_plan(d, d_pad, dtype, k)
+        assert plan.form == "two_pass" and (plan.cols, plan.ctas) == (32, 1)
+
+
+@pytest.mark.parametrize("d,d_pad", [(300, 512), (777, 1024), (2000, 4096),
+                                     (20_000, 32_768)])
+def test_block_plan_small_two_pass_shapes_take_the_cluster_form(d, d_pad):
+    """Every d_pad of two passes (512 .. 65,536) takes the cluster form
+    where its strip fits."""
+    assert hadamard.block_plan(d, d_pad, torch.float32, 64).form == "cluster"
+
+
 def test_srht_sketch_and_kernel_composition_match_jax():
     """``core.sketch.srht_sketch`` and ``ops.srht_sketch_kernel`` against
     their JAX counterparts at d = 777 (padded to 1024): same keys, same

@@ -158,6 +158,62 @@ def test_bucketing_and_block_mode_constants_are_the_sources(kernel):
             assert f'extern "C" int {entry}(' in text
 
 
+def test_cluster_form_constants_are_the_sources():
+    """What ``hadamard.block_plan`` sizes the cluster form by is what
+    csrc/blocked_fwht.cu compiles and lays out."""
+    text = (CSRC / "blocked_fwht.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert hadamard.TILE == (1 << const("MAX_LOG_RADIX"), const("COLS"))
+    assert hadamard.CLUSTER_COLS == const("CLUSTER_COLS")
+    assert hadamard.CLUSTER_CTAS == const("CLUSTER_CTAS")
+    assert hadamard.CLUSTER_THREADS == const("CLUSTER_THREADS")
+    assert hadamard.CLUSTER_STAGES == const("CLUSTER_STAGES")
+    assert hadamard.CLUSTER_LOG_RUN == const("CLUSTER_LOG_RUN")
+    assert hadamard.SMEM_MAX == const("SMEM_MAX")
+    for line in (
+            "static constexpr int R1 = cmin(Radix<LOG_L1>::R, "
+            "1 << CLUSTER_LOG_RUN);",
+            "static constexpr int W1 = T1 * C / 32;",
+            "static constexpr int AREA = S * TILE_BYTES;",
+            "16 * S + 8 * C + 8 * W1 * C + 4 * (3 * LO + 2);",
+            "return AREA + (size_t)e_live * Z_ROW + SMALL + 4 * (size_t)k;",
+            "static constexpr int Z_ROW = LO * C * 4;",
+            "static constexpr int LO = L1 / N;",
+            "if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;"):
+        assert line in text, line
+    # the entry points take the form, and the occupancy query the shape
+    for entry in hadamard._BLOCK_ENTRY.values():
+        assert re.search(rf'extern "C" int {entry}\([^)]*int64_t cluster,',
+                         text)
+    assert 'extern "C" int srht_cluster_slots(int64_t d_valid' in text
+
+
+@pytest.mark.parametrize("precision,size", [(None, 4), ("bf16", 2)])
+def test_roofline_cost_charges_the_cluster_form_one_read_of_x(precision,
+                                                              size):
+    """The SRHT block mode's cost at the call shape: the cluster form
+    reads X once and writes the k rows and the norms, at one CTA an SM;
+    past its capacity the two-pass form also moves its intermediate."""
+    cfg = KernelConfig("blocked_fwht", hadamard.TILE, precision=precision)
+    d, n, k = 50_000, 8_192, 512
+    cost = tuning.roofline_cost(cfg, (65_536, n), srht=(d, k))
+    assert cost.hbm_bytes == size * d * n + 4 * d + 4 * (k + 1) * n
+    assert cost.ctas == 8 * (n // 8) and cost.slots == tuning.SMS
+    big = 60_000
+    two = tuning.roofline_cost(cfg, (65_536, n), srht=(big, k))
+    assert hadamard.block_plan(big, 65_536, torch.float32 if size == 4
+                               else torch.bfloat16, k).form == "two_pass"
+    assert two.hbm_bytes == (size * big * n + 4 * big + 4 * (k + 1) * n
+                             + 8 * big * n)
+    # without srht: the full mode the tuner measures, as before
+    full = tuning.roofline_cost(cfg, (65_536, n))
+    assert full.hbm_bytes == (65_536 * n * size + 4 * 65_536 * n
+                              + 8 * 65_536 * n + 4 * 65_536)
+
+
 def test_flash_attention_constants_are_the_sources():
     """The stages, passes and shared-memory layout the tuner models for
     flash_attention are the ones its CUDA source compiles."""

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of ``blocked_fwht.cu`` goes on the card: the full mode,
-the SRHT block mode, and variants of the block mode made by editing the
-source's text, at the SRHT pass's call shape.
+the SRHT block mode in its two forms, and variants of each made by editing
+the source's text, at the SRHT pass's call shape.
 
-    python3 tools/blocked_fwht_probe.py [--seed 0]
+    python3 tools/blocked_fwht_probe.py [--seed 0] [--variants a,b,...]
 
 The call shape: an 8,192-column slice of a (50,000, 100,000) float32
 matrix (row stride 100,000), dp = 65,536, k = 512 sampled rows.
@@ -11,8 +11,27 @@ matrix (row stride 100,000), dp = 65,536, k = 512 sampled rows.
 * ``full``: ``hadamard.launch``, the (dp, 8,192) transform;
 * ``full+gather+norms``: what the SRHT pass ran per block before the block
   mode: the full transform, the k-row gather and rescale, ``column_norms``;
-* ``kernel``: the block mode as committed (its intermediate goes to device
-  memory and back);
+* ``cluster`` and ``two_pass``: the block mode's two forms as committed,
+  timed in turns (two_pass, cluster, cluster, two_pass); ``cluster`` is
+  the form the call shape takes: a thread block cluster a strip of
+  columns, the intermediate in the cluster's shared memory; ``two_pass``
+  sends it through device memory;
+* variants of the cluster form, the source's constants edited (committed:
+  8 columns a strip, clusters of 8, 512 threads, runs of 8 rows, 3 TMA
+  stages, a persistent grid, 256-byte L2 promotion): ``one_wave`` (one
+  cluster a strip, all launched at once), ``run16`` (runs of 16 rows:
+  half the phase-1 threads, one span more in phase 1), ``run16_256``
+  (that at 256 threads and one cluster a strip), ``threads384``,
+  ``stages2``, ``c4n8`` (4 columns a strip: 16-byte rows), ``c8n16``
+  (clusters of 16, non-portable: half the intermediate a CTA, 12 TMA
+  stages, runs of 16), ``promo_none`` and ``promo_128`` (the tensor map's
+  L2 promotion); and, not checked, ``phase1_only`` (no phase 2),
+  ``no_z`` (phase 1's results not stored to their owners), ``p1_no_z``
+  (both) and ``stream_only`` (phase 1's TMA stream and the tiles' reads
+  alone); a cluster variant's line gives the clusters the card holds at
+  once (``slots``);
+* variants of the two-pass form, as the earlier design was probed
+  (``kernel`` below is ``two_pass``):
 * ``chunkC``: the columns taken C at a time through all passes, through
   one reused (dp, C) scratch buffer (C = 128 is 32 MB, which L2 holds);
 * ``l2window``, ``l2window_chunkC``: the same with a persisting-L2 access
@@ -32,10 +51,10 @@ matrix (row stride 100,000), dp = 65,536, k = 512 sampled rows.
 
 The variants that compute the full function are checked against the plain
 composition (the sketch bit for bit; the norms' largest relative error
-printed). Float32, and bf16 input for the kernel, the chunks and the
-windows. One JSON line per variant, with the card's name and power limit
-first; needs a CUDA card and ``nvcc``. Builds go to
-``build/repro_torch/probe/``.
+printed). Float32, and bf16 input for the forms, the chunks and the
+windows. One JSON line per variant (its time, the bound, the bound's bytes
+and the rate they make), with the card's name and power limit first; needs
+a CUDA card and ``nvcc``. Builds go to ``build/repro_torch/probe/``.
 """
 from __future__ import annotations
 
@@ -43,6 +62,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import sys
 
 import torch
@@ -206,38 +226,101 @@ def no_skip(text: str) -> str:
                 "(void)__syncthreads_or(mine);")
 
 
-# variant: (source edit, checked against the plain composition)
+def constants(**values):
+    """The cluster form's constants set to ``values`` (name: C++ literal)."""
+    def variant(text: str) -> str:
+        for name, value in values.items():
+            text = re.sub(rf"(constexpr \w+ {name} =)[^;]*;",
+                          rf"\g<1> {value};", text, count=1)
+        return text
+    return variant
+
+
+def phase1_only(text: str) -> str:
+    for loop in ("e < E; e += CT)", "const int nm = *n_m;",
+                 "i < off[LO]; i += CT)"):
+        text = edit(text, loop, {"e < E; e += CT)": "e < 0; e += CT)",
+                                 "const int nm = *n_m;": "const int nm = 0;",
+                                 "i < off[LO]; i += CT)": "i < 0; i += CT)",
+                                 }[loop])
+    return text
+
+
+def no_z(text: str) -> str:
+    """Phase 1's results not stored to their owners."""
+    return edit(text, "st_cluster(zr[i % N] + at + 16u * (i / N) * C, v[i]);",
+                "(void)at;")
+
+
+def stream_only(text: str) -> str:
+    """Phase 1's TMA stream and the consumers' reads of the tiles, and
+    nothing else."""
+    return phase1_only(edit(text, "      float ss = 0.f;\n",
+                            "      return;\n      float ss = 0.f;\n"))
+
+
+# variant: (source edit, form, checked against the plain composition)
 VARIANTS = {
-    "kernel": (lambda t: t, True),
-    **{f"chunk{n}": (chunked(n), True) for n in (1024, 256, 128, 64)},
-    "loads_first": (loads_first, True),
-    "last_pass_cta4": (sampled_ctas(4), True),
-    "cta_any": (ctas_per_sm(0), True),
-    "cta4": (ctas_per_sm(4), True),
-    "no_skip": (no_skip, True),
-    "no_norms": (no_norms, False),
-    "double_sums": (double_sums, True),
-    "pass1_only": (pass1_only, False),
+    "two_pass": (lambda t: t, "two_pass", True),
+    "cluster": (lambda t: t, "cluster", True),
+    "one_wave": (constants(CLUSTER_PERSISTENT="false"), "cluster", True),
+    "run16": (constants(CLUSTER_LOG_RUN=4), "cluster", True),
+    "run16_256": (constants(CLUSTER_LOG_RUN=4, CLUSTER_THREADS=256,
+                            CLUSTER_PERSISTENT="false"), "cluster", True),
+    "threads384": (constants(CLUSTER_THREADS=384), "cluster", True),
+    "stages2": (constants(CLUSTER_STAGES=2), "cluster", True),
+    "c4n8": (constants(CLUSTER_COLS=4), "cluster", True),
+    "c8n16": (constants(CLUSTER_CTAS=16, CLUSTER_STAGES=12,
+                        CLUSTER_LOG_RUN=4), "cluster", True),
+    "promo_none": (constants(
+        TMA_PROMOTION="CU_TENSOR_MAP_L2_PROMOTION_NONE"), "cluster", True),
+    "promo_128": (constants(
+        TMA_PROMOTION="CU_TENSOR_MAP_L2_PROMOTION_L2_128B"), "cluster", True),
+    "phase1_only": (phase1_only, "cluster", False),
+    "no_z": (no_z, "cluster", False),
+    "p1_no_z": (lambda t: phase1_only(no_z(t)), "cluster", False),
+    "stream_only": (stream_only, "cluster", False),
+    **{f"chunk{n}": (chunked(n), "two_pass", True)
+       for n in (1024, 256, 128, 64)},
+    "loads_first": (loads_first, "two_pass", True),
+    "last_pass_cta4": (sampled_ctas(4), "two_pass", True),
+    "cta_any": (ctas_per_sm(0), "two_pass", True),
+    "cta4": (ctas_per_sm(4), "two_pass", True),
+    "no_skip": (no_skip, "two_pass", True),
+    "no_norms": (no_norms, "two_pass", False),
+    "double_sums": (double_sums, "two_pass", True),
+    "pass1_only": (pass1_only, "two_pass", False),
     # last: a window's persisting carve-out slows whatever runs while it
     # is set
-    "l2window": (chunked(8192, window=True), True),
-    **{f"l2window_chunk{n}": (chunked(n, window=True), True)
+    "l2window": (chunked(8192, window=True), "two_pass", True),
+    **{f"l2window_chunk{n}": (chunked(n, window=True), "two_pass", True)
        for n in (256, 128)},
 }
-# the variants also timed with bf16 input
-BF16 = ("kernel", "chunk1024", "chunk256", "chunk128", "chunk64", "l2window",
+# the variants also timed with bf16 input (c4n8's 8-byte bf16 rows take
+# element copies: TMA wants 16)
+BF16 = ("two_pass", "cluster", "one_wave", "run16", "c8n16",
+        "chunk1024", "chunk256", "chunk128", "chunk64", "l2window",
         "l2window_chunk256", "l2window_chunk128")
+# timed in turns against each other: two_pass, cluster, cluster, two_pass
+TURNS = ("two_pass", "cluster")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variants to build and time "
+                         "(default: all)")
     args = ap.parse_args(argv)
+    names = args.variants.split(",")
+    unknown = set(names) - set(VARIANTS)
+    if unknown:
+        ap.error(f"unknown variants {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("blocked_fwht_probe: torch sees no CUDA device", file=sys.stderr)
         return 1
     text = (ops.CSRC / hadamard.SOURCE).read_text()
-    libs = build({name: fn(text) for name, (fn, _) in VARIANTS.items()},
+    libs = build({name: VARIANTS[name][0](text) for name in names},
                  prefix="fwht_")
     for lib in libs.values():
         hadamard.bind(lib)
@@ -256,9 +339,9 @@ def main(argv=None) -> int:
         X = A.to(dtype)[:, :w]                 # row stride n in either type
         tag = str(dtype).split(".")[-1]
         # X and signs read once, k rows and w norms written once
-        bound_ms = 1e3 * (X.element_size() * d * w + 4.0 * (d + k * w + w)) \
-            / HBM_BW
-        lib = libs["kernel"]
+        nbytes = X.element_size() * d * w + 4.0 * (d + k * w + w)
+        bound_ms = 1e3 * nbytes / HBM_BW
+        lib = libs[names[0]]
         rdp, rdpk = root_dp.to(dev), root_dp_k.to(dev)
 
         def composition():
@@ -270,20 +353,39 @@ def main(argv=None) -> int:
             lambda: hadamard.launch(lib, X, signs, dp), 5)}), flush=True)
         print(json.dumps({"variant": "full+gather+norms", "dtype": tag,
                           "ms": cuda_ms(composition, 5)}), flush=True)
-        for name, (_, checked) in VARIANTS.items():
+        def caller(name, sketch, norms):
+            form = VARIANTS[name][1]
+            return lambda: hadamard.launch_block(
+                libs[name], X, signs, rows, dp, float(root_dp),
+                float(root_dp_k), sketch, norms, form=form)
+        turns = [v for v in TURNS if v in names]
+        times = {}
+        if len(turns) == 2:
+            calls = {v: caller(v, torch.empty((k, w), device=dev),
+                               torch.empty((w,), device=dev)) for v in turns}
+            for v in turns:
+                calls[v]()
+            for v in turns + turns[::-1]:
+                times.setdefault(v, []).append(cuda_ms(calls[v], 5))
+        for name in names:
+            checked = VARIANTS[name][2]
             if dtype != torch.float32 and name not in BF16:
                 continue
             sketch = torch.empty((k, w), device=dev)
             norms = torch.empty((w,), device=dev)
-
-            def call():
-                hadamard.launch_block(libs[name], X, signs, rows, dp,
-                                      float(root_dp), float(root_dp_k),
-                                      sketch, norms)
+            call = caller(name, sketch, norms)
             call()
             torch.cuda.synchronize()
-            rec = {"variant": name, "dtype": tag, "ms": cuda_ms(call, 5),
-                   "bound_ms": bound_ms}
+            ms = (sum(times[name]) / len(times[name]) if name in times
+                  else cuda_ms(call, 5))
+            rec = {"variant": name, "form": VARIANTS[name][1], "dtype": tag,
+                   "ms": ms, "bound_ms": bound_ms, "bound_bytes": nbytes,
+                   "bound_gbps": nbytes / ms / 1e6}
+            if name in times:
+                rec["turns_ms"] = times[name]
+            if VARIANTS[name][1] == "cluster":
+                rec["slots"] = hadamard.cluster_slots(libs[name], d, dp,
+                                                      dtype, k)
             if checked:
                 rec["sketch_equal"] = bool(torch.equal(sketch, want_s))
                 rec["norm_rel_err"] = float(
