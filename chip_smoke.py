@@ -13,8 +13,9 @@ fails; nothing is caught:
    kernels 1 and 4 (``sketch_fused`` and ``flash_attention``), which must be
    positive, kernel 4's registers and spills per instance, the registers
    within the tuner's ``flash_attention.REGISTERS`` and no spill at its
-   default tile, and the tile each kernel resolves to through
-   ``tuning.lookup``;
+   default tile (40 instances: 2 bq x 2 bk x Dh 32, 64, 96, 112 and 128 x
+   2 dtypes), the build's seconds, and the tile each kernel resolves to
+   through ``tuning.lookup``;
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
    ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
@@ -119,9 +120,12 @@ fails; nothing is caught:
     a trace of one warm serving flush; ``serve ...`` and ``trace ...``
     lines;
 12. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
-    plain version on the JAX test shapes (causal and not, float32 and bf16,
-    every compiled tile) and at S = 4,096 with granite-3-8b's 32 query and 8
-    KV heads of 128, all at ``FLASH_TOL``;
+    plain version on the JAX test shapes and the CPU tests' Dh 96 and 112
+    shapes (causal and not, float32 and bf16, every compiled tile) and at
+    S = 4,096 with granite-3-8b's 32 query and 8 KV heads of 128,
+    phi3-mini-3.8b's (4, 4,096, 32 heads of 96) and kimi-k2-1t-a32b's 64
+    query and 8 KV heads of 112, all at ``FLASH_TOL``; Dh 48, 80 and 256
+    refused before a launch;
 13. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
@@ -132,7 +136,9 @@ fails; nothing is caught:
     version, ``scaled_dot_product_attention`` and its bound: float32 on the
     TF32 tensor cores (three split passes per product), with the float32
     FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
-    this design's two TF32 passes beside it;
+    this design's two TF32 passes beside it; the same at S = 32,768 at the
+    default tile for phi3-mini-3.8b's 32 heads of 96 and kimi-k2-1t-a32b's
+    64 query and 8 KV heads of 112;
 15. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
@@ -225,13 +231,14 @@ fails; nothing is caught:
     card from the seed, through the same entry points: phi3-mini-3.8b,
     starcoder2-15b, llama-3.2-vision-11b and whisper-small, phase 18's
     requests (a) twice (the same tokens) and (c), each prefill's
-    ``flash_attention`` launches and attention routes checked (phi3 0 and
-    32 plain; starcoder2 40 flash; llama 32 flash, 8 plain
+    ``flash_attention`` launches and attention routes checked (phi3 32
+    flash; starcoder2 40 flash; llama 32 flash, 8 plain
     cross-attentions; whisper 12 flash, 24 plain: the encoder's and the
     cross-attentions), prefill plus decode against the forward within
     ``LM_DECODE_TOL``, the kernel on layer 0's weights at each request's
-    shapes against its plain version (starcoder2's GQA 12:1 at Dh 128,
-    llama's (32, 8), whisper's Dh 64), layer 0 card against CPU, and
+    shapes against its plain version (phi3's 32 heads of 96, starcoder2's
+    GQA 12:1 at Dh 128, llama's (32, 8), whisper's Dh 64), layer 0 card
+    against CPU, and
     llama's first cross-attention layer and whisper's first encoder
     layer, each within ``LM_LAYER_TOL``; the stub inputs drawn from the
     seed for the checks; each request's bounds; ``lm <arch> ...`` lines;
@@ -502,15 +509,15 @@ XL_MLSTM_TOL = 5e-3
 # its configured float32 parameters (phi3-mini-3.8b 15.3 GB,
 # starcoder2-15b 63.8, llama-3.2-vision-11b 39.2, whisper-small 1.1) and
 # freed before the next: phase 18's requests (a) twice and (c), with the
-# flash and plain attention calls a prefill routes (phi3's Dh 96 is not a
-# width the kernel compiles; llama's 8 cross-attentions, whisper's 12
-# encoder and 12 cross-attentions are bidirectional: the plain route).
+# flash and plain attention calls a prefill routes (phi3's 32 at Dh 96 on
+# the kernel; llama's 8 cross-attentions, whisper's 12 encoder and 12
+# cross-attentions are bidirectional: the plain route).
 # Prefill plus decode against the forward and the layers card against CPU
 # at phase 18's tolerances, the stub inputs (whisper's 1,500 frames,
 # llama's 1,600 image tokens) drawn from the seed and llama's
 # cross-attention gates opened (at the parity tests' 0.7 and -0.4: at 0
 # they erase the block) for the checks.
-SERVE_ARCHS = (("phi3-mini-3.8b", 0, 32), ("starcoder2-15b", 40, 0),
+SERVE_ARCHS = (("phi3-mini-3.8b", 32, 0), ("starcoder2-15b", 40, 0),
                ("llama-3.2-vision-11b", 32, 8), ("whisper-small", 12, 24))
 SERVE_REQUESTS = (("a", 4, 4096, 32, 0.0), ("c", 2, 1000, 8, 0.8))
 XATTN_GATES = (("gate_attn", 0.7), ("gate_mlp", -0.4))
@@ -581,6 +588,13 @@ EXAMPLE_SUBPROCESS_TIMEOUT = 300
 # train_4k (src/repro/configs/shapes.py).
 HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 S_FULL, S_TRAIN = 32_768, 4_096
+# the kernel's other head widths as the repo's configs use them, (query
+# heads, KV heads, Dh): phi3-mini-3.8b (src/repro/configs/phi3_mini_3_8b.py:
+# 32 heads of 96, MHA) and kimi-k2-1t-a32b (kimi_k2_1t_a32b.py: 64 heads of
+# 112 over 8 KV heads), checked at S_TRAIN (phi3 at batch 4, request (a)'s)
+# and timed at S_FULL
+WIDTH_LAYOUTS = (("phi3-mini-3.8b", 32, 32, 96, 4),
+                 ("kimi-k2-1t-a32b", 64, 8, 112, 1))
 # benchmarks/run.py::kernel_sweep's shapes (not the smoke ones), and the
 # attention's full width as (B * H, S, Dh).
 TUNE_SHAPES = {
@@ -1033,6 +1047,50 @@ def flash_check(ops, q, k, v, causal, label, config=None, out=None):
           f"{err:.3e} (tol {tol:.0e} + {tol:.0e} |ref|)", flush=True)
     check(excess <= tol, f"flash_attention {label}: err {err}")
     return err
+
+
+def flash_timings(ops, q, kk, v, reps, label) -> dict:
+    """Kernel 4 on (q, kk, v), causal at the default tile, in float32 and
+    bf16: its time in turns with its plain version, the library's
+    (``sdpa_call``) and its bound; a ``timing flash_attention{label}`` line
+    a dtype. Returns the float32 record."""
+    fa = ops.KERNELS["flash_attention"]
+    B, S, H, Dh = q.shape
+    # causal: half the S x S scores of each head, two products each; q, k,
+    # v read once and o written once
+    flops = 2.0 * B * H * S * S * Dh
+    elems = B * (2 * S * H + 2 * S * kk.shape[2]) * Dh
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
+        size = qd.element_size()
+        k4_ms, k4_plain = turns(lambda: fa.plain(qd, kd, vd, True),
+                                lambda: ops.flash_attention(qd, kd, vd),
+                                reps=reps)
+        lib = sdpa_call(qd, kd, vd)
+        lib()
+        tf32_ms = bound(fa.PASSES[size] * flops, size * elems,
+                        PEAK_TF32_FLOPS)
+        if size == 4:
+            # float32-accurate: three split passes on the TF32 tensor
+            # cores; the FMA units alone beside it
+            (k4_bound, k4_by), extra = tf32_ms, dict(
+                tf32_passes=fa.PASSES[4],
+                fma_units_ms=bound(flops, size * elems, PEAK_F32_FLOPS)[0])
+        else:
+            # bf16 inputs: the bf16 tensor cores' rate; this design's two
+            # TF32 passes beside it
+            k4_bound, k4_by = bound(flops, size * elems, PEAK_BF16_FLOPS)
+            extra = dict(tf32_two_pass_ms=tf32_ms[0])
+        t = dict(S=S, heads=H, kv_heads=kk.shape[2], head_dim=Dh,
+                 kernel_ms=k4_ms, plain_ms=k4_plain,
+                 library_ms=cuda_ms(lib, reps=reps), bound_ms=k4_bound,
+                 bound_by=k4_by, **extra)
+        tag = label if dtype == torch.float32 else label + " bf16"
+        print(f"timing flash_attention{tag} " + json.dumps(t), flush=True)
+        if dtype == torch.float32:
+            out = t
+        del qd, kd, vd, lib
+    return out
 
 
 def attention_inputs(gen, S, heads, kv_heads, dh, dev, batch=1):
@@ -4443,9 +4501,10 @@ def main(argv=None) -> int:
           f"parts {json.dumps(serve_s)})", flush=True)
 
     # 12. kernel 4 against its plain version ---------------------------------
-    fa = ops.KERNELS["flash_attention"]
+    # tests/kernels/test_flash_attention.py's shapes, then the Dh 96 and 112
+    # ones of tests/test_torch_flash_attention.py
     for shape in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
-                  (1, 384, 3, 3, 64)):       # tests/kernels/test_flash_attention.py
+                  (1, 384, 3, 3, 64), (1, 256, 4, 2, 96), (1, 384, 2, 1, 112)):
         B_, S_, H_, Hkv_, Dh_ = shape
         q, kk, v = attention_inputs(gen, S_, H_, Hkv_, Dh_, dev, batch=B_)
         for dtype in (torch.float32, torch.bfloat16):
@@ -4460,6 +4519,26 @@ def main(argv=None) -> int:
         for causal in (True, False):
             flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype), causal,
                         f"S={S_TRAIN}")
+    # a head width outside the compiled menu raises before a launch
+    for dh in (48, 80, 256):
+        q = torch.randn(1, 128, 2, dh, generator=gen, device=dev)
+        before = ops.LAUNCHES["flash_attention"]
+        try:
+            ops.flash_attention(q, q, q)
+        except ValueError as err:
+            print(f"flash_attention Dh {dh} refused: {err}", flush=True)
+        else:
+            check(False, f"flash_attention refuses Dh {dh}")
+        check(ops.LAUNCHES["flash_attention"] == before,
+              f"flash_attention Dh {dh}: no launch")
+    for arch, heads, kv_heads, dh, batch in WIDTH_LAYOUTS:
+        q, kk, v = attention_inputs(gen, S_TRAIN, heads, kv_heads, dh, dev,
+                                    batch=batch)
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype),
+                            causal, f"{arch} heads, S={S_TRAIN}")
+    del q, kk, v
 
     # 13. the attention path at full width ----------------------------------
     q, kk, v = attention_inputs(gen, S_FULL, HEADS, KV_HEADS, HEAD_DIM, dev)
@@ -4501,42 +4580,17 @@ def main(argv=None) -> int:
     for S_, reps in ((S_FULL, 1), (S_TRAIN, 5)):
         if S_ != S_FULL:
             q, kk, v = attention_inputs(gen, S_, HEADS, KV_HEADS, HEAD_DIM, dev)
-        # causal: half the S x S scores of each head, two products each;
-        # q, k, v read once and o written once
-        flops = 2.0 * HEADS * S_ * S_ * HEAD_DIM
-        elems = (2 * S_ * HEADS + 2 * S_ * KV_HEADS) * HEAD_DIM
-        for dtype in (torch.float32, torch.bfloat16):
-            qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
-            size = qd.element_size()
-            k4_ms, k4_plain = turns(lambda: fa.plain(qd, kd, vd, True),
-                                    lambda: ops.flash_attention(qd, kd, vd),
-                                    reps=reps)
-            lib = sdpa_call(qd, kd, vd)
-            lib()
-            tf32_ms = bound(fa.PASSES[size] * flops, size * elems,
-                            PEAK_TF32_FLOPS)
-            if size == 4:
-                # float32-accurate: three split passes on the TF32 tensor
-                # cores; the FMA units alone beside it
-                (k4_bound, k4_by), extra = tf32_ms, dict(
-                    tf32_passes=fa.PASSES[4],
-                    fma_units_ms=bound(flops, size * elems,
-                                       PEAK_F32_FLOPS)[0])
-            else:
-                # bf16 inputs: the bf16 tensor cores' rate; this design's
-                # two TF32 passes beside it
-                k4_bound, k4_by = bound(flops, size * elems, PEAK_BF16_FLOPS)
-                extra = dict(tf32_two_pass_ms=tf32_ms[0])
-            t = dict(S=S_, kernel_ms=k4_ms, plain_ms=k4_plain,
-                     library_ms=cuda_ms(lib, reps=reps), bound_ms=k4_bound,
-                     bound_by=k4_by, **extra)
-            tag = "" if dtype == torch.float32 else " bf16"
-            print(f"timing flash_attention{tag} " + json.dumps(t), flush=True)
-            if S_ == S_FULL and dtype == torch.float32:
-                timing["flash_attention"] = t
-            del qd, kd, vd, lib
+        t = flash_timings(ops, q, kk, v, reps, "")
+        if S_ == S_FULL:
+            timing["flash_attention"] = t
     del q, kk, v
     torch.cuda.empty_cache()
+    # the other head widths at S_FULL, one sequence, at the default tile
+    for arch, heads, kv_heads, dh, _ in WIDTH_LAYOUTS:
+        q, kk, v = attention_inputs(gen, S_FULL, heads, kv_heads, dh, dev)
+        flash_timings(ops, q, kk, v, 1, f" {arch} Dh {dh}")
+        del q, kk, v
+        torch.cuda.empty_cache()
 
     # 15. the kernel tuner --------------------------------------------------
     ops.reset_launch_counts()
@@ -4600,7 +4654,7 @@ def main(argv=None) -> int:
     # ranks' sharded ingest, the gradient tap and the compressor, the LM
     # requests' prefills (granite's, then moonshot's), the training steps
     # (the taps' sketches and their decompression), phase 22's prefills
-    # (starcoder2's, llama's, whisper's), and the examples' twins
+    # (phi3's, starcoder2's, llama's, whisper's), and the examples' twins
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]

@@ -53,9 +53,10 @@
 //  * Two-level accumulation of O: an MMA adds with truncation, and over
 //    S = 32,768 keys O's sum would drift toward zero. Each k-tile's PV
 //    products go into a fresh fragment (per group of four 8-column tiles of
-//    O, which keeps registers down), added to O with one FFMA that also
-//    applies the softmax correction: o = o * corr + part. QK^T sums over at
-//    most Dh = 128, 16 k8 steps, straight into its fragment.
+//    O, which keeps registers down; at Dh = 112 the last group holds the two
+//    tiles left of 14), added to O with one FFMA that also applies the
+//    softmax correction: o = o * corr + part. QK^T sums over at most
+//    Dh = 128, 16 k8 steps, straight into its fragment.
 //  * Online softmax in the fragment layout: the 4 threads of a quad share a
 //    row, so its max takes two __shfl_xor_sync; the denominator stays a
 //    per-thread partial, reduced once at the end (every update scales all
@@ -66,6 +67,9 @@
 //    tile loads while this one computes; one __syncthreads() per tile. bf16
 //    tiles stay bf16 in shared memory and are widened in registers, which
 //    is exact. S is divisible by the tile, so nothing is zero-filled.
+//    Where a tile's 4-element chunks are not a multiple of the thread count
+//    (BQ 128, BK 32, Dh 112: 896 chunks on 256 threads) the last round of
+//    copies is guarded.
 //  * Causal: the loop stops at the tile that holds the diagonal. That is
 //    exact: a fully masked tile would add exp(-1e30 - m) = 0 to every sum,
 //    and tile 0 holds an unmasked key for every row. A warp skips the
@@ -73,11 +77,19 @@
 //    same reason. CTAs are numbered heaviest query tile first, so the short
 //    tiles fill the last wave.
 //  * Shared-memory pitches keep the fragment loads off shared banks: Q and
-//    K rows Dh + 8 elements, V rows Dh + 16 bytes.
+//    K rows Dh + 8 elements, V rows Dh + 16 bytes. At every compiled Dh a
+//    float32 Q or K row starts 8 or 24 banks (mod 32) past the one before,
+//    so a half warp's float2 loads from 4 rows hit 32 distinct banks; a
+//    bf16 K row 4, 20 or 28 banks (8 rows of one word each: 32 banks); the
+//    V rows a thread reads, two apart, 8 or 24 banks, float32 or bf16.
 //  * Tiles compiled: BQ in {64, 128} (128 or 256 threads), BK in {32, 64},
-//    Dh in {32, 64, 128}; kernels/flash_attention.py holds the same menu
-//    and refuses anything else before a launch. BK = 128 with two float32
-//    stages and a 128-row Q tile would not fit in 227 KB.
+//    Dh in {32, 64, 96, 112, 128}; kernels/flash_attention.py holds the
+//    same menu and refuses anything else before a launch. The largest,
+//    (128, 64, 112) float32, takes 182,272 bytes of shared memory; BK = 128
+//    with two float32 stages and a 128-row Q tile would not fit in 227 KB.
+//    Dh 256 is not compiled: a 256-wide O accumulator does not fit this
+//    register layout, and the one attention of the repo at that width is
+//    windowed, which neither this kernel nor the TPU kernel has.
 // Not wgmma or TMA: later work. PERF.md has the kernel's times against its
 // bound and what holds it back (tools/flash_attention_probe.py).
 
@@ -216,12 +228,12 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
   constexpr int LDQ = Tl::LDQ, LDK = Tl::LDK, LDV = Tl::LDV;
   constexpr int PASSES = Tl::PASSES;
   constexpr int CH = DH / 4;                     // 4-element chunks a row
-  constexpr int Q_COPIES = BQ * CH / THREADS;    // per thread
-  constexpr int KV_COPIES = BK * CH / THREADS;
-  static_assert(Q_COPIES * THREADS == BQ * CH &&
-                KV_COPIES * THREADS == BK * CH && KV_COPIES >= 1,
-                "copy split");
-  static_assert(DT % G == 0, "O tile groups");
+  constexpr int Q_COPIES = BQ * CH / THREADS;    // per thread: CH / 2
+  // K/V: a ragged last round (BK * CH not a multiple of THREADS) is guarded
+  constexpr int KV_CHUNKS = BK * CH;
+  constexpr int KV_COPIES = (KV_CHUNKS + THREADS - 1) / THREADS;
+  static_assert(DH % 8 == 0 && Q_COPIES * THREADS == BQ * CH &&
+                KV_COPIES >= 1, "copy split");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* const Qs = reinterpret_cast<float*>(smem_raw);      // [BQ][LDQ]
   T* const ring = reinterpret_cast<T*>(smem_raw + BQ * LDQ * sizeof(float));
@@ -249,6 +261,7 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
 #pragma unroll
     for (int i = 0; i < KV_COPIES; ++i) {
       const int c = tid + i * THREADS;
+      if (KV_CHUNKS % THREADS != 0 && c >= KV_CHUNKS) break;
       const int r = c / CH, d = (c % CH) * 4;
       copy<4 * (int)sizeof(T)>(ks + r * LDK + d, Kb + (k0 + r) * p.sks + d);
       copy<4 * (int)sizeof(T)>(vs + r * LDV + d, Vb + (k0 + r) * p.svs + d);
@@ -358,8 +371,9 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
       split<3>(__float_as_uint(s[j][3]), p_big[j][3], p_small[j][3]);
     }
 
-    // o = o * corr + P v, G column tiles of O at a time, each tile's
-    // products of this k-tile in a fresh fragment
+    // o = o * corr + P v, G column tiles of O at a time (the last group
+    // holds what is left of DT), each tile's products of this k-tile in a
+    // fresh fragment
 #pragma unroll
     for (int jg = 0; jg < DT; jg += G) {
       float part[G][4];
@@ -371,7 +385,7 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
       for (int j = 0; j < NT; ++j) {
         const T* vrow = vs + (8 * j + 2 * t) * LDV + g;
 #pragma unroll
-        for (int jj = 0; jj < G; ++jj) {
+        for (int jj = 0; jj < G && jg + jj < DT; ++jj) {
           const int col = 8 * (jg + jj);
           uint32_t b0_big, b0_small, b1_big, b1_small;
           split<PASSES>(v_bits(vrow + col), b0_big, b0_small);
@@ -383,7 +397,7 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
         }
       }
 #pragma unroll
-      for (int jj = 0; jj < G; ++jj)
+      for (int jj = 0; jj < G && jg + jj < DT; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           o[jg + jj][e] = fmaf(o[jg + jj][e], corr[e >> 1], part[jj][e]);
@@ -426,6 +440,8 @@ int launch_dh(int64_t dh, const T* q, const T* k, const T* v, T* o,
   switch (dh) {
     case 32: return launch_tile<BQ, BK, 32, T>(q, k, v, o, p, s);
     case 64: return launch_tile<BQ, BK, 64, T>(q, k, v, o, p, s);
+    case 96: return launch_tile<BQ, BK, 96, T>(q, k, v, o, p, s);
+    case 112: return launch_tile<BQ, BK, 112, T>(q, k, v, o, p, s);
     case 128: return launch_tile<BQ, BK, 128, T>(q, k, v, o, p, s);
   }
   return (int)cudaErrorInvalidValue;

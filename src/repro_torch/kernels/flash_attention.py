@@ -51,7 +51,7 @@ REPLACES = "src/repro/kernels/flash_attention.py:78"
 #: ``launch_*`` switches).
 BLOCK_Q = (64, 128)
 BLOCK_K = (32, 64)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 112, 128)
 #: K/V tiles in the ``cp.async`` ring.
 STAGES = 2
 #: TF32 tensor-core passes per product, by input itemsize: float32 three
@@ -61,7 +61,7 @@ PASSES = {4: 3, 2: 2}
 #: instance of that width (``__launch_bounds__(THREADS, 1)`` allows 255;
 #: ``chip_smoke.py``'s build phase prints each instance's count and holds
 #: it to this table).
-REGISTERS = {32: 166, 64: 255, 128: 255}
+REGISTERS = {32: 166, 64: 255, 96: 255, 112: 255, 128: 255}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64

@@ -612,6 +612,19 @@ def test_flash_kernel_matches_plain(card, bq, bk, dh):
                                        atol=FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dh", [48, 80, 256])
+def test_uncompiled_head_width_raises_before_a_launch(card, dh):
+    """A head width outside HEAD_DIMS (256: recurrentgemma-9b's windowed
+    attention) raises on the card before anything launches: no padding,
+    no plain fallback."""
+    gen = torch.Generator(device=card).manual_seed(dh)
+    q = torch.randn(1, 128, 2, dh, generator=gen, device=card)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="compiled"):
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
 def test_flash_block_shape_independence(card):
     gen = torch.Generator(device=card).manual_seed(3)
     q, k, v = torch.randn(3, 2, 512, 2, 64, generator=gen, device=card)
@@ -1095,7 +1108,8 @@ def test_lm_on_the_card_matches_the_cpu(card, cd):
 
 
 #: the reduced configs' head layout where the route test needs the full
-#: arch's: starcoder2-15b's GQA 12:1, phi3-mini-3.8b's head width 96
+#: arch's: starcoder2-15b's GQA 12:1, phi3-mini-3.8b's head width 96 (on
+#: the kernel since it compiles Dh 96)
 ROUTE_OVERRIDES = {"starcoder2-15b": dict(n_heads=12, n_kv_heads=1),
                    "phi3-mini-3.8b": dict(head_dim=96)}
 
@@ -1105,7 +1119,7 @@ ROUTE_OVERRIDES = {"starcoder2-15b": dict(n_heads=12, n_kv_heads=1),
     ("whisper-small", 2, 4),         # decoder flash; enc x2, cross x2 plain
     ("llama-3.2-vision-11b", 8, 2),  # (attn x4, xattn) x 2
     ("starcoder2-15b", 2, 0),        # GQA 12:1 on the kernel
-    ("phi3-mini-3.8b", 0, 2),        # Dh 96: not a width the kernel compiles
+    ("phi3-mini-3.8b", 2, 0),        # Dh 96 on the kernel
 ])
 def test_attention_routes_on_the_card(card, name, flash, plain):
     from repro_torch.models import attention as attn

@@ -40,6 +40,8 @@ def _qkv(B, S, H, Hkv, Dh, seed):
 @pytest.mark.parametrize("B,S,H,Hkv,Dh", [
     (1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
     (1, 384, 3, 3, 64),
+    (1, 256, 4, 2, 96),     # phi3-mini-3.8b's head width, GQA 2:1
+    (1, 384, 2, 1, 112),    # kimi-k2-1t-a32b's head width, MQA
 ])
 def test_flash_matches_jax(B, S, H, Hkv, Dh, causal, dtype):
     q, k, v = _qkv(B, S, H, Hkv, Dh, seed=S + H)
@@ -82,7 +84,8 @@ def test_flash_shape_errors():
 
 
 @pytest.mark.parametrize("bq,bk,dh", [(64, 64, 48), (32, 64, 64),
-                                      (64, 16, 64), (128, 256, 128)])
+                                      (64, 16, 64), (128, 256, 128),
+                                      (128, 32, 256)])
 def test_uncompiled_tiles_are_refused_before_a_launch(bq, bk, dh):
     """What the CUDA branch checks before it launches: a head width or a
     (clamped) block the source does not compile raises, naming the menu."""

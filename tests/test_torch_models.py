@@ -371,14 +371,17 @@ def test_route_is_a_function_of_device_causal_window_and_head_width():
     assert tattn.route(cuda, True, None, 128) == "flash"
     for dh in (32, 64):
         assert tattn.route(cuda, True, None, dh) == "flash"
+    for dev in (cuda, torch.device("meta")):
+        assert tattn.route(dev, True, None, 96) == "flash"    # phi3-mini
+        assert tattn.route(dev, True, None, 112) == "flash"   # kimi-k2
+    assert tattn.route(cuda, True, None, 256) == "plain"      # not compiled
     assert tattn.route(cuda, False, None, 128) == "plain"     # enc, xattn
     assert tattn.route(cuda, True, 2048, 128) == "plain"      # local_attn
-    assert tattn.route(cuda, True, None, 96) == "plain"       # phi3-mini
     assert tattn.route(cuda, True, None, 16) == "plain"       # reduced
     assert tattn.route(cpu, True, None, 128) == "plain"
     # under autograd: the kernel has no backward
     assert tattn.route(cuda, True, None, 128, needs_grad=False) == "flash"
-    for dh in (32, 64, 128):
+    for dh in (32, 64, 96, 112, 128):
         assert tattn.route(cuda, True, None, dh, needs_grad=True) == "plain"
     assert tattn.route(cpu, True, None, 128, needs_grad=True) == "plain"
 

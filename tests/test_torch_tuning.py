@@ -327,12 +327,14 @@ def test_flash_cost_caps_ctas_by_registers():
     """The flash kernel's launch bounds let a thread take up to 255
     registers, so registers, not threads or shared memory, cap its CTAs
     per SM: one 128-row CTA at every head width, two 64-row ones at
-    Dh = 64 and 128, three at Dh = 32."""
-    assert flash_attention.REGISTERS[128] <= 255
-    assert [flash_attention.ctas_per_sm(128, dh) for dh in (32, 64, 128)] \
-        == [1, 1, 1]
-    assert [flash_attention.ctas_per_sm(64, dh) for dh in (32, 64, 128)] \
-        == [3, 2, 2]
+    Dh = 64, 96, 112 and 128, three at Dh = 32."""
+    assert all(r <= 255 for r in flash_attention.REGISTERS.values())
+    assert sorted(flash_attention.REGISTERS) == \
+        sorted(flash_attention.HEAD_DIMS)
+    assert [flash_attention.ctas_per_sm(128, dh)
+            for dh in (32, 64, 96, 112, 128)] == [1, 1, 1, 1, 1]
+    assert [flash_attention.ctas_per_sm(64, dh)
+            for dh in (32, 64, 96, 112, 128)] == [3, 2, 2, 2, 2]
     for shape in (TINY["flash_attention"], FLASH, SHAPES["flash_attention"]):
         for cfg in candidate_configs("flash_attention", shape):
             slots = tuning.roofline_cost(cfg, shape).slots
