@@ -12,10 +12,11 @@ fails; nothing is caught:
    the count of tensor-core (``HMMA``) instructions in each instance of
    kernels 1 and 4 (``sketch_fused`` and ``flash_attention``), which must be
    positive, kernel 4's registers and spills per instance, the registers
-   within the tuner's ``flash_attention.REGISTERS`` and no spill at its
-   default tile (40 instances: 2 bq x 2 bk x Dh 32, 64, 96, 112 and 128 x
-   2 dtypes), the build's seconds, and the tile each kernel resolves to
-   through ``tuning.lookup``;
+   within the tuner's ``flash_attention.REGISTERS``, no spill at its
+   default tile nor in any Dh 16 or 256 instance (50 instances: 2 bq x 2
+   bk x Dh 16, 32, 64, 96, 112 and 128, and (64, 32) at Dh 256, x 2
+   dtypes), the build's seconds, and the tile each kernel resolves to
+   through ``tuning.lookup`` (Dh 256: its own (64, 32));
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
    ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
@@ -120,12 +121,15 @@ fails; nothing is caught:
     a trace of one warm serving flush; ``serve ...`` and ``trace ...``
     lines;
 12. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
-    plain version on the JAX test shapes and the CPU tests' Dh 96 and 112
-    shapes (causal and not, float32 and bf16, every compiled tile) and at
-    S = 4,096 with granite-3-8b's 32 query and 8 KV heads of 128,
-    phi3-mini-3.8b's (4, 4,096, 32 heads of 96) and kimi-k2-1t-a32b's 64
-    query and 8 KV heads of 112, all at ``FLASH_TOL``; Dh 48, 80 and 256
-    refused before a launch;
+    plain version on the JAX test shapes and the CPU tests' Dh 96, 112, 16
+    and 256 shapes (causal and not, float32 and bf16, every tile compiled
+    at the width) and at S = 4,096 with granite-3-8b's 32 query and 8 KV
+    heads of 128, phi3-mini-3.8b's (4, 4,096, 32 heads of 96),
+    kimi-k2-1t-a32b's 64 query and 8 KV heads of 112, recurrentgemma-9b's
+    16 query heads over 1 KV head of 256 and the reduced configs' 4 heads
+    of 16, and at Dh 48, 200 and 50 (8 over 2 heads; widths between
+    compiled ones, on a copy zero-padded to the next) with one launch a
+    call, all at ``FLASH_TOL``; Dh 264 and 320 refused before a launch;
 13. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
@@ -137,8 +141,10 @@ fails; nothing is caught:
     TF32 tensor cores (three split passes per product), with the float32
     FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
     this design's two TF32 passes beside it; the same at S = 32,768 at the
-    default tile for phi3-mini-3.8b's 32 heads of 96 and kimi-k2-1t-a32b's
-    64 query and 8 KV heads of 112;
+    tile ``tuning.lookup`` resolves for phi3-mini-3.8b's 32 heads of 96,
+    kimi-k2-1t-a32b's 64 query and 8 KV heads of 112, recurrentgemma-9b's
+    16 over 1 of 256 (tile (64, 32)) and the reduced configs' 4 heads of
+    16;
 15. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
@@ -213,7 +219,7 @@ fails; nothing is caught:
     parameters changed, and (b)'s first two kernel calls of each kind held
     against their plain versions (``Trainer`` with ``max_retries=0``: a
     failed check is never retried); (c) granite-3-8b reduced
-    at head width 64 (the flash route without grad) in float32: one train
+    at its head width 16 (the flash route without grad) in float32: one train
     step on the card against the CPU, loss, ``grad_norm`` and every
     gradient within 1e-4; (d) ``launch.train --reduced`` on the card: the
     loss falls over 20 steps, a fault at step 12 recovers from step 10's
@@ -259,12 +265,16 @@ fails; nothing is caught:
     checkpoint directory: the loss falls, checkpoints at 100, 200 and
     300); ``serve_lm_torch`` for each of the ten archs (reduced: (4, 64)
     tokens in the vocabulary; the default arch with ``--sketch-demo``:
-    2,048 rows, U and V (96, 4)); each twin's every ``sketch_fused`` and
-    ``sampled_rescaled_dot`` call, copied at the call, held against the
-    plain version on its own inputs afterwards (``example held ...``
-    lines; their errors go into the kernels line), and no other kernel
-    launched; the Trainers run with ``max_retries=0``; then ``python
-    examples/quickstart_torch.py`` with no arguments as a subprocess;
+    2,048 rows, U and V (96, 4); each arch's attention routes, its
+    prefill's causal, unwindowed self-attentions on the kernel at the
+    reduced width 16, one launch a flash route, none for
+    ``EXAMPLE_NO_FLASH``); each twin's every ``sketch_fused``,
+    ``sampled_rescaled_dot`` and ``flash_attention`` call, copied at the
+    call, held against the plain version on its own inputs afterwards
+    (``example held ...`` lines; their errors go into the kernels line),
+    and no other kernel launched; the Trainers run with
+    ``max_retries=0``; then ``python examples/quickstart_torch.py`` with no
+    arguments as a subprocess;
     ``example ...`` and ``examples phase`` lines;
 24. a ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
@@ -544,9 +554,10 @@ XATTN_GATES = (("gate_attn", 0.7), ("gate_mlp", -0.4))
 # this layer's rank-8 completion by 2.6% of that entry (its top singular
 # values are close), and a wrong key by 0.70, printed beside it.
 # Trainer runs with max_retries=0, so a failed check ends the script.
-# (c) granite-3-8b reduced at head_dim 64 (flash's width), float32
-# compute: one train step on the card against the CPU, loss, grad_norm and
-# each gradient within 1e-4 relative (float32 sums in other orders).
+# (c) granite-3-8b reduced (4 heads of 16, on the flash kernel without
+# grad), float32 compute: one train step on the card against the CPU,
+# loss, grad_norm and each gradient within 1e-4 relative (float32 sums in
+# other orders).
 # (d) launch.train --reduced on the card: 20 steps, a fault at step 12
 # with checkpoints every 10, then a second Trainer resumes at 20.
 TRAIN_ARCH = "phi3-mini-3.8b"
@@ -590,11 +601,22 @@ HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 S_FULL, S_TRAIN = 32_768, 4_096
 # the kernel's other head widths as the repo's configs use them, (query
 # heads, KV heads, Dh): phi3-mini-3.8b (src/repro/configs/phi3_mini_3_8b.py:
-# 32 heads of 96, MHA) and kimi-k2-1t-a32b (kimi_k2_1t_a32b.py: 64 heads of
-# 112 over 8 KV heads), checked at S_TRAIN (phi3 at batch 4, request (a)'s)
-# and timed at S_FULL
+# 32 heads of 96, MHA), kimi-k2-1t-a32b (kimi_k2_1t_a32b.py: 64 heads of
+# 112 over 8 KV heads), recurrentgemma-9b (recurrentgemma_9b.py: 16 query
+# heads over 1 KV head of 256; unwindowed here, as neither kernel has a
+# window) and the reduced configs (src/repro/configs/base.py: 4 heads of
+# 16), checked at S_TRAIN (phi3 at batch 4, request (a)'s) and timed at
+# S_FULL
 WIDTH_LAYOUTS = (("phi3-mini-3.8b", 32, 32, 96, 4),
-                 ("kimi-k2-1t-a32b", 64, 8, 112, 1))
+                 ("kimi-k2-1t-a32b", 64, 8, 112, 1),
+                 ("recurrentgemma-9b", 16, 1, 256, 1),
+                 ("reduced", 4, 4, 16, 1))
+# widths between compiled ones, which ops.flash_attention zero-pads in a
+# copy to the next compiled one (64, 256 and 64), 8 query heads over 2,
+# checked at S_TRAIN
+BETWEEN_WIDTHS = (48, 200, 50)
+# widths past 256, which no instance runs: refused before a launch
+REFUSED_WIDTHS = (264, 320)
 # benchmarks/run.py::kernel_sweep's shapes (not the smoke ones), and the
 # attention's full width as (B * H, S, Dh).
 TUNE_SHAPES = {
@@ -1027,6 +1049,28 @@ def held_sampled(ops, calls, label):
     return max(errs, default=0.0)
 
 
+@torch.no_grad()
+def held_flash(ops, calls, label):
+    """Each recorded ``flash_attention`` call against the plain version on
+    its own inputs, in the dtype the kernel read them (``flash_check``'s
+    tolerance). Returns the max abs err."""
+    errs = []
+    for (q, k, v), kw, out in calls:
+        cfg = kw.get("config")
+        dtype = ops._kernel_dtype(q, k, v, precision=cfg and cfg.precision)
+        ref = ops.KERNELS["flash_attention"].plain(
+            q.to(dtype), k.to(dtype), v.to(dtype), kw.get("causal", True))
+        tol = FLASH_TOL[dtype]
+        diff = (out.float() - ref.float()).abs()
+        errs.append(float(diff.max()))
+        excess = float((diff - tol * ref.float().abs()).max())
+        print(f"flash_attention held {label} {tuple(q.shape)}/"
+              f"{tuple(k.shape)}: max_abs_err={errs[-1]:.3e} (tol "
+              f"{tol:.0e} + {tol:.0e} |ref|)", flush=True)
+        check(excess <= tol, f"flash_attention {label}: err {errs[-1]}")
+    return max(errs, default=0.0)
+
+
 def flash_check(ops, q, k, v, causal, label, config=None, out=None):
     """Kernel 4 against its plain version on every row (``out``: the
     kernel's output if it ran already); returns the max abs err. Fails
@@ -1050,10 +1094,11 @@ def flash_check(ops, q, k, v, causal, label, config=None, out=None):
 
 
 def flash_timings(ops, q, kk, v, reps, label) -> dict:
-    """Kernel 4 on (q, kk, v), causal at the default tile, in float32 and
-    bf16: its time in turns with its plain version, the library's
-    (``sdpa_call``) and its bound; a ``timing flash_attention{label}`` line
-    a dtype. Returns the float32 record."""
+    """Kernel 4 on (q, kk, v), causal at the tile ``tuning.lookup``
+    resolves, in float32 and bf16: its time in turns with its plain
+    version, the library's (``sdpa_call``) and its bound; a ``timing
+    flash_attention{label}`` line a dtype. Returns the float32 record."""
+    from repro_torch.kernels import tuning
     fa = ops.KERNELS["flash_attention"]
     B, S, H, Dh = q.shape
     # causal: half the S x S scores of each head, two products each; q, k,
@@ -1067,7 +1112,7 @@ def flash_timings(ops, q, kk, v, reps, label) -> dict:
                                 lambda: ops.flash_attention(qd, kd, vd),
                                 reps=reps)
         lib = sdpa_call(qd, kd, vd)
-        lib()
+        library_ms = cuda_ms(lib, reps=reps)
         tf32_ms = bound(fa.PASSES[size] * flops, size * elems,
                         PEAK_TF32_FLOPS)
         if size == 4:
@@ -1081,9 +1126,12 @@ def flash_timings(ops, q, kk, v, reps, label) -> dict:
             # TF32 passes beside it
             k4_bound, k4_by = bound(flops, size * elems, PEAK_BF16_FLOPS)
             extra = dict(tf32_two_pass_ms=tf32_ms[0])
+        tile = tuning.lookup("flash_attention", (B * H, S, Dh),
+                             dtype_bytes=size,
+                             backend=tuning.backend_of(q.device)).block
         t = dict(S=S, heads=H, kv_heads=kk.shape[2], head_dim=Dh,
-                 kernel_ms=k4_ms, plain_ms=k4_plain,
-                 library_ms=cuda_ms(lib, reps=reps), bound_ms=k4_bound,
+                 tile=list(tile), kernel_ms=k4_ms, plain_ms=k4_plain,
+                 library_ms=library_ms, bound_ms=k4_bound,
                  bound_by=k4_by, **extra)
         tag = label if dtype == torch.float32 else label + " bf16"
         print(f"timing flash_attention{tag} " + json.dumps(t), flush=True)
@@ -3381,10 +3429,10 @@ def grad_probe(named) -> dict:
 
 
 def train_card_vs_cpu(dev, card):
-    """(c): one train step of granite-3-8b reduced at head_dim 64 (the
-    flash kernel's width), float32 compute, on the card against the CPU.
-    The card's forward without grad takes the flash route; the step's
-    attention the plain one."""
+    """(c): one train step of granite-3-8b reduced (its head width 16),
+    float32 compute, on the card against the CPU. The card's forward
+    without grad takes the flash route; the step's attention the plain
+    one."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
@@ -3392,7 +3440,7 @@ def train_card_vs_cpu(dev, card):
     from repro_torch.models import build
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.train import TrainConfig, init_state, make_train_step
-    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), head_dim=64,
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
                               compute_dtype="float32")
     out = {}
     for d in ("cpu", dev):
@@ -3421,7 +3469,7 @@ def train_card_vs_cpu(dev, card):
     grad_rel = max(float((gpu["grads"][n] - g).abs().max()
                          / g.abs().max().clamp(min=1e-30))
                    for n, g in cpu["grads"].items())
-    rec = dict(arch=cfg.name, head_dim=64, loss_rel=rel["loss"],
+    rec = dict(arch=cfg.name, head_dim=cfg.head_dim, loss_rel=rel["loss"],
                grad_norm_rel=rel["grad_norm"], grad_rel_max=grad_rel,
                card_forward_routes=gpu["fwd_routes"],
                card_step_routes=gpu["step_routes"])
@@ -3762,8 +3810,13 @@ def quiet(fn):
 
 
 # the kernels the twins launch; every call of them in a twin's card run is
-# held against the plain version on its own inputs
-EXAMPLE_HELD = ("sketch_fused", "sampled_rescaled_dot")
+# held against the plain version on its own inputs (flash_attention: the
+# reduced LMs' prefills, at their head width 16)
+EXAMPLE_HELD = ("sketch_fused", "sampled_rescaled_dot", "flash_attention")
+# the reduced archs whose prefill has no causal, unwindowed self-attention
+# (recurrentgemma-9b's attention is windowed, xlstm-350m has none): no
+# flash route; every other arch's attentions of that kind are flash routes
+EXAMPLE_NO_FLASH = ("recurrentgemma-9b", "xlstm-350m")
 
 
 def counted(ops, fn, label):
@@ -3771,8 +3824,9 @@ def counted(ops, fn, label):
     largest abs err of each held kernel): the launch counters set to 0
     just before the call and read just after. Every call of
     ``EXAMPLE_HELD`` in the run is kept, copied at the call (inside the
-    wall time), and held afterwards on its own inputs by ``held_sketch``
-    and ``held_sampled``, with one line for the run in place of theirs."""
+    wall time), and held afterwards on its own inputs by ``held_sketch``,
+    ``held_sampled`` and ``held_flash``, with one line for the run in place
+    of theirs."""
     ops.reset_launch_counts()
     with recording(ops, *EXAMPLE_HELD, copy=True) as calls:
         out, ms = timed(fn)
@@ -3783,7 +3837,8 @@ def counted(ops, fn, label):
     err = quiet(lambda: {
         "sketch_fused": held_sketch(ops, calls["sketch_fused"], label),
         "sampled_rescaled_dot": held_sampled(
-            ops, calls["sampled_rescaled_dot"], label)})
+            ops, calls["sampled_rescaled_dot"], label),
+        "flash_attention": held_flash(ops, calls["flash_attention"], label)})
     # the largest output entry beside each max abs err: its scale
     largest = {name: max((float(y.abs().max()) for _, _, res in calls[name]
                           for y in [res[0] if isinstance(res, tuple) else res]
@@ -3968,6 +4023,7 @@ def example_serve_lm(ops, card):
     """serve_lm_torch on the card for every arch at the original's
     defaults, the default arch with --sketch-demo."""
     from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import attention as attn
     sv = load_example("serve_lm_torch")
     launches = {name: 0 for name in ops.LAUNCHES}
     archs, errs, t0 = {}, [], time.perf_counter()
@@ -3975,9 +4031,16 @@ def example_serve_lm(ops, card):
         demo = arch == EXAMPLE_SERVE_DEMO_ARCH
         argv = ["--arch", arch, "--device", "cuda"] + (
             ["--sketch-demo"] if demo else [])
+        attn.reset_route_counts()
         out, got, wall, err = counted(ops, lambda: sv.main(argv),
                                       f"serve_lm {arch}")
+        routes = dict(attn.ROUTES)
         errs.append(err)
+        # the prefill's causal, unwindowed self-attentions at the reduced
+        # width 16 run on the kernel, one launch a route
+        check(routes["flash"] == got["flash_attention"]
+              and (routes["flash"] == 0) == (arch in EXAMPLE_NO_FLASH),
+              f"serve_lm {arch}: flash routes {routes}, launches {got}")
         tokens, vocab = out["tokens"], get_config(arch).reduced().vocab_size
         on_card(f"serve_lm {arch}", tokens)
         check(tuple(tokens.shape) == (4, 64)
@@ -3995,7 +4058,8 @@ def example_serve_lm(ops, card):
                   and got["sampled_rescaled_dot"] >= 1,
                   f"serve_lm --sketch-demo launched sketch_fused and "
                   f"sampled_rescaled_dot: {got}")
-        archs[arch] = dict(wall_s=wall, launches=got)
+        archs[arch] = dict(wall_s=wall, launches=got, routes=routes,
+                           head_dim=get_config(arch).reduced().head_dim)
         for name in launches:
             launches[name] += got[name]
     wall = time.perf_counter() - t0
@@ -4082,14 +4146,24 @@ def main(argv=None) -> int:
     for inst, (regs, spill) in spills.items():
         print(f"  flash_attention instance bq,bk,Dh,dtype={inst}: {regs} "
               f"registers, {spill} bytes spilled", flush=True)
-    table = ops.KERNELS["flash_attention"].REGISTERS
+    fa = ops.KERNELS["flash_attention"]
+    table = fa.REGISTERS
     check(all(regs <= table[inst[2]] for inst, (regs, _) in spills.items()),
           f"flash_attention: registers within the tuner's table {table}")
     default_insts = [i for i in spills if i[:2] == flash_default]
-    check(len(spills) == 2 * len(tuning.TILE_MENUS["flash_attention"])
-          * len(ops.KERNELS["flash_attention"].HEAD_DIMS) and default_insts
-          and all(spills[i][1] == 0 for i in default_insts),
-          f"flash_attention: no spill at the default tile {flash_default}")
+    check(len(spills) == 2 * sum(len(fa.tiles(dh)) for dh in fa.HEAD_DIMS)
+          and default_insts and all(spills[i][1] == 0 for i in default_insts),
+          f"flash_attention: {len(spills)} instances, no spill at the "
+          f"default tile {flash_default}")
+    # the instances added for the reduced configs' width and Dh 256
+    new_insts = {i: s for i, s in spills.items() if i[2] in (16, 256)}
+    print("flash_attention Dh 16 and 256 instances (registers, spilled "
+          "bytes): " + json.dumps({",".join(map(str, i)): s
+                                   for i, s in new_insts.items()}),
+          flush=True)
+    check(len(new_insts) == 2 * (len(fa.tiles(16)) + len(fa.tiles(256)))
+          and all(s == 0 for _, s in new_insts.values()),
+          f"flash_attention: no spill at Dh 16 and 256: {new_insts}")
     # with no committed table every wrapper resolves to the tile it had
     backend = tuning.backend_of(dev)
     for kernel, shape in (("sketch_fused", (k, d, n)),
@@ -4104,6 +4178,13 @@ def main(argv=None) -> int:
         check(cfg == tuning.DEFAULTS[kernel]
               and cfg.block in tuning.TILE_MENUS[kernel],
               f"{kernel} resolves to its compiled default tile")
+    # a head width whose menu lacks the default resolves to its own tile
+    wide = ("flash_attention", (16, S_FULL, 256))
+    cfg = tuning.lookup(*wide, backend=backend)
+    print(f"tuning.lookup {wide[0]} {wide[1]} on {backend}: {cfg.block}",
+          flush=True)
+    check(cfg.block in fa.tiles(256), f"Dh 256 resolves to {cfg.block}, "
+          f"a tile of its menu {fa.tiles(256)}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -4501,15 +4582,17 @@ def main(argv=None) -> int:
           f"parts {json.dumps(serve_s)})", flush=True)
 
     # 12. kernel 4 against its plain version ---------------------------------
-    # tests/kernels/test_flash_attention.py's shapes, then the Dh 96 and 112
-    # ones of tests/test_torch_flash_attention.py
+    # tests/kernels/test_flash_attention.py's shapes, then the Dh 96, 112,
+    # 16 and 256 ones of tests/test_torch_flash_attention.py, at every tile
+    # their width compiles
     for shape in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
-                  (1, 384, 3, 3, 64), (1, 256, 4, 2, 96), (1, 384, 2, 1, 112)):
+                  (1, 384, 3, 3, 64), (1, 256, 4, 2, 96), (1, 384, 2, 1, 112),
+                  (1, 128, 4, 4, 16), (1, 256, 4, 1, 256)):
         B_, S_, H_, Hkv_, Dh_ = shape
         q, kk, v = attention_inputs(gen, S_, H_, Hkv_, Dh_, dev, batch=B_)
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
-                for block in tuning.TILE_MENUS["flash_attention"]:
+                for block in fa.tiles(Dh_):
                     flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype),
                                 causal, f"JAX test shape, tile {block}",
                                 config=tuning.KernelConfig("flash_attention",
@@ -4519,8 +4602,8 @@ def main(argv=None) -> int:
         for causal in (True, False):
             flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype), causal,
                         f"S={S_TRAIN}")
-    # a head width outside the compiled menu raises before a launch
-    for dh in (48, 80, 256):
+    # a head width past 256 raises before a launch
+    for dh in REFUSED_WIDTHS:
         q = torch.randn(1, 128, 2, dh, generator=gen, device=dev)
         before = ops.LAUNCHES["flash_attention"]
         try:
@@ -4538,7 +4621,21 @@ def main(argv=None) -> int:
             for causal in (True, False):
                 flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype),
                             causal, f"{arch} heads, S={S_TRAIN}")
-    del q, kk, v
+    # widths between compiled ones: one launch a call on the next wider
+    # instance, on a zero-padded copy
+    for dh in BETWEEN_WIDTHS:
+        q, kk, v = attention_inputs(gen, S_TRAIN, 8, 2, dh, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                before = ops.LAUNCHES["flash_attention"]
+                out = ops.flash_attention(q.to(dtype), kk.to(dtype),
+                                          v.to(dtype), causal=causal)
+                check(ops.LAUNCHES["flash_attention"] == before + 1,
+                      f"flash_attention Dh {dh}: one launch")
+                flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype),
+                            causal, f"Dh {dh} on the Dh {fa.tile_width(dh)} "
+                            f"instance, S={S_TRAIN}", out=out)
+    del q, kk, v, out
 
     # 13. the attention path at full width ----------------------------------
     q, kk, v = attention_inputs(gen, S_FULL, HEADS, KV_HEADS, HEAD_DIM, dev)
@@ -4570,7 +4667,7 @@ def main(argv=None) -> int:
     # after a warm-up (the tuner below measures only its model's best three)
     for dtype in (torch.float32, torch.bfloat16):
         qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
-        for block in tuning.TILE_MENUS["flash_attention"]:
+        for block in fa.tiles(HEAD_DIM):
             cfg = tuning.KernelConfig("flash_attention", block)
             ops.flash_attention(qd, kd, vd, config=cfg)
             ms = cuda_ms(lambda: ops.flash_attention(qd, kd, vd, config=cfg), 1)
@@ -4642,6 +4739,7 @@ def main(argv=None) -> int:
     launches_examples, err_examples = examples_phase(ops, card)
     err_sketch = max(err_sketch, err_examples["sketch_fused"])
     err_sampled = max(err_sampled, err_examples["sampled_rescaled_dot"])
+    err_flash = max(err_flash, err_examples["flash_attention"])
 
     # 24. the kernels line and the last line --------------------------------
     errs = {"sketch_fused": err_sketch, "sampled_rescaled_dot": err_sampled,
@@ -4655,6 +4753,7 @@ def main(argv=None) -> int:
     # requests' prefills (granite's, then moonshot's), the training steps
     # (the taps' sketches and their decompression), phase 22's prefills
     # (phi3's, starcoder2's, llama's, whisper's), and the examples' twins
+    # (the reduced LMs' prefills among them)
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]

@@ -6,9 +6,10 @@ preallocated caches.
 (reduced configs; any of the 10 assigned archs works)
 
 The twin of examples/serve_lm.py on ``repro_torch``: the same configs, key,
-prompts and sampling. The reduced configs' heads are 16 wide, a width the
-``flash_attention`` kernel is not compiled for, so prefill takes the plain
-attention route. The same serve layer also hosts sketch serving
+prompts and sampling. On the card the prefill's causal, unwindowed
+self-attentions run on the ``flash_attention`` kernel at the reduced
+configs' head width, 16 (recurrentgemma's windowed attention takes the
+plain route). The same serve layer also hosts sketch serving
 (``SketchService``): ``--sketch-demo`` streams row chunks into a session
 (on the card through ``sketch_fused``) and asks it for factors (through
 ``sampled_rescaled_dot``). ``--device`` is "cuda" by default and raises

@@ -31,10 +31,10 @@
 //    one BQ x Dh query tile of one (b, h) and loops over the k-tiles
 //    itself, with the running state in registers.
 //  * Tensor cores: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 for
-//    both products. Each warp owns 16 query rows (BQ / 16 warps). For
-//    S = (scale q) K^T the A operand is the scaled Q tile, kept in shared
-//    memory as float32, and the B operand is K read row-major, which is the
-//    MMA's .col layout. For O += P V each thread loads its own V values, so
+//    both products. Each warp owns 16 query rows (BQ / 16 warps; a pair of
+//    warps at Dh 256, below). For S = (scale q) K^T the A operand is the
+//    scaled Q tile, kept in shared memory as float32, and the B operand is
+//    K read row-major, which is the MMA's .col layout. For O += P V each thread loads its own V values, so
 //    V keeps its row-major layout too.
 //  * Split passes: a float32 operand x becomes big = x rounded to nearest
 //    TF32 and small = x - big, and small*big, big*small and big*big are
@@ -55,8 +55,9 @@
 //    products go into a fresh fragment (per group of four 8-column tiles of
 //    O, which keeps registers down; at Dh = 112 the last group holds the two
 //    tiles left of 14), added to O with one FFMA that also applies the
-//    softmax correction: o = o * corr + part. QK^T sums over at most
-//    Dh = 128, 16 k8 steps, straight into its fragment.
+//    softmax correction: o = o * corr + part. A warp's QK^T sums over at
+//    most 128 columns of d, 16 k8 steps, straight into its fragment (at
+//    Dh 256 each warp of a pair sums half of d: below).
 //  * Online softmax in the fragment layout: the 4 threads of a quad share a
 //    row, so its max takes two __shfl_xor_sync; the denominator stays a
 //    per-thread partial, reduced once at the end (every update scales all
@@ -66,10 +67,17 @@
 //    guarantees strides that are multiples of 4 elements), so the next
 //    tile loads while this one computes; one __syncthreads() per tile. bf16
 //    tiles stay bf16 in shared memory and are widened in registers, which
-//    is exact. S is divisible by the tile, so nothing is zero-filled.
+//    is exact. S is divisible by the tile, so no row is zero-filled.
 //    Where a tile's 4-element chunks are not a multiple of the thread count
 //    (BQ 128, BK 32, Dh 112: 896 chunks on 256 threads) the last round of
 //    copies is guarded.
+//  * Widths between compiled ones: the kernel runs only the compiled
+//    widths. kernels/ops.py zero-pads a copy of q, k and v of any other
+//    width up to the smallest compiled one above it, passes the scale of
+//    the true width (``scale`` is a parameter), and slices O back. Zero
+//    columns add exact zeros to QK^T and give O columns that are dropped,
+//    so the result is the narrower attention, and the instances of the
+//    compiled widths carry no code for another width.
 //  * Causal: the loop stops at the tile that holds the diagonal. That is
 //    exact: a fully masked tile would add exp(-1e30 - m) = 0 to every sum,
 //    and tile 0 holds an unmasked key for every row. A warp skips the
@@ -80,16 +88,42 @@
 //    K rows Dh + 8 elements, V rows Dh + 16 bytes. At every compiled Dh a
 //    float32 Q or K row starts 8 or 24 banks (mod 32) past the one before,
 //    so a half warp's float2 loads from 4 rows hit 32 distinct banks; a
-//    bf16 K row 4, 20 or 28 banks (8 rows of one word each: 32 banks); the
-//    V rows a thread reads, two apart, 8 or 24 banks, float32 or bf16.
+//    bf16 K row 4, 12, 20 or 28 banks (8 rows of one word each: 32 banks);
+//    the V rows a thread reads, two apart, 8 or 24 banks, float32 or bf16.
+//  * Dh 256, warp pairs: one warp holding 16 query rows and all 256 of O's
+//    columns would need o[32][4], 128 registers for O beside S and P under
+//    the 255 limit, and would run its QK^T over 32 k8 steps into one
+//    truncating fragment. So at Dh 256 two warps own each 16 query rows
+//    (SPLIT = 2; BQ 64: 8 warps, 256 threads). Warp half h of a pair owns
+//    columns [128 h, 128 h + 128) of d and of O: it computes the partial
+//    S over its 128 columns of d (16 k8 steps, the chain the fresh-fragment
+//    analysis clears, as at Dh 128) and the PV products of its 128 columns
+//    of O (o[16][4], 64 registers, as at Dh 128). The two partial S
+//    fragments meet in shared memory: each warp writes its fragment (16 x
+//    BK float32), the pair waits at a named barrier of its 64 threads
+//    (bar.sync 1 + pair, 64), and each adds the other's with one FADD.
+//    a + b == b + a in IEEE arithmetic, so both warps hold the same S bit
+//    for bit and run the same online softmax: same running max,
+//    denominator and P, with no MMA done twice. The exchange slot is
+//    written again only after the next tile's __syncthreads(), which every
+//    thread reaches after its read. Shared memory at (64, 32) float32: Q
+//    67,584 bytes, two K/V stages 134,144, the exchange 16,384 (8 warps x 16
+//    x 32 float32): 218,112 of 232,448.
 //  * Tiles compiled: BQ in {64, 128} (128 or 256 threads), BK in {32, 64},
-//    Dh in {32, 64, 96, 112, 128}; kernels/flash_attention.py holds the
-//    same menu and refuses anything else before a launch. The largest,
-//    (128, 64, 112) float32, takes 182,272 bytes of shared memory; BK = 128
-//    with two float32 stages and a 128-row Q tile would not fit in 227 KB.
-//    Dh 256 is not compiled: a 256-wide O accumulator does not fit this
-//    register layout, and the one attention of the repo at that width is
-//    windowed, which neither this kernel nor the TPU kernel has.
+//    at Dh in {16, 32, 64, 96, 112, 128}; at Dh 256 (64, 32) only
+//    (WIDE_BQ, WIDE_BK): (64, 64) takes 268,288 bytes of shared memory in
+//    float32 before the exchange and 235,520 in bf16 with it, over 232,448,
+//    and doubles S and P's registers, which already spill at BK 64 and
+//    Dh 112;
+//    BQ 128 would be 512 threads, 128 registers a thread, half of them O's.
+//    kernels/flash_attention.py holds the same menu (``tiles``) and refuses
+//    anything else before a launch. The largest Dh <= 128 tile, (128, 64,
+//    128) float32, takes 206,848 bytes; BK = 128 with two float32 stages
+//    and a 128-row Q tile would not fit in 227 KB. Dh > 256 (no config of
+//    the repo has one) is not compiled. recurrentgemma-9b's attention at
+//    Dh 256 is windowed, which neither this kernel nor the TPU kernel has:
+//    its model path stays on the plain route; this kernel takes its head
+//    layout unwindowed.
 // Not wgmma or TMA: later work. PERF.md has the kernel's times against its
 // bound and what holds it back (tools/flash_attention_probe.py).
 
@@ -105,19 +139,37 @@ constexpr int STAGES = 2;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
 
+// The tile compiled at Dh 256 (the header says why only this one).
+constexpr int WIDE_BQ = 64, WIDE_BK = 32;
+
+// Whether the source compiles tile (BQ, BK) at head width DH.
+constexpr bool compiled(int BQ, int BK, int DH) {
+  return DH <= 128 || (BQ == WIDE_BQ && BK == WIDE_BK);
+}
+
 template <int BQ, int BK, int DH, typename T>
 struct Tile {
-  static constexpr int WARPS = BQ / 16;             // 16 query rows a warp
+  // warps that share 16 query rows, each owning DH / SPLIT columns of d
+  // and of O: two at Dh 256, else one
+  static constexpr int SPLIT = DH > 128 ? 2 : 1;
+  static constexpr int WD = DH / SPLIT;             // columns a warp
+  static constexpr int WARPS = BQ / 16 * SPLIT;
   static constexpr int THREADS = 32 * WARPS;        // 128 or 256
   static constexpr int NT = BK / 8;                 // key tiles of S
-  static constexpr int DT = DH / 8;                 // column tiles of O
+  static constexpr int DT = WD / 8;                 // column tiles of O
   static constexpr int G = DT < 4 ? DT : 4;         // O tiles per fresh part
   static constexpr int LDQ = DH + 8;                // floats per Q row
   static constexpr int LDK = DH + 8;                // elements per K row
   static constexpr int LDV = DH + 16 / (int)sizeof(T);  // per V row
   static constexpr int STAGE_ELEMS = BK * (LDK + LDV);
+  // the pairs' exchange of partial S: a warp's fragment, 16 x BK float32
+  static constexpr int XCH_FLOATS = SPLIT > 1 ? WARPS * 16 * BK : 0;
+  static constexpr int RING_OFFSET = BQ * LDQ * (int)sizeof(float);
+  static constexpr int XCH_OFFSET =
+      RING_OFFSET + STAGES * STAGE_ELEMS * (int)sizeof(T);
   static constexpr int SMEM =
-      BQ * LDQ * (int)sizeof(float) + STAGES * STAGE_ELEMS * (int)sizeof(T);
+      BQ * LDQ * (int)sizeof(float) + STAGES * STAGE_ELEMS * (int)sizeof(T)
+      + XCH_FLOATS * (int)sizeof(float);
   // float32: three passes per product; bf16 k and v are exact in TF32: two
   static constexpr int PASSES = std::is_same<T, float>::value ? 3 : 2;
 };
@@ -187,6 +239,11 @@ __device__ __forceinline__ void copy(void* smem, const void* gmem) {
                  :: "r"(dst), "l"(gmem) : "memory");
 }
 
+// The two warps of a pair (64 threads) meet at named barrier ``id``.
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" :: "r"(id) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -226,23 +283,30 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
   using Tl = Tile<BQ, BK, DH, T>;
   constexpr int THREADS = Tl::THREADS, NT = Tl::NT, DT = Tl::DT, G = Tl::G;
   constexpr int LDQ = Tl::LDQ, LDK = Tl::LDK, LDV = Tl::LDV;
-  constexpr int PASSES = Tl::PASSES;
+  constexpr int PASSES = Tl::PASSES, SPLIT = Tl::SPLIT, WD = Tl::WD;
   constexpr int CH = DH / 4;                     // 4-element chunks a row
-  constexpr int Q_COPIES = BQ * CH / THREADS;    // per thread: CH / 2
+  constexpr int VEC = 4 * (int)sizeof(T);        // bytes a chunk
+  constexpr int Q_COPIES = BQ * CH / THREADS;    // per thread
   // K/V: a ragged last round (BK * CH not a multiple of THREADS) is guarded
   constexpr int KV_CHUNKS = BK * CH;
   constexpr int KV_COPIES = (KV_CHUNKS + THREADS - 1) / THREADS;
   static_assert(DH % 8 == 0 && Q_COPIES * THREADS == BQ * CH &&
                 KV_COPIES >= 1, "copy split");
+  static_assert(Tl::RING_OFFSET % 16 == 0 && Tl::XCH_OFFSET % 16 == 0,
+                "shared-memory alignment");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* const Qs = reinterpret_cast<float*>(smem_raw);      // [BQ][LDQ]
-  T* const ring = reinterpret_cast<T*>(smem_raw + BQ * LDQ * sizeof(float));
+  T* const ring = reinterpret_cast<T*>(smem_raw + Tl::RING_OFFSET);
+  // [WARPS][NT][32 lanes] float4: each lane's fragment of its warp's S
+  float4* const xch = reinterpret_cast<float4*>(smem_raw + Tl::XCH_OFFSET);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int g = lane / 4;  // fragment row group
   const int t = lane % 4;  // thread in group
+  const int pair = warp / SPLIT;      // this warp's 16 query rows
+  const int c0 = warp % SPLIT * WD;   // and its first column of d and of O
   const int64_t nqt = p.S / BQ;
   const int64_t qt = nqt - 1 - (int64_t)blockIdx.x / p.BH;  // heaviest first
   const int64_t bh = (int64_t)blockIdx.x % p.BH;
@@ -263,8 +327,8 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
       const int c = tid + i * THREADS;
       if (KV_CHUNKS % THREADS != 0 && c >= KV_CHUNKS) break;
       const int r = c / CH, d = (c % CH) * 4;
-      copy<4 * (int)sizeof(T)>(ks + r * LDK + d, Kb + (k0 + r) * p.sks + d);
-      copy<4 * (int)sizeof(T)>(vs + r * LDV + d, Vb + (k0 + r) * p.svs + d);
+      copy<VEC>(ks + r * LDK + d, Kb + (k0 + r) * p.sks + d);
+      copy<VEC>(vs + r * LDV + d, Vb + (k0 + r) * p.svs + d);
     }
   };
   load_stage(0, 0);
@@ -280,8 +344,8 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
   }
 
   // This thread's rows are r0 and r0 + 8 of the tile (h = 0, 1 below).
-  const int r0 = warp * 16 + g;
-  const int64_t warp_first = q0 + warp * 16;
+  const int r0 = pair * 16 + g;
+  const int64_t warp_first = q0 + pair * 16;
   float o[DT][4], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < DT; ++j)
@@ -301,17 +365,18 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
     const T* ks = ring + (int)(kt % STAGES) * Tl::STAGE_ELEMS;
     const T* vs = ks + BK * LDK;
 
-    // s = (scale q) k^T: 16 rows x BK keys
+    // s = (scale q) k^T: 16 rows x BK keys, over this warp's WD columns
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DH; kk += 8) {
-      const float2 lo = *reinterpret_cast<const float2*>(&Qs[r0 * LDQ + kk + 2 * t]);
-      const float2 hi =
-          *reinterpret_cast<const float2*>(&Qs[(r0 + 8) * LDQ + kk + 2 * t]);
+    for (int kk = 0; kk < WD; kk += 8) {
+      const float2 lo =
+          *reinterpret_cast<const float2*>(&Qs[r0 * LDQ + c0 + kk + 2 * t]);
+      const float2 hi = *reinterpret_cast<const float2*>(
+          &Qs[(r0 + 8) * LDQ + c0 + kk + 2 * t]);
       const uint32_t a[4] = {__float_as_uint(lo.x), __float_as_uint(hi.x),
                              __float_as_uint(lo.y), __float_as_uint(hi.y)};
       uint32_t a_big[4], a_small[4];
@@ -320,12 +385,27 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t b0, b1, b0_big, b0_small, b1_big, b1_small;
-        k_pair(ks + (8 * j + g) * LDK + kk + 2 * t, b0, b1);
+        k_pair(ks + (8 * j + g) * LDK + c0 + kk + 2 * t, b0, b1);
         split<PASSES>(b0, b0_big, b0_small);
         split<PASSES>(b1, b1_big, b1_small);
         mma(s[j], a_small, b0_big, b1_big);
         if constexpr (PASSES == 3) mma(s[j], a_big, b0_small, b1_small);
         mma(s[j], a_big, b0_big, b1_big);
+      }
+    }
+    if constexpr (SPLIT == 2) {
+      // the pair's partial scores over the two halves of d: write this
+      // warp's, meet the partner, add the partner's (both warps then hold
+      // the same S)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        xch[(warp * NT + j) * 32 + lane] =
+            make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      pair_sync(1 + pair);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 x = xch[((warp ^ 1) * NT + j) * 32 + lane];
+        s[j][0] += x.x; s[j][1] += x.y; s[j][2] += x.z; s[j][3] += x.w;
       }
     }
     if (p.causal && k0 + BK - 1 > warp_first) {
@@ -383,7 +463,7 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
         for (int e = 0; e < 4; ++e) part[jj][e] = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const T* vrow = vs + (8 * j + 2 * t) * LDV + g;
+        const T* vrow = vs + (8 * j + 2 * t) * LDV + c0 + g;
 #pragma unroll
         for (int jj = 0; jj < G && jg + jj < DT; ++jj) {
           const int col = 8 * (jg + jj);
@@ -412,7 +492,7 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
     li += __shfl_xor_sync(FULL, li, 2);
     const float denom = fmaxf(li, 1e-30f);
     const int64_t row = q0 + r0 + 8 * hh;
-    T* orow = O + ((b * p.S + row) * p.H + h) * DH + 2 * t;
+    T* orow = O + ((b * p.S + row) * p.H + h) * DH + c0 + 2 * t;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
       store2(orow + 8 * j, o[j][2 * hh] / denom, o[j][2 * hh + 1] / denom);
@@ -434,15 +514,26 @@ int launch_tile(const T* q, const T* k, const T* v, T* o, const Params& p,
   return (int)cudaGetLastError();
 }
 
+template <int BQ, int BK, int DH, typename T>
+int launch_width(const T* q, const T* k, const T* v, T* o, const Params& p,
+                 cudaStream_t s) {
+  if constexpr (compiled(BQ, BK, DH))
+    return launch_tile<BQ, BK, DH, T>(q, k, v, o, p, s);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
 template <int BQ, int BK, typename T>
 int launch_dh(int64_t dh, const T* q, const T* k, const T* v, T* o,
               const Params& p, cudaStream_t s) {
   switch (dh) {
-    case 32: return launch_tile<BQ, BK, 32, T>(q, k, v, o, p, s);
-    case 64: return launch_tile<BQ, BK, 64, T>(q, k, v, o, p, s);
-    case 96: return launch_tile<BQ, BK, 96, T>(q, k, v, o, p, s);
-    case 112: return launch_tile<BQ, BK, 112, T>(q, k, v, o, p, s);
-    case 128: return launch_tile<BQ, BK, 128, T>(q, k, v, o, p, s);
+    case 16: return launch_width<BQ, BK, 16, T>(q, k, v, o, p, s);
+    case 32: return launch_width<BQ, BK, 32, T>(q, k, v, o, p, s);
+    case 64: return launch_width<BQ, BK, 64, T>(q, k, v, o, p, s);
+    case 96: return launch_width<BQ, BK, 96, T>(q, k, v, o, p, s);
+    case 112: return launch_width<BQ, BK, 112, T>(q, k, v, o, p, s);
+    case 128: return launch_width<BQ, BK, 128, T>(q, k, v, o, p, s);
+    case 256: return launch_width<BQ, BK, 256, T>(q, k, v, o, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -482,9 +573,10 @@ int run(const T* q, const T* k, const T* v, T* o, int64_t B, int64_t S,
 }  // namespace
 
 // Plain C entry points for ctypes. ``strides`` holds the (batch, sequence,
-// head) strides of q, k and v in elements, nine int64 values on the host.
-// Each returns the cudaError_t of its launch (0 on success, and
-// cudaErrorInvalidValue for a shape or tile that is not compiled); it
+// head) strides of q, k and v in elements, nine int64 values on the host;
+// Dh is a compiled width, ``scale`` 1/sqrt of the width the caller's
+// attention has (the wrapper's Dh before any zero padding). Each returns the cudaError_t of its launch (0 on success,
+// and cudaErrorInvalidValue for a shape or tile that is not compiled); it
 // neither synchronises nor allocates.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int64_t B,

@@ -31,6 +31,15 @@ stages. It reads q, k and v in place through their strides, so GQA costs
 no repeated copy, and under ``causal`` stops at the diagonal tile, which is
 exact.
 
+Head widths: instances are compiled at ``HEAD_DIMS`` (16 to 256); any
+width 1 <= Dh <= ``MAX_HEAD_DIM`` runs on the instance of
+``tile_width(Dh)``, the smallest compiled width at least Dh, on a copy of
+q, k and v that ``kernels/ops.py`` zero-pads to that width, with the scale
+of the true Dh and the output sliced back. Dh 256 splits each 16
+query rows over a pair of warps, one for each half of d and of O, which
+add their partial scores through shared memory; it compiles the tile
+(64, 32) only (``tiles``).
+
 ``plain`` is the PyTorch version of the same function; ``kernels/ops.py``
 chooses between the two and counts launches.
 """
@@ -48,10 +57,19 @@ SOURCE = "flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:78"
 
 #: The tiles ``csrc/flash_attention.cu`` compiles (its ``run`` and
-#: ``launch_*`` switches).
+#: ``launch_*`` switches): every (bq, bk) at the widths up to 128, and
+#: ``WIDE_TILES`` at 256 (``tiles``).
 BLOCK_Q = (64, 128)
 BLOCK_K = (32, 64)
-HEAD_DIMS = (32, 64, 96, 112, 128)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
+#: The widest head the kernel takes; ``tile_width`` maps a width to the
+#: smallest compiled one at least as wide.
+MAX_HEAD_DIM = 256
+#: The tiles of the Dh 256 instance (``WIDE_BQ``, ``WIDE_BK``): (64, 64)
+#: and bq 128 exceed shared memory or the registers (the source's header).
+WIDE_TILES = ((64, 32),)
+#: Above this width two warps share each 16 query rows (``Tile::SPLIT``).
+SPLIT_ABOVE = 128
 #: K/V tiles in the ``cp.async`` ring.
 STAGES = 2
 #: TF32 tensor-core passes per product, by input itemsize: float32 three
@@ -61,7 +79,8 @@ PASSES = {4: 3, 2: 2}
 #: instance of that width (``__launch_bounds__(THREADS, 1)`` allows 255;
 #: ``chip_smoke.py``'s build phase prints each instance's count and holds
 #: it to this table).
-REGISTERS = {32: 166, 64: 255, 96: 255, 112: 255, 128: 255}
+REGISTERS = {16: 128, 32: 166, 64: 255, 96: 255, 112: 255, 128: 255,
+             256: 255}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -69,35 +88,67 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
 
+def tile_width(dh: int) -> int:
+    """The compiled head width whose instance runs width ``dh``: the
+    smallest in ``HEAD_DIMS`` at least ``dh``. ValueError outside 1 to
+    ``MAX_HEAD_DIM``."""
+    for width in HEAD_DIMS:
+        if 1 <= dh <= width:
+            return width
+    raise ValueError(f"flash_attention: no kernel compiled for Dh={dh} "
+                     f"(compiled: 1 <= Dh <= {MAX_HEAD_DIM})")
+
+
+def tiles(dh: int) -> tuple:
+    """The (bq, bk) tiles compiled at the width that runs ``dh``; none
+    outside 1 to ``MAX_HEAD_DIM``."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        return ()
+    if split(dh) > 1:
+        return WIDE_TILES
+    return tuple((bq, bk) for bq in BLOCK_Q for bk in BLOCK_K)
+
+
+def split(dh: int) -> int:
+    """Warps that share each 16 query rows at width ``dh``."""
+    return 2 if tile_width(dh) > SPLIT_ABOVE else 1
+
+
 def smem_bytes(bq: int, bk: int, dh: int, dtype_bytes: int = 4) -> int:
     """Dynamic shared memory of one CTA for inputs of ``dtype_bytes``, as
-    ``Tile`` in the source lays it out: the scaled float32 Q tile at a
-    pitch of Dh + 8, and ``STAGES`` K/V tiles in the input dtype, K rows at
-    Dh + 8 elements, V rows at Dh + 16 bytes."""
-    ldk, ldv = dh + 8, dh + 16 // dtype_bytes
-    return 4 * bq * (dh + 8) + STAGES * bk * (ldk + ldv) * dtype_bytes
+    ``Tile`` in the source lays it out at the compiled width D that runs
+    ``dh``: the scaled float32 Q tile at a pitch of D + 8, ``STAGES`` K/V
+    tiles in the input dtype, K rows at D + 8 elements, V rows at D + 16
+    bytes, and at D 256 the warp pairs' exchange, a 16 x bk float32
+    fragment a warp."""
+    d = tile_width(dh)
+    ldk, ldv = d + 8, d + 16 // dtype_bytes
+    xch = 4 * (threads(bq, dh) // 32) * 16 * bk if split(dh) > 1 else 0
+    return 4 * bq * (d + 8) + STAGES * bk * (ldk + ldv) * dtype_bytes + xch
 
 
-def threads(bq: int) -> int:
-    """Threads per CTA: one warp for each 16 query rows."""
-    return 2 * bq
+def threads(bq: int, dh: int) -> int:
+    """Threads per CTA: one warp for each 16 query rows, two at the widths
+    above ``SPLIT_ABOVE``."""
+    return 2 * bq * split(dh)
 
 
 def ctas_per_sm(bq: int, dh: int) -> int:
     """CTAs of ``bq`` query rows that an SM's register file holds at head
     width ``dh``: a warp's registers are allocated 256 at a time, so a
     thread's count rounds up to a multiple of 8."""
-    return REGISTERS_PER_SM // (threads(bq) * -(-REGISTERS[dh] // 8) * 8)
+    regs = -(-REGISTERS[tile_width(dh)] // 8) * 8
+    return REGISTERS_PER_SM // (threads(bq, dh) * regs)
 
 
 def check_tile(bq: int, bk: int, dh: int) -> None:
-    """ValueError unless the source compiles this (bq, bk) for head width
-    dh."""
-    if bq not in BLOCK_Q or bk not in BLOCK_K or dh not in HEAD_DIMS:
+    """ValueError unless the source compiles this (bq, bk) at the width
+    that runs head width dh (any 1 <= dh <= ``MAX_HEAD_DIM``)."""
+    if (bq, bk) not in tiles(dh):
         raise ValueError(
             f"flash_attention: no kernel compiled for bq={bq}, bk={bk}, "
-            f"Dh={dh} (compiled: bq in {BLOCK_Q}, bk in {BLOCK_K}, Dh in "
-            f"{HEAD_DIMS})")
+            f"Dh={dh} (compiled: 1 <= Dh <= {MAX_HEAD_DIM}; at this width "
+            f"(bq, bk) in {tiles(dh)})")
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,13 +202,15 @@ def bind(lib: ctypes.CDLL) -> None:
 
 
 def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, causal: bool, bq: int, bk: int) -> torch.Tensor:
+           v: torch.Tensor, causal: bool, bq: int, bk: int,
+           scale_dh: int | None = None) -> torch.Tensor:
     """Run the kernel on CUDA tensors of one dtype (float32 or bfloat16):
-    q (B, S, H, Dh), k and v (B, S, Hkv, Dh), unit stride along Dh, every
-    other stride a multiple of 4 elements and every pointer 16-byte aligned;
-    H % Hkv == 0, S divisible by bq and bk, and the tile compiled. Returns o
-    (B, S, H, Dh), contiguous, in q's dtype, on the current stream without
-    synchronising."""
+    q (B, S, H, Dh), k and v (B, S, Hkv, Dh), Dh in ``HEAD_DIMS``, unit
+    stride along Dh, every other stride a multiple of 4 elements and every
+    pointer 16-byte aligned; H % Hkv == 0, S divisible by bq and bk, and
+    the tile compiled at Dh. The scale is 1/sqrt(``scale_dh``), the width
+    before any zero padding (default Dh). Returns o (B, S, H, Dh), contiguous, in q's dtype, on the current
+    stream without synchronising."""
     B, S, H, Dh = q.shape
     o = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -166,13 +219,15 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     err = getattr(lib, _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
         k.shape[2], Dh, ctypes.cast(strides, ctypes.c_void_p),
-        1.0 / math.sqrt(Dh), int(causal), bq, bk, stream)
+        1.0 / math.sqrt(scale_dh or Dh), int(causal), bq, bk, stream)
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     return o
 
 
-__all__ = ["plain", "bind", "launch", "check_tile", "smem_bytes", "threads",
-           "ctas_per_sm", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "STAGES",
-           "PASSES", "REGISTERS", "SOURCE", "REPLACES"]
+__all__ = ["plain", "bind", "launch", "check_tile", "tile_width", "tiles",
+           "split", "smem_bytes", "threads", "ctas_per_sm",
+           "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "MAX_HEAD_DIM", "WIDE_TILES",
+           "SPLIT_ABOVE", "STAGES", "PASSES", "REGISTERS", "SOURCE",
+           "REPLACES"]

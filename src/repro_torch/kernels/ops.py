@@ -39,6 +39,7 @@ import shutil
 import subprocess
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.core.linalg import sqrt_f32
@@ -408,6 +409,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, S, Hkv, Dh) with H a multiple of Hkv; returns (B, S, H, Dh) in q's
     dtype. Query head h reads KV head ``h // (H // Hkv)``, as the JAX
     wrapper's ``jnp.repeat`` gives it; the kernel reads k and v in place.
+    On the card Dh is any width up to ``flash_attention.MAX_HEAD_DIM``; one
+    that is not compiled is zero-padded to the next compiled width
+    (``flash_attention.tile_width``) in a copy of q, k and v, run with the
+    scale of the true Dh, and the output sliced back.
     Blocks are ``min(block, S)`` of the resolved config and must divide S.
     The kernel reads float32 or bf16 (a config's ``precision``, else bf16
     when q, k and v all are); the arithmetic is float32. It is forward
@@ -439,8 +444,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _flash.check_tile(bq, bk, Dh)
     if q.numel() == 0:
         return torch.empty_like(q)
+    pad = _flash.tile_width(Dh) - Dh
+    if pad:
+        qc, kc, vc = (F.pad(t, (0, pad)) for t in (qc, kc, vc))
     lib = _library("flash_attention")
     out = _flash.launch(lib, _aligned(qc), _aligned(kc), _aligned(vc),
-                        causal, bq, bk)
+                        causal, bq, bk, scale_dh=Dh)
     LAUNCHES["flash_attention"] += 1
+    if pad:
+        out = out[..., :Dh].contiguous()
     return out.to(q.dtype)

@@ -79,6 +79,8 @@ GRID_ORDERS: Dict[str, Tuple[str, ...]] = {
 }
 
 #: The tiles each source compiles: ``block`` must be one of these.
+#: flash_attention's are those of its widths up to 128; a width's own menu
+#: is ``flash_attention.tiles(Dh)``, and candidates and lookups keep to it.
 TILE_MENUS: Dict[str, Tuple[Tuple[int, ...], ...]] = {
     "sketch_fused": (_sketch_fused.TILE,),
     "blocked_fwht": (_hadamard.TILE,),
@@ -118,13 +120,28 @@ class KernelConfig(NamedTuple):
 #: ``lookup``'s fallback: the tiles the kernels ran with before the tuner,
 #: so default-config results are bit-identical to them. flash_attention's
 #: (128, 32) is the fastest compiled tile of its tensor-core source for
-#: granite-3-8b's attention at S = 32,768 on an H100 (PERF.md).
+#: granite-3-8b's attention at S = 32,768 on an H100 (PERF.md); a head
+#: width that lacks it (Dh 256) takes its own first tile
+#: (``default_config``).
 DEFAULTS: Dict[str, KernelConfig] = {
     "sketch_fused": KernelConfig("sketch_fused", _sketch_fused.TILE),
     "blocked_fwht": KernelConfig("blocked_fwht", _hadamard.TILE),
     "sampled_dot": KernelConfig("sampled_dot", ()),
     "flash_attention": KernelConfig("flash_attention", (128, 32)),
 }
+
+
+def default_config(kernel: str, shape: Tuple[int, ...]) -> KernelConfig:
+    """``DEFAULTS[kernel]``, except for a flash_attention head width whose
+    menu lacks that tile: the width's first compiled tile. A width no
+    instance runs (Dh > 256) keeps ``DEFAULTS``, which the card then
+    refuses before a launch."""
+    cfg = DEFAULTS[kernel]
+    if kernel == "flash_attention":
+        menu = _flash.tiles(shape[2])
+        if menu and cfg.block not in menu:
+            cfg = cfg._replace(block=menu[0])
+    return cfg
 
 
 class TuningSpec(NamedTuple):
@@ -241,7 +258,7 @@ def _threads(cfg: KernelConfig, shape: Tuple[int, ...]) -> int:
         return (radix >> ((log_l + 1) // 2)) * 32   # warps = L / R
     if cfg.kernel == "sampled_dot":
         return _sampled_dot.GATHER_THREADS
-    return _flash.threads(_flash_tile(cfg, shape[1])[0])
+    return _flash.threads(_flash_tile(cfg, shape[1])[0], shape[2])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,9 +348,11 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
         BH, S, Dh = shape
         bq, bk = _flash_tile(cfg, S)
         tiles = sum(((qt + 1) * bq - 1) // bk + 1 for qt in range(S // bq))
-        # q in and o out once; K and V tiles per q-tile up to the diagonal
-        hbm = 2 * BH * S * Dh * ds + 2 * BH * tiles * bk * Dh * ds
-        flops = _flash.PASSES[ds] * 4.0 * BH * tiles * bq * bk * Dh
+        # q in and o out once; K and V tiles per q-tile up to the diagonal;
+        # all at the compiled width (ops.flash_attention zero-pads to it)
+        width = _flash.tile_width(Dh) if Dh <= _flash.MAX_HEAD_DIM else Dh
+        hbm = 2 * BH * S * width * ds + 2 * BH * tiles * bk * width * ds
+        flops = _flash.PASSES[ds] * 4.0 * BH * tiles * bq * bk * width
         ctas = BH * (S // bq)
     peak = (PEAK_TF32_FLOPS if cfg.kernel in ("sketch_fused", "flash_attention")
             else PEAK_F32_FLOPS)
@@ -362,20 +381,23 @@ def candidate_configs(kernel: str, shape: Tuple[int, ...], *,
                       smem_budget: int = SMEM_BUDGET_BYTES
                       ) -> List[KernelConfig]:
     """The compiled tiles legal for ``kernel`` at ``shape`` that fit the
-    shared-memory budget. ``precision`` is inherited, never swept. Never
-    empty: when no tile is legal the default is kept, and when none fits
-    the budget the smallest footprint is."""
+    shared-memory budget; for flash_attention those of the head width's own
+    menu (``flash_attention.tiles``). ``precision`` is inherited, never
+    swept. Never empty: when no tile is legal the default is kept
+    (``default_config``), and when none fits the budget the smallest
+    footprint is."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} (use one of {KERNELS})")
     cands = []
     for block in TILE_MENUS[kernel]:
         if kernel == "flash_attention":
             BH, S, Dh = shape
-            if any(b > S or S % b for b in block) or Dh not in _flash.HEAD_DIMS:
+            if any(b > S or S % b for b in block) or \
+                    block not in _flash.tiles(Dh):
                 continue
         cands.append(KernelConfig(kernel, block, None, precision))
     if not cands:
-        cands = [DEFAULTS[kernel]._replace(precision=precision)]
+        return [default_config(kernel, shape)._replace(precision=precision)]
     fitting = [c for c in cands if smem_bytes(c, shape) <= smem_budget]
     if not fitting:
         fitting = [min(cands, key=lambda c: (smem_bytes(c, shape), c.block))]
@@ -475,7 +497,7 @@ def autotune(kernel: str, shape: Tuple[int, ...], *,
     ranked = rank_candidates(kernel, shape, precision=precision,
                              dtype_bytes=dtype_bytes)
     chosen = ranked[:max(measure_top, 1)]
-    default = DEFAULTS[kernel]._replace(precision=precision)
+    default = default_config(kernel, shape)._replace(precision=precision)
     if measure_top > 0 and default in ranked and default not in chosen:
         chosen.append(default)      # a measured winner never loses to it
     records = []
@@ -623,11 +645,15 @@ def reload_tables() -> None:
 def lookup(kernel: str, shape: Tuple[int, ...], *, dtype_bytes: int = 4,
            backend: Optional[str] = None) -> KernelConfig:
     """The ops-wrapper resolution: the table's hit for the shape bucket,
-    else ``DEFAULTS``. Never returns None."""
+    else ``default_config``. Never returns None. A flash_attention bucket
+    holds one compiled width's heads (its pow2 bucket of Dh: 65 to 128 or
+    129 to 256), so the tuner's winner for it is on that width's menu; a
+    table edited by hand to name another tile is refused before a
+    launch."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} (use one of {KERNELS})")
     hit = builtin_table(backend).get(kernel, shape, dtype_bytes)
-    return hit if hit is not None else DEFAULTS[kernel]
+    return hit if hit is not None else default_config(kernel, shape)
 
 
 def dtype_bytes_of(x) -> int:

@@ -7,14 +7,15 @@ attention takes is ``route(device, causal, window, head_dim)``, in one
 place:
 
 * ``"flash"``: causal, unwindowed self-attention on a CUDA device, with a
-  head width that ``csrc/flash_attention.cu`` compiles
-  (``kernels.flash_attention.HEAD_DIMS``), goes through
+  head width the kernel takes (up to
+  ``kernels.flash_attention.MAX_HEAD_DIM``, 256: every config of the repo,
+  the reduced ones' 16 included), goes through
   ``kernels.ops.flash_attention``. A sequence that is not a multiple of the
   resolved tile is right-padded with zeros and the output sliced back
   (``flash_prefill``): under the causal mask no real query sees a padded
   key, so the padding changes nothing.
 * ``"plain"``: everything else (bidirectional, cross-attention, windowed,
-  another head width, every tensor on the CPU, and every call whose
+  a head wider than 256, every tensor on the CPU, and every call whose
   output autograd must differentiate), as the JAX package computes it in
   plain JAX: dense masked attention up to ``CHUNK_THRESHOLD`` tokens, the
   chunked online softmax above. Training runs its attention through
@@ -70,12 +71,13 @@ def reset_route_counts() -> None:
 def route(device: torch.device, causal: bool, window, head_dim: int,
           needs_grad: bool = False) -> str:
     """``"flash"`` for causal, unwindowed attention on a CUDA (or ``meta``)
-    device at a head width the kernel compiles, else ``"plain"``. ``needs_grad`` (the
-    call is recorded for a backward pass) takes the plain route: the
+    device at a head width the kernel takes (at most
+    ``flash_attention.MAX_HEAD_DIM``), else ``"plain"``. ``needs_grad``
+    (the call is recorded for a backward pass) takes the plain route: the
     kernel has no backward, as the JAX package's has none."""
     if (torch.device(device).type in ("cuda", "meta") and causal
             and window is None
-            and head_dim in _flash.HEAD_DIMS and not needs_grad):
+            and head_dim <= _flash.MAX_HEAD_DIM and not needs_grad):
         return "flash"
     return "plain"
 

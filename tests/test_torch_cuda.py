@@ -588,12 +588,13 @@ def test_binomial_sampler_on_the_card_matches_the_cpu(card):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
 
 
-@pytest.mark.parametrize("dh", flash_attention.HEAD_DIMS)
-@pytest.mark.parametrize("bq,bk", tuning.TILE_MENUS["flash_attention"])
+@pytest.mark.parametrize("bq,bk,dh", [
+    (bq, bk, dh) for dh in flash_attention.HEAD_DIMS
+    for bq, bk in flash_attention.tiles(dh)])
 def test_flash_kernel_matches_plain(card, bq, bk, dh):
-    """Every compiled tile and head width, causal and not, float32 and
-    bf16, with GQA (4 query heads on 2 KV heads) and q, k and v read in
-    place from one packed (B, S, H + 2 Hkv, Dh) tensor."""
+    """Every compiled (tile, head width), causal and not, float32 and bf16,
+    with GQA (4 query heads on 2 KV heads) and q, k and v read in place
+    from one packed (B, S, H + 2 Hkv, Dh) tensor."""
     gen = torch.Generator(device=card).manual_seed(bq + bk + dh)
     B, S, H, Hkv = 2, 256, 4, 2
     packed = torch.randn(B, S, H + 2 * Hkv, dh, generator=gen, device=card)
@@ -612,11 +613,35 @@ def test_flash_kernel_matches_plain(card, bq, bk, dh):
                                        atol=FLASH_TOL[dtype])
 
 
-@pytest.mark.parametrize("dh", [48, 80, 256])
+@pytest.mark.parametrize("dh", [48, 80, 200, 256, 50, 13])
+def test_head_widths_between_compiled_ones_launch_once(card, dh):
+    """Widths between the compiled ones run on a copy zero-padded to the
+    next wider instance (48 and 50 on Dh 64's, 80 on 96's, 200 on 256's,
+    13 on 16's), 256 on its warp pairs: one launch a call, the scale of the
+    true Dh, within FLASH_TOL of the plain version, causal and not, float32
+    and bf16, GQA 4 over 2 at the tile ``tuning.lookup`` resolves."""
+    gen = torch.Generator(device=card).manual_seed(dh)
+    B, S, H, Hkv = 1, 256, 4, 2
+    q = torch.randn(B, S, H, dh, generator=gen, device=card)
+    k, v = (torch.randn(B, S, Hkv, dh, generator=gen, device=card)
+            for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        for causal in (True, False):
+            before = ops.LAUNCHES["flash_attention"]
+            out = ops.flash_attention(qd, kd, vd, causal=causal)
+            assert ops.LAUNCHES["flash_attention"] == before + 1
+            ref = flash_attention.plain(qd, kd, vd, causal)
+            assert out.dtype == dtype and out.shape == (B, S, H, dh)
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       rtol=FLASH_TOL[dtype],
+                                       atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dh", [264, 320])
 def test_uncompiled_head_width_raises_before_a_launch(card, dh):
-    """A head width outside HEAD_DIMS (256: recurrentgemma-9b's windowed
-    attention) raises on the card before anything launches: no padding,
-    no plain fallback."""
+    """A head width past 256 (no config of the repo has one) raises on the
+    card before anything launches: no padding, no plain fallback."""
     gen = torch.Generator(device=card).manual_seed(dh)
     q = torch.randn(1, 128, 2, dh, generator=gen, device=card)
     before = ops.LAUNCHES["flash_attention"]
@@ -633,8 +658,16 @@ def test_flash_block_shape_independence(card):
     o2 = ops.flash_attention(q, k, v, config=tuning.KernelConfig(
         "flash_attention", (64, 32)))
     torch.testing.assert_close(o1, o2, rtol=1e-5, atol=1e-5)
+    # 48 of the 64 columns, zero-padded back to 64 in a copy, on Dh 64's
+    # instance
+    o3 = ops.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    torch.testing.assert_close(
+        o3, flash_attention.plain(q[..., :48], k[..., :48], v[..., :48],
+                                  True), rtol=FLASH_TOL[torch.float32],
+        atol=FLASH_TOL[torch.float32])
+    wide = torch.randn(1, 512, 2, 264, generator=gen, device=card)
     with pytest.raises(ValueError, match="compiled"):
-        ops.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+        ops.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="divisible"):
         ops.flash_attention(q[:, :192], k[:, :192], v[:, :192])
 
@@ -1040,15 +1073,14 @@ def test_tap_pair_summary_on_the_card_matches_the_cpu(card):
 # ---------------------------------------------------------------------------
 
 def _lm(name, device, cd="float32", **overrides):
-    """A reduced arch at head width 32 (a width flash_attention.cu
-    compiles) unless ``overrides`` say otherwise, its parameters from
+    """A reduced arch at its own head width, 16 (the flash kernel takes
+    it), unless ``overrides`` say otherwise, its parameters from
     PRNGKey(0) drawn on the CPU and moved to ``device``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build
     cfg = dataclasses.replace(get_config(name).reduced(),
-                              **dict(dict(head_dim=32, compute_dtype=cd),
-                                     **overrides))
+                              **dict(dict(compute_dtype=cd), **overrides))
     params = build(cfg, device="cpu").init_params(prng.PRNGKey(0))
     return build(cfg, device=device), params.to(device)
 
@@ -1074,7 +1106,7 @@ RECURRENT_TOL = 5e-3
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_lm_on_the_card_matches_the_cpu(card, cd):
-    """Reduced granite-3-8b at head width 32: the full forward, the
+    """Reduced granite-3-8b at its head width 16: the full forward, the
     prefill and 4 decode steps on the card against the CPU on the same
     weights; a prefill of S = 100 (padded to the tile) launches the
     kernel once a layer."""
@@ -1109,9 +1141,12 @@ def test_lm_on_the_card_matches_the_cpu(card, cd):
 
 #: the reduced configs' head layout where the route test needs the full
 #: arch's: starcoder2-15b's GQA 12:1, phi3-mini-3.8b's head width 96 (on
-#: the kernel since it compiles Dh 96)
+#: the kernel since it compiles Dh 96), and mistral-large-123b at Dh 32 (a
+#: compiled width no reduced config has); the others run at the reduced
+#: width, 16
 ROUTE_OVERRIDES = {"starcoder2-15b": dict(n_heads=12, n_kv_heads=1),
-                   "phi3-mini-3.8b": dict(head_dim=96)}
+                   "phi3-mini-3.8b": dict(head_dim=96),
+                   "mistral-large-123b": dict(head_dim=32)}
 
 
 @pytest.mark.parametrize("name,flash,plain", [
@@ -1120,10 +1155,13 @@ ROUTE_OVERRIDES = {"starcoder2-15b": dict(n_heads=12, n_kv_heads=1),
     ("llama-3.2-vision-11b", 8, 2),  # (attn x4, xattn) x 2
     ("starcoder2-15b", 2, 0),        # GQA 12:1 on the kernel
     ("phi3-mini-3.8b", 2, 0),        # Dh 96 on the kernel
+    ("mistral-large-123b", 2, 0),    # Dh 32 on the kernel
+    ("kimi-k2-1t-a32b", 3, 0),       # the reduced width 16, no override
 ])
 def test_attention_routes_on_the_card(card, name, flash, plain):
     from repro_torch.models import attention as attn
     m, p = _lm(name, card, **ROUTE_OVERRIDES.get(name, {}))
+    assert m.cfg.head_dim == ROUTE_OVERRIDES.get(name, {}).get("head_dim", 16)
     attn.reset_route_counts()
     before = ops.LAUNCHES["flash_attention"]
     with torch.inference_mode():
@@ -1152,14 +1190,17 @@ def attention_qkv(gen, device, S, H, Hkv, Dh, B=2):
             torch.randn(B, S, Hkv, Dh, generator=gen, device=device))
 
 
+@pytest.mark.parametrize("layout", [(32, 8, 128), (16, 1, 256), (4, 4, 16)])
 @pytest.mark.parametrize("S", [1000, 100, 129])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_padded_flash_route_matches_plain(card, S, dtype):
+def test_padded_flash_route_matches_plain(card, S, dtype, layout):
     """S right-padded with zeros to the tile, one launch, sliced back:
-    the plain version on the unpadded sequence within FLASH_TOL."""
+    the plain version on the unpadded sequence within FLASH_TOL. Heads,
+    KV heads and width of granite-3-8b, recurrentgemma-9b (whose tile is
+    (64, 32)) and the reduced configs."""
     from repro_torch.models import attention as attn
     gen = torch.Generator(device=card).manual_seed(S)
-    q, k, v = (t.to(dtype) for t in attention_qkv(gen, card, S, 32, 8, 128))
+    q, k, v = (t.to(dtype) for t in attention_qkv(gen, card, S, *layout))
     before = ops.LAUNCHES["flash_attention"]
     got = attn.flash_prefill(q, k, v)
     assert ops.LAUNCHES["flash_attention"] == before + 1
@@ -1170,7 +1211,7 @@ def test_padded_flash_route_matches_plain(card, S, dtype):
 
 
 def test_engine_on_the_card_matches_the_cpu(card):
-    """Greedy tokens of reduced granite (head width 32, float32 compute)
+    """Greedy tokens of reduced granite (head width 16, float32 compute)
     on the card equal the CPU's."""
     from repro_torch.serve.engine import Engine, ServeConfig
     outs = []
@@ -1189,7 +1230,7 @@ def test_engine_on_the_card_matches_the_cpu(card):
 ])
 def test_moe_and_recurrent_lm_on_the_card_match_the_cpu(card, name, flash,
                                                         plain):
-    """Reduced MoE, hybrid and recurrent archs (head width 32, float32
+    """Reduced MoE, hybrid and recurrent archs (head width 16, float32
     compute): the forward's routes and flash launches, two forwards on the
     card equal bit for bit (the MoE's fixed-order combine, no atomics), and
     the forward, a prefill and 4 decode steps against the CPU. The RG-LRU
@@ -1266,7 +1307,7 @@ def _grads(model, params, batch):
 
 
 def test_training_attention_on_the_card_matches_the_cpu(card):
-    """Granite reduced at head width 64, which the flash kernel compiles:
+    """Granite reduced at its head width 16, which the flash kernel takes:
     inference on the card takes the flash route, ``loss.backward()`` the
     plain one, and every gradient (the attention projections' included)
     equals the CPU's. Before the route took the grad flag, the kernel's
@@ -1276,7 +1317,7 @@ def test_training_attention_on_the_card_matches_the_cpu(card):
     from repro_torch.models import attention as attn
     from repro_torch.models import build
     cfg = dataclasses.replace(get_config("granite-3-8b").reduced(),
-                              head_dim=64, compute_dtype="float32")
+                              compute_dtype="float32")
     params = build(cfg, device="cpu").init_params(prng.PRNGKey(0))
     batch = _lm_batch(cfg, "cpu", S=64)
     batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)

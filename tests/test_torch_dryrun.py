@@ -182,6 +182,38 @@ def test_dry_run_cell_skips_quadratic_long_context():
     assert r["mesh"] == "32x8"
 
 
+@pytest.mark.parametrize("head_dim,want", [(16, "flash"), (256, "flash"),
+                                           (264, "plain")])
+def test_meta_routes_every_width_up_to_256_to_flash(head_dim, want):
+    """On ``meta`` (the dry run's device) causal, unwindowed attention
+    takes the card's flash route at every width the kernel takes: the
+    reduced configs' 16 and recurrentgemma-9b's 256; past 256 the plain
+    route."""
+    from repro_torch.models import attention as attn
+    assert attn.route(torch.device("meta"), causal=True, window=None,
+                      head_dim=head_dim) == want
+
+
+def test_reduced_prefill_on_meta_counts_the_flash_trace():
+    """A reduced granite-3-8b forward on ``meta`` (2 x 64 tokens, 4 heads
+    of 16) routes both of its attentions to the flash trace, and the
+    analyzer counts the kernel's work from its operands: 4 B H S^2 Dh / 2
+    FLOPs a call (causal), q, k, v and o once."""
+    from repro_torch.models import attention as attn
+    cfg = get_config("granite-3-8b").reduced()
+    model = build(cfg, device="meta")
+    batch = {"tokens": torch.zeros(2, 64, dtype=torch.int32, device="meta")}
+    attn.reset_route_counts()
+    with torch.inference_mode():
+        cost = ta.analyze(lambda: model.forward(model.param_shapes(), batch))
+    assert attn.ROUTES == {"flash": 2, "plain": 0}
+    calls, flops, nbytes = cost.by_op["flash_attention_trace"]
+    B, S, H, Dh = 2, 64, cfg.n_heads, cfg.head_dim
+    assert (calls, Dh) == (2, 16)
+    assert flops == 2 * 4.0 * B * H * S * S * Dh / 2
+    assert nbytes == 2 * 4 * (4 * B * S * H * Dh)
+
+
 def test_reduced_xlstm_prefill_32k_lowers_within_the_child_limit(fake_8):
     r = fake_8["xlstm_prefill_32k"]
     assert r["status"] == "OK", r

@@ -42,6 +42,12 @@ def _qkv(B, S, H, Hkv, Dh, seed):
     (1, 384, 3, 3, 64),
     (1, 256, 4, 2, 96),     # phi3-mini-3.8b's head width, GQA 2:1
     (1, 384, 2, 1, 112),    # kimi-k2-1t-a32b's head width, MQA
+    (1, 128, 4, 4, 16),     # the reduced configs' width, 4 over 4 heads
+    (1, 256, 4, 2, 48),     # widths between compiled ones, which the card
+    (1, 128, 2, 1, 80),     # zero-pads to the next one: to Dh 64, to 96,
+    (1, 128, 4, 2, 200),    # to 256,
+    (1, 128, 2, 1, 50),     # and to 64 from a width not a multiple of 4
+    (1, 256, 4, 1, 256),    # recurrentgemma-9b's width, MQA
 ])
 def test_flash_matches_jax(B, S, H, Hkv, Dh, causal, dtype):
     q, k, v = _qkv(B, S, H, Hkv, Dh, seed=S + H)
@@ -83,23 +89,95 @@ def test_flash_shape_errors():
             "flash_attention", (96, 64)))
 
 
-@pytest.mark.parametrize("bq,bk,dh", [(64, 64, 48), (32, 64, 64),
+@pytest.mark.parametrize("bq,bk,dh", [(64, 64, 264), (32, 64, 64),
                                       (64, 16, 64), (128, 256, 128),
-                                      (128, 32, 256)])
+                                      (128, 32, 256), (64, 64, 256),
+                                      (128, 64, 256), (64, 32, 0)])
 def test_uncompiled_tiles_are_refused_before_a_launch(bq, bk, dh):
-    """What the CUDA branch checks before it launches: a head width or a
-    (clamped) block the source does not compile raises, naming the menu."""
+    """What the CUDA branch checks before it launches: a head width past
+    256 (or none), or a (clamped) block the source does not compile at the
+    width, raises, naming the menu. At Dh 256 only (64, 32) is compiled."""
     with pytest.raises(ValueError, match="compiled"):
         flash_attention.check_tile(bq, bk, dh)
 
 
 def test_compiled_tiles_fit_shared_memory():
-    for bq in flash_attention.BLOCK_Q:
-        for bk in flash_attention.BLOCK_K:
-            for dh in flash_attention.HEAD_DIMS:
-                flash_attention.check_tile(bq, bk, dh)
-                assert flash_attention.smem_bytes(bq, bk, dh) <= \
+    """Every width's own menu fits the 227 KB a CTA may take, in both
+    dtypes, and the tiles left out at Dh 256 do not."""
+    for dh in flash_attention.HEAD_DIMS:
+        for bq, bk in flash_attention.tiles(dh):
+            flash_attention.check_tile(bq, bk, dh)
+            for size in (4, 2):
+                assert flash_attention.smem_bytes(bq, bk, dh, size) <= \
                     tuning.SMEM_BUDGET_BYTES
+    for bq, bk in ((64, 64), (128, 32)):
+        assert flash_attention.smem_bytes(bq, bk, 256, 2) > \
+            tuning.SMEM_BUDGET_BYTES
+
+
+@pytest.mark.parametrize("dh,width", [
+    (1, 16), (13, 16), (16, 16), (17, 32), (48, 64), (50, 64), (80, 96),
+    (100, 112), (128, 128), (129, 256), (200, 256), (256, 256)])
+def test_every_width_up_to_256_maps_to_a_compiled_instance(dh, width):
+    """A head width runs on the smallest compiled width at least as wide
+    (the card zero-pads a copy of q, k and v to it where the width is not
+    compiled), with that width's tiles."""
+    assert flash_attention.tile_width(dh) == width
+    assert (width in flash_attention.HEAD_DIMS) and \
+        (dh == width) == (dh in flash_attention.HEAD_DIMS)
+    assert flash_attention.tiles(dh) == flash_attention.tiles(width)
+    bq, bk = tuning.default_config("flash_attention", (1, 4096, dh)).block
+    flash_attention.check_tile(bq, bk, dh)
+
+
+@pytest.mark.parametrize("dh", [13, 48, 50, 200])
+def test_uncompiled_width_is_zero_padded_to_the_next_compiled_one(
+        monkeypatch, dh):
+    """The card's path through ``ops.flash_attention`` with the launch
+    stood in for by the kernel's function (attention at the width it is
+    given, with the scale it is passed): one launch on q, k and v
+    zero-padded to ``tile_width(dh)`` at the scale of the true width, and
+    the output sliced back to the attention of width ``dh``."""
+    calls = []
+
+    def launch(lib, q, k, v, causal, bq, bk, scale_dh=None):
+        calls.append((q.shape[-1], k.shape[-1], v.shape[-1], scale_dh))
+        stretch = (q.shape[-1] / (scale_dh or q.shape[-1])) ** 0.5
+        return flash_attention.plain(q * stretch, k, v, causal)
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(ops, "_library", lambda name: None)
+    monkeypatch.setattr(flash_attention, "launch", launch)
+    monkeypatch.setitem(ops.LAUNCHES, "flash_attention", 0)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 128, 4, 2, dh, seed=dh))
+    got = ops.flash_attention(q, k, v, causal=True)
+    width = flash_attention.tile_width(dh)
+    assert calls == [(width, width, width, dh)]
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, flash_attention.plain(q, k, v, True),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", [0, 257, 264, 320])
+def test_widths_past_256_have_no_instance(dh):
+    with pytest.raises(ValueError, match="compiled"):
+        flash_attention.tile_width(dh)
+    assert tuning.default_config("flash_attention", (1, 4096, dh)) == \
+        tuning.DEFAULTS["flash_attention"]
+
+
+def test_default_tile_is_one_the_width_compiles():
+    """``tuning.lookup`` (what ``ops.flash_attention`` and ``flash_prefill``
+    resolve) keeps (128, 32) up to Dh 128, so their results stay bit for
+    bit, and gives Dh 256 its one tile, (64, 32)."""
+    for dh in (16, 32, 48, 64, 96, 112, 128):
+        assert tuning.lookup("flash_attention", (8, 4096, dh),
+                             backend="cpu") == \
+            tuning.DEFAULTS["flash_attention"]
+    for dh in (129, 200, 256):
+        assert tuning.lookup("flash_attention", (8, 4096, dh),
+                             backend="cpu").block == (64, 32)
 
 
 @pytest.mark.parametrize("s_blocks,dh,seed", [(1, 32, 0), (2, 64, 1),
@@ -214,22 +292,29 @@ def _mma_sum(pairs, fresh_every=None):
     return total + frag
 
 
-def _emulated_attention(q, k, v, passes, bk=32):
+def _emulated_attention(q, k, v, passes, bk=32, halves=1):
     """flash_attention.cu's arithmetic for one causal head at its default
     k-tile: q (S, Dh) scaled in float32; QK^T straight into its fragment
-    over Dh; the online softmax in float32 per k-tile of ``bk`` keys; PV
-    into a fresh fragment per k-tile, added to O with one rounding (the
-    kernel's FFMA). A k-tile changes nothing for the rows before it (their
-    p is exactly 0), so those rows are skipped, as the kernel skips the
-    tiles past its diagonal."""
+    over Dh, or with ``halves=2`` (the Dh 256 warp pair) into one fragment
+    per half of d, the two added in float32 (the pair's FADD); the online
+    softmax in float32 per k-tile of ``bk`` keys; PV into a fresh fragment
+    per k-tile, added to O with one rounding (the kernel's FFMA). A k-tile
+    changes nothing for the rows before it (their p is exactly 0), so
+    those rows are skipped, as the kernel skips the tiles past its
+    diagonal."""
     S, Dh = q.shape
     qs = (q * np.float32(1 / np.sqrt(Dh))).astype(np.float32)
     m = np.full((S, 1), -1e30, np.float32)
     lsum = np.zeros((S, 1), np.float32)
     o = np.zeros((S, Dh), np.float32)
+    w = Dh // halves
     for k0 in range(0, S, bk):
         r = slice(k0, S)
-        s = _mma_sum(_operands((qs[r], k[k0:k0 + bk].T), passes[0]))
+        s = np.zeros((S - k0, bk), np.float32)
+        for c in range(0, Dh, w):
+            s = s + _mma_sum(_operands((qs[r, c:c + w],
+                                        k[k0:k0 + bk, c:c + w].T),
+                                       passes[0]))
         s[k0 + np.arange(bk)[None, :] > np.arange(k0, S)[:, None]] = -1e30
         mn = np.maximum(m[r], s.max(1, keepdims=True))
         corr = np.exp(m[r] - mn)
@@ -280,6 +365,38 @@ def test_split_tf32_passes_meet_the_flash_tolerance(head):
     assert _excess(two, _exact_attention(q, kb, vb), tol) <= tol / 10
     one = _emulated_attention(q, k, v, (1, 1))
     assert _excess(one, exact, tol) > tol
+
+
+@pytest.fixture(scope="module")
+def wide_head():
+    """One causal head of Dh = 256 at S = 1,024 from a numpy seed, and its
+    float64 attention."""
+    rng = np.random.default_rng(256)
+    q, k, v = (rng.standard_normal((1024, 256)).astype(np.float32)
+               for _ in range(3))
+    return q, k, v, _exact_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dh256_pair_sum_meets_the_flash_tolerance(wide_head, dtype):
+    """The Dh 256 warp pair: each warp's QK^T over its 128 columns of d (16
+    k8 steps into one truncating fragment), the two partial scores added in
+    float32, meets the float32 FLASH_TOL against float64 with the kernel's
+    passes (three, or two for bf16-valued k and v). One fragment over all
+    256 columns (32 k8 steps), which the pair avoids for registers, meets
+    it too: the emulation puts its excess at about twice the pair's, two
+    orders of magnitude inside the tolerance."""
+    q, k, v, exact = wide_head
+    passes = (3, 3)
+    if dtype == "bfloat16":
+        k, v = (torch.from_numpy(x).bfloat16().float().numpy() for x in (k, v))
+        exact, passes = _exact_attention(q, k, v), (2, 2)
+    tol = TOL[torch.float32]
+    pair = _excess(_emulated_attention(q, k, v, passes, halves=2), exact, tol)
+    chain = _excess(_emulated_attention(q, k, v, passes, halves=1), exact, tol)
+    assert pair <= tol / 10
+    assert chain <= tol / 10
+    assert pair < chain
 
 
 def test_pv_needs_a_fresh_fragment_per_k_tile():

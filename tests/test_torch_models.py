@@ -374,16 +374,31 @@ def test_route_is_a_function_of_device_causal_window_and_head_width():
     for dev in (cuda, torch.device("meta")):
         assert tattn.route(dev, True, None, 96) == "flash"    # phi3-mini
         assert tattn.route(dev, True, None, 112) == "flash"   # kimi-k2
-    assert tattn.route(cuda, True, None, 256) == "plain"      # not compiled
+    for dev in (cuda, torch.device("meta")):
+        assert tattn.route(dev, True, None, 256) == "flash"   # recurrentgemma
+        assert tattn.route(dev, True, None, 16) == "flash"    # reduced
+        assert tattn.route(dev, True, None, 48) == "flash"    # between widths
+    assert tattn.route(cuda, True, None, 264) == "plain"      # past 256
     assert tattn.route(cuda, False, None, 128) == "plain"     # enc, xattn
     assert tattn.route(cuda, True, 2048, 128) == "plain"      # local_attn
-    assert tattn.route(cuda, True, None, 16) == "plain"       # reduced
+    assert tattn.route(cuda, True, 2048, 256) == "plain"      # its window
     assert tattn.route(cpu, True, None, 128) == "plain"
     # under autograd: the kernel has no backward
     assert tattn.route(cuda, True, None, 128, needs_grad=False) == "flash"
-    for dh in (32, 64, 96, 112, 128):
+    for dh in (16, 32, 64, 96, 112, 128, 256):
         assert tattn.route(cuda, True, None, dh, needs_grad=True) == "plain"
     assert tattn.route(cpu, True, None, 128, needs_grad=True) == "plain"
+
+
+@pytest.mark.parametrize("S", [100, 200])
+def test_padded_flash_route_at_dh_256_on_the_cpu(S):
+    """recurrentgemma-9b's head layout (16 over 1 of 256): the route pads to
+    its width's tile, (64, 32), and gives the unpadded causal attention."""
+    q, k, v = (_t(a) for a in _qkv(S, S, H=16, Hkv=1, Dh=256, seed=S))
+    got = tattn.flash_prefill(q, k, v)
+    assert tuple(got.shape) == tuple(q.shape)
+    want = tattn.dense_attention(q, k, v, causal=True)
+    _close(_np(got), _np(want), 1e-5, "padded")
 
 
 @pytest.mark.parametrize("S", [100, 128, 200])

@@ -102,6 +102,22 @@ def test_menus_are_the_tiles_the_sources_compile():
     assert cases("run") == flash_attention.BLOCK_Q
     assert cases("launch_bk") == flash_attention.BLOCK_K
     assert cases("launch_dh") == flash_attention.HEAD_DIMS
+    # a compiled width runs on its own instance, unpadded
+    assert [flash_attention.tile_width(w) for w in flash_attention.HEAD_DIMS] \
+        == list(flash_attention.HEAD_DIMS)
+    assert flash_attention.MAX_HEAD_DIM == flash_attention.HEAD_DIMS[-1]
+    # the Dh 256 menu, and the width above which it applies
+    wide = tuple(int(re.search(rf"{n} = (\d+)", flash_src)[1])
+                 for n in ("WIDE_BQ", "WIDE_BK"))
+    assert flash_attention.WIDE_TILES == (wide,)
+    assert "return DH <= 128 || (BQ == WIDE_BQ && BK == WIDE_BK);" in \
+        flash_src
+    assert "SPLIT = DH > 128 ? 2 : 1;" in flash_src
+    assert flash_attention.SPLIT_ABOVE == 128
+    for dh in flash_attention.HEAD_DIMS:
+        want = (tuning.TILE_MENUS["flash_attention"] if dh <= 128
+                else flash_attention.WIDE_TILES)
+        assert flash_attention.tiles(dh) == want
     assert DEFAULTS["sketch_fused"].block == (128, 64)
     assert DEFAULTS["blocked_fwht"].block == (256, 32)
     assert DEFAULTS["sampled_dot"].block == ()
@@ -225,13 +241,28 @@ def test_flash_attention_constants_are_the_sources():
                  "LDV = DH + 16 / (int)sizeof(T);",
                  "BQ * LDQ * (int)sizeof(float) + STAGES * STAGE_ELEMS",
                  "STAGE_ELEMS = BK * (LDK + LDV);",
-                 "THREADS = 32 * WARPS;", "WARPS = BQ / 16;"):
+                 "THREADS = 32 * WARPS;", "WARPS = BQ / 16 * SPLIT;",
+                 "XCH_FLOATS = SPLIT > 1 ? WARPS * 16 * BK : 0;",
+                 "+ XCH_FLOATS * (int)sizeof(float);"):
         assert line in text, line
-    for bq, bk, dh, size in ((128, 32, 128, 4), (64, 64, 32, 2)):
+    for bq, bk, dh, size in ((128, 32, 128, 4), (64, 64, 32, 2),
+                             (64, 32, 16, 4), (128, 64, 16, 2)):
         ldk, ldv = dh + 8, dh + 16 // size
         assert flash_attention.smem_bytes(bq, bk, dh, size) == \
             4 * bq * (dh + 8) + 2 * bk * (ldk + ldv) * size
-        assert flash_attention.threads(bq) == 32 * bq // 16
+        assert flash_attention.threads(bq, dh) == 32 * bq // 16
+    # Dh 256: a warp pair a 16 rows and the exchange, 16 x bk float32 a
+    # warp: 218,112 bytes at (64, 32) float32, as the source's header says
+    for size in (4, 2):
+        ldk, ldv = 256 + 8, 256 + 16 // size
+        assert flash_attention.threads(64, 256) == 256
+        assert flash_attention.smem_bytes(64, 32, 256, size) == \
+            4 * 64 * 264 + 2 * 32 * (ldk + ldv) * size + 4 * 8 * 16 * 32
+    assert flash_attention.smem_bytes(64, 32, 256) == 218_112
+    # a width between compiled ones takes its instance's layout
+    assert flash_attention.smem_bytes(128, 32, 48) == \
+        flash_attention.smem_bytes(128, 32, 64)
+    assert flash_attention.smem_bytes(64, 32, 200) == 218_112
     cfg = KernelConfig("flash_attention", (128, 32), precision="bf16")
     assert smem_bytes(cfg, (32, 4096, 128)) == \
         flash_attention.smem_bytes(128, 32, 128, 2)
@@ -265,12 +296,20 @@ def test_candidates_respect_smem_budget_and_menu(kernel):
 
 def test_flash_candidates_follow_the_sequence_length():
     """Blocks larger than S or not dividing it are no candidates; a head
-    width the source does not compile leaves only the default."""
+    width takes its own menu (a width between compiled ones its instance's;
+    Dh 256 (64, 32) alone), and one no instance runs leaves only the
+    default."""
     assert candidate_configs("flash_attention", (4, 96, 64)) == \
         [DEFAULTS["flash_attention"]]
     got = {c.block for c in candidate_configs("flash_attention", (4, 192, 64))}
     assert got == {(64, 32), (64, 64)}
-    assert candidate_configs("flash_attention", (4, 256, 48)) == \
+    assert {c.block for c in candidate_configs(
+        "flash_attention", (4, 256, 48))} == \
+        set(tuning.TILE_MENUS["flash_attention"])
+    for dh in (200, 256):
+        assert candidate_configs("flash_attention", (4, 256, dh)) == \
+            [KernelConfig("flash_attention", (64, 32))]
+    assert candidate_configs("flash_attention", (4, 256, 264)) == \
         [DEFAULTS["flash_attention"]]
 
 
@@ -335,6 +374,9 @@ def test_flash_cost_caps_ctas_by_registers():
             for dh in (32, 64, 96, 112, 128)] == [1, 1, 1, 1, 1]
     assert [flash_attention.ctas_per_sm(64, dh)
             for dh in (32, 64, 96, 112, 128)] == [3, 2, 2, 2, 2]
+    # Dh 256's 64-row CTA is 8 warps at up to 255 registers: one an SM
+    assert flash_attention.ctas_per_sm(64, 256) == 1
+    assert flash_attention.ctas_per_sm(64, 200) == 1
     for shape in (TINY["flash_attention"], FLASH, SHAPES["flash_attention"]):
         for cfg in candidate_configs("flash_attention", shape):
             slots = tuning.roofline_cost(cfg, shape).slots

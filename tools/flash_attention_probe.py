@@ -4,6 +4,7 @@ variants of itself, each made by editing the source's text, and the rate of
 the card's ``mma.sync`` TF32 instruction alone.
 
     python3 tools/flash_attention_probe.py [--seed 0] [--tile 128 32]
+        [--layout 32 8 128] [--baseline OTHER/flash_attention.cu]
 
 * ``kernel``: the source as committed;
 * ``no_copies``: the K/V stages after the first are never refilled, so the
@@ -14,12 +15,20 @@ the card's ``mma.sync`` TF32 instruction alone.
   without the split's integer and float work (the MMAs stay).
 
 Each variant is checked against the plain version at S = 4,096 and timed
-at one granite-3-8b attention layer (S = 32,768, causal, 32 query and 8 KV
-heads of 128), float32 and bf16, at the tile given (default: the tuner's
-default). ``mma_sync_peak`` times a kernel of independent
-``mma.sync.m16n8k8`` TF32 MMAs on every SM, the rate this design can reach
-at most. One JSON line per variant; needs a CUDA card and ``nvcc``. Builds
-go to ``build/repro_torch/probe/``.
+at one attention layer of S = 32,768, causal, float32 and bf16, at the
+tile given (default: the one ``tuning.lookup`` resolves). The layout
+(query heads, KV heads, Dh) defaults to granite-3-8b's 32 over 8 of 128;
+``--layout 16 1 256`` is recurrentgemma-9b's. ``--baseline`` builds
+another copy of the source (say the parent commit's, unpacked with ``git
+archive``) and times it in turns with the kernel (baseline, kernel,
+kernel, baseline; its own line), at the same layout and tile: the cost of
+a change to the source, within one call on one card; its
+``sass_vs_baseline`` line names the ``flash_fwd`` instances (bq, bk, Dh,
+dtype) whose SASS differs from the baseline's, instruction for
+instruction (``cuobjdump -sass``). ``mma_sync_peak``
+times a kernel of independent ``mma.sync.m16n8k8`` TF32 MMAs on every SM,
+the rate this design can reach at most. One JSON line per variant; needs
+a CUDA card and ``nvcc``. Builds go to ``build/repro_torch/probe/``.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ import ctypes
 import functools
 import json
 import os
+import re
+import subprocess
 import sys
 
 import torch
@@ -90,6 +101,27 @@ def no_split(text: str) -> str:
     return edit(text, SPLIT, "    big = x;\n    small = x;")
 
 
+def sass_by_instance(lib) -> dict:
+    """{(bq, bk, Dh, dtype): SASS text} of each ``flash_fwd`` instance in
+    the loaded library, from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(ops._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True,
+                          capture_output=True, text=True).stdout
+    out, inst = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_fwdILi(\d+)ELi(\d+)ELi(\d+)E"
+                          r"(f|13__nv_bfloat16)E", line)
+            inst = None if m is None else (
+                int(m[1]), int(m[2]), int(m[3]),
+                "float32" if m[4] == "f" else "bfloat16")
+            if inst is not None:
+                out[inst] = []
+        elif inst is not None:
+            out[inst].append(line.strip())
+    return {i: "\n".join(lines) for i, lines in out.items()}
+
+
 def mma_peak_tflops(lib, dev) -> float:
     """FLOP/s of independent m16n8k8 TF32 MMAs, 8 warps a CTA, 8 CTAs per
     SM worth of work in flight."""
@@ -112,25 +144,36 @@ def mma_peak_tflops(lib, dev) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tile", type=int, nargs=2,
-                    default=tuning.DEFAULTS["flash_attention"].block)
+    ap.add_argument("--tile", type=int, nargs=2, default=None)
+    ap.add_argument("--layout", type=int, nargs=3, default=(32, 8, 128),
+                    metavar=("HEADS", "KV_HEADS", "DH"))
+    ap.add_argument("--baseline", default=None,
+                    help="another flash_attention.cu, timed in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_attention_probe: torch sees no CUDA device",
               file=sys.stderr)
         return 1
     text = (ops.CSRC / flash_attention.SOURCE).read_text()
-    libs = build({"kernel": text, "no_copies": no_copies(text),
-                  "no_mma": no_mma(text), "no_split": no_split(text),
-                  "peak": PEAK_SOURCE}, prefix="flash_")
+    variants = {"kernel": text, "no_copies": no_copies(text),
+                "no_mma": no_mma(text), "no_split": no_split(text),
+                "peak": PEAK_SOURCE}
+    if args.baseline:
+        with open(args.baseline) as f:
+            variants["baseline"] = f.read()
+    libs = build(variants, prefix="flash_")
     peak_lib = libs.pop("peak")
+    base_lib = libs.pop("baseline", None)
+    if base_lib is not None:
+        flash_attention.bind(base_lib)
     for lib in libs.values():
         flash_attention.bind(lib)
     print(f"card: {card()}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    bq, bk = args.tile
-    heads, kv_heads, dh = 32, 8, 128
+    heads, kv_heads, dh = args.layout
+    bq, bk = args.tile or tuning.lookup(
+        "flash_attention", (heads, 32768, dh), backend="cuda").block
 
     def inputs(S):
         return (torch.randn(1, S, heads, dh, generator=gen, device=dev),
@@ -153,8 +196,34 @@ def main(argv=None) -> int:
             qd, kd, vd = (x.to(dtype) for x in (q, k, v))
             times[f"{tag}_ms"] = cuda_ms(lambda: flash_attention.launch(
                 lib, qd, kd, vd, True, bq, bk), 2)
-        print(json.dumps({"variant": name, "tile": [bq, bk], **errs[name],
+        print(json.dumps({"variant": name, "tile": [bq, bk],
+                          "layout": [heads, kv_heads, dh], **errs[name],
                           **times}), flush=True)
+    if base_lib is not None:
+        mine, base = sass_by_instance(libs["kernel"]), sass_by_instance(base_lib)
+        shared = sorted(set(mine) & set(base))
+        print(json.dumps({
+            "variant": "sass_vs_baseline", "instances": len(mine),
+            "baseline_instances": len(base),
+            "identical": sum(mine[i] == base[i] for i in shared),
+            "differ": [list(i) for i in shared if mine[i] != base[i]],
+            "new": [list(i) for i in sorted(set(mine) - set(base))]}),
+            flush=True)
+        turns = {}
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            calls = {name: functools.partial(
+                flash_attention.launch, lib, qd, kd, vd, True, bq, bk)
+                for name, lib in (("baseline", base_lib),
+                                  ("kernel", libs["kernel"]))}
+            got = {name: [] for name in calls}
+            for name in ("baseline", "kernel", "kernel", "baseline"):
+                got[name].append(cuda_ms(calls[name], 2))
+            for name, ms in got.items():
+                turns[f"{name}_{tag}_ms"] = ms
+        print(json.dumps({"variant": "baseline_turns", "tile": [bq, bk],
+                          "layout": [heads, kv_heads, dh],
+                          "baseline": args.baseline, **turns}), flush=True)
     print(json.dumps({"variant": "mma_sync_peak",
                       "tf32_tflops": mma_peak_tflops(peak_lib, dev)}),
           flush=True)
