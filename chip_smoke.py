@@ -9,9 +9,12 @@ fails; nothing is caught:
 1. card: the card's name and power limit, from nvidia-smi;
 2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    nvcc per source, started together, with each kernel's register report,
-   the count of tensor-core (``HMMA``) instructions in each instance of
-   kernels 1 and 4 (``sketch_fused`` and ``flash_attention``), which must be
-   positive, kernel 4's registers and spills per instance, the registers
+   the count of tensor-core instructions in each instance of kernels 1 and
+   4 (``sketch_fused`` and ``flash_attention``): ``HMMA`` (``mma.sync``),
+   which must be positive in kernel 1's float32 instances and in kernel 4,
+   ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads), which must be positive
+   in kernel 1's bf16 instance, the clusters of that instance the card
+   holds, kernel 4's registers and spills per instance, the registers
    within the tuner's ``flash_attention.REGISTERS``, no spill at its
    default tile nor in any Dh 16 or 256 instance (50 instances: 2 bq x 2
    bk x Dh 16, 32, 64, 96, 112 and 128, and (64, 32) at Dh 256, x 2
@@ -50,6 +53,13 @@ fails; nothing is caught:
    co-sketch against a single-process ``StreamingSummarizer`` fed the same
    slabs (bit for bit where the one-rank all-reduce leaves the bits alone;
    held within ``SKETCH_TOL`` a column); ``distributed ...`` lines;
+4c. the Gaussian path with ``precision='bf16'`` at the same full width on
+   phase 4's pair (``smppca bf16`` line): wall time, launches 2 and 1, peak
+   memory under ``BF16_PEAK_GB_MAX``, no aligned copy, the probe residual
+   under its threshold beside phase 4's, both ``sketch_fused`` calls held
+   against the plain version on their first ``BF16_HELD_COLUMNS`` columns
+   (``sketch_fused held bf16 path`` lines), and step 1 staged with CUDA
+   events (the casts and the two launches);
 5. kernel 2 (``sampled_rescaled_dot``) against its plain version on all
    of the slice's samples and on the same m drawn uniform on both sides,
    with m = 0 and with duplicates, each call made twice and equal bit for
@@ -57,7 +67,9 @@ fails; nothing is caught:
 6. timings of kernels 1 and 2 at the slice's shapes beside their plain
    versions, one PyTorch library call where one computes the same
    function, and their bounds on an H100 SXM; kernel 1 in float32 and with
-   bf16 inputs; kernel 2 on both draws, with the time one B row a sample
+   bf16 inputs (beside ``torch.mm(..., out_dtype=float32)``, the same
+   function, and ``torch.matmul``, whose output is bf16); kernel 2 on both
+   draws, with the time one B row a sample
    takes from L2 at the card's L2 read rate (``tools/kernel_probe.py``);
 7. the SRHT path (``method='srht'``) at the same full width, through
    kernels 3 and 2: launch counts, every block-mode call in the cluster
@@ -344,6 +356,13 @@ NORM_RTOL = 1e-6
 # path peaked at 51.2 GB (PERF.md), and the SRHT pass must add no (dp, n)
 # copy of A or B (26.2 GB each).
 SRHT_PEAK_GB_MAX = 60.0
+# Phase 4c, smppca(precision='bf16') on phase 4's pair: its peak must stay
+# under the card's 80 GB (A and B take 40 GB, each sketch call adds a bf16
+# copy of its input, 10 GB); each of its two sketch_fused calls held against
+# the plain version on the first BF16_HELD_COLUMNS columns, as phase 3
+# holds the kernel.
+BF16_PEAK_GB_MAX = 80.0
+BF16_HELD_COLUMNS = 4096
 # Kernel 4 against its plain version: the JAX suite's tolerances for its
 # kernel against its oracle (tests/kernels/test_flash_attention.py), also at
 # S = 32,768: the kernel's and the plain version's float32 sums of 32,768
@@ -665,9 +684,13 @@ def bound(flops: float, nbytes: float, peak: float):
                                        else "bytes")
 
 
-def hmma_counts(ops, lib) -> dict:
-    """Tensor-core MMA instructions (``HMMA``) in each kernel function of
-    the library's SASS, from ``cuobjdump -sass``."""
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+
+
+def sass_counts(ops, lib) -> dict:
+    """{kernel function: {op: count}} of the tensor-core instructions in the
+    library's SASS (``cuobjdump -sass``): ``HMMA`` (``mma.sync``),
+    ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads)."""
     cuobjdump = os.path.join(os.path.dirname(ops._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
@@ -675,9 +698,11 @@ def hmma_counts(ops, lib) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            words = line.replace(".", " ").split()
+            for op in SASS_OPS:
+                counts[fn][op] += op in words
     return counts
 
 
@@ -872,6 +897,85 @@ def srht_step1_split(ops, summary_engine, key, A, B, k, dev):
             "step1_added_peak_gb": peak_new,
             "composition_ms": events[3].elapsed_time(events[4]),
             "composition_added_peak_gb": peak_old}
+
+
+@torch.no_grad()
+def bf16_full_width(ops, smppca, key, A, B, k, r, m, T, phase4_resid, seed,
+                    dev, card):
+    """Phase 4c: the Gaussian path with ``precision='bf16'`` at full width
+    on phase 4's pair: wall time, launches (2 and 1), peak memory, the
+    probe residual beside phase 4's, each sketch_fused call held against
+    the plain version on a column slice, and step 1 staged with CUDA events
+    (the casts of Pi and A, the launch on A, the cast of B, the launch on
+    B). Returns the path's launch counts and the held max abs err."""
+    from repro_torch.core import summary_engine
+    from repro_torch import prng
+    phase_t0 = time.perf_counter()
+    sk = ops.KERNELS["sketch_fused"]
+    copies = sk.ALIGNED_COPIES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with recording(ops, "sketch_fused") as calls:
+        t0 = time.perf_counter()
+        res = smppca(key, A, B, r=r, k=k, m=m, T=T, precision="bf16",
+                     device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == {"sketch_fused": 2, "sampled_rescaled_dot": 1,
+                       "blocked_fwht": 0, "flash_attention": 0},
+          f"launches per smppca(precision='bf16') call: {launches}")
+    check(sk.ALIGNED_COPIES == copies,
+          "the bf16 path's inputs are read by TMA in place")
+    check(peak_gb < BF16_PEAK_GB_MAX, f"bf16 path peak memory {peak_gb} GB")
+    U, V = res.factors
+    check(tuple(U.shape) == (A.shape[1], r) and bool(torch.isfinite(U).all())
+          and bool(torch.isfinite(V).all()), "bf16 factors finite")
+    # W from a generator of its own: the later phases' draws stay as they
+    # were without this phase
+    resid = probe_residual(A, B, res.factors,
+                           torch.Generator(device=dev).manual_seed(seed + 3))
+    check(resid < PROBE_RESIDUAL_MAX, f"bf16 probe residual {resid}")
+    del res, U, V
+    cols = BF16_HELD_COLUMNS
+    err = held_sketch(ops, [((Pi, X[:, :cols]), kw, (out[:, :cols],
+                                                     norm[:cols]))
+                            for (Pi, X), kw, (out, norm)
+                            in calls["sketch_fused"]],
+                      "bf16 path")
+    del calls
+    # step 1 staged: what ops.sketch_fused does for each input
+    lib = ops._library("sketch_fused")
+    P = summary_engine.projection_rows(prng.split(key, 3)[0],
+                                       torch.arange(A.shape[0], device=dev),
+                                       k).T
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    events[0].record()
+    P16 = P.to(torch.bfloat16).contiguous()
+    X16 = A.to(torch.bfloat16)
+    events[1].record()
+    sk.launch(lib, P16, X16)
+    events[2].record()
+    del X16
+    X16 = B.to(torch.bfloat16)
+    events[3].record()
+    sk.launch(lib, P16, X16)
+    events[4].record()
+    events[4].synchronize()
+    del X16, P16, P
+    step1 = {name: events[i].elapsed_time(events[i + 1]) for i, name in
+             enumerate(("cast_pi_and_a_ms", "launch_a_ms", "cast_b_ms",
+                        "launch_b_ms"))}
+    print("smppca bf16 " + json.dumps({
+        "d": A.shape[0], "n1": A.shape[1], "n2": B.shape[1], "k": k, "r": r,
+        "m": m, "T": T, "wall_s": wall_s, "launches": launches,
+        "peak_gb": peak_gb, "probe_residual": resid,
+        "phase4_probe_residual": phase4_resid, "held_max_abs_err": err,
+        "step1_ms": step1, "phase_s": time.perf_counter() - phase_t0,
+        "card": card}), flush=True)
+    return launches, err
 
 
 def staged_run(key, A, B, k, m, r, T, n, method, dev):
@@ -4135,12 +4239,23 @@ def main(argv=None) -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    # sketch_fused's float32 instances on mma.sync (HMMA), its bf16 one on
+    # wgmma (HGMMA) fed by TMA (UTMALDG); flash_attention on mma.sync
     for name in ("sketch_fused", "flash_attention"):
-        hmma = hmma_counts(ops, paths[name])
-        for fn, count in hmma.items():
-            print(f"  {name} SASS {fn}: {count} HMMA", flush=True)
-        check(len(hmma) > 0 and all(c > 0 for c in hmma.values()),
-              f"{name} runs on the tensor cores: HMMA counts {hmma}")
+        sass = sass_counts(ops, paths[name])
+        for fn, count in sass.items():
+            print(f"  {name} SASS {fn}: " + ", ".join(
+                f"{count[op]} {op}" for op in SASS_OPS), flush=True)
+        bf16_fns = [fn for fn in sass if "bf16_kernel" in fn]
+        check(len(sass) > 0 and all(
+            sass[fn]["HGMMA"] > 0 and sass[fn]["UTMALDG"] > 0
+            if fn in bf16_fns else sass[fn]["HMMA"] > 0 for fn in sass)
+            and (name != "sketch_fused" or len(bf16_fns) == 1),
+            f"{name} runs on the tensor cores: SASS counts {sass}")
+    sk = ops.KERNELS["sketch_fused"]
+    print(f"  sketch_fused bf16 clusters of {sk.cluster_size(k)} CTAs the "
+          f"card holds: {sk.cluster_slots(ops._library('sketch_fused'), k)}",
+          flush=True)
     flash_default = tuning.DEFAULTS["flash_attention"].block
     spills = flash_resources(paths["flash_attention"])
     for inst, (regs, spill) in spills.items():
@@ -4259,6 +4374,7 @@ def main(argv=None) -> int:
     print(f"probe residual: {resid:.4f} (threshold {PROBE_RESIDUAL_MAX})",
           flush=True)
     check(resid < PROBE_RESIDUAL_MAX, f"probe residual {resid}")
+    phase4_resid = resid
     # the same call again: a cache hit that builds nothing, keeping only
     # the first call's factors, on the host (its peak is then the call's)
     U1, V1 = U.cpu(), V.cpu()
@@ -4322,6 +4438,12 @@ def main(argv=None) -> int:
         dict(factors=res.factors,
              added_peak_gb=peak_warm_gb - live_warm / 1e9),
         args.seed, dev, card)
+
+    # 4c. the Gaussian path in bf16 at full width --------------------------
+    launches_bf16, err_bf16 = bf16_full_width(
+        ops, smppca, key, A, B, k, r, m, T, phase4_resid, args.seed, dev,
+        card)
+    err_sketch = max(err_sketch, err_bf16)
 
     # 5. kernel 2 against its plain version ---------------------------------
     As_rows = summary.A_sketch.T.contiguous()
@@ -4395,19 +4517,24 @@ def main(argv=None) -> int:
     del res, summary, samples, values, rows, cols, As_rows, Bs_rows
     del uni_rows, uni_cols
 
-    # kernel 1 with bf16 inputs: one TF32 pass; the least time is the bf16
-    # tensor cores' (this design's TF32 instruction has half their rate)
+    # kernel 1 with bf16 inputs, on the bf16 tensor cores (wgmma); the
+    # library's yardsticks: torch.matmul, whose output is bf16, and
+    # torch.mm with a float32 output, the kernel's function
     Pi16, A16 = Pi.to(torch.bfloat16), A.to(torch.bfloat16)
     k1b_ms, k1b_plain = turns(lambda: sk.plain(Pi16, A16),
                               lambda: ops.sketch_fused(Pi16, A16), reps=2)
     k1b_bytes = 2.0 * (k * d + d * n) + 4.0 * (k * n + n)
     k1b_bound, k1b_by = bound(2.0 * k * d * n, k1b_bytes, PEAK_BF16_FLOPS)
+    mm_f32 = lambda: torch.mm(Pi16, A16, out_dtype=torch.float32)
     torch.matmul(Pi16, A16)
+    mm_f32()
     t = dict(kernel_ms=k1b_ms, plain_ms=k1b_plain,
-             library_ms=cuda_ms(lambda: torch.matmul(Pi16, A16), reps=2),
+             library_ms=cuda_ms(mm_f32, reps=2),
+             matmul_bf16_out_ms=cuda_ms(lambda: torch.matmul(Pi16, A16),
+                                        reps=2),
              bound_ms=k1b_bound, bound_by=k1b_by,
-             tf32_one_pass_ms=bound(2.0 * k * d * n, k1b_bytes,
-                                    PEAK_TF32_FLOPS)[0])
+             clusters=sk.cluster_slots(ops._library("sketch_fused"), k),
+             cluster_ctas=sk.cluster_size(k))
     print("timing sketch_fused bf16 " + json.dumps(t), flush=True)
     del Pi, Pi16, A16
     torch.cuda.empty_cache()
@@ -4748,7 +4875,8 @@ def main(argv=None) -> int:
     # and the stream's 4,096-row pass for kernel 1, the Gaussian path for
     # kernel 2, the SRHT path for kernel 3, the attention call for kernel
     # 4, and for each the serving phase's (the sweep, the traffic cells and
-    # the stream session); then the distributed call and stream, both
+    # the stream session); then the bf16 path (phase 4c), the distributed
+    # call and stream, both
     # ranks' sharded ingest, the gradient tap and the compressor, the LM
     # requests' prefills (granite's, then moonshot's), the training steps
     # (the taps' sketches and their decompression), phase 22's prefills
@@ -4757,8 +4885,9 @@ def main(argv=None) -> int:
     path_launches = dict(launches, blocked_fwht=launches_srht["blocked_fwht"],
                          flash_attention=launches_flash["flash_attention"])
     path_launches["sketch_fused"] += launches_stream["sketch_fused"]
-    for extra in (launches_serve, launches_dist, launches_dist_stream,
-                  launches_multihost, launches_taps, launches_comp,
+    for extra in (launches_bf16, launches_serve, launches_dist,
+                  launches_dist_stream, launches_multihost, launches_taps,
+                  launches_comp,
                   launches_lm, launches_moe, launches_train,
                   launches_archs, launches_examples):
         for name in path_launches:

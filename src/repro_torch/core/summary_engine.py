@@ -385,13 +385,14 @@ def sketch_configs(backend: str, method: str, k: int, block: int,
     it: the ``cuda`` backend takes ``tuning``'s pinned config
     (``sketch_fused`` for gaussian, ``blocked_fwht`` for srht) where it has
     one, and every launch otherwise ``tuning.lookup`` at its own shape and
-    input dtype on A's device. The ``scan`` backend's blocks
+    the dtype its kernel reads (after ``precision``'s cast) on A's device.
+    The ``scan`` backend's blocks
     (``sketch_fused`` on the card) ignore ``tuning``, as the JAX package's
     non-kernel backends do. None for the backends that launch nothing."""
     from repro_torch.kernels import tuning as _tuning
     d = A.shape[-2]
     if backend == "cuda" and method == "gaussian":
-        kernel, dtype = "sketch_fused", A.dtype
+        kernel, dtype = "sketch_fused", _cast_dtype(A.dtype, precision)
 
         def shapes(n):
             return [(k, d, n)]

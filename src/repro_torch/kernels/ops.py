@@ -148,12 +148,15 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _resolved(kernel: str, shape: tuple, ref: torch.Tensor,
-              config: "_tuning.KernelConfig | None") -> _tuning.KernelConfig:
-    """The effective config: the explicit one, else the table's hit or the
-    default for ``ref``'s device; validated either way."""
+              config: "_tuning.KernelConfig | None",
+              dtype: "torch.dtype | None" = None) -> _tuning.KernelConfig:
+    """The effective config: the explicit one, else the table's hit for
+    ``dtype`` (``ref``'s by default) or the default for ``ref``'s device;
+    validated either way."""
     if config is None:
         config = _tuning.lookup(kernel, shape,
-                                dtype_bytes=_tuning.dtype_bytes_of(ref),
+                                dtype_bytes=_tuning.dtype_bytes_of(
+                                    ref if dtype is None else dtype),
                                 backend=_tuning.backend_of(ref.device))
     _tuning.validate_config(config)
     if config.kernel != kernel:
@@ -189,7 +192,10 @@ def sketch_fused(Pi: torch.Tensor, A: torch.Tensor, *,
         raise ValueError(f"sketch_fused: Pi {tuple(Pi.shape)} and A "
                          f"{tuple(A.shape)} disagree on d")
     n = A.shape[1]
-    cfg = _resolved("sketch_fused", (k, d, n), A, config)
+    # looked up under the dtype the kernel reads: an explicit precision
+    # decides it before the cast below
+    cfg = _resolved("sketch_fused", (k, d, n), A, config,
+                    _kernel_dtype(Pi, A, precision=precision))
     precision = precision if precision is not None else cfg.precision
     dtype = _kernel_dtype(Pi, A, precision=precision)
     if precision == "bf16":

@@ -12,7 +12,8 @@ kernels: the port of ``repro.kernels.tuning``.
 * ``roofline_cost`` / ``rank_candidates``: a static cost model in the terms
   of ``repro_torch.roofline.analysis`` (bytes at ``HBM_BW``; FLOP at
   ``PEAK_TF32_FLOPS`` times the split passes for ``sketch_fused`` and
-  ``flash_attention``, which run on the tensor cores, and at
+  ``flash_attention``, which run on the tensor cores, at
+  ``PEAK_BF16_FLOPS`` for ``sketch_fused``'s bf16 instance, and at
   ``PEAK_F32_FLOPS`` for the others; stretched by the tail wave over 132
   SMs), so the ranking is deterministic on any machine.
 * ``autotune`` measures the best-ranked candidates on the card
@@ -55,8 +56,8 @@ from repro_torch.kernels import hadamard as _hadamard
 from repro_torch.kernels import sampled_dot as _sampled_dot
 from repro_torch.kernels import sketch_fused as _sketch_fused
 from repro_torch.roofline.analysis import (
-    HBM_BW, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, SMEM_PER_BLOCK, SMEM_PER_SM,
-    SMEM_RESERVED, SMS, THREADS_PER_SM, kernel_time_lb)
+    HBM_BW, PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, SMEM_PER_BLOCK,
+    SMEM_PER_SM, SMEM_RESERVED, SMS, THREADS_PER_SM, kernel_time_lb)
 
 #: Shared memory one CTA may use on an H100 (the 227 KB opt-in).
 SMEM_BUDGET_BYTES = SMEM_PER_BLOCK
@@ -232,12 +233,14 @@ def _flash_tile(cfg: KernelConfig, S: int) -> Tuple[int, int]:
     return tuple(min(b, S) for b in cfg.block)
 
 
-def smem_bytes(cfg: KernelConfig, shape: Tuple[int, ...]) -> int:
+def smem_bytes(cfg: KernelConfig, shape: Tuple[int, ...], *,
+               dtype_bytes: int = 4) -> int:
     """Shared memory of one CTA of the kernel at ``shape`` (bytes), as the
-    kernel's source lays it out."""
+    kernel's source lays it out for inputs of ``dtype_bytes`` (or of the
+    config's precision)."""
     validate_config(cfg)
     if cfg.kernel == "sketch_fused":
-        return _sketch_fused.SMEM_BYTES
+        return _sketch_fused.smem_bytes(_itemsize(cfg.precision, dtype_bytes))
     if cfg.kernel == "blocked_fwht":
         d, n = shape
         _, radix = _fwht_radix(d, cfg.block[0])
@@ -249,9 +252,10 @@ def smem_bytes(cfg: KernelConfig, shape: Tuple[int, ...]) -> int:
                              _itemsize(cfg.precision))
 
 
-def _threads(cfg: KernelConfig, shape: Tuple[int, ...]) -> int:
+def _threads(cfg: KernelConfig, shape: Tuple[int, ...],
+             dtype_bytes: int = 4) -> int:
     if cfg.kernel == "sketch_fused":
-        return _sketch_fused.THREADS
+        return _sketch_fused.threads(_itemsize(cfg.precision, dtype_bytes))
     if cfg.kernel == "blocked_fwht":
         _, radix = _fwht_radix(shape[0], cfg.block[0])
         log_l = radix.bit_length() - 1
@@ -282,8 +286,9 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
                   srht: Optional[Tuple[int, int]] = None) -> RooflineCost:
     """The static model the ranking runs on: the bytes and FLOP of the
     kernel as its source does the work: the tensor-core passes of
-    ``sketch_fused`` (three for float32 inputs, one for bf16) and of
-    ``flash_attention`` (three, or two for bf16) at the TF32 rate, the
+    ``sketch_fused`` (three for float32 inputs at the TF32 rate, one for
+    bf16 at the bf16 rate) and of ``flash_attention`` (three, or two for
+    bf16) at the TF32 rate, the
     other kernels' float32 arithmetic at the FMA rate, whatever they read.
     CTAs resident per SM count threads and shared memory, and registers
     where a kernel's launch bounds let it take up to 255 a thread
@@ -354,10 +359,13 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
         hbm = 2 * BH * S * width * ds + 2 * BH * tiles * bk * width * ds
         flops = _flash.PASSES[ds] * 4.0 * BH * tiles * bq * bk * width
         ctas = BH * (S // bq)
-    peak = (PEAK_TF32_FLOPS if cfg.kernel in ("sketch_fused", "flash_attention")
+    peak = (PEAK_BF16_FLOPS if cfg.kernel == "sketch_fused" and ds == 2
+            else PEAK_TF32_FLOPS
+            if cfg.kernel in ("sketch_fused", "flash_attention")
             else PEAK_F32_FLOPS)
-    per_sm = min(THREADS_PER_SM // _threads(cfg, shape),
-                 SMEM_PER_SM // (smem_bytes(cfg, shape) + SMEM_RESERVED))
+    per_sm = min(THREADS_PER_SM // _threads(cfg, shape, dtype_bytes),
+                 SMEM_PER_SM // (smem_bytes(cfg, shape, dtype_bytes=dtype_bytes)
+                                 + SMEM_RESERVED))
     if plan is not None and plan.form == "cluster":
         per_sm = min(THREADS_PER_SM // _hadamard.CLUSTER_THREADS,
                      SMEM_PER_SM // (plan.smem + SMEM_RESERVED))

@@ -72,7 +72,11 @@ class AdamW:
         for name, p in params.items():
             g = grads[name]
             m, v = state.mu[name], state.nu[name]
-            g32 = (g * scale if scale is not None else g).to(torch.float32)
+            # cast, then scale: the reference multiplies in float32 (JAX
+            # promotes a bf16 gradient times the float32 scale)
+            g32 = g.to(torch.float32)
+            if scale is not None:
+                g32 = g32 * scale
             # m32 = b1 m + (1 - b1) g and v32 = b2 v + (1 - b2) g g, each
             # product rounded before the sum, as the reference's
             if m.dtype == torch.float32:

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.smppca import smppca
-from repro_torch.kernels import flash_attention, hadamard, ops, tuning
+from repro_torch.kernels import (flash_attention, hadamard, ops, sketch_fused,
+                                 tuning)
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +107,56 @@ def test_sketch_fused_kernel_columns_at_d_20000(card, dtype):
     scale = 1.0 / torch.arange(1, n + 1, device=card, dtype=torch.float32)
     A = torch.randn(d, n, generator=gen, device=card) * scale
     _sketch_against_plain(Pi.to(dtype), A.to(dtype), per_column=True)
+
+
+@pytest.mark.parametrize("k", [1, 130, 384, 512, 640, 1024])
+def test_sketch_fused_bf16_clusters_along_k(card, k):
+    """The bf16 instance's clusters of min(ceil(k / 128), 4) CTAs (1, 2,
+    3 and 4), each CTA's share of an A tile multicast into all of them and
+    a stage refilled once every CTA released it; 640 and 1,024 have more
+    row blocks than one cluster holds. n = 40,000: 313 column tiles, more
+    units than the card holds clusters."""
+    gen = torch.Generator(device=card).manual_seed(k)
+    d, n = 1000, 40_000
+    Pi = torch.randn(k, d, generator=gen, device=card).to(torch.bfloat16)
+    A = torch.randn(d, n, generator=gen, device=card).to(torch.bfloat16)
+    _sketch_against_plain(Pi, A)
+
+
+def test_sketch_fused_bf16_repeats_bit_for_bit(card):
+    """No atomics and fixed orders: two calls on the same inputs are equal
+    bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    Pi = torch.randn(512, 3000, generator=gen, device=card).bfloat16()
+    A = torch.randn(3000, 5000, generator=gen, device=card).bfloat16()
+    out1, norm1 = ops.sketch_fused(Pi, A, squared=True)
+    out2, norm2 = ops.sketch_fused(Pi, A, squared=True)
+    assert torch.equal(out1, out2) and torch.equal(norm1, norm2)
+
+
+@pytest.mark.parametrize("k,d,n,offset,copies", [
+    (512, 2048, 1024, False, 0),   # TMA reads both in place
+    (64, 1001, 203, False, 2),     # rows of Pi and A not multiples of 8
+    (96, 1002, 206, False, 2),
+    (130, 16, 129, False, 1),      # only A's rows
+    (130, 512, 384, True, 2),      # bases one element past 16 bytes
+])
+def test_sketch_fused_bf16_aligned_copies_are_counted(card, k, d, n, offset,
+                                                      copies):
+    """The bf16 wrapper copies, zero-padded, an input whose base or row
+    pitch TMA cannot read, and counts each copy in ALIGNED_COPIES."""
+    gen = torch.Generator(device=card).manual_seed(k + d + n)
+    if offset:
+        flat = torch.randn(k * d + d * n + 2, generator=gen,
+                           device=card).to(torch.bfloat16)
+        Pi = flat[1:1 + k * d].view(k, d)
+        A = flat[2 + k * d:].view(d, n)
+    else:
+        Pi = torch.randn(k, d, generator=gen, device=card).to(torch.bfloat16)
+        A = torch.randn(d, n, generator=gen, device=card).to(torch.bfloat16)
+    before = sketch_fused.ALIGNED_COPIES
+    _sketch_against_plain(Pi, A)
+    assert sketch_fused.ALIGNED_COPIES == before + copies
 
 
 def test_sampled_dot_kernel_matches_plain(card):

@@ -91,6 +91,49 @@ def test_smppca_recovers_correlated_product(slice_runs):
     assert float(err) < 3.0 * float(opt) + 0.05, (float(err), float(opt))
 
 
+# smppca(precision='bf16') at a tiny size: both packages round Pi, A and B
+# to bf16 and sum the exact products in float32, in other orders, so the
+# sketches differ by float32 rounding (a few 1e-7 relative) and the
+# estimate moves with them through WAltMin; 1e-3 relative Frobenius, as
+# the float32 slice above, leaves two orders of magnitude over that. The
+# JAX side runs its reference sketch backend, the same function as its
+# Pallas kernel: XLA:CPU has no bf16 x bf16 = float32 dot for the kernel's
+# interpret mode inside the jitted pipeline.
+BF16_D, BF16_N, BF16_K, BF16_R, BF16_T = 400, 60, 64, 3, 6
+BF16_M = int(10 * BF16_N * BF16_R * np.log(BF16_N))
+
+
+@pytest.fixture(scope="module")
+def bf16_runs():
+    A, B = planted_pair_np(2, BF16_D, BF16_N)
+    with jax.threefry_partitionable(False):
+        plan = pipeline.smppca_plan(r=BF16_R, k=BF16_K, m=BF16_M, T=BF16_T,
+                                    backend="reference", est_backend="jit",
+                                    precision="bf16")
+        jres = pipeline.PipelineEngine().run(plan, jax.random.PRNGKey(1),
+                                             jnp.asarray(A), jnp.asarray(B))
+        jax_factors = LowRankFactors(*(np.asarray(x)
+                                       for x in jres.estimate.factors))
+        jax_sketch = np.asarray(jres.summary.A_sketch)
+        jax_rows = np.asarray(jres.estimate.samples.rows)
+    port = smppca(prng.PRNGKey(1), torch.from_numpy(A), torch.from_numpy(B),
+                  r=BF16_R, k=BF16_K, m=BF16_M, T=BF16_T, precision="bf16",
+                  device="cpu")
+    return jax_factors, jax_sketch, jax_rows, port
+
+
+def test_smppca_bf16_matches_jax(bf16_runs):
+    jf, jax_sketch, jax_rows, port = bf16_runs
+    sketch = port.summary.A_sketch.numpy()
+    assert sketch.dtype == np.float32
+    np.testing.assert_allclose(sketch, jax_sketch, rtol=0,
+                               atol=1e-5 * np.abs(jax_sketch).max())
+    assert (port.samples.rows.numpy() == jax_rows).mean() >= 0.999
+    want = jf.U @ jf.V.T
+    got = (port.factors.U @ port.factors.V.T).numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < SLICE_RTOL
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")

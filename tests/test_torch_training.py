@@ -131,40 +131,60 @@ def test_schedules_match_jax_bit_for_bit(args):
         constant(args[0])(torch.tensor(3)).numpy().tobytes()
 
 
-def _adamw_inputs(seed, scale):
-    """Leaves of 1, 2 and 3 dimensions (weight decay on the last two)."""
+def _adamw_inputs(seed, scale, dtype=np.float32):
+    """Leaves of 1, 2 and 3 dimensions (weight decay on the last two), in
+    ``dtype`` (a bf16 leaf is the float32 draw rounded)."""
     rng = np.random.default_rng(seed)
     shapes = {"a": (7,), "b": (12, 5), "c": (3, 8, 6)}
-    params = {k: rng.standard_normal(s).astype(np.float32)
+    params = {k: rng.standard_normal(s).astype(np.float32).astype(dtype)
               for k, s in shapes.items()}
     grads = [{k: (scale * rng.standard_normal(s)).astype(np.float32)
-              for k, s in shapes.items()} for _ in range(3)]
+              .astype(dtype) for k, s in shapes.items()} for _ in range(3)]
     return params, grads
 
 
-@pytest.mark.parametrize("scale", [0.01, 10.0])      # unclipped, clipped
-@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
-def test_adamw_update_matches_jax(moments, scale):
+def _to_torch(x: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a torch tensor of its dtype (bf16 through its bits)."""
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(x.copy())
+
+
+# the first four cases: float32 parameters and gradients, unclipped and
+# clipped; the last: bf16 parameters and gradients at a clipping scale,
+# where the gradient is scaled in float32 (as JAX promotes bf16 * float32)
+@pytest.mark.parametrize("moments,scale,dtype", [
+    ("float32", 0.01, "float32"), ("float32", 10.0, "float32"),
+    ("bfloat16", 0.01, "float32"), ("bfloat16", 10.0, "float32"),
+    ("float32", 10.0, "bfloat16")],
+    ids=["float32-0.01", "float32-10.0", "bfloat16-0.01", "bfloat16-10.0",
+         "float32-10.0-bf16_params"])
+def test_adamw_update_matches_jax(moments, scale, dtype):
     """Three updates from the same state on the same gradients: parameters
-    and moments leaf by leaf within ADAMW_TOL, moments in their dtype."""
-    params, grads = _adamw_inputs(1, scale)
+    and moments leaf by leaf within ADAMW_TOL (bf16 parameters equal),
+    moments in their dtype."""
+    params, grads = _adamw_inputs(1, scale, getattr(jnp, dtype))
     jopt = JaxAdamW(lr=jax_warmup_cosine(1e-2, 1, 5), weight_decay=0.1,
                     moment_dtype=getattr(jnp, moments))
     topt = AdamW(lr=warmup_cosine(1e-2, 1, 5), weight_decay=0.1,
                  moment_dtype=getattr(torch, moments))
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     jstate = jopt.init(jp)
-    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tp = {k: _to_torch(v) for k, v in params.items()}
     tstate = topt.init(tp)
     for g in grads:
         jp, jstate = jopt.update({k: jnp.asarray(v) for k, v in g.items()},
                                  jstate, jp)
-        tp, tstate = topt.update({k: torch.from_numpy(v) for k, v in
-                                  g.items()}, tstate, tp)
+        tp, tstate = topt.update({k: _to_torch(v) for k, v in g.items()},
+                                 tstate, tp)
         assert int(tstate.step) == int(jstate.step)
         for k in params:
-            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
-                                       rtol=0, atol=ADAMW_TOL)
+            assert tp[k].dtype == getattr(torch, dtype)
+            if dtype == "bfloat16":
+                assert torch.equal(tp[k], _to_torch(np.asarray(jp[k])))
+            else:
+                np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                           rtol=0, atol=ADAMW_TOL)
             for t, j in ((tstate.mu, jstate.mu), (tstate.nu, jstate.nu)):
                 assert t[k].dtype == getattr(torch, moments)
                 np.testing.assert_allclose(

@@ -140,11 +140,25 @@ def test_sketch_fused_constants_are_the_sources():
     assert "constexpr int PI_PITCH = BK + 8;" in text
     assert "A_PITCH = BN + 16 / (int)sizeof(T);" in text
     bn, bk = sketch_fused.TILE
-    for size in (4, 2):
-        assert sketch_fused.smem_bytes(size) == const("STAGES") * size * (
-            const("BM") * (bk + 8) + bk * (bn + 16 // size))
+    assert sketch_fused.smem_bytes(4) == const("STAGES") * 4 * (
+        const("BM") * (bk + 8) + bk * (bn + 4))
     assert tuning.smem_bytes(_sk(), SHAPES["sketch_fused"]) == \
         sketch_fused.SMEM_BYTES <= tuning.SMEM_BUDGET_BYTES
+    # the bf16 instance's own layout: TMA tiles without padding, a
+    # 1,024-byte aligned ring, two barriers a stage
+    assert sketch_fused.BF16_STAGES == const("BF16_STAGES")
+    assert sketch_fused.BF16_CLUSTER_MAX == const("BF16_CLUSTER_MAX")
+    assert [sketch_fused.cluster_size(k) for k in (1, 130, 512, 1024)] == \
+        [1, 2, 4, 4]
+    assert sketch_fused.BF16_THREADS == 32 * (const("BF16_CONSUMER_WARPS")
+                                              + 4)
+    assert ("constexpr int BF16_SMEM = 1024 + BF16_STAGES * STAGE_BYTES +\n"
+            "                          2 * 8 * BF16_STAGES;") in text
+    assert "constexpr int STAGE_BYTES = PI_TILE_BYTES + A_TILE_BYTES;" in text
+    assert sketch_fused.smem_bytes(2) == 1024 + const("BF16_STAGES") * 2 * (
+        const("BM") * bk + bk * bn) + 16 * const("BF16_STAGES")
+    assert tuning.smem_bytes(_sk(precision="bf16"), SHAPES["sketch_fused"]) \
+        == sketch_fused.smem_bytes(2) <= tuning.SMEM_BUDGET_BYTES
 
 
 @pytest.mark.parametrize("kernel", ["sampled_dot", "blocked_fwht"])
@@ -270,16 +284,20 @@ def test_flash_attention_constants_are_the_sources():
 
 @pytest.mark.parametrize("precision,passes", [(None, 3), ("bf16", 1)])
 def test_sketch_fused_cost_counts_the_tensor_core_passes(precision, passes):
-    """The model charges sketch_fused its TF32 tensor-core passes: three
-    for float32 inputs (31.03 ms at the slice's shape), one for bf16."""
+    """The model charges sketch_fused its tensor-core passes: three TF32
+    passes for float32 inputs (31.03 ms at the slice's shape), one pass on
+    the bf16 tensor cores for bf16 (5.18 ms)."""
     k, d, n = 512, 50_000, 100_000
     cost = tuning.roofline_cost(_sk(precision=precision), (k, d, n))
+    peak = 989e12 if precision == "bf16" else 495e12
     assert cost.flops == passes * 2.0 * k * d * n
-    assert cost.t_compute == pytest.approx(passes * 2.0 * k * d * n / 495e12)
+    assert cost.t_compute == pytest.approx(passes * 2.0 * k * d * n / peak)
     assert cost.slots == tuning.SMS * sketch_fused.CTAS_PER_SM
     if precision is None:
         assert cost.t_compute == pytest.approx(31.03e-3, rel=1e-3)
         assert cost.t_compute > cost.t_memory
+    else:
+        assert cost.t_compute == pytest.approx(5.18e-3, rel=1e-3)
 
 
 @pytest.mark.parametrize("kernel", tuning.KERNELS)
@@ -539,6 +557,28 @@ def test_ops_kwarg_overrides_config_and_kernel_mismatch_rejected():
     with pytest.raises(ValueError, match="not compiled"):
         ops.sketch_fused(Pi, A, config=KernelConfig("sketch_fused",
                                                     (256, 512)))
+
+
+@pytest.mark.parametrize("precision,read", [(None, 4), ("f32", 4),
+                                             ("bf16", 2)])
+def test_sketch_fused_looks_up_the_dtype_it_reads(precision, read,
+                                                  monkeypatch):
+    """precision='bf16' casts float32 inputs after the config is resolved:
+    the wrapper and the summary's sketch_configs look the table up under
+    the dtype the kernel reads, not the inputs'."""
+    from repro_torch.core import summary_engine
+    seen = []
+    real = tuning.lookup
+
+    def lookup(kernel, shape, **kw):
+        seen.append((kernel, kw["dtype_bytes"]))
+        return real(kernel, shape, **kw)
+    monkeypatch.setattr(tuning, "lookup", lookup)
+    Pi, A = torch.ones(8, 64), torch.ones(64, 32)
+    ops.sketch_fused(Pi, A, precision=precision)
+    summary_engine.sketch_configs("cuda", "gaussian", 8, 1024, precision, A,
+                                  A)
+    assert seen == [("sketch_fused", read)] * 3
 
 
 def test_table_hit_reaches_the_wrapper(empty_tables):
