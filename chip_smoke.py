@@ -11,14 +11,18 @@ fails; nothing is caught:
    nvcc per source, started together, with each kernel's register report,
    the count of tensor-core instructions in each instance of kernels 1 and
    4 (``sketch_fused`` and ``flash_attention``): ``HMMA`` (``mma.sync``),
-   which must be positive in kernel 1's float32 instances and in kernel 4,
-   ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads), which must be positive
-   in kernel 1's bf16 instance, the clusters of that instance the card
-   holds, kernel 4's registers and spills per instance, the registers
+   which must be positive in kernel 1's float32 instances and in kernel 4's
+   ``mma.sync`` instances, ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA
+   loads), which must be positive in kernel 1's bf16 instance and in
+   kernel 4's float32 Dh 128 one (``flash_fwd_wgmma``; its prologue
+   ``flash_vt`` has neither), the clusters of kernel 1's bf16 instance the
+   card holds, kernel 4's registers and spills per instance, the registers
    within the tuner's ``flash_attention.REGISTERS``, no spill at its
-   default tile nor in any Dh 16 or 256 instance (50 instances: 2 bq x 2
-   bk x Dh 16, 32, 64, 96, 112 and 128, and (64, 32) at Dh 256, x 2
-   dtypes), the build's seconds, and the tile each kernel resolves to
+   default tile nor in any Dh 16 or 256 instance (46 ``mma.sync``
+   instances: 2 bq x 2 bk x Dh 16, 32, 64, 96, 112 and 128, and (64, 32)
+   at Dh 256, x 2 dtypes, but float32 at Dh 128), the wgmma instance and
+   its prologue at ``flash_attention.WGMMA_REGISTERS`` and without a
+   spill, the build's seconds, and the tile each kernel resolves to
    through ``tuning.lookup`` (Dh 256: its own (64, 32));
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
@@ -132,7 +136,8 @@ fails; nothing is caught:
     in the steady cells, shed rate, no build in the steady state);
     a trace of one warm serving flush; ``serve ...`` and ``trace ...``
     lines;
-12. kernel 4 (``flash_attention``, on the TF32 tensor cores) against its
+12. kernel 4 (``flash_attention``, on the TF32 tensor cores; float32 at
+    Dh 128 on ``wgmma`` fed by TMA) against its
     plain version on the JAX test shapes and the CPU tests' Dh 96, 112, 16
     and 256 shapes (causal and not, float32 and bf16, every tile compiled
     at the width) and at S = 4,096 with granite-3-8b's 32 query and 8 KV
@@ -148,7 +153,10 @@ fails; nothing is caught:
     read after it), against the plain version on every row, then bf16 and
     non-causal the same way;
 14. kernel 4's timings: every compiled tile at S = 32,768, float32 and
-    bf16; at S = 32,768 and 4,096, float32 and bf16, beside its plain
+    bf16 (float32 at Dh 128: the ``wgmma`` instance's one tile); that
+    instance's prologue alone (V^T, equal to ``flash_attention.vt_plain``),
+    its time and bytes, and the instance's shared memory; at S = 32,768
+    and 4,096, float32 and bf16, beside its plain
     version, ``scaled_dot_product_attention`` and its bound: float32 on the
     TF32 tensor cores (three split passes per product), with the float32
     FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
@@ -708,8 +716,9 @@ def sass_counts(ops, lib) -> dict:
 
 def flash_resources(lib) -> dict:
     """{(bq, bk, Dh, dtype): (registers, spilled bytes)} of each
-    ``flash_fwd`` instance, from the ``-Xptxas -v`` report kept beside the
-    library."""
+    ``flash_fwd`` instance, and under "wgmma" and "vt" those of
+    ``flash_fwd_wgmma`` and its prologue ``flash_vt``, from the ``-Xptxas
+    -v`` report kept beside the library."""
     log = lib.with_name(lib.name + ".log").read_text()
     out, inst = {}, None
     for line in log.splitlines():
@@ -719,6 +728,10 @@ def flash_resources(lib) -> dict:
             inst = None if m is None else (
                 int(m[1]), int(m[2]), int(m[3]),
                 "float32" if m[4] == "f" else "bfloat16")
+            if "flash_fwd_wgmma" in line:
+                inst = "wgmma"
+            elif "flash_vt" in line:
+                inst = "vt"
         elif inst is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
             out[inst] = (None, spill)
@@ -4240,17 +4253,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     # sketch_fused's float32 instances on mma.sync (HMMA), its bf16 one on
-    # wgmma (HGMMA) fed by TMA (UTMALDG); flash_attention on mma.sync
-    for name in ("sketch_fused", "flash_attention"):
+    # wgmma (HGMMA) fed by TMA (UTMALDG); flash_attention's float32 Dh 128
+    # instance on wgmma fed by TMA, after its prologue (a copy: no MMA), the
+    # others on mma.sync
+    for name, tma_tag in (("sketch_fused", "bf16_kernel"),
+                          ("flash_attention", "flash_fwd_wgmma")):
         sass = sass_counts(ops, paths[name])
         for fn, count in sass.items():
             print(f"  {name} SASS {fn}: " + ", ".join(
                 f"{count[op]} {op}" for op in SASS_OPS), flush=True)
-        bf16_fns = [fn for fn in sass if "bf16_kernel" in fn]
-        check(len(sass) > 0 and all(
+        tma_fns = [fn for fn in sass if tma_tag in fn]
+        mma_fns = [fn for fn in sass if fn not in tma_fns
+                   and "flash_vt" not in fn]
+        check(len(tma_fns) == 1 and len(mma_fns) > 0 and all(
             sass[fn]["HGMMA"] > 0 and sass[fn]["UTMALDG"] > 0
-            if fn in bf16_fns else sass[fn]["HMMA"] > 0 for fn in sass)
-            and (name != "sketch_fused" or len(bf16_fns) == 1),
+            for fn in tma_fns) and all(sass[fn]["HMMA"] > 0
+                                       for fn in mma_fns),
             f"{name} runs on the tensor cores: SASS counts {sass}")
     sk = ops.KERNELS["sketch_fused"]
     print(f"  sketch_fused bf16 clusters of {sk.cluster_size(k)} CTAs the "
@@ -4262,14 +4280,29 @@ def main(argv=None) -> int:
         print(f"  flash_attention instance bq,bk,Dh,dtype={inst}: {regs} "
               f"registers, {spill} bytes spilled", flush=True)
     fa = ops.KERNELS["flash_attention"]
+    # the wgmma instance (float32 at Dh 128) and its prologue: no spill,
+    # the launch's registers those the tuner models
+    wg_regs, wg_spill = spills.pop("wgmma")
+    vt_regs, vt_spill = spills.pop("vt")
+    print(f"flash_attention wgmma instance: {wg_regs} registers, {wg_spill} "
+          f"bytes spilled; prologue {vt_regs} registers, {vt_spill} bytes "
+          f"spilled; {fa.smem_bytes(128, 32, 128)} bytes of shared memory",
+          flush=True)
+    check(wg_spill == 0 and vt_spill == 0
+          and wg_regs == fa.WGMMA_REGISTERS,
+          f"flash_attention wgmma instance: {wg_regs} registers (the "
+          f"tuner's {fa.WGMMA_REGISTERS}), {wg_spill} and {vt_spill} bytes "
+          f"spilled")
     table = fa.REGISTERS
     check(all(regs <= table[inst[2]] for inst, (regs, _) in spills.items()),
           f"flash_attention: registers within the tuner's table {table}")
     default_insts = [i for i in spills if i[:2] == flash_default]
-    check(len(spills) == 2 * sum(len(fa.tiles(dh)) for dh in fa.HEAD_DIMS)
+    mma_insts = sum(len(fa.tiles(dh, size)) for dh in fa.HEAD_DIMS
+                    for size in (4, 2) if not fa.on_wgmma(dh, size))
+    check(len(spills) == mma_insts
           and default_insts and all(spills[i][1] == 0 for i in default_insts),
-          f"flash_attention: {len(spills)} instances, no spill at the "
-          f"default tile {flash_default}")
+          f"flash_attention: {len(spills)} mma.sync instances (want "
+          f"{mma_insts}), no spill at the default tile {flash_default}")
     # the instances added for the reduced configs' width and Dh 256
     new_insts = {i: s for i, s in spills.items() if i[2] in (16, 256)}
     print("flash_attention Dh 16 and 256 instances (registers, spilled "
@@ -4719,7 +4752,7 @@ def main(argv=None) -> int:
         q, kk, v = attention_inputs(gen, S_, H_, Hkv_, Dh_, dev, batch=B_)
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
-                for block in fa.tiles(Dh_):
+                for block in fa.tiles(Dh_, dtype.itemsize):
                     flash_check(ops, q.to(dtype), kk.to(dtype), v.to(dtype),
                                 causal, f"JAX test shape, tile {block}",
                                 config=tuning.KernelConfig("flash_attention",
@@ -4794,13 +4827,29 @@ def main(argv=None) -> int:
     # after a warm-up (the tuner below measures only its model's best three)
     for dtype in (torch.float32, torch.bfloat16):
         qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
-        for block in fa.tiles(HEAD_DIM):
+        for block in fa.tiles(HEAD_DIM, dtype.itemsize):
             cfg = tuning.KernelConfig("flash_attention", block)
             ops.flash_attention(qd, kd, vd, config=cfg)
             ms = cuda_ms(lambda: ops.flash_attention(qd, kd, vd, config=cfg), 1)
             print(f"tile flash_attention S={S_FULL} {block} "
                   f"{str(dtype).split('.')[-1]}: {ms:.3f} ms", flush=True)
         del qd, kd, vd
+    # the float32 Dh 128 instance's prologue alone (V^T in the P fragment's
+    # key order, which every call of that instance runs first): equal to its
+    # plain version, its time, and the instance's shared memory
+    fa_lib = ops._library("flash_attention")
+    vt = fa.vt_launch(fa_lib, v)
+    check(torch.equal(vt, fa.vt_plain(v)),
+          "flash_attention prologue: V^T as vt_plain gives it")
+    del vt
+    vt_ms = cuda_ms(lambda: fa.vt_launch(fa_lib, v), 5)
+    vt_bytes = 2 * v.numel() * v.element_size()
+    print(f"flash_attention wgmma instance S={S_FULL} [{card}]: prologue "
+          f"{vt_ms:.4f} ms ({vt_bytes / 1e6:.1f} MB read and written, "
+          f"{vt_bytes / vt_ms / 1e6:.1f} GB/s; bound "
+          f"{bound(0.0, vt_bytes, PEAK_TF32_FLOPS)[0]:.4f} ms), shared "
+          f"memory {fa.smem_bytes(128, 32, HEAD_DIM)} bytes a CTA",
+          flush=True)
     for S_, reps in ((S_FULL, 1), (S_TRAIN, 5)):
         if S_ != S_FULL:
             q, kk, v = attention_inputs(gen, S_, HEADS, KV_HEADS, HEAD_DIM, dev)

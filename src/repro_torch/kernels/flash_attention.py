@@ -20,16 +20,25 @@ The bytes take 0.4 ms in float32.
 Design (see the source for more): the TPU kernel carries its running
 softmax state across a sequential grid axis of k-blocks; here one CTA owns
 one (bq, Dh) query tile of one (b, h) and loops over k-tiles of bk keys,
-with the state in registers. Both products are ``mma.sync`` m16n8k8 TF32
-MMAs, 16 query rows a warp: float32 operands split into a TF32 big and
-small part (small*big, big*small, big*big), bf16 k and v exact in TF32 (two
-passes). P stays in registers: the PV MMA takes each k8 step's keys in the
-order of the score fragment. Each k-tile's PV products go into a fresh
-fragment added to O with an ordinary FFMA, since the tensor cores truncate
-inside an MMA. K and V tiles come through a ring of two ``cp.async``
-stages. It reads q, k and v in place through their strides, so GQA costs
-no repeated copy, and under ``causal`` stops at the diagonal tile, which is
-exact.
+with the state in registers. Float32 operands are split into a TF32 big
+and small part (small*big, big*small, big*big), bf16 k and v are exact in
+TF32 (two passes). P stays in registers: the PV product takes each k8
+step's keys in the order of the score fragment. Each k-tile's PV products
+go into a fresh accumulator added to O with an ordinary FFMA, since the
+tensor cores truncate inside a product. It reads q, k and v in place
+through their strides, so GQA costs no repeated copy, and under ``causal``
+stops at the diagonal tile, which is exact.
+
+Two designs. float32 at Dh 128 (``on_wgmma``; every Dh 128 LM prefill)
+runs Hopper's ``wgmma`` m64nNk8 TF32 fed by TMA, one (128, 32) tile
+(``WGMMA_TILES``): a producer warpgroup (one thread issuing the loads of
+K's tile and of V^T's into a ring of ``STAGES``, three warps splitting each
+landed tile once a CTA) and two consumer warpgroups of 64 query rows. TF32
+``wgmma`` reads B from shared memory K-major only, so a prologue in the
+same launch writes V^T (B, Hkv, Dh, S), each group of 8 keys in the P
+fragment's order, into scratch that ``launch`` allocates. Every other
+instance runs ``mma.sync`` m16n8k8 TF32, 16 query rows a warp, K and V
+tiles through a ring of two ``cp.async`` stages.
 
 Head widths: instances are compiled at ``HEAD_DIMS`` (16 to 256); any
 width 1 <= Dh <= ``MAX_HEAD_DIM`` runs on the instance of
@@ -76,16 +85,31 @@ STAGES = 2
 #: (small*big, big*small, big*big), bf16 two (k and v are exact in TF32).
 PASSES = {4: 3, 2: 2}
 #: Registers a thread holds, by head width: the most that ptxas gave any
-#: instance of that width (``__launch_bounds__(THREADS, 1)`` allows 255;
-#: ``chip_smoke.py``'s build phase prints each instance's count and holds
-#: it to this table).
+#: ``mma.sync`` instance of that width (``__launch_bounds__(THREADS, 1)``
+#: allows 255; ``chip_smoke.py``'s build phase prints each instance's count
+#: and holds it to this table). At Dh 128 that is the bf16 instances.
 REGISTERS = {16: 128, 32: 166, 64: 255, 96: 255, 112: 255, 128: 255,
              256: 255}
+#: The ``wgmma`` instance (float32 at Dh 128): its width, tiles, threads
+#: (a producer and two consumer warpgroups) and the registers a thread has
+#: at launch (``__launch_bounds__(384, 1)``: 65,536 / 384 rounded down to
+#: 8), which ``setmaxnreg`` then moves from the producer (56) to the
+#: consumers (224).
+WGMMA_DH = 128
+WGMMA_TILES = ((128, 32),)
+WGMMA_THREADS = 384
+WGMMA_REGISTERS = 168
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_WGMMA_ENTRY = "flash_attention_f32_wgmma"
+#: The order of each group of 8 keys in V^T: slot p holds key ``VT_ORDER[p]``
+#: (2p, then 2p + 1), the order in which the score accumulator's registers
+#: feed the PV product's A fragment (slots t and t + 4 of a k8 step are
+#: keys 2t and 2t + 1).
+VT_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def tile_width(dh: int) -> int:
@@ -99,11 +123,20 @@ def tile_width(dh: int) -> int:
                      f"(compiled: 1 <= Dh <= {MAX_HEAD_DIM})")
 
 
-def tiles(dh: int) -> tuple:
-    """The (bq, bk) tiles compiled at the width that runs ``dh``; none
-    outside 1 to ``MAX_HEAD_DIM``."""
+def on_wgmma(dh: int, dtype_bytes: int = 4) -> bool:
+    """Whether width ``dh`` with inputs of ``dtype_bytes`` runs the
+    ``wgmma`` instance (float32 at the compiled width 128)."""
+    return dtype_bytes == 4 and 1 <= dh <= MAX_HEAD_DIM and \
+        tile_width(dh) == WGMMA_DH
+
+
+def tiles(dh: int, dtype_bytes: int = 4) -> tuple:
+    """The (bq, bk) tiles compiled at the width that runs ``dh`` for
+    inputs of ``dtype_bytes``; none outside 1 to ``MAX_HEAD_DIM``."""
     if not 1 <= dh <= MAX_HEAD_DIM:
         return ()
+    if on_wgmma(dh, dtype_bytes):
+        return WGMMA_TILES
     if split(dh) > 1:
         return WIDE_TILES
     return tuple((bq, bk) for bq in BLOCK_Q for bk in BLOCK_K)
@@ -116,39 +149,51 @@ def split(dh: int) -> int:
 
 def smem_bytes(bq: int, bk: int, dh: int, dtype_bytes: int = 4) -> int:
     """Dynamic shared memory of one CTA for inputs of ``dtype_bytes``, as
-    ``Tile`` in the source lays it out at the compiled width D that runs
-    ``dh``: the scaled float32 Q tile at a pitch of D + 8, ``STAGES`` K/V
-    tiles in the input dtype, K rows at D + 8 elements, V rows at D + 16
-    bytes, and at D 256 the warp pairs' exchange, a 16 x bk float32
-    fragment a warp."""
+    the source lays it out at the compiled width D that runs ``dh``. The
+    ``mma.sync`` instances (``Tile``): the scaled float32 Q tile at a
+    pitch of D + 8, ``STAGES`` K/V tiles in the input dtype, K rows at
+    D + 8 elements, V rows at D + 16 bytes, and at D 256 the warp pairs'
+    exchange, a 16 x bk float32 fragment a warp. The ``wgmma`` instance
+    (``W_SMEM``): 1,024 bytes to align the swizzle, Q's big and small
+    parts, ``STAGES`` raw K and V^T tiles, the small parts of one K and one
+    V^T tile, and its seven ``mbarrier``s."""
     d = tile_width(dh)
+    if on_wgmma(dh, dtype_bytes):
+        return 1024 + 2 * 4 * bq * d + (STAGES + 1) * 2 * 4 * bk * d + \
+            8 * (2 * STAGES + 3)
     ldk, ldv = d + 8, d + 16 // dtype_bytes
     xch = 4 * (threads(bq, dh) // 32) * 16 * bk if split(dh) > 1 else 0
     return 4 * bq * (d + 8) + STAGES * bk * (ldk + ldv) * dtype_bytes + xch
 
 
-def threads(bq: int, dh: int) -> int:
+def threads(bq: int, dh: int, dtype_bytes: int = 4) -> int:
     """Threads per CTA: one warp for each 16 query rows, two at the widths
-    above ``SPLIT_ABOVE``."""
+    above ``SPLIT_ABOVE``; ``WGMMA_THREADS`` on the ``wgmma`` instance."""
+    if on_wgmma(dh, dtype_bytes):
+        return WGMMA_THREADS
     return 2 * bq * split(dh)
 
 
-def ctas_per_sm(bq: int, dh: int) -> int:
+def ctas_per_sm(bq: int, dh: int, dtype_bytes: int = 4) -> int:
     """CTAs of ``bq`` query rows that an SM's register file holds at head
     width ``dh``: a warp's registers are allocated 256 at a time, so a
     thread's count rounds up to a multiple of 8."""
-    regs = -(-REGISTERS[tile_width(dh)] // 8) * 8
-    return REGISTERS_PER_SM // (threads(bq, dh) * regs)
+    regs = WGMMA_REGISTERS if on_wgmma(dh, dtype_bytes) else \
+        REGISTERS[tile_width(dh)]
+    regs = -(-regs // 8) * 8
+    return REGISTERS_PER_SM // (threads(bq, dh, dtype_bytes) * regs)
 
 
-def check_tile(bq: int, bk: int, dh: int) -> None:
+def check_tile(bq: int, bk: int, dh: int, dtype_bytes: int = 4) -> None:
     """ValueError unless the source compiles this (bq, bk) at the width
-    that runs head width dh (any 1 <= dh <= ``MAX_HEAD_DIM``)."""
-    if (bq, bk) not in tiles(dh):
+    that runs head width dh (any 1 <= dh <= ``MAX_HEAD_DIM``) for inputs
+    of ``dtype_bytes``."""
+    if (bq, bk) not in tiles(dh, dtype_bytes):
         raise ValueError(
             f"flash_attention: no kernel compiled for bq={bq}, bk={bk}, "
-            f"Dh={dh} (compiled: 1 <= Dh <= {MAX_HEAD_DIM}; at this width "
-            f"(bq, bk) in {tiles(dh)})")
+            f"Dh={dh}, {8 * dtype_bytes}-bit inputs (compiled: 1 <= Dh <= "
+            f"{MAX_HEAD_DIM}; at this width and dtype (bq, bk) in "
+            f"{tiles(dh, dtype_bytes)})")
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,6 +207,33 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               fold(v.repeat_interleave(rep, dim=2)),
                               causal=causal)
     return out.reshape(B, H, S, Dh).transpose(1, 2)
+
+
+def vt_plain(v: torch.Tensor) -> torch.Tensor:
+    """The prologue's function in PyTorch: v (B, S, Hkv, Dh) as V^T
+    (B, Hkv, Dh, S), contiguous, each group of 8 keys in ``VT_ORDER``."""
+    B, S, Hkv, Dh = v.shape
+    order = torch.tensor(VT_ORDER, device=v.device)
+    keys = (torch.arange(0, S, 8, device=v.device)[:, None]
+            + order).reshape(-1)
+    return v[:, keys].permute(0, 2, 3, 1).contiguous()
+
+
+def vt_launch(lib: ctypes.CDLL, v: torch.Tensor) -> torch.Tensor:
+    """The prologue alone on a CUDA float32 v (B, S, Hkv, 128), S a
+    multiple of 64, strides multiples of 4 elements: V^T as ``vt_plain``
+    gives it, on the current stream without synchronising."""
+    B, S, Hkv, Dh = v.shape
+    vt = torch.empty((B, Hkv, Dh, S), dtype=torch.float32, device=v.device)
+    strides = (ctypes.c_int64 * 3)(*v.stride()[:3])
+    err = lib.flash_attention_vt(
+        v.data_ptr(), vt.data_ptr(), B, S, Hkv,
+        ctypes.cast(strides, ctypes.c_void_p),
+        torch.cuda.current_stream(v.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention prologue: launch failed with "
+                           f"CUDA error {err}")
+    return vt
 
 
 @torch.library.custom_op("repro_torch::flash_attention_trace",
@@ -194,11 +266,17 @@ def trace_cost(q, k, v, causal: bool):
 
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the argument and result types of the library's entry points."""
+    rest = [_I64, _I64, _I64, _I64, _I64, _P, ctypes.c_float, _I64, _I64,
+            _I64, _P]
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
-                       ctypes.c_float, _I64, _I64, _I64, _P]
+        fn.argtypes = [_P, _P, _P, _P, *rest]
         fn.restype = ctypes.c_int
+    fn = getattr(lib, _WGMMA_ENTRY)
+    fn.argtypes = [_P, _P, _P, _P, _P, *rest]      # q, k, v, vt, o, ...
+    fn.restype = ctypes.c_int
+    lib.flash_attention_vt.argtypes = [_P, _P, _I64, _I64, _I64, _P, _P]
+    lib.flash_attention_vt.restype = ctypes.c_int
 
 
 def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
@@ -209,25 +287,36 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     stride along Dh, every other stride a multiple of 4 elements and every
     pointer 16-byte aligned; H % Hkv == 0, S divisible by bq and bk, and
     the tile compiled at Dh. The scale is 1/sqrt(``scale_dh``), the width
-    before any zero padding (default Dh). Returns o (B, S, H, Dh), contiguous, in q's dtype, on the current
-    stream without synchronising."""
+    before any zero padding (default Dh). Returns o (B, S, H, Dh),
+    contiguous, in q's dtype, on the current stream without synchronising.
+    On the ``wgmma`` instance it also allocates the prologue's V^T
+    scratch, (B, Hkv, Dh, S) float32: the prologue and the kernel are one
+    call here."""
     B, S, H, Dh = q.shape
     o = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, _ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-        k.shape[2], Dh, ctypes.cast(strides, ctypes.c_void_p),
-        1.0 / math.sqrt(scale_dh or Dh), int(causal), bq, bk, stream)
+    tail = (B, S, H, k.shape[2], Dh, ctypes.cast(strides, ctypes.c_void_p),
+            1.0 / math.sqrt(scale_dh or Dh), int(causal), bq, bk, stream)
+    if on_wgmma(Dh, q.element_size()):
+        vt = torch.empty((B, k.shape[2], Dh, S), dtype=torch.float32,
+                         device=q.device)
+        err = getattr(lib, _WGMMA_ENTRY)(q.data_ptr(), k.data_ptr(),
+                                         v.data_ptr(), vt.data_ptr(),
+                                         o.data_ptr(), *tail)
+    else:
+        err = getattr(lib, _ENTRY[q.dtype])(q.data_ptr(), k.data_ptr(),
+                                            v.data_ptr(), o.data_ptr(), *tail)
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     return o
 
 
-__all__ = ["plain", "bind", "launch", "check_tile", "tile_width", "tiles",
-           "split", "smem_bytes", "threads", "ctas_per_sm",
-           "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "MAX_HEAD_DIM", "WIDE_TILES",
-           "SPLIT_ABOVE", "STAGES", "PASSES", "REGISTERS", "SOURCE",
-           "REPLACES"]
+__all__ = ["plain", "vt_plain", "vt_launch", "bind", "launch", "check_tile",
+           "tile_width", "tiles", "on_wgmma", "split", "smem_bytes",
+           "threads", "ctas_per_sm", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS",
+           "MAX_HEAD_DIM", "WIDE_TILES", "SPLIT_ABOVE", "STAGES", "PASSES",
+           "REGISTERS", "WGMMA_DH", "WGMMA_TILES", "WGMMA_THREADS",
+           "WGMMA_REGISTERS", "VT_ORDER", "SOURCE", "REPLACES"]

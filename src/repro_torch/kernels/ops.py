@@ -438,7 +438,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads is not a multiple "
                          f"of {Hkv} KV heads")
-    cfg = _resolved("flash_attention", (B * H, S, Dh), q, config)
+    # resolved by the dtype the kernel reads: float32 and bf16 compile other
+    # tiles at Dh 128 (flash_attention.tiles)
+    cfg = _resolved("flash_attention", (B * H, S, Dh), q, config,
+                    dtype=_kernel_dtype(q, k, v, precision=config and
+                                        config.precision))
     bq, bk = (min(b, S) for b in cfg.block)
     if S == 0 or S % bq or S % bk:
         raise ValueError(f"flash_attention: S={S} not divisible by blocks "
@@ -447,7 +451,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qc, kc, vc = (t.to(dtype) for t in (q, k, v))
     if _on_cpu(q, k, v):
         return _flash.plain(qc, kc, vc, causal).to(q.dtype)
-    _flash.check_tile(bq, bk, Dh)
+    _flash.check_tile(bq, bk, Dh, dtype.itemsize)
     if q.numel() == 0:
         return torch.empty_like(q)
     pad = _flash.tile_width(Dh) - Dh

@@ -80,8 +80,10 @@ GRID_ORDERS: Dict[str, Tuple[str, ...]] = {
 }
 
 #: The tiles each source compiles: ``block`` must be one of these.
-#: flash_attention's are those of its widths up to 128; a width's own menu
-#: is ``flash_attention.tiles(Dh)``, and candidates and lookups keep to it.
+#: flash_attention's are those of its ``mma.sync`` widths up to 128; a
+#: width's own menu is ``flash_attention.tiles(Dh, dtype_bytes)`` (float32
+#: at Dh 128: the ``wgmma`` instance's one tile), and candidates and
+#: lookups keep to it.
 TILE_MENUS: Dict[str, Tuple[Tuple[int, ...], ...]] = {
     "sketch_fused": (_sketch_fused.TILE,),
     "blocked_fwht": (_hadamard.TILE,),
@@ -132,14 +134,15 @@ DEFAULTS: Dict[str, KernelConfig] = {
 }
 
 
-def default_config(kernel: str, shape: Tuple[int, ...]) -> KernelConfig:
+def default_config(kernel: str, shape: Tuple[int, ...],
+                   dtype_bytes: int = 4) -> KernelConfig:
     """``DEFAULTS[kernel]``, except for a flash_attention head width whose
-    menu lacks that tile: the width's first compiled tile. A width no
-    instance runs (Dh > 256) keeps ``DEFAULTS``, which the card then
-    refuses before a launch."""
+    menu for inputs of ``dtype_bytes`` lacks that tile: the width's first
+    compiled tile. A width no instance runs (Dh > 256) keeps ``DEFAULTS``,
+    which the card then refuses before a launch."""
     cfg = DEFAULTS[kernel]
     if kernel == "flash_attention":
-        menu = _flash.tiles(shape[2])
+        menu = _flash.tiles(shape[2], dtype_bytes)
         if menu and cfg.block not in menu:
             cfg = cfg._replace(block=menu[0])
     return cfg
@@ -249,7 +252,7 @@ def smem_bytes(cfg: KernelConfig, shape: Tuple[int, ...], *,
         return 0
     BH, S, Dh = shape
     return _flash.smem_bytes(*_flash_tile(cfg, S), Dh,
-                             _itemsize(cfg.precision))
+                             _itemsize(cfg.precision, dtype_bytes))
 
 
 def _threads(cfg: KernelConfig, shape: Tuple[int, ...],
@@ -262,7 +265,8 @@ def _threads(cfg: KernelConfig, shape: Tuple[int, ...],
         return (radix >> ((log_l + 1) // 2)) * 32   # warps = L / R
     if cfg.kernel == "sampled_dot":
         return _sampled_dot.GATHER_THREADS
-    return _flash.threads(_flash_tile(cfg, shape[1])[0], shape[2])
+    return _flash.threads(_flash_tile(cfg, shape[1])[0], shape[2],
+                          _itemsize(cfg.precision, dtype_bytes))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,6 +361,9 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
         # all at the compiled width (ops.flash_attention zero-pads to it)
         width = _flash.tile_width(Dh) if Dh <= _flash.MAX_HEAD_DIM else Dh
         hbm = 2 * BH * S * width * ds + 2 * BH * tiles * bk * width * ds
+        if _flash.on_wgmma(Dh, ds):
+            # its prologue: V read, V^T written
+            hbm += 2 * BH * S * width * ds
         flops = _flash.PASSES[ds] * 4.0 * BH * tiles * bq * bk * width
         ctas = BH * (S // bq)
     peak = (PEAK_BF16_FLOPS if cfg.kernel == "sketch_fused" and ds == 2
@@ -373,7 +380,7 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
         per_sm = min(per_sm, _sketch_fused.CTAS_PER_SM)
     elif cfg.kernel == "flash_attention":
         per_sm = min(per_sm, _flash.ctas_per_sm(
-            _flash_tile(cfg, shape[1])[0], shape[2]))
+            _flash_tile(cfg, shape[1])[0], shape[2], ds))
     slots = SMS * max(per_sm, 1)
     t_mem = hbm / HBM_BW
     t_comp = flops / peak
@@ -390,10 +397,11 @@ def candidate_configs(kernel: str, shape: Tuple[int, ...], *,
                       ) -> List[KernelConfig]:
     """The compiled tiles legal for ``kernel`` at ``shape`` that fit the
     shared-memory budget; for flash_attention those of the head width's own
-    menu (``flash_attention.tiles``). ``precision`` is inherited, never
-    swept. Never empty: when no tile is legal the default is kept
-    (``default_config``), and when none fits the budget the smallest
-    footprint is."""
+    menu (``flash_attention.tiles``) for the inputs ``measure_config``
+    gives the kernel: float32, or bf16 under ``precision='bf16'``.
+    ``precision`` is inherited, never swept. Never empty: when no tile is
+    legal the default is kept (``default_config``), and when none fits the
+    budget the smallest footprint is."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} (use one of {KERNELS})")
     cands = []
@@ -401,11 +409,12 @@ def candidate_configs(kernel: str, shape: Tuple[int, ...], *,
         if kernel == "flash_attention":
             BH, S, Dh = shape
             if any(b > S or S % b for b in block) or \
-                    block not in _flash.tiles(Dh):
+                    block not in _flash.tiles(Dh, _itemsize(precision)):
                 continue
         cands.append(KernelConfig(kernel, block, None, precision))
     if not cands:
-        return [default_config(kernel, shape)._replace(precision=precision)]
+        return [default_config(kernel, shape, _itemsize(precision))
+                ._replace(precision=precision)]
     fitting = [c for c in cands if smem_bytes(c, shape) <= smem_budget]
     if not fitting:
         fitting = [min(cands, key=lambda c: (smem_bytes(c, shape), c.block))]
@@ -505,7 +514,8 @@ def autotune(kernel: str, shape: Tuple[int, ...], *,
     ranked = rank_candidates(kernel, shape, precision=precision,
                              dtype_bytes=dtype_bytes)
     chosen = ranked[:max(measure_top, 1)]
-    default = default_config(kernel, shape)._replace(precision=precision)
+    default = default_config(kernel, shape, _itemsize(precision))._replace(
+        precision=precision)
     if measure_top > 0 and default in ranked and default not in chosen:
         chosen.append(default)      # a measured winner never loses to it
     records = []
@@ -661,7 +671,8 @@ def lookup(kernel: str, shape: Tuple[int, ...], *, dtype_bytes: int = 4,
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} (use one of {KERNELS})")
     hit = builtin_table(backend).get(kernel, shape, dtype_bytes)
-    return hit if hit is not None else default_config(kernel, shape)
+    return hit if hit is not None else default_config(kernel, shape,
+                                                      dtype_bytes)
 
 
 def dtype_bytes_of(x) -> int:

@@ -641,16 +641,21 @@ def test_binomial_sampler_on_the_card_matches_the_cpu(card):
 
 @pytest.mark.parametrize("bq,bk,dh", [
     (bq, bk, dh) for dh in flash_attention.HEAD_DIMS
-    for bq, bk in flash_attention.tiles(dh)])
+    for bq, bk in dict.fromkeys(flash_attention.tiles(dh, 4)
+                                + flash_attention.tiles(dh, 2))])
 def test_flash_kernel_matches_plain(card, bq, bk, dh):
-    """Every compiled (tile, head width), causal and not, float32 and bf16,
-    with GQA (4 query heads on 2 KV heads) and q, k and v read in place
-    from one packed (B, S, H + 2 Hkv, Dh) tensor."""
+    """Every compiled (tile, head width), causal and not, in each of float32
+    and bf16 that compiles the tile (at Dh 128 float32 has the wgmma
+    instance's (128, 32) alone), with GQA (4 query heads on 2 KV heads)
+    and q, k and v read in place from one packed (B, S, H + 2 Hkv, Dh)
+    tensor."""
     gen = torch.Generator(device=card).manual_seed(bq + bk + dh)
     B, S, H, Hkv = 2, 256, 4, 2
     packed = torch.randn(B, S, H + 2 * Hkv, dh, generator=gen, device=card)
     cfg = tuning.KernelConfig("flash_attention", (bq, bk))
     for dtype in (torch.float32, torch.bfloat16):
+        if (bq, bk) not in flash_attention.tiles(dh, dtype.itemsize):
+            continue
         qkv = packed.to(dtype)
         q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
         for causal in (True, False):
@@ -662,6 +667,41 @@ def test_flash_kernel_matches_plain(card, bq, bk, dh):
             torch.testing.assert_close(out.float(), ref.float(),
                                        rtol=FLASH_TOL[dtype],
                                        atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,causal", [
+    (B, S, H, Hkv, causal)
+    for B, S in ((1, 128), (2, 4096))        # one tile; B = 2
+    for H, Hkv in ((4, 1), (4, 4))           # GQA 4:1 and MHA
+    for causal in (True, False)] + [
+    (1, 300, 8, 2, True), (2, 1000, 4, 4, True),   # S flash_prefill pads
+])
+def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal):
+    """float32 at Dh 128, the wgmma instance: q, k and v as strided views of
+    one (B, S, (H + 2 Hkv) Dh) projection, as the LM makes them, through
+    ``ops.flash_attention`` at its one tile (a multiple of 128 rows) or,
+    for an S it pads, ``attention.flash_prefill`` (causal only): one
+    launch, within FLASH_TOL of the plain version. Its prologue alone
+    writes V^T equal to ``vt_plain``."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=card).manual_seed(S + H + Hkv)
+    proj = torch.randn(B, S, (H + 2 * Hkv) * 128, generator=gen,
+                       device=card)
+    qkv = proj.view(B, S, H + 2 * Hkv, 128)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    before = ops.LAUNCHES["flash_attention"]
+    if S % 128:
+        out = attn.flash_prefill(q, k, v)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention.plain(q, k, v, causal)
+    assert out.shape == (B, S, H, 128) and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=FLASH_TOL[torch.float32],
+                               atol=FLASH_TOL[torch.float32])
+    if S % 64 == 0:
+        vt = flash_attention.vt_launch(ops._library("flash_attention"), v)
+        assert torch.equal(vt, flash_attention.vt_plain(v))
 
 
 @pytest.mark.parametrize("dh", [48, 80, 200, 256, 50, 13])

@@ -105,9 +105,9 @@ def test_compiled_tiles_fit_shared_memory():
     """Every width's own menu fits the 227 KB a CTA may take, in both
     dtypes, and the tiles left out at Dh 256 do not."""
     for dh in flash_attention.HEAD_DIMS:
-        for bq, bk in flash_attention.tiles(dh):
-            flash_attention.check_tile(bq, bk, dh)
-            for size in (4, 2):
+        for size in (4, 2):
+            for bq, bk in flash_attention.tiles(dh, size):
+                flash_attention.check_tile(bq, bk, dh, size)
                 assert flash_attention.smem_bytes(bq, bk, dh, size) <= \
                     tuning.SMEM_BUDGET_BYTES
     for bq, bk in ((64, 64), (128, 32)):
@@ -292,7 +292,36 @@ def _mma_sum(pairs, fresh_every=None):
     return total + frag
 
 
-def _emulated_attention(q, k, v, passes, bk=32, halves=1):
+def _wgmma_operands(x):
+    """The wgmma instance's passes of one product x = (left, right), in the
+    order it issues them: the operands' raw float32 values are their big
+    parts, of which the tensor core reads the top 19 bits (it truncates),
+    and small = x - trunc(x), truncated again. First small*big and big*big
+    at every k8 step (the raw tiles, as soon as they land), then big*small
+    at every k8 step (once the splitters have written the small part)."""
+    left, right = x
+    lb, rb = _tf32_truncated(left), _tf32_truncated(right)
+    ls, rs = _tf32_truncated(left - lb), _tf32_truncated(right - rb)
+    return [(ls, rb), (lb, rb)], [(lb, rs)]
+
+
+def _wgmma_sum(first, last):
+    """sum_k a[:, k] b[k, :] as the wgmma instance adds it into one fresh
+    accumulator: one instruction a pass and k8 step, each adding its exact
+    k8 products and rounding toward zero; the passes of ``first`` at every
+    k8 step, then those of ``last``."""
+    n = first[0][0].shape[1]
+    frag = np.zeros((first[0][0].shape[0], first[0][1].shape[1]), np.float32)
+    for pairs in (first, last):
+        for k0 in range(0, n, 8):
+            for a, b in pairs:
+                prod = a[:, k0:k0 + 8].astype(np.float64) @ \
+                    b[k0:k0 + 8].astype(np.float64)
+                frag = _round_toward_zero(frag.astype(np.float64) + prod)
+    return frag
+
+
+def _emulated_attention(q, k, v, passes, bk=32, halves=1, wgmma=False):
     """flash_attention.cu's arithmetic for one causal head at its default
     k-tile: q (S, Dh) scaled in float32; QK^T straight into its fragment
     over Dh, or with ``halves=2`` (the Dh 256 warp pair) into one fragment
@@ -301,7 +330,9 @@ def _emulated_attention(q, k, v, passes, bk=32, halves=1):
     per k-tile, added to O with one rounding (the kernel's FFMA). A k-tile
     changes nothing for the rows before it (their p is exactly 0), so
     those rows are skipped, as the kernel skips the tiles past its
-    diagonal."""
+    diagonal. ``wgmma``: the float32 Dh 128 instance's split and order of
+    passes (``_wgmma_operands``, ``_wgmma_sum``); ``passes`` is then
+    (3, 3)."""
     S, Dh = q.shape
     qs = (q * np.float32(1 / np.sqrt(Dh))).astype(np.float32)
     m = np.full((S, 1), -1e30, np.float32)
@@ -312,16 +343,18 @@ def _emulated_attention(q, k, v, passes, bk=32, halves=1):
         r = slice(k0, S)
         s = np.zeros((S - k0, bk), np.float32)
         for c in range(0, Dh, w):
-            s = s + _mma_sum(_operands((qs[r, c:c + w],
-                                        k[k0:k0 + bk, c:c + w].T),
-                                       passes[0]))
+            x = (qs[r, c:c + w], k[k0:k0 + bk, c:c + w].T)
+            s = s + (_wgmma_sum(*_wgmma_operands(x)) if wgmma else
+                     _mma_sum(_operands(x, passes[0])))
         s[k0 + np.arange(bk)[None, :] > np.arange(k0, S)[:, None]] = -1e30
         mn = np.maximum(m[r], s.max(1, keepdims=True))
         corr = np.exp(m[r] - mn)
         p = np.exp(s - mn)
         lsum[r] = lsum[r] * corr + p.sum(1, keepdims=True, dtype=np.float32)
         m[r] = mn
-        part = _mma_sum(_operands((p, v[k0:k0 + bk]), passes[1]))
+        x = (p, v[k0:k0 + bk])
+        part = (_wgmma_sum(*_wgmma_operands(x)) if wgmma else
+                _mma_sum(_operands(x, passes[1])))
         o[r] = (o[r].astype(np.float64) * corr + part).astype(np.float32)
     return o / np.maximum(lsum, np.float32(1e-30))
 
@@ -365,6 +398,30 @@ def test_split_tf32_passes_meet_the_flash_tolerance(head):
     assert _excess(two, _exact_attention(q, kb, vb), tol) <= tol / 10
     one = _emulated_attention(q, k, v, (1, 1))
     assert _excess(one, exact, tol) > tol
+
+
+def test_wgmma_instance_passes_meet_the_flash_tolerance(head):
+    """The float32 Dh 128 instance on wgmma: its split (the raw value as
+    big, which the tensor core truncates to TF32; small = x - trunc(x),
+    truncated again), one instruction a pass and k8 step, each rounded
+    toward zero into its accumulator in the order the kernel issues them
+    (QK^T: 48 into one over Dh; PV: 12 into a fresh one a 32-key tile),
+    meets the float32 FLASH_TOL against float64 with room to spare, as
+    the mma.sync design's emulation does. Without the small parts (one
+    pass, truncated) it misses."""
+    q, k, v, exact = head
+    tol = TOL[torch.float32]
+    wgmma = _excess(_emulated_attention(q, k, v, (3, 3), wgmma=True),
+                    exact, tol)
+    assert wgmma <= tol / 10
+    S, Dh = q.shape
+    qs = (q * np.float32(1 / np.sqrt(Dh))).astype(np.float32)
+    one = [(_tf32_truncated(qs), _tf32_truncated(k.T))]
+    scores = _mma_sum(one).astype(np.float64)
+    scores[np.triu_indices(S, 1)] = -np.inf
+    w = np.exp(scores - scores.max(1, keepdims=True))
+    rough = (w / w.sum(1, keepdims=True)) @ _tf32_truncated(v)
+    assert _excess(rough, exact, tol) > tol
 
 
 @pytest.fixture(scope="module")
@@ -421,20 +478,34 @@ def test_pv_needs_a_fresh_fragment_per_k_tile():
     assert _excess(long, exact, tol) > tol
 
 
-@pytest.mark.parametrize("product", ["qk", "pv"])
+@pytest.mark.parametrize("product", ["qk", "pv", "pv_wgmma"])
 def test_fragment_key_order_gives_the_plain_product(product):
     """The MMA takes its k slots t and t + 4 of each k8 step as the 2t-th
     and (2t+1)-th element (d for QK^T, keys for PV). Building each lane's A
     and B fragments that way, and for PV the A fragment straight from the
     score accumulator's registers (c0, c2, c1, c3), the m16n8k8 product is
-    the plain one."""
-    rng = np.random.default_rng(3 if product == "qk" else 4)
+    the plain one. ``pv_wgmma``: the wgmma instance's B operand is V^T in
+    shared memory as the prologue writes it (``vt_plain``: slot p of a
+    group of 8 keys is key ``VT_ORDER[p]``), read K-major: slot p of column
+    n is V^T[n, p]; with the same A fragment the product is the plain
+    one."""
+    rng = np.random.default_rng({"qk": 3, "pv": 4, "pv_wgmma": 5}[product])
     left = rng.standard_normal((16, 8))
     right = rng.standard_normal((8, 8))
     A = np.zeros((16, 8))          # A[row, slot], B[slot, col] as the MMA
     B = np.zeros((8, 8))           # reads them
+    if product == "pv_wgmma":
+        vt = flash_attention.vt_plain(
+            torch.from_numpy(right)[None, :, None, :])[0, 0].numpy()
     for lane in range(32):
         g, t = lane // 4, lane % 4
+        if product == "pv_wgmma":
+            c = [left[g, 2 * t], left[g, 2 * t + 1], left[g + 8, 2 * t],
+                 left[g + 8, 2 * t + 1]]
+            A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = \
+                c[0], c[2], c[1], c[3]
+            B[:, g] = vt[g]
+            continue
         if product == "pv":
             # the lane's score registers: (row g, key 2t), (g, 2t + 1),
             # (g + 8, 2t), (g + 8, 2t + 1)
@@ -447,6 +518,68 @@ def test_fragment_key_order_gives_the_plain_product(product):
         A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a
         B[t, g], B[t + 4, g] = right[2 * t, g], right[2 * t + 1, g]
     np.testing.assert_allclose(A @ B, left @ right, rtol=1e-12, atol=1e-12)
+
+
+def test_vt_plain_is_v_transposed_in_the_fragment_key_order():
+    """The prologue's function (``vt_plain``) on a strided view, as the LM
+    makes v: V^T[b, g, d, 8 c + p] = v[b, 8 c + VT_ORDER[p], g, d], and
+    the order lists slots t and t + 4 as keys 2t and 2t + 1."""
+    rng = np.random.default_rng(8)
+    packed = torch.from_numpy(
+        rng.standard_normal((2, 64, 7, 16)).astype(np.float32))
+    v = packed[:, :, 5:7]
+    vt = flash_attention.vt_plain(v)
+    assert vt.shape == (2, 2, 16, 64) and vt.is_contiguous()
+    order = flash_attention.VT_ORDER
+    assert [order[t] for t in range(4)] == [0, 2, 4, 6]
+    assert [order[t + 4] for t in range(4)] == [1, 3, 5, 7]
+    for c in range(8):
+        for p in range(8):
+            assert torch.equal(vt[:, :, :, 8 * c + p],
+                               v[:, 8 * c + order[p]])
+
+
+@pytest.mark.parametrize("block", [(64, 32), (64, 64), (128, 32),
+                                   (128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dh128_resolves_and_checks_tiles_by_the_kernel_dtype(
+        monkeypatch, block, dtype):
+    """At Dh 128 float32 runs the wgmma instance, whose one tile is
+    (128, 32), and bf16 the mma.sync instances' four: the card's path
+    through ``ops.flash_attention`` (the launch stood in for by the
+    kernel's function) refuses a float32 tile off that menu before a
+    launch, takes the bf16 ones, and resolves no config to a tile the
+    kernel's dtype lacks."""
+    calls = []
+
+    def launch(lib, q, k, v, causal, bq, bk, scale_dh=None):
+        calls.append((q.dtype, bq, bk))
+        return flash_attention.plain(q, k, v, causal)
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(ops, "_library", lambda name: None)
+    monkeypatch.setattr(flash_attention, "launch", launch)
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv(1, 128, 2, 1, 128, seed=128))
+    cfg = tuning.KernelConfig("flash_attention", block)
+    size = torch.empty((), dtype=dtype).element_size()
+    if block in flash_attention.tiles(128, size):
+        ops.flash_attention(q, k, v, config=cfg)
+        assert calls == [(dtype, *block)]
+    else:
+        assert dtype == torch.float32
+        with pytest.raises(ValueError, match="compiled"):
+            ops.flash_attention(q, k, v, config=cfg)
+        assert calls == []
+    assert (block in flash_attention.tiles(128, size)) == \
+        (dtype == torch.bfloat16 or block == (128, 32))
+    got = tuning.lookup("flash_attention", (8, 4096, 128), dtype_bytes=size,
+                        backend="cpu")
+    assert got.block in flash_attention.tiles(128, size)
+    assert {c.block for c in tuning.candidate_configs(
+        "flash_attention", (8, 4096, 128),
+        precision=None if size == 4 else "bf16")} == \
+        set(flash_attention.tiles(128, size))
 
 
 def test_probe_edits_apply_to_the_kernel_source():
@@ -463,3 +596,7 @@ def test_probe_edits_apply_to_the_kernel_source():
     assert probe.MMA_ASM not in probe.no_mma(text)
     assert probe.REFILL not in probe.no_copies(text)
     assert "0x1000u" not in probe.no_split(text)
+    assert probe.SMALL_PART not in probe.no_split(text)
+    # the wgmma instance's TMA loads and wgmma instructions
+    assert probe.TMA_EXPECT not in probe.no_copies(text)
+    assert not any(op in probe.no_mma(text) for op in probe.WGMMA_OPS)

@@ -33,7 +33,9 @@ SHAPES = {"sketch_fused": (128, 4096, 512), "blocked_fwht": (2048, 512),
           "flash_attention": (32, 32768, 128)}
 TINY = {"sketch_fused": (8, 64, 32), "blocked_fwht": (64, 16),
         "sampled_dot": (16, 16, 8, 40), "flash_attention": (2, 128, 32)}
-FLASH = (8, 1024, 128)
+# a width of the mma.sync instances' four-tile menu in float32 (float32 at
+# Dh 128 runs the wgmma instance, one tile)
+FLASH = (8, 1024, 112)
 
 
 def _sk(**kw):
@@ -117,7 +119,15 @@ def test_menus_are_the_tiles_the_sources_compile():
     for dh in flash_attention.HEAD_DIMS:
         want = (tuning.TILE_MENUS["flash_attention"] if dh <= 128
                 else flash_attention.WIDE_TILES)
-        assert flash_attention.tiles(dh) == want
+        assert flash_attention.tiles(dh, 2) == want
+        assert flash_attention.tiles(dh, 4) == (
+            flash_attention.WGMMA_TILES if dh == 128 else want)
+    # the wgmma instance: float32 at Dh 128, its one tile, and no mma.sync
+    # instance of its own width and dtype
+    assert "constexpr int W_DH = 128, W_BQ = 128, W_BK = 32;" in flash_src
+    assert flash_attention.WGMMA_DH == 128
+    assert flash_attention.WGMMA_TILES == ((128, 32),)
+    assert "!(DH == W_DH && std::is_same<T, float>::value)" in flash_src
     assert DEFAULTS["sketch_fused"].block == (128, 64)
     assert DEFAULTS["blocked_fwht"].block == (256, 32)
     assert DEFAULTS["sampled_dot"].block == ()
@@ -259,12 +269,30 @@ def test_flash_attention_constants_are_the_sources():
                  "XCH_FLOATS = SPLIT > 1 ? WARPS * 16 * BK : 0;",
                  "+ XCH_FLOATS * (int)sizeof(float);"):
         assert line in text, line
-    for bq, bk, dh, size in ((128, 32, 128, 4), (64, 64, 32, 2),
+    for bq, bk, dh, size in ((128, 32, 128, 2), (64, 64, 32, 2),
                              (64, 32, 16, 4), (128, 64, 16, 2)):
         ldk, ldv = dh + 8, dh + 16 // size
         assert flash_attention.smem_bytes(bq, bk, dh, size) == \
             4 * bq * (dh + 8) + 2 * bk * (ldk + ldv) * size
-        assert flash_attention.threads(bq, dh) == 32 * bq // 16
+        assert flash_attention.threads(bq, dh, size) == 32 * bq // 16
+    # float32 at Dh 128, the wgmma instance: Q big and small, two raw K and
+    # V^T stages, one tile's small parts, seven barriers, 1,024 bytes of
+    # alignment: 230,456 bytes (W_SMEM); three warpgroups, whose registers
+    # setmaxnreg moves from the producer to the consumers
+    for line in ("constexpr int W_STAGES = 2;",
+                 "constexpr int W_THREADS = 384;",
+                 "constexpr int W_SMEM = 1024 + OFF_BARS + 8 * W_BARRIERS;"
+                 "  // 230,456",
+                 "constexpr int W_BARRIERS = 2 * W_STAGES + 3;",
+                 "constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;"):
+        assert line in text, line
+    assert flash_attention.smem_bytes(128, 32, 128, 4) == 230_456 == \
+        1024 + 2 * 4 * 128 * 128 + 3 * 2 * 4 * 32 * 128 + 8 * 7
+    assert flash_attention.smem_bytes(128, 32, 120) == 230_456
+    assert flash_attention.threads(128, 128) == \
+        flash_attention.WGMMA_THREADS == 384
+    assert 128 * 56 + 256 * 224 == 384 * flash_attention.WGMMA_REGISTERS
+    assert flash_attention.WGMMA_REGISTERS == 65_536 // 384 // 8 * 8
     # Dh 256: a warp pair a 16 rows and the exchange, 16 x bk float32 a
     # warp: 218,112 bytes at (64, 32) float32, as the source's header says
     for size in (4, 2):
@@ -309,7 +337,9 @@ def test_candidates_respect_smem_budget_and_menu(kernel):
         validate_config(cfg)
         assert smem_bytes(cfg, shape) <= tuning.SMEM_BUDGET_BYTES
     if kernel == "flash_attention":
-        assert len(cands) == 4
+        # float32 at Dh 128: the wgmma instance's one tile; bf16 four
+        assert [c.block for c in cands] == [DEFAULTS[kernel].block]
+        assert len(candidate_configs(kernel, shape, precision="bf16")) == 4
 
 
 def test_flash_candidates_follow_the_sequence_length():
@@ -377,7 +407,9 @@ def test_flash_cost_counts_two_passes_for_bf16():
     BH, S, Dh = SHAPES["flash_attention"]
     assert bf16.t_compute == pytest.approx(
         2 * 2.0 * BH * S * S * Dh / 495e12, rel=2 * 128 / S)
-    assert bf16.hbm_bytes == pytest.approx(f32.hbm_bytes / 2)
+    # float32's wgmma instance also reads V and writes V^T in its prologue
+    prologue = 2 * BH * S * Dh * 4
+    assert bf16.hbm_bytes == pytest.approx((f32.hbm_bytes - prologue) / 2)
 
 
 def test_flash_cost_caps_ctas_by_registers():
@@ -390,8 +422,10 @@ def test_flash_cost_caps_ctas_by_registers():
         sorted(flash_attention.HEAD_DIMS)
     assert [flash_attention.ctas_per_sm(128, dh)
             for dh in (32, 64, 96, 112, 128)] == [1, 1, 1, 1, 1]
-    assert [flash_attention.ctas_per_sm(64, dh)
+    assert [flash_attention.ctas_per_sm(64, dh, 2)
             for dh in (32, 64, 96, 112, 128)] == [3, 2, 2, 2, 2]
+    # the wgmma instance: 384 threads at 168 registers, one CTA an SM
+    assert flash_attention.ctas_per_sm(128, 128, 4) == 1
     # Dh 256's 64-row CTA is 8 warps at up to 255 registers: one an SM
     assert flash_attention.ctas_per_sm(64, 256) == 1
     assert flash_attention.ctas_per_sm(64, 200) == 1
@@ -412,7 +446,11 @@ def test_flash_model_ranks_a_128_row_tile_first_at_full_width(precision):
                              precision=precision,
                              dtype_bytes=2 if precision else 4)
     assert ranked[0].block == DEFAULTS["flash_attention"].block
-    assert ranked[-1].block[0] == 64 and ranked[0].block != (64, 64)
+    if precision is None:
+        # float32 runs the wgmma instance, whose one tile is the default
+        assert len(ranked) == 1
+    else:
+        assert ranked[-1].block[0] == 64 and ranked[0].block != (64, 64)
 
 
 def test_autotune_static_mode_returns_ranking_head():

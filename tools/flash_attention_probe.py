@@ -6,13 +6,21 @@ the card's ``mma.sync`` TF32 instruction alone.
     python3 tools/flash_attention_probe.py [--seed 0] [--tile 128 32]
         [--layout 32 8 128] [--baseline OTHER/flash_attention.cu]
 
+Each variant edits both designs: the ``mma.sync`` instances and the
+``wgmma`` one (float32 at Dh 128, ``flash_fwd_wgmma``).
+
 * ``kernel``: the source as committed;
-* ``no_copies``: the K/V stages after the first are never refilled, so the
-  kernel works on stale tiles: its time without the loads;
-* ``no_mma``: each MMA becomes one float add of its operands' bits: its
+* ``no_copies``: the K/V stages after the first are never refilled
+  (``mma.sync``: no ``cp.async``; ``wgmma``: no TMA load past the first
+  ``W_STAGES`` tiles, whose barriers complete on the producer's arrival
+  alone), so the kernel works on stale tiles: its time without the loads;
+* ``no_mma``: each ``mma.sync`` becomes one float add of its operands'
+  bits, each ``wgmma`` nothing (its accumulator keeps what it held): its
   time without the tensor cores;
 * ``no_split``: big = small = x, with no rounding or subtraction: its time
-  without the split's integer and float work (the MMAs stay).
+  without the split's integer and float work (the MMAs stay; the
+  ``wgmma`` instance's splitters still load and store their tiles, and
+  its Q and P small parts are still written).
 
 Each variant is checked against the plain version at S = 4,096 and timed
 at one attention layer of S = 32,768, causal, float32 and bf16, at the
@@ -25,7 +33,9 @@ kernel, baseline; its own line), at the same layout and tile: the cost of
 a change to the source, within one call on one card; its
 ``sass_vs_baseline`` line names the ``flash_fwd`` instances (bq, bk, Dh,
 dtype) whose SASS differs from the baseline's, instruction for
-instruction (``cuobjdump -sass``). ``mma_sync_peak``
+instruction (``cuobjdump -sass``). A baseline without the ``wgmma`` entry
+(the ``mma.sync`` design at float32 Dh 128) is called through
+``flash_attention_f32``, as that source took it. ``mma_sync_peak``
 times a kernel of independent ``mma.sync.m16n8k8`` TF32 MMAs on every SM,
 the rate this design can reach at most. One JSON line per variant; needs
 a CUDA card and ``nvcc``. Builds go to ``build/repro_torch/probe/``.
@@ -56,6 +66,10 @@ MMA_ASM = '''  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));'''
 SPLIT = '''    big = (x + 0x1000u) & 0xffffe000u;
     small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));'''
+TMA_EXPECT = "          mbar_expect(&full[slot], W_STAGE);\n"
+SMALL_PART = "  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);"
+WGMMA_OPS = ('"wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "',
+             '"wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "')
 
 # Independent MMAs, 8 accumulators a warp, operands kept in registers.
 PEAK_SOURCE = r'''
@@ -89,16 +103,23 @@ edit = functools.partial(_edit, source=flash_attention.SOURCE)
 
 
 def no_copies(text: str) -> str:
-    return edit(text, REFILL, "if (kt + 1 < 0) load_stage(")
+    text = edit(text, REFILL, "if (kt + 1 < 0) load_stage(")
+    return edit(text, TMA_EXPECT,
+                "          mbar_expect(&full[slot], kt < W_STAGES ? W_STAGE "
+                ": 0);\n          if (kt >= W_STAGES) continue;\n")
 
 
 def no_mma(text: str) -> str:
-    return edit(text, MMA_ASM, "  c[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] "
-                               "^ a[3] ^ b0 ^ b1);")
+    text = edit(text, MMA_ASM, "  c[0] += __uint_as_float(a[0] ^ a[1] ^ "
+                               "a[2] ^ a[3] ^ b0 ^ b1);")
+    for op in WGMMA_OPS:
+        text = edit(text, op, '"// "')     # a PTX comment to the line's end
+    return text
 
 
 def no_split(text: str) -> str:
-    return edit(text, SPLIT, "    big = x;\n    small = x;")
+    text = edit(text, SPLIT, "    big = x;\n    small = x;")
+    return edit(text, SMALL_PART, "  return x;")
 
 
 def sass_by_instance(lib) -> dict:
@@ -120,6 +141,37 @@ def sass_by_instance(lib) -> dict:
         elif inst is not None:
             out[inst].append(line.strip())
     return {i: "\n".join(lines) for i, lines in out.items()}
+
+
+def legacy_launch(lib, q, k, v, causal, bq, bk):
+    """``flash_attention.launch`` of a source without the ``wgmma`` entry:
+    its own entry for the dtype, at any compiled width."""
+    B, S, H, Dh = q.shape
+    o = torch.empty_like(q)
+    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3])
+    err = getattr(lib, flash_attention._ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
+        k.shape[2], Dh, ctypes.cast(strides, ctypes.c_void_p),
+        1.0 / Dh ** 0.5, int(causal), bq, bk,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"baseline flash_attention: CUDA error {err}")
+    return o
+
+
+def bind_any(lib):
+    """Bind a library's entry points, those of a source without the
+    ``wgmma`` entry too; returns its launch function."""
+    if hasattr(lib, "flash_attention_f32_wgmma"):
+        flash_attention.bind(lib)
+        return functools.partial(flash_attention.launch, lib)
+    for name in flash_attention._ENTRY.values():
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64] * 5 + [ctypes.c_void_p, ctypes.c_float] + [
+            ctypes.c_int64] * 3 + [ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
+    return functools.partial(legacy_launch, lib)
 
 
 def mma_peak_tflops(lib, dev) -> float:
@@ -164,10 +216,8 @@ def main(argv=None) -> int:
     libs = build(variants, prefix="flash_")
     peak_lib = libs.pop("peak")
     base_lib = libs.pop("baseline", None)
-    if base_lib is not None:
-        flash_attention.bind(base_lib)
-    for lib in libs.values():
-        flash_attention.bind(lib)
+    base_launch = None if base_lib is None else bind_any(base_lib)
+    launches = {name: bind_any(lib) for name, lib in libs.items()}
     print(f"card: {card()}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -185,17 +235,17 @@ def main(argv=None) -> int:
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         qd, kd, vd = (x.to(dtype) for x in (q, k, v))
         ref = flash_attention.plain(qd, kd, vd, True).float()
-        for name, lib in libs.items():
-            out = flash_attention.launch(lib, qd, kd, vd, True, bq, bk)
+        for name, launch in launches.items():
+            out = launch(qd, kd, vd, True, bq, bk)
             errs.setdefault(name, {})[f"max_abs_err_{tag}"] = float(
                 (out.float() - ref).abs().max())
     q, k, v = inputs(32768)
-    for name, lib in libs.items():
+    for name, launch in launches.items():
         times = {}
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             qd, kd, vd = (x.to(dtype) for x in (q, k, v))
-            times[f"{tag}_ms"] = cuda_ms(lambda: flash_attention.launch(
-                lib, qd, kd, vd, True, bq, bk), 2)
+            times[f"{tag}_ms"] = cuda_ms(
+                lambda: launch(qd, kd, vd, True, bq, bk), 2)
         print(json.dumps({"variant": name, "tile": [bq, bk],
                           "layout": [heads, kv_heads, dh], **errs[name],
                           **times}), flush=True)
@@ -212,10 +262,9 @@ def main(argv=None) -> int:
         turns = {}
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             qd, kd, vd = (x.to(dtype) for x in (q, k, v))
-            calls = {name: functools.partial(
-                flash_attention.launch, lib, qd, kd, vd, True, bq, bk)
-                for name, lib in (("baseline", base_lib),
-                                  ("kernel", libs["kernel"]))}
+            calls = {name: functools.partial(launch, qd, kd, vd, True, bq, bk)
+                     for name, launch in (("baseline", base_launch),
+                                          ("kernel", launches["kernel"]))}
             got = {name: [] for name in calls}
             for name in ("baseline", "kernel", "kernel", "baseline"):
                 got[name].append(cuda_ms(calls[name], 2))
