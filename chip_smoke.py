@@ -11,12 +11,14 @@ fails; nothing is caught:
    nvcc per source, started together, with each kernel's register report,
    the count of tensor-core instructions in each instance of kernels 1 and
    4 (``sketch_fused`` and ``flash_attention``): ``HMMA`` (``mma.sync``),
-   which must be positive in kernel 1's float32 instances and in kernel 4's
-   ``mma.sync`` instances, ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA
-   loads), which must be positive in kernel 1's bf16 instance and in
-   kernel 4's float32 Dh 128 one (``flash_fwd_wgmma``; its prologue
-   ``flash_vt`` has neither), the clusters of kernel 1's bf16 instance the
-   card holds, kernel 4's registers and spills per instance, the registers
+   which must be positive in kernel 4's ``mma.sync`` instances and absent
+   from kernel 1, ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads), which
+   must be positive in both of kernel 1's instances and in kernel 4's
+   float32 Dh 128 one (``flash_fwd_wgmma``; the prologues
+   ``sketch_pi_small`` and ``flash_vt`` have neither), kernel 1's float32
+   instance's registers, spills and shared memory beside the clusters of
+   each of its instances the card holds, kernel 4's registers and spills
+   per instance, the registers
    within the tuner's ``flash_attention.REGISTERS``, no spill at its
    default tile nor in any Dh 16 or 256 instance (46 ``mma.sync``
    instances: 2 bq x 2 bk x Dh 16, 32, 64, 96, 112 and 128, and (64, 32)
@@ -26,7 +28,8 @@ fails; nothing is caught:
    through ``tuning.lookup`` (Dh 256: its own (64, 32));
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
-   ragged shape; kernel 3 (``blocked_fwht``) against its plain version at
+   ragged shape, and kernel 1's float32 prologue (Pi's small parts) equal
+   to its plain version; kernel 3 (``blocked_fwht``) against its plain version at
    the SRHT pass's call shape (d = 50,000 padded to 65,536 on an
    8,192-column slice), in float32 and bf16, in one pass (d <= 256) and on
    a ragged n, in its full mode and in the SRHT block mode that the SRHT
@@ -43,7 +46,10 @@ fails; nothing is caught:
    ``PHASE4_PEAK_GB_MAX``; per-stage times from a staged run, with the cost of the
    sampler's host-side CDF; a probe-estimated relative residual against
    its threshold; and the same SMP-PCA on card and CPU at a small size,
-   which must agree;
+   which must agree; the first run makes no aligned copy, and both
+   ``sketch_fused`` calls of the staged run are held against the plain
+   version on their first ``BF16_HELD_COLUMNS`` columns (``sketch_fused
+   held f32 path`` lines);
 4b. the distributed path at the same full width on one NCCL rank
    (``repro_torch.core.distributed``; a TCPStore on localhost, as
    ``dist.multihost.initialize`` makes one): ``distributed_smppca`` (wall
@@ -70,7 +76,9 @@ fails; nothing is caught:
    bit;
 6. timings of kernels 1 and 2 at the slice's shapes beside their plain
    versions, one PyTorch library call where one computes the same
-   function, and their bounds on an H100 SXM; kernel 1 in float32 and with
+   function, and their bounds on an H100 SXM; kernel 1 in float32 (also in
+   turns with ``tools/sketch_fused_mma_sync.cu``, its earlier ``mma.sync``
+   design, built in phase 2) and with
    bf16 inputs (beside ``torch.mm(..., out_dtype=float32)``, the same
    function, and ``torch.matmul``, whose output is bf16); kernel 2 on both
    draws, with the time one B row a sample
@@ -301,6 +309,7 @@ fails; nothing is caught:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -324,6 +333,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import kernel_probe  # noqa: E402
+import sketch_fused_probe  # noqa: E402
 from repro_torch.roofline.analysis import (  # noqa: E402
     HBM_BW, PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_TF32_FLOPS)
 
@@ -631,13 +641,14 @@ S_FULL, S_TRAIN = 32_768, 4_096
 # 32 heads of 96, MHA), kimi-k2-1t-a32b (kimi_k2_1t_a32b.py: 64 heads of
 # 112 over 8 KV heads), recurrentgemma-9b (recurrentgemma_9b.py: 16 query
 # heads over 1 KV head of 256; unwindowed here, as neither kernel has a
-# window) and the reduced configs (src/repro/configs/base.py: 4 heads of
-# 16), checked at S_TRAIN (phi3 at batch 4, request (a)'s) and timed at
-# S_FULL
+# window), the reduced configs (src/repro/configs/base.py: 4 heads of
+# 16) and whisper-small (whisper_small.py: 12 heads of 64, MHA), checked at
+# S_TRAIN (phi3 and whisper at batch 4, request (a)'s) and timed at S_FULL
 WIDTH_LAYOUTS = (("phi3-mini-3.8b", 32, 32, 96, 4),
                  ("kimi-k2-1t-a32b", 64, 8, 112, 1),
                  ("recurrentgemma-9b", 16, 1, 256, 1),
-                 ("reduced", 4, 4, 16, 1))
+                 ("reduced", 4, 4, 16, 1),
+                 ("whisper-small", 12, 12, 64, 4))
 # widths between compiled ones, which ops.flash_attention zero-pads in a
 # copy to the next compiled one (64, 256 and 64), 8 query heads over 2,
 # checked at S_TRAIN
@@ -738,6 +749,29 @@ def flash_resources(lib) -> dict:
         elif inst is not None and "Used" in line and inst in out:
             regs = int(re.search(r"Used (\d+) registers", line)[1])
             out[inst] = (regs, out[inst][1])
+    return out
+
+
+def sketch_resources(lib) -> dict:
+    """Registers and spilled bytes of ``sketch_fused``'s kernel functions
+    (``sketch_fused_f32_kernel``, ``sketch_fused_bf16_kernel`` and the
+    prologue ``sketch_pi_small``), and ptxas's notes that it serialised
+    ``wgmma`` (C7512, C7518) or injected a wait (C7517), from the ``-Xptxas
+    -v`` report kept beside the library."""
+    log = lib.with_name(lib.name + ".log").read_text()
+    out, fn = {"serialised": [line.strip()[:160] for line in log.splitlines()
+                              if re.search(r"\(C751[278]\)", line)]}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = next((f for f in ("sketch_fused_f32_kernel",
+                                   "sketch_fused_bf16_kernel",
+                                   "sketch_pi_small") if f in line), None)
+        elif fn is not None and "spill stores" in line:
+            out[fn] = {"spill_bytes": int(
+                re.search(r"(\d+) bytes spill stores", line)[1])}
+        elif fn is not None and "Used" in line and fn in out:
+            out[fn]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
     return out
 
 
@@ -4241,8 +4275,13 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
 
     # 2. build --------------------------------------------------------------
+    # the kernels, and beside them sketch_fused's earlier float32 design,
+    # which phase 6 times in turns with the kernel
     t0 = time.perf_counter()
-    paths = ops.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        mma_sync = pool.submit(sketch_fused_probe.build_mma_sync)
+        paths = ops.build()
+        mma_sync_lib = mma_sync.result()
     build_s = time.perf_counter() - t0
     print(f"build: {len(paths)} kernels in {build_s:.1f} s", flush=True)
     for name, path in paths.items():
@@ -4252,28 +4291,41 @@ def main(argv=None) -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # sketch_fused's float32 instances on mma.sync (HMMA), its bf16 one on
-    # wgmma (HGMMA) fed by TMA (UTMALDG); flash_attention's float32 Dh 128
-    # instance on wgmma fed by TMA, after its prologue (a copy: no MMA), the
-    # others on mma.sync
-    for name, tma_tag in (("sketch_fused", "bf16_kernel"),
-                          ("flash_attention", "flash_fwd_wgmma")):
+    # both of sketch_fused's instances on wgmma (HGMMA) fed by TMA
+    # (UTMALDG), after the float32 one's prologue (elementwise: no MMA);
+    # flash_attention's float32 Dh 128 instance on wgmma fed by TMA, after
+    # its prologue (a copy: no MMA), the others on mma.sync
+    for name, tma_tags, prologue in (
+            ("sketch_fused", ("f32_kernel", "bf16_kernel"), "sketch_pi_small"),
+            ("flash_attention", ("flash_fwd_wgmma",), "flash_vt")):
         sass = sass_counts(ops, paths[name])
         for fn, count in sass.items():
             print(f"  {name} SASS {fn}: " + ", ".join(
                 f"{count[op]} {op}" for op in SASS_OPS), flush=True)
-        tma_fns = [fn for fn in sass if tma_tag in fn]
+        tma_fns = [fn for fn in sass if any(tag in fn for tag in tma_tags)]
         mma_fns = [fn for fn in sass if fn not in tma_fns
-                   and "flash_vt" not in fn]
-        check(len(tma_fns) == 1 and len(mma_fns) > 0 and all(
+                   and prologue not in fn]
+        check(len(tma_fns) == len(tma_tags) and all(
             sass[fn]["HGMMA"] > 0 and sass[fn]["UTMALDG"] > 0
-            for fn in tma_fns) and all(sass[fn]["HMMA"] > 0
-                                       for fn in mma_fns),
+            and sass[fn]["HMMA"] == 0 for fn in tma_fns)
+            and all(sass[fn]["HMMA"] > 0 for fn in mma_fns)
+            and (name == "flash_attention") == (len(mma_fns) > 0),
             f"{name} runs on the tensor cores: SASS counts {sass}")
     sk = ops.KERNELS["sketch_fused"]
-    print(f"  sketch_fused bf16 clusters of {sk.cluster_size(k)} CTAs the "
-          f"card holds: {sk.cluster_slots(ops._library('sketch_fused'), k)}",
-          flush=True)
+    sk_lib = ops._library("sketch_fused")
+    sk_res = sketch_resources(paths["sketch_fused"])
+    f32_res = sk_res.get("sketch_fused_f32_kernel", {})
+    print(f"  sketch_fused clusters the card holds: bf16 "
+          f"{sk.cluster_slots(sk_lib, k, 2)} of {sk.cluster_shape(k, n, 2)} "
+          f"CTAs (along k, n), float32 {sk.cluster_slots(sk_lib, k, 4)} of "
+          f"{sk.cluster_shape(k, n, 4)}; float32 instance "
+          f"{f32_res.get('registers')} registers, "
+          f"{f32_res.get('spill_bytes')} bytes spilled, "
+          f"{sk.smem_bytes(4)} bytes of shared memory; bf16 instance "
+          f"{sk.smem_bytes(2)}", flush=True)
+    check(f32_res.get("spill_bytes") == 0 and not sk_res["serialised"],
+          f"sketch_fused: no spill in the float32 instance, no wgmma "
+          f"serialised: {sk_res}")
     flash_default = tuning.DEFAULTS["flash_attention"].block
     spills = flash_resources(paths["flash_attention"])
     for inst, (regs, spill) in spills.items():
@@ -4354,6 +4406,11 @@ def main(argv=None) -> int:
     sketch_check(ops, Pi, A[:, :4096], precision="bf16")
     sketch_check(ops, torch.randn(33, 517, generator=gen, device=dev),
                  torch.randn(517, 259, generator=gen, device=dev))
+    sk = ops.KERNELS["sketch_fused"]
+    small = sk.pi_small_launch(ops._library("sketch_fused"), Pi)
+    check(bool(torch.equal(small, sk.pi_small_plain(Pi))),
+          "sketch_fused's prologue: Pi's small parts equal the plain version")
+    del small
 
     # kernel 3 against its plain version, at the SRHT pass's call shape
     width = summary_engine.SRHT_COLUMN_BLOCK
@@ -4380,6 +4437,7 @@ def main(argv=None) -> int:
         return {f: getattr(engine.stats, f) - before[f] for f in before}
 
     before = dict(vars(engine.stats))
+    copies = ops.KERNELS["sketch_fused"].ALIGNED_COPIES
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4398,6 +4456,8 @@ def main(argv=None) -> int:
           f"launches per smppca call: {launches}")
     check(cold["traces"] == 1 and cold["misses"] == 1 and cold["hits"] == 0,
           f"the first smppca call builds one cache entry: {cold}")
+    check(ops.KERNELS["sketch_fused"].ALIGNED_COPIES == copies,
+          "the float32 path's inputs are read by TMA in place")
     U, V = res.factors
     check(tuple(U.shape) == (n, r) and tuple(V.shape) == (n, r),
           "factor shapes")
@@ -4442,9 +4502,21 @@ def main(argv=None) -> int:
           f"phase 4 peak memory {peak_gb}, {peak_warm_gb} GB")
     del U1, V1, W8, ref
 
-    # the same path again, stage by stage, timed with CUDA events
-    stages, summary, samples, values = staged_run(key, A, B, k, m, r, T, n,
-                                                  "gaussian", dev)
+    # the same path again, stage by stage, timed with CUDA events; its two
+    # sketch_fused calls held against the plain version on a column slice
+    # (recorded here, not in the calls above, whose peaks are held to the
+    # byte: a record keeps Pi alive)
+    with recording(ops, "sketch_fused") as step1_calls:
+        stages, summary, samples, values = staged_run(key, A, B, k, m, r, T,
+                                                      n, "gaussian", dev)
+    cols = BF16_HELD_COLUMNS
+    err_sketch = max(err_sketch, held_sketch(
+        ops, [((Pi1, X[:, :cols]), kw, (out[:, :cols], norm[:cols]))
+              for (Pi1, X), kw, (out, norm) in step1_calls["sketch_fused"]],
+        "f32 path"))
+    check(len(step1_calls["sketch_fused"]) == 2,
+          "the staged run's step 1 launches sketch_fused twice")
+    del step1_calls
     check(bool(torch.equal(samples.rows, res.samples.rows)),
           "staged run draws the main path's sample")
     print("stages_ms " + json.dumps(stages), flush=True)
@@ -4502,6 +4574,14 @@ def main(argv=None) -> int:
                             lambda: ops.sketch_fused(Pi, A), reps=2)
     torch.matmul(Pi, A)                   # the library's first call
     k1_lib = cuda_ms(lambda: torch.matmul(Pi, A), reps=2)
+    # the earlier mma.sync design (tools/sketch_fused_mma_sync.cu) in turns
+    # with the kernel: mma.sync, kernel, kernel, mma.sync
+    k1_turn, k1_mma = turns(
+        lambda: sketch_fused_probe.launch_mma_sync(mma_sync_lib, Pi, A),
+        lambda: ops.sketch_fused(Pi, A), reps=2)
+    # the prologue alone: Pi's small parts, Pi read and written once
+    k1_prologue = cuda_ms(lambda: sk.pi_small_launch(
+        ops._library("sketch_fused"), Pi), reps=5)
     # float32 inputs: three TF32 tensor-core passes of 2kdn FLOP (the 2dn
     # of the norms run beside them on the FMA units); bytes: Pi and A read
     # once, the sketch and norms written once
@@ -4540,7 +4620,12 @@ def main(argv=None) -> int:
     timing = {
         "sketch_fused": dict(kernel_ms=k1_ms, plain_ms=k1_plain,
                              library_ms=k1_lib, bound_ms=k1_bound,
-                             bound_by=k1_by),
+                             bound_by=k1_by, mma_sync_ms=k1_mma,
+                             kernel_in_turns_with_mma_sync_ms=k1_turn,
+                             prologue_ms=k1_prologue,
+                             clusters=sk.cluster_slots(
+                                 ops._library("sketch_fused"), k, 4),
+                             cluster_ctas=sk.cluster_shape(k, n, 4)),
         "sampled_rescaled_dot": dict(kernel_ms=k2_ms, plain_ms=k2_plain,
                                      library_ms=None, bound_ms=k2_bound,
                                      bound_by=k2_by),
@@ -4566,8 +4651,8 @@ def main(argv=None) -> int:
              matmul_bf16_out_ms=cuda_ms(lambda: torch.matmul(Pi16, A16),
                                         reps=2),
              bound_ms=k1b_bound, bound_by=k1b_by,
-             clusters=sk.cluster_slots(ops._library("sketch_fused"), k),
-             cluster_ctas=sk.cluster_size(k))
+             clusters=sk.cluster_slots(ops._library("sketch_fused"), k, 2),
+             cluster_ctas=sk.cluster_shape(k, n, 2))
     print("timing sketch_fused bf16 " + json.dumps(t), flush=True)
     del Pi, Pi16, A16
     torch.cuda.empty_cache()

@@ -27,8 +27,8 @@ Exactness grades, as in the JAX package:
   order (on the card, two ``sketch_fused`` launches a chunk). The scan pads
   its last block with zero rows and the stream does not. On the card the
   sketches and norms stay bit-identical with a ragged last chunk too
-  (``sketch_fused`` sums in fixed 64-row stages, where zero rows add exact
-  zeros; ``chip_smoke.py`` checks d = 50,000 at c = 1,024, 4,096 and
+  (``sketch_fused`` sums in stages and chains of stages fixed from a call's
+  first row, where zero rows add exact zeros; ``chip_smoke.py`` checks d = 50,000 at c = 1,024, 4,096 and
   16,384). The probe and co-sketch blocks are cuBLAS products, whose sums
   may follow the chunk's length, and on the CPU BLAS blocks every product
   by it: there the identity needs c to divide d, as the JAX package's

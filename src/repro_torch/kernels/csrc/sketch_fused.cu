@@ -5,49 +5,101 @@
 // (sketch_fused, body _kernel). Pi is (k, d), A is (d, n), both row-major,
 // float32 or bf16; out is (k, n) float32 and norm2 is (n,) float32. Each
 // output element is written once, with no atomics: runs repeat bit for bit.
-// Two instances with designs of their own, one per input type.
+// Two instances with designs of their own, one per input type, both on TMA,
+// wgmma and thread block clusters.
 //
-// float32 (sketch_fused_kernel<float, VEC>, entry sketch_fused_f32).
-// What bounds it on an H100: operations. A float32-accurate product on the
-// TF32 tensor cores takes three passes (below), 3 * 2*k*d*n FLOP at
-// 495 TFLOP/s: 31.03 ms at k = 512, d = 50,000, n = 100,000. Its bytes,
-// (k*d + d*n + k*n + n) * 4, take 6.06 ms at 3.35 TB/s; the same product on
-// the float32 FMA units would take 76.57 ms at 67 TFLOP/s.
-//  * Each CTA owns one BM x BN tile of the output at a time and loops over
-//    all of d itself (the Pallas kernel's sequential d grid axis would race
-//    on a GPU). The CTAs are persistent, one per SM, and walk the tiles
-//    k-tile first, so the k/BM CTAs that read the same columns of A run side
-//    by side and share them through L2.
-//  * Tensor cores: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. The
-//    MMA's M is sketch rows, its K is d and its N is columns of A. 256
-//    threads as 2 x 4 warps, each warp a 64 x 32 block of the output (4 x 4
-//    MMA tiles), with up to 255 registers a thread. Each thread loads its
-//    fragment values from shared memory itself, so the A tile keeps A's
-//    row-major (N-major) layout.
-//  * Three passes: each fragment value is split in registers as big = x
-//    rounded to nearest TF32 (two integer operations) and small = x - big,
-//    and small*big, big*small and big*big are issued; the dropped
-//    small*small term and the low bits of small, which the MMA ignores, are
-//    about 2^-21 relative, float32 class. One TF32 pass would be off by
-//    about 5e-4 of a column's largest entry at d = 50,000.
-//  * Two-level accumulation: the tensor cores add inside an MMA with
-//    truncation, which over d = 50,000 (18,750 MMAs per output into one
-//    accumulator) biases the sum toward zero by several 1e-4 of a column's
-//    largest entry. Each stage's products go into a fresh fragment, which
-//    is added to the float32 sum with an ordinary FADD.
-//  * Copies: a ring of STAGES shared-memory stages filled by cp.async,
-//    zero-filled past the d, k and n edges (src-size 0), one __syncthreads()
-//    per stage. 16-byte copies where every row of Pi and A starts 16-byte
-//    aligned; otherwise 4-byte copies.
-//  * Fragments: the MMA is fed d in an order in which a thread's two values
-//    of a k8 step are neighbours in d (one 8-byte load per row of Pi). Shared
-//    pitches keep the loads off shared banks: Pi rows at BK + 8 elements, A
-//    rows at BN + 16 bytes: 70,656 B a stage, three stages 211,968 B.
-//  * The CTAs of k-tile 0 also add up the squared column norms from the A
-//    tile they hold, in float32 FMAs on the exact loaded values.
-// Not wgmma: its TF32 form takes B from shared memory only K-major, and a
-// tile of row-major A is N-major, so every A tile would first have to be
-// transposed in shared memory.
+// float32 (sketch_fused_f32_kernel, entry sketch_fused_f32). What bounds it
+// on an H100: operations. A float32-accurate product on the TF32 tensor
+// cores takes three passes (below), 3 * 2*k*d*n FLOP at 495 TFLOP/s: 31.03
+// ms at k = 512, d = 50,000, n = 100,000. Its bytes, (k*d + d*n + k*n + n)
+// * 4, take 6.06 ms at 3.35 TB/s; the same product on the float32 FMA units
+// would take 76.57 ms at 67 TFLOP/s. The design:
+//  * The transposed product, out^T = A^T Pi^T, so that both operands are
+//    legal for TF32 wgmma, which reads a B operand from shared memory
+//    K-major only and a tile of row-major A is N-major. wgmma.mma_async
+//    m64n128k8 .tf32: M is 64 columns of A, N is 128 rows of Pi, K is 8
+//    rows of d. B is Pi's tile, K-major as row-major Pi lies (its rows are
+//    contiguous in d). A is A^T's fragment in registers: each consumer
+//    thread loads its values from A's tile in shared memory, which does the
+//    transpose. B reads 4 KiB of shared memory a 131,072-FLOP wgmma.
+//  * The split: a raw float32 value is its own big part (the tensor core
+//    reads its top 19 bits: it truncates), small = x - trunc(x) is exact in
+//    float32 and truncated again as it is read (about 2^-20 relative).
+//    Three passes a k8 step: A small x Pi big, A big x Pi big, A big x Pi
+//    small. A's small part is made in registers; Pi's must lie in shared
+//    memory, so a prologue (sketch_pi_small) writes Pi - trunc(Pi) once a
+//    call into scratch the wrapper allocates (k*d*4 bytes), which TMA loads
+//    beside Pi. One TF32 pass would be off by about 5e-4 of a column's
+//    largest entry at d = 50,000.
+//  * Two-level sum: the tensor cores add inside a wgmma with truncation,
+//    which over d = 50,000 would bias a single accumulator toward zero by
+//    about 1e-4 of a column's largest entry. A chain of F32_CHAIN_STAGES
+//    stages (256 rows of d, 96 wgmma) goes into a fresh accumulator
+//    (scale-d 0 on its first wgmma), which is then added to the float32 sum
+//    with an ordinary FADD (tests/test_torch_sketch.py emulates both).
+//    Warpgroup 1's chains are offset from warpgroup 0's by half a chain, so
+//    one warpgroup's wgmma run while the other adds.
+//  * Warp-specialised, 288 threads: one thread of warp 8 keeps a ring of
+//    F32_STAGES stages in flight on mbarriers (full: the stage's bytes have
+//    landed; empty: every consumer warp of the cluster is done with it).
+//    Warpgroups 0 and 1 (warps 0-7) own 64 columns each of a CTA's 128. A
+//    stage is Pi's 128 x 32 tile, its small part's, and A's 32 x 128 tile
+//    as four 32-column boxes, all with the 128-byte swizzle (one 128-byte
+//    row of 32 float32): 48 KiB, four stages 192 KiB.
+//  * A stage at a time in each warpgroup: it waits for the stage, loads its
+//    fragments, issues its 12 wgmma, waits for them and releases the stage
+//    at once, while the other warpgroup's wgmma keep the tensor cores
+//    busy. Measured in turns on the card (PERF.md), this beat loading the
+//    next stage's fragments into a second set while a stage's wgmma run: a
+//    consumer then holds two stages of the ring, and the copies run one
+//    stage ahead. Loading each k8 step's fragments beside the step
+//    before's wgmma gained nothing either.
+//  * Registers: ptxas gives a thread 168 of them at 288 threads (three
+//    warps share a quarter of the SM's file), and held the consumers to
+//    168 at 384 threads with setmaxnreg 232 too, serialising their wgmma
+//    (C7512); so do branches between a wgmma and the wait that retires it
+//    while its A registers are live (C7518). The fresh accumulator (64), a
+//    stage's fragments (32) and half the float32 sums (32) lie in
+//    registers; the other half of the sums, the CTA's 128 x 64 of its 128 x
+//    128 output tile, in shared memory (32 KiB), each thread's own values.
+//    A chain's end adds the fresh accumulator into both halves.
+//  * A's fragments: the wgmma's M index may map to the columns of A in any
+//    order, which the store undoes. A thread's two M rows (g and g + 8 of
+//    its warp) are two neighbouring columns, so a k8 step takes two 8-byte
+//    loads (rows t and t + 4 of d); the two warps of a 32-column box take
+//    alternate 16-byte chunks of its rows, so that the swizzle spreads a
+//    load's lanes over all 32 banks. A stage's fragments, big and small, are
+//    32 registers.
+//  * Thread block clusters along n: the CTAs of F32_CLUSTER_N neighbouring
+//    column tiles of A that meet the same row block of Pi form a cluster,
+//    and each loads a share of the rows of Pi's tile and of its small
+//    part's, multicast into every CTA of the cluster. A stage is refilled
+//    once all 8 consumer warps of every CTA have released it (remote
+//    arrives, lane c to CTA c). Clusters of 2 along n (66 of them fill the
+//    132 SMs of an H100; a CTA reads 32 KiB of a 48 KiB stage from L2)
+//    measured faster on the card than the bf16 instance's 4 along k
+//    multicasting A's tile (30 clusters, 120 SMs, 36 KiB), 2 along k (66,
+//    40 KiB), 2 x 2 and 4 along n (30 each) and 4 x 2 (15): PERF.md. The
+//    code takes F32_CLUSTER_MAX CTAs along k as well (A's boxes multicast
+//    among them); tools/sketch_fused_probe.py's along_k variant runs the
+//    4-along-k layout. Where k has more row blocks than a cluster holds, a
+//    cluster walks groups of them; a CTA whose row block lies past k loads
+//    no Pi tile and stores nothing (its wgmma run on a stale tile), and one
+//    whose column tile lies past n stores nothing. Persistent clusters, as
+//    many as the card holds, walk the units (row group, column group) row
+//    group first, so the clusters that run at once read the same rows of Pi
+//    through L2.
+//  * Norms: each A value of a stage reaches exactly one consumer thread's
+//    fragment, so the consumers add up the squares of the exact loaded
+//    float32 values in FMAs (each stage's into its own sum first), the
+//    four threads of a column pair sum theirs with two shuffles, and the
+//    CTA of row block 0 stores them.
+//  * Edges: TMA zero-fills boxes past the d, k and n edges. TMA reads rows
+//    from 16-byte aligned bases at pitches that are multiples of 16 bytes:
+//    this entry reads Pi's rows at a pitch of d rounded up to 4 elements and
+//    A's at n rounded up to 4. The Python wrapper (kernels/sketch_fused.py)
+//    makes a zero-padded copy where the caller's tensors are not so, and
+//    counts the copies.
 //
 // bf16 (sketch_fused_bf16_kernel, entry sketch_fused_bf16). What bounds it:
 // operations, 2*k*d*n FLOP at the bf16 tensor cores' 989 TFLOP/s, 5.18 ms
@@ -96,12 +148,9 @@
 //    of four stages and 3.2e-6 for one, 1.0e-4 with one chain over all of
 //    d (PERF.md), against the 1e-4 the sketch is held to. Two 64-float
 //    accumulators a consumer thread.
-//  * Edges: TMA zero-fills boxes past the d, k and n edges. TMA needs
-//    16-byte aligned bases and row strides that are multiples of 16 bytes:
-//    this entry reads Pi's rows at a pitch of d rounded up to 8 elements and
-//    A's at n rounded up to 8, from 16-byte aligned bases. The Python
-//    wrapper (kernels/sketch_fused.py) makes such a zero-padded copy where
-//    the caller's tensors are not so, and counts the copies.
+//  * Edges: TMA zero-fills boxes past the d, k and n edges, as above; this
+//    entry reads Pi's rows at a pitch of d rounded up to 8 elements and A's
+//    at n rounded up to 8 (the wrapper copies where the caller's are not).
 //  * Persistent clusters, as many as the card holds, walk the units (row
 //    group, column tile) row group first; the clusters that run at once
 //    read neighbouring column tiles and the same rows of Pi, which L2
@@ -122,331 +171,10 @@ namespace {
 
 constexpr int BM = 128;   // sketch rows (rows of Pi) per CTA
 constexpr int BN = 128;   // columns of A per CTA
-constexpr int BK = 64;    // rows of A (the streamed dimension d) per stage
-constexpr int STAGES = 3;
-constexpr int WARPS_M = 2;
-constexpr int WARPS_N = 4;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;  // 256
-constexpr int WM = BM / WARPS_M;                 // 64 output rows per warp
-constexpr int WN = BN / WARPS_N;                 // 32 output columns per warp
-constexpr int MT = WM / 16;                      // MMA tiles down a warp
-constexpr int NT = WN / 8;                       // MMA tiles across a warp
-constexpr int PI_PITCH = BK + 8;                 // elements per Pi-tile row
-constexpr int MIN_BLOCKS = 1;  // one CTA per SM: up to 255 registers
-
-template <typename T>
-struct Layout {
-  static constexpr int A_PITCH = BN + 16 / (int)sizeof(T);  // elements
-  static constexpr int PI_ELEMS = BM * PI_PITCH;
-  static constexpr int STAGE_ELEMS = PI_ELEMS + BK * A_PITCH;
-  static constexpr int SMEM = STAGES * STAGE_ELEMS * (int)sizeof(T);
-  static constexpr int PASSES = 3;  // split TF32 passes
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-// A value's TF32 operands, as the MMA reads them (the top 19 bits of a
-// float32): big rounds x to nearest TF32 (the integer form of
-// cvt.rna.tf32.f32, without its NaN guard), small = x - big is exact and
-// the MMA ignores its low 13 bits.
-template <int PASSES>
-__device__ __forceinline__ void split(uint32_t x, uint32_t& big,
-                                      uint32_t& small) {
-  big = (x + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));
-}
+constexpr int BK = 64;    // rows of A (the streamed dimension d) per bf16 stage
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// This warp's operands of one k8 step at column kk of the stage, as float32
-// bit patterns: a[i] = (a0, a1, a2, a3) of m-tile i, b[j] = (b0, b1) of
-// n-tile j. The MMA's k index t stands for d offset 2t and t + 4 for
-// 2t + 1 (any order of k does, the same in A and B), so a thread's two
-// values of a row of Pi, or of a column of A, are neighbours in d.
-// float32: one 8-byte load per row of Pi, one 4-byte load per value of A.
-__device__ __forceinline__ void load_frags(
-    const float* ps, const float* as, int a_pitch, int kk, int wm, int wn,
-    int lane, uint32_t (&a)[MT][4], uint32_t (&b)[NT][2]) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const float* p = ps + (wm + i * 16 + g) * PI_PITCH + kk + 2 * t;
-    const float2 lo = *reinterpret_cast<const float2*>(p);  // row g
-    const float2 hi = *reinterpret_cast<const float2*>(p + 8 * PI_PITCH);
-    a[i][0] = __float_as_uint(lo.x);
-    a[i][1] = __float_as_uint(hi.x);
-    a[i][2] = __float_as_uint(lo.y);
-    a[i][3] = __float_as_uint(hi.y);
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float* p = as + (kk + 2 * t) * a_pitch + wn + j * 8 + g;
-    b[j][0] = __float_as_uint(p[0]);
-    b[j][1] = __float_as_uint(p[a_pitch]);
-  }
-}
-
-// c += a * b on one m16n8k8 tile.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One asynchronous copy (cp.async) of VEC bytes, 16 or 4, the first
-// src_bytes of them from gmem and the rest zeros.
-template <int VEC>
-__device__ __forceinline__ void copy(void* smem, const void* gmem,
-                                     int src_bytes) {
-  const unsigned dst = smem_addr(smem);
-  if constexpr (VEC == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                 :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-sketch_fused_kernel(const T* __restrict__ Pi, const T* __restrict__ A,
-                    float* __restrict__ out, float* __restrict__ norm2,
-                    int k, int64_t d, int n) {
-  using L = Layout<T>;
-  constexpr int PASSES = L::PASSES;
-  constexpr int A_PITCH = L::A_PITCH;
-  constexpr int EPC = VEC / (int)sizeof(T);  // elements per copy
-  constexpr int PI_COPIES = BM * BK / EPC / THREADS;  // per thread per stage
-  constexpr int A_COPIES = BK * BN / EPC / THREADS;
-  constexpr int NORM_SPLIT = THREADS / BN;   // threads sharing a column norm
-  constexpr int PI_ROW_STEP = THREADS / (BK / EPC);
-  constexpr int A_ROW_STEP = THREADS / (BN / EPC);
-  static_assert(EPC >= 1 && PI_COPIES * EPC * THREADS == BM * BK &&
-                A_COPIES * EPC * THREADS == BK * BN &&
-                THREADS % (BK / EPC) == 0 && THREADS % (BN / EPC) == 0,
-                "copy split");
-  static_assert(NORM_SPLIT * BN == THREADS && BK % NORM_SPLIT == 0,
-                "norm split");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  __shared__ float nrm_part[NORM_SPLIT - 1][BN];
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread in group
-  const int wm = (warp % WARPS_M) * WM;
-  const int wn = (warp / WARPS_M) * WN;
-  const int64_t n_steps = (d + BK - 1) / BK;
-  const int pr = tid / (BK / EPC), pc = tid % (BK / EPC) * EPC;
-  const int ar = tid / (BN / EPC), ac = tid % (BN / EPC) * EPC;
-  // bytes of a copy with `left` elements before an edge
-  auto edge_bytes = [](int64_t left) {
-    return left >= EPC ? VEC : left > 0 ? (int)left * (int)sizeof(T) : 0;
-  };
-  const int k_tiles = (k + BM - 1) / BM;
-  const int64_t tiles = (int64_t)k_tiles * ((n + BN - 1) / BN);
-
-  // Persistent CTAs: tile, tile + gridDim.x, ... in k-tile-first order, so
-  // the CTAs that read the same rows of Pi or columns of A walk d together
-  // and share them through L2.
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int kt = (int)(tile % k_tiles);
-    const int k0 = kt * BM;
-    const int n0 = (int)(tile / k_tiles) * BN;
-    const bool do_norms = (kt == 0);
-    __syncthreads();  // the last tile's reads of the stages are done
-
-    // Stage slot s <- rows d0..d0+BK-1 of A and the same columns of Pi.
-    // This thread's copies of a stage: rows pr + i * PI_ROW_STEP of the Pi
-    // tile at columns pc.., rows ar + i * A_ROW_STEP of the A tile at
-    // columns ac... Bytes past the k and n edges are fixed for the tile,
-    // those past the d edge change only in the last stage.
-    const T* const pi_src = Pi + (int64_t)(k0 + pr) * d + pc;
-    const T* const a_src = A + (int64_t)ar * n + n0 + ac;
-    const int a_bytes = edge_bytes((int64_t)n - (n0 + ac));
-    auto load_stage = [&](int s, int64_t d0) {
-      T* ps = smem + s * L::STAGE_ELEMS;
-      T* as = ps + L::PI_ELEMS;
-      const int pi_bytes = edge_bytes(d - (d0 + pc));
-#pragma unroll
-      for (int i = 0; i < PI_COPIES; ++i) {
-        const int row = pr + i * PI_ROW_STEP;
-        const int bytes = k0 + row < k ? pi_bytes : 0;
-        copy<VEC>(ps + row * PI_PITCH + pc,
-                  bytes ? pi_src + (int64_t)i * PI_ROW_STEP * d + d0 : Pi,
-                  bytes);
-      }
-#pragma unroll
-      for (int i = 0; i < A_COPIES; ++i) {
-        const int row = ar + i * A_ROW_STEP;
-        const int bytes = d0 + row < d ? a_bytes : 0;
-        copy<VEC>(as + row * A_PITCH + ac,
-                  bytes ? a_src + (d0 + row - ar) * (int64_t)n : A, bytes);
-      }
-    };
-
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    float nrm = 0.f;
-
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < n_steps) load_stage(s, (int64_t)s * BK);
-      cp_async_commit();
-    }
-    int slot = 0;
-    for (int64_t step = 0; step < n_steps; ++step) {
-      // this thread's copies of stage `step` have landed; after the barrier
-      // everyone's have, and every warp is done with the slot refilled below
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int64_t ahead = step + STAGES - 1;
-      if (ahead < n_steps)
-        load_stage(slot == 0 ? STAGES - 1 : slot - 1, ahead * BK);
-      cp_async_commit();
-
-      const T* ps = smem + slot * L::STAGE_ELEMS;
-      const T* as = ps + L::PI_ELEMS;
-      if (do_norms) {
-        // column tid % BN, rows (tid / BN) * BK/NORM_SPLIT onward
-        const T* col =
-            as + (tid / BN) * (BK / NORM_SPLIT) * A_PITCH + tid % BN;
-        float stage = 0.f;  // summed per stage, then into nrm
-#pragma unroll
-        for (int r = 0; r < BK / NORM_SPLIT; ++r) {
-          const float v = to_f32(col[r * A_PITCH]);
-          stage = fmaf(v, v, stage);
-        }
-        nrm += stage;
-      }
-      // The stage's products go into a fresh fragment, added to acc at the
-      // end of the stage.
-      float part[MT][NT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 8) {
-        uint32_t a[MT][4], b[NT][2];
-        load_frags(ps, as, A_PITCH, kk, wm, wn, lane, a, b);
-        uint32_t b_big[NT][2], b_small[NT][2];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          split<PASSES>(b[j][0], b_big[j][0], b_small[j][0]);
-          split<PASSES>(b[j][1], b_big[j][1], b_small[j][1]);
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          uint32_t a_big[4], a_small[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split<PASSES>(a[i][e], a_big[e], a_small[e]);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            if constexpr (PASSES == 3) {
-              mma(part[i][j], a_small, b_big[j][0], b_big[j][1]);
-              mma(part[i][j], a_big, b_small[j][0], b_small[j][1]);
-            }
-            mma(part[i][j], a_big, b_big[j][0], b_big[j][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-      slot = slot == STAGES - 1 ? 0 : slot + 1;
-    }
-    cp_async_wait<0>();
-
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = k0 + wm + i * 16 + g + 8 * h;
-        if (row >= k) continue;
-        float* dst = out + (int64_t)row * n;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = n0 + wn + j * 8 + 2 * t;
-          if (col < n) dst[col] = acc[i][j][2 * h];
-          if (col + 1 < n) dst[col + 1] = acc[i][j][2 * h + 1];
-        }
-      }
-    }
-    if (do_norms) {
-      if (tid >= BN) nrm_part[tid / BN - 1][tid % BN] = nrm;
-      __syncthreads();
-      if (tid < BN && n0 + tid < n) {
-#pragma unroll
-        for (int q = 0; q < NORM_SPLIT - 1; ++q) nrm += nrm_part[q][tid];
-        norm2[n0 + tid] = nrm;
-      }
-    }
-  }
-}
-
-template <typename T, int VEC>
-int launch_vec(const T* Pi, const T* A, float* out, float* norm2, int64_t k,
-               int64_t d, int64_t n, cudaStream_t stream) {
-  // per launch: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      sketch_fused_kernel<T, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T>::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  // as many CTAs as are resident at once, or fewer if there are fewer tiles
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sketch_fused_kernel<T, VEC>, THREADS, Layout<T>::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t tiles = ((k + BM - 1) / BM) * ((n + BN - 1) / BN);
-  const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles
-                                                      : (int64_t)sms * per_sm;
-  sketch_fused_kernel<T, VEC><<<(unsigned)grid, THREADS, Layout<T>::SMEM,
-                                stream>>>(Pi, A, out, norm2, (int)k, d,
-                                          (int)n);
-  return (int)cudaGetLastError();
-}
-
-// 16-byte copies when every row of Pi and A starts 16-byte aligned, else
-// element copies.
-template <typename T>
-int launch(const T* Pi, const T* A, float* out, float* norm2, int64_t k,
-           int64_t d, int64_t n, void* stream_) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const bool aligned = ((uintptr_t)Pi % 16 == 0) && ((uintptr_t)A % 16 == 0) &&
-                       (d * (int64_t)sizeof(T)) % 16 == 0 &&
-                       (n * (int64_t)sizeof(T)) % 16 == 0;
-  if (aligned)
-    return launch_vec<T, 16>(Pi, A, out, norm2, k, d, n, stream);
-  return launch_vec<T, (int)sizeof(T)>(Pi, A, out, norm2, k, d, n, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -944,15 +672,497 @@ int launch_bf16(const __nv_bfloat16* Pi, const __nv_bfloat16* A, float* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The float32 instance: the transposed product on TF32 wgmma, A's fragments
+// from registers, Pi and its small part by TMA, clusters along n (see the
+// header).
+
+constexpr int F32_BK = 32;             // rows of d a stage: a 128-byte row
+constexpr int F32_STAGES = 4;
+constexpr int F32_CLUSTER_MAX = 1;     // CTAs a cluster along k, at most
+constexpr int F32_CLUSTER_N = 2;       // CTAs a cluster along n, at most
+constexpr int F32_CONSUMER_WARPS = 8;  // two warpgroups: the wgmma
+constexpr int F32_PRODUCER_WARP = 8;   // its lane 0 issues the copies
+constexpr int F32_THREADS = 32 * (F32_CONSUMER_WARPS + 1);  // 288
+// stages whose wgmma go into one fresh accumulator before it is added to
+// the float32 sum: chains of 256 rows of d
+constexpr int F32_CHAIN_STAGES = 8;
+constexpr int F32_BOX_COLS = 32;                          // 128 bytes
+constexpr int F32_A_BOXES = BN / F32_BOX_COLS;            // 4
+constexpr int F32_PI_BYTES = BM * F32_BK * 4;             // 16,384
+constexpr int F32_BOX_BYTES = F32_BK * F32_BOX_COLS * 4;  // 4,096
+constexpr int F32_A_BYTES = F32_A_BOXES * F32_BOX_BYTES;  // 16,384
+// a stage: Pi's tile, its small part's, A's tile
+constexpr int F32_STAGE_BYTES = 2 * F32_PI_BYTES + F32_A_BYTES;
+// the float32 sums kept in shared memory: half the CTA's output tile, 32
+// values a consumer thread
+constexpr int F32_SUM_BYTES = BM * BN * 2;                // 32,768
+// the ring (on a 1,024-byte boundary), the sums, the full and empty
+// barriers
+constexpr int F32_SMEM = 1024 + F32_STAGES * F32_STAGE_BYTES +
+                         F32_SUM_BYTES + 2 * 8 * F32_STAGES;
+static_assert(F32_BK * 4 == 128 && F32_BOX_COLS * 4 == 128,
+              "a row of a tile is one 128-byte swizzle span");
+static_assert(F32_SMEM <= 232448, "shared memory of one CTA");
+
+struct F32Args {
+  float* out;
+  float* norm2;
+  int k;
+  int n;
+  int64_t d;
+  int ck;           // CTAs a cluster along k: row blocks that share A tiles
+  int cn;           // and along n: column tiles that share Pi's tiles
+  int cs;           // ck * cn, CTA c at (c % ck, c / ck)
+  int row_groups;   // groups of ck row blocks: ceil(ceil(k / BM) / ck)
+  int64_t units;    // row_groups * ceil(ceil(n / BN) / cn)
+  int pairs;        // 1: out takes 8-byte stores of column pairs
+};
+
+// d = (accumulate ? d : 0) + a b: a the 64 x 8 A fragment in registers
+// (float32 bit patterns, read as TF32), b 8 x 128 K-major in shared
+// memory; float32 sums.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// keeps the compiler from moving writes of v across this point, and v live
+// up to it (a wgmma reads its A fragment asynchronously)
+__device__ __forceinline__ void reg_fence(uint32_t (&v)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(v[i])::"memory");
+}
+
+// x - trunc(x), trunc the top 19 bits (what the tensor core reads of x):
+// exact in float32
+__device__ __forceinline__ float small_part(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// The prologue: small = Pi - trunc(Pi), n4 float4s.
+__global__ void __launch_bounds__(256)
+sketch_pi_small(const float4* __restrict__ pi, float4* __restrict__ small,
+                int64_t n4) {
+  for (int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * 256) {
+    const float4 x = pi[i];
+    small[i] = make_float4(small_part(x.x), small_part(x.y), small_part(x.z),
+                           small_part(x.w));
+  }
+}
+
+__global__ void __launch_bounds__(F32_THREADS, 1)
+sketch_fused_f32_kernel(const __grid_constant__ CUtensorMap pi_map,
+                        const __grid_constant__ CUtensorMap small_map,
+                        const __grid_constant__ CUtensorMap a_map,
+                        const F32Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle repeats every 1,024 bytes: the ring starts on such a
+  // boundary, at the same offset in every CTA of the cluster
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* const ring = smem_raw + (1024u - raw % 1024u) % 1024u;
+  float* const sums = reinterpret_cast<float*>(
+      ring + F32_STAGES * F32_STAGE_BYTES);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(
+      ring + F32_STAGES * F32_STAGE_BYTES + F32_SUM_BYTES);
+  uint64_t* const empty = full + F32_STAGES;
+  const uint32_t ring_s = smem_addr(ring);
+
+  const int tid = threadIdx.x;
+  // a shuffle tells the compiler the role is uniform across the warp
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32;
+  const int rank = (int)special_ctarank();
+  const int64_t n_steps = (a.d + F32_BK - 1) / F32_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], F32_CONSUMER_WARPS * a.cs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();  // every CTA's barriers are set before a copy reaches them
+
+  // unit u: row block (u % row_groups) * ck + rk of Pi, column tile
+  // (u / row_groups) * cn + rn of A
+  const int rk = rank % a.ck, rn = rank / a.ck;
+  auto unit_k0 = [&](int64_t u) {
+    return ((int)(u % a.row_groups) * a.ck + rk) * BM;
+  };
+  auto unit_n0 = [&](int64_t u) {
+    return ((int)(u / a.row_groups) * a.cn + rn) * BN;
+  };
+  // the ring's position, as every reader of it keeps it
+  int slot = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++slot == F32_STAGES) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  };
+
+  if (warp == F32_PRODUCER_WARP) {
+    // one thread keeps the ring full
+    if (lane == 0) {
+      // A's tile goes to the ck CTAs of this column tile, Pi's to the cn
+      // CTAs of this row block; this CTA loads boxes rk, rk + ck, .. of A's
+      // and rows rn * BM / cn.. of Pi's and its small part's
+      uint16_t a_mask = 0, pi_mask = 0;
+      for (int c = 0; c < a.cs; ++c) {
+        if (c / a.ck == rn) a_mask |= (uint16_t)(1u << c);
+        if (c % a.ck == rk) pi_mask |= (uint16_t)(1u << c);
+      }
+      const int pi_rows = BM / a.cn;
+      for (int64_t u = special_clusterid(); u < a.units;
+           u += special_nclusters()) {
+        const int k0 = unit_k0(u), n0 = unit_n0(u);
+        const bool active = k0 < a.k;
+        for (int64_t step = 0; step < n_steps; ++step) {
+          // every consumer warp of the cluster is done with the slot
+          mbar_wait(&empty[slot], phase ^ 1u);
+          // stage <- rows d0.. of this CTA's Pi tile and its small part's,
+          // and this CTA's boxes of the cluster's A tile into every CTA
+          const uint32_t stage = ring_s + slot * F32_STAGE_BYTES;
+          const int d0 = (int)(step * F32_BK);
+          mbar_expect(&full[slot],
+                      (active ? 2 * F32_PI_BYTES : 0) + F32_A_BYTES);
+          if (active) {
+            const uint32_t rows = rn * pi_rows * 128;
+            tma_multicast(&pi_map, &full[slot], stage + rows, d0,
+                          k0 + rn * pi_rows, pi_mask);
+            tma_multicast(&small_map, &full[slot],
+                          stage + F32_PI_BYTES + rows, d0, k0 + rn * pi_rows,
+                          pi_mask);
+          }
+          for (int b = rk; b < F32_A_BOXES; b += a.ck)
+            tma_multicast(&a_map, &full[slot],
+                          stage + 2 * F32_PI_BYTES + b * F32_BOX_BYTES,
+                          n0 + b * F32_BOX_COLS, d0, a_mask);
+          advance();
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // the consumers: warpgroup wg owns columns 64 wg.. of the tile
+    const int wg = warp / 4;
+    const int g = lane / 4, t = lane % 4;
+    // this thread's M rows g and g + 8 of its warp are columns col and
+    // col + 1 of the tile: in box 2 wg + w / 2 (w the warp in the
+    // warpgroup), floats 2 (g % 2) and 2 (g % 2) + 1 of 16-byte chunk
+    // 2 (g / 2) + w % 2 of a box row
+    const int box = 2 * wg + (warp % 4) / 2;
+    const int chunk = 2 * (g / 2) + warp % 2;
+    const int col = F32_BOX_COLS * box + 4 * chunk + 2 * (g % 2);
+    const int a_off = 2 * F32_PI_BYTES + box * F32_BOX_BYTES + 8 * (g % 2);
+    // this warp is done with slot s: release it in every CTA of the
+    // cluster (lane c arrives in CTA c, a predicated arrive)
+    const uint32_t target = lane < a.cs ? lane : 0;
+    auto release = [&](int s) {
+      __syncwarp();
+      asm volatile(
+          "{\n.reg .pred p;\n.reg .b32 remote;\n"
+          "setp.lt.s32 p, %1, %2;\n"
+          "mapa.shared::cluster.u32 remote, %0, %3;\n"
+          "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n}"
+          :: "r"(smem_addr(&empty[s])), "r"(lane), "r"(a.cs), "r"(target)
+          : "memory");
+    };
+    // a stage's A fragments into f: k8 step j's big part (a0..a3, the raw
+    // values) at f[8 j..], its small part at f[8 j + 4..]; a0 and a1 are
+    // row 8 j + t of columns col and col + 1, a2 and a3 row 8 j + t + 4.
+    // Adds the stage's squares, summed apart first, into the norm sums n0
+    // and n1.
+    auto load = [&](uint32_t (&f)[32], int s, float& n0, float& n1) {
+      const unsigned char* at = ring + s * F32_STAGE_BYTES + a_off;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < F32_BK / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * j + t + 4 * h;  // r % 8 == t + 4 h
+          const float2 v = *reinterpret_cast<const float2*>(
+              at + r * 128 + ((chunk ^ (t + 4 * h)) << 4));
+          f[8 * j + 2 * h] = __float_as_uint(v.x);
+          f[8 * j + 2 * h + 1] = __float_as_uint(v.y);
+          f[8 * j + 4 + 2 * h] = __float_as_uint(small_part(v.x));
+          f[8 * j + 5 + 2 * h] = __float_as_uint(small_part(v.y));
+          s0 = fmaf(v.x, v.x, s0);
+          s1 = fmaf(v.y, v.y, s1);
+        }
+      }
+      n0 += s0;
+      n1 += s1;
+    };
+    // this thread's 64 float32 sums: values 0..31 in held, 32..63 at
+    // sum[(i - 32) * 256] (its own: no barrier)
+    float* const sum = sums + tid;
+    float part[64], held[32];
+    uint32_t f[32];  // a stage's fragments
+    for (int64_t u = special_clusterid(); u < a.units;
+         u += special_nclusters()) {
+      const int k0 = unit_k0(u), n0 = unit_n0(u);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        held[i] = 0.f;
+        sum[i * 256] = 0.f;
+      }
+      float nrm0 = 0.f, nrm1 = 0.f;
+      // A stage at a time: its fragments, its 12 wgmma into part (fresh at
+      // a chain's first stage), a wait for them, the stage released.
+      // Chains of F32_CHAIN_STAGES stages; warpgroup 1's are offset from
+      // warpgroup 0's by half a chain, so that one warpgroup's wgmma run
+      // while the other adds.
+      int left = wg ? F32_CHAIN_STAGES / 2 : F32_CHAIN_STAGES;
+      bool fresh = true;
+      for (int64_t step = 0; step < n_steps; ++step) {
+        const int s = slot;
+        mbar_wait(&full[s], phase);
+        load(f, s, nrm0, nrm1);
+        const uint32_t pi_big = ring_s + s * F32_STAGE_BYTES;
+        const uint32_t pi_small = pi_big + F32_PI_BYTES;
+        reg_fence(f);
+        reg_fence(part);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < F32_BK / 8; ++j) {
+          const uint32_t big[4] = {f[8 * j], f[8 * j + 1], f[8 * j + 2],
+                                   f[8 * j + 3]};
+          const uint32_t small[4] = {f[8 * j + 4], f[8 * j + 5],
+                                     f[8 * j + 6], f[8 * j + 7]};
+          wgmma_tf32_n128(part, small, sw128_desc(pi_big + 32 * j, 16, 1024),
+                          j > 0 || !fresh);
+          wgmma_tf32_n128(part, big, sw128_desc(pi_big + 32 * j, 16, 1024),
+                          1);
+          wgmma_tf32_n128(part, big, sw128_desc(pi_small + 32 * j, 16, 1024),
+                          1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(f);
+        reg_fence(part);
+        release(s);
+        advance();
+        fresh = --left == 0 || step + 1 == n_steps;
+        if (fresh) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            held[i] += part[i];
+            sum[i * 256] += part[32 + i];
+          }
+          left = F32_CHAIN_STAGES;
+        }
+      }
+      // the four threads of a column pair (t = 0..3) hold its rows t and
+      // t + 4 of every k8 step
+      nrm0 += __shfl_xor_sync(0xffffffffu, nrm0, 1);
+      nrm1 += __shfl_xor_sync(0xffffffffu, nrm1, 1);
+      nrm0 += __shfl_xor_sync(0xffffffffu, nrm0, 2);
+      nrm1 += __shfl_xor_sync(0xffffffffu, nrm1, 2);
+      const int c = n0 + col;
+      if (k0 == 0 && t == 0) {
+        if (c < a.n) a.norm2[c] = nrm0;
+        if (c + 1 < a.n) a.norm2[c + 1] = nrm1;
+      }
+      // the accumulator's layout: value 4 j + 2 h + e holds M row g +
+      // 8 h of the warp (column c + h) and N column 8 j + 2 t + e (row
+      // k0 + 8 j + 2 t + e of the output)
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = k0 + 8 * j + 2 * t + e;
+          if (row >= a.k) continue;
+          float* dst = a.out + (int64_t)row * a.n + c;
+          const int i0 = 4 * j + e, i1 = 4 * j + 2 + e;
+          const float v0 = i0 < 32 ? held[i0] : sum[(i0 - 32) * 256];
+          const float v1 = i1 < 32 ? held[i1] : sum[(i1 - 32) * 256];
+          if (a.pairs && c + 1 < a.n) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (c < a.n) dst[0] = v0;
+            if (c + 1 < a.n) dst[1] = v1;
+          }
+        }
+      }
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still arrive on it
+}
+
+// A float32 matrix of `rows` x `cols` whose rows lie `pitch` elements
+// apart, in boxes of box_rows x box_cols, 128-byte swizzle, zeros past its
+// edges.
+bool encode_f32(CUtensorMap* map, const void* base, int64_t rows,
+                int64_t cols, int64_t pitch, int box_rows, int box_cols) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The prologue alone: small[i] = Pi[i] - trunc(Pi[i]) for `count` floats
+// (a multiple of 4) from 16-byte aligned bases.
+int launch_pi_small(const float* Pi, float* small, int64_t count,
+                    cudaStream_t stream) {
+  if ((uintptr_t)Pi % 16 || (uintptr_t)small % 16 || count % 4 || count < 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n4 = count / 4;
+  if (n4 == 0) return (int)cudaSuccess;
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t blocks = (n4 + 255) / 256;
+  const int64_t grid = blocks < 8LL * sms ? blocks : 8LL * sms;
+  sketch_pi_small<<<(unsigned)grid, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(Pi), reinterpret_cast<float4*>(small),
+      n4);
+  return (int)cudaGetLastError();
+}
+
+// A launch config of one cluster of cs CTAs, and the clusters of that size
+// the card holds at once (queried once a device and size).
+cudaError_t f32_config(int cs, cudaStream_t stream,
+                       cudaLaunchAttribute (&attr)[1],
+                       cudaLaunchConfig_t& cfg, int& active) {
+  cudaError_t err = cudaFuncSetAttribute(
+      sketch_fused_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F32_SMEM);
+  if (err != cudaSuccess) return err;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)cs);
+  cfg.blockDim = dim3(F32_THREADS);
+  cfg.dynamicSmemBytes = F32_SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int held[64][F32_CLUSTER_MAX * F32_CLUSTER_N + 1] = {};
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && held[device][cs] > 0) {
+    active = held[device][cs];
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveClusters(&active, sketch_fused_f32_kernel,
+                                       &cfg);
+  if (err == cudaSuccess && device < 64) held[device][cs] = active;
+  return err;
+}
+
+// Pi's rows at a pitch of d rounded up to 4 elements, A's at n rounded up
+// to 4, both from 16-byte aligned bases (TMA's rule; the wrapper copies
+// where the caller's tensors are not so); small: the caller's scratch of
+// Pi's size, which the prologue fills first.
+int launch_f32(const float* Pi, const float* A, float* small, float* out,
+               float* norm2, int64_t k, int64_t d, int64_t n,
+               cudaStream_t stream) {
+  if ((uintptr_t)Pi % 16 || (uintptr_t)A % 16 || (uintptr_t)small % 16 ||
+      d >= (1LL << 31) || k >= (1LL << 31) || n >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int64_t pitch_d = (d + 3) / 4 * 4;
+  cudaError_t err = (cudaError_t)launch_pi_small(Pi, small, k * pitch_d,
+                                                 stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t k_blocks = (k + BM - 1) / BM;
+  const int64_t n_tiles = (n + BN - 1) / BN;
+  F32Args a;
+  a.out = out;
+  a.norm2 = norm2;
+  a.k = (int)k;
+  a.n = (int)n;
+  a.d = d;
+  a.ck = (int)(k_blocks < F32_CLUSTER_MAX ? k_blocks : F32_CLUSTER_MAX);
+  a.cn = (int)(n_tiles < F32_CLUSTER_N ? n_tiles : F32_CLUSTER_N);
+  a.cs = a.ck * a.cn;
+  a.row_groups = (int)((k_blocks + a.ck - 1) / a.ck);
+  a.units = (int64_t)a.row_groups * ((n_tiles + a.cn - 1) / a.cn);
+  a.pairs = n % 2 == 0 && (uintptr_t)out % 8 == 0;
+  CUtensorMap pi_map, small_map, a_map;
+  if (!encode_f32(&pi_map, Pi, k, d, pitch_d, BM / a.cn, F32_BK) ||
+      !encode_f32(&small_map, small, k, d, pitch_d, BM / a.cn, F32_BK) ||
+      !encode_f32(&a_map, A, d, n, (n + 3) / 4 * 4, F32_BK, F32_BOX_COLS))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  int active = 0;
+  err = f32_config(a.cs, stream, attr, cfg, active);
+  if (err != cudaSuccess) return (int)err;
+  if (active < 1) return (int)cudaErrorInvalidConfiguration;
+  // as many clusters as are resident at once, or fewer if there are fewer
+  // units
+  const int64_t clusters = a.units < active ? a.units : active;
+  cfg.gridDim = dim3((unsigned)(clusters * a.cs));
+  err = cudaLaunchKernelEx(&cfg, sketch_fused_f32_kernel, pi_map, small_map,
+                           a_map, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns the cudaError_t of the
-// launch (0 on success); it neither synchronises nor allocates. The bf16
-// entry reads rows at pitches rounded up to 8 elements (launch_bf16).
-extern "C" int sketch_fused_f32(const float* Pi, const float* A, float* out,
-                                float* norm2, int64_t k, int64_t d, int64_t n,
+// launch (0 on success); it neither synchronises nor allocates. The float32
+// entry reads rows at pitches rounded up to 4 elements and writes Pi's small
+// parts into the caller's scratch (launch_f32), the bf16 entry at pitches
+// rounded up to 8 (launch_bf16).
+extern "C" int sketch_fused_f32(const float* Pi, const float* A,
+                                float* pi_small, float* out, float* norm2,
+                                int64_t k, int64_t d, int64_t n,
                                 void* stream) {
-  return launch<float>(Pi, A, out, norm2, k, d, n, stream);
+  return launch_f32(Pi, A, pi_small, out, norm2, k, d, n,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The float32 entry's prologue alone: small = Pi - trunc(Pi) for `count`
+// floats.
+extern "C" int sketch_fused_pi_small(const float* Pi, float* small,
+                                     int64_t count, void* stream) {
+  return launch_pi_small(Pi, small, count, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sketch_fused_bf16(const __nv_bfloat16* Pi,
@@ -963,15 +1173,19 @@ extern "C" int sketch_fused_bf16(const __nv_bfloat16* Pi,
                      static_cast<cudaStream_t>(stream));
 }
 
-// The clusters of the bf16 instance the card holds at once for k rows of
-// Pi (a cluster of min(ceil(k / 128), 4) CTAs), or minus a cudaError_t.
-extern "C" int sketch_fused_bf16_clusters(int64_t k) {
+// The clusters of the instance for `dtype_bytes` (4: float32, 2: bf16) the
+// card holds at once for k rows of Pi (a cluster of min(ceil(k / 128), 4)
+// CTAs), or minus a cudaError_t.
+extern "C" int sketch_fused_clusters(int64_t k, int dtype_bytes) {
   const int64_t k_blocks = (k + BM - 1) / BM;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = {};
   int active = 0;
-  const cudaError_t err = bf16_config(
-      (int)(k_blocks < BF16_CLUSTER_MAX ? k_blocks : BF16_CLUSTER_MAX), 0,
-      attr, cfg, active);
+  const int max = dtype_bytes == 2 ? BF16_CLUSTER_MAX : F32_CLUSTER_MAX;
+  const int cs = (int)(k_blocks < max ? k_blocks : max) *
+                 (dtype_bytes == 2 ? 1 : F32_CLUSTER_N);
+  const cudaError_t err = dtype_bytes == 2
+                              ? bf16_config(cs, 0, attr, cfg, active)
+                              : f32_config(cs, 0, attr, cfg, active);
   return err == cudaSuccess ? active : -(int)err;
 }

@@ -3,31 +3,43 @@
 Hopper counterpart of the Pallas TPU kernel
 ``repro.kernels.sketch_fused.sketch_fused`` (``src/repro/kernels/
 sketch_fused.py:50``): CUDA C++ for ``sm_90a`` in ``csrc/sketch_fused.cu``,
-with one design per input type. Each CTA owns one 128 x 128 tile of the
-output at a time and loops over all of d itself (the Pallas kernel's
-sequential d grid axis would race on a GPU), so every output element is
-written once, with no atomics, deterministically. Each stage's products go
-into a fresh accumulator that is added to the float32 sum with an ordinary
-add, since the tensor cores truncate inside an MMA; the CTAs of row block 0
-also add up the squared column norms from the exact A tile they hold.
+with one design per input type, both on ``wgmma`` fed by TMA. Each CTA owns
+one 128 x 128 tile of the output at a time and loops over all of d itself
+(the Pallas kernel's sequential d grid axis would race on a GPU), so every
+output element is written once, with no atomics, deterministically. A chain
+of stages' products goes into a fresh accumulator that is added to the
+float32 sum with an ordinary add, since the tensor cores truncate inside an
+MMA; the squared column norms are summed from the exact A tile the CTAs
+hold. CTAs that share tiles form thread block clusters, in which each loads
+a share of the shared tiles, multicast into all of them.
 
-* float32: ``mma.sync`` m16n8k8 TF32 products on a ring of three
-  ``cp.async`` stages, 256 threads, one persistent CTA per SM; each value
-  split into a TF32 big and small part, and small*big, big*small and
-  big*big summed (about 2^-21 relative). Bound: operations, ``3 * 2 k d n``
-  FLOP at 495 TFLOP/s (31.03 ms at k = 512, d = 50,000, n = 100,000).
+* float32: the transposed product on the TF32 tensor cores, ``wgmma``
+  m64n128k8 with A's fragments loaded into registers from A's tile and
+  Pi's tile read K-major from shared memory; each value split into its raw
+  value (the tensor core truncates it to TF32) and ``small = x - trunc(x)``,
+  and A small x Pi big, A big x Pi big and A big x Pi small summed (about
+  2^-20 relative). Pi's small parts come from a prologue that writes them
+  once a call into scratch ``launch`` allocates (``pi_small_plain`` is its
+  plain version). A ring of four stages, a producer warp and two consumer
+  warpgroups (288 threads); chains of eight 32-row stages, whose fresh
+  accumulators are added into float32 sums half in registers, half in
+  shared memory. The CTAs of two neighbouring column tiles form a thread
+  block cluster, and each loads half the rows of Pi's tiles, multicast
+  into both. Bound: operations, ``3 * 2 k d n`` FLOP at 495 TFLOP/s
+  (31.03 ms at k = 512, d = 50,000, n = 100,000).
 * bf16: ``wgmma`` m64n128k16 on the bf16 tensor cores, both tiles read by
   TMA into a ring of six stages with the 128-byte swizzle, a producer warp,
   two norm warps and two consumer warpgroups (384 threads; the product's
-  fresh accumulators cover four stages); the CTAs whose row blocks share a
-  column tile of A form a thread block cluster of up to four along k, and
-  each loads a share of the A tile multicast into all of them.
+  fresh accumulators cover four 64-row stages); the CTAs of up to four row
+  blocks that share a column tile of A form a cluster along k, and each
+  loads a share of A's tile, multicast into all of them.
   Bound: operations, ``2 k d n`` FLOP at 989 TFLOP/s (5.18 ms).
 
 TMA reads rows from 16-byte aligned bases at pitches that are multiples of
-16 bytes: the bf16 entry reads Pi's rows at a pitch of d rounded up to 8
-elements and A's at n rounded up to 8. ``launch`` makes a zero-padded copy
-of an input that is not so, and counts it in ``ALIGNED_COPIES``.
+16 bytes: the entries read Pi's rows at a pitch of d rounded up to 16 bytes
+(4 float32, 8 bf16) and A's at n rounded up alike. ``launch`` makes a
+zero-padded copy of an input that is not so, and counts it in
+``ALIGNED_COPIES``.
 
 ``plain`` is the PyTorch version of the same function; ``kernels/ops.py``
 chooses between the two and counts launches.
@@ -43,36 +55,44 @@ from repro_torch.kernels.ref import sketch_fused_ref as plain
 SOURCE = "sketch_fused.cu"
 REPLACES = "src/repro/kernels/sketch_fused.py:50"
 
-#: The one tile ``csrc/sketch_fused.cu`` compiles, as the tuner names it:
-#: (bn, bd) = (BN columns of A per CTA, BK rows of d per stage). A CTA also
-#: covers BM rows of Pi. float32: 256 threads and three shared-memory stages
-#: of a (BM, BK + 8) Pi tile and a (BK, BN + 4) A tile.
+#: The tile of ``csrc/sketch_fused.cu``'s float32 instance, as the tuner
+#: names it: (bn, bd) = (BN columns of A per CTA, F32_BK rows of d per
+#: stage); the tuner's one label for the kernel (the bf16 instance runs
+#: BF16_TILE's 64-row stages under it). A CTA also covers BM rows of Pi.
+#: float32: two consumer warpgroups and a producer warp, four stages of a
+#: (BM, bd) Pi tile, its small part's and a (bd, BN) A tile, and half the
+#: CTA's (BM, BN) float32 sums (the other half in registers).
 BM = 128
-TILE = (128, 64)
-THREADS = 256
-STAGES = 3
-#: One CTA per SM: a thread may use up to 255 registers (float32; the bf16
-#: instance's 384 threads 168).
+TILE = (128, 32)
+BF16_TILE = (128, 64)
+THREADS = 288
+STAGES = 4
+#: One CTA per SM (at most 168 registers a thread).
 CTAS_PER_SM = 1
 #: float32 does three TF32 tensor-core passes, bf16 one on the bf16 ones.
 PASSES = {4: 3, 2: 1}
 #: The bf16 instance: a producer warp, two norm warps, an idle warp and two
-#: consumer warpgroups, six stages of a (BM, BK) Pi tile and a (BK, BN) A
-#: tile, clusters of up to four CTAs along k.
+#: consumer warpgroups, six stages of a (BM, 64) Pi tile and a (64, BN) A
+#: tile.
 BF16_THREADS = 384
 BF16_STAGES = 6
-BF16_CLUSTER_MAX = 4
+#: CTAs a cluster, at most (along k, along n): the float32 instance's
+#: CTAs that share a row block multicast Pi's tiles along n, the bf16
+#: instance's that share a column tile multicast A's along k.
+F32_CLUSTER = (1, 2)
+BF16_CLUSTER = (4, 1)
 
 
 def smem_bytes(dtype_bytes: int = 4) -> int:
-    """Dynamic shared memory of one CTA for inputs of ``dtype_bytes``."""
-    bn, bk = TILE
+    """Dynamic shared memory of one CTA for inputs of ``dtype_bytes``: 1,024
+    bytes to align the ring, the stages, in float32 half the CTA's float32
+    sums, the full and empty barriers."""
     if dtype_bytes == 2:
-        # 1,024 bytes to align the ring, the stages, the full and empty
-        # barriers
+        bn, bk = BF16_TILE
         return 1024 + BF16_STAGES * 2 * (BM * bk + bk * bn) + 16 * BF16_STAGES
-    a_pitch = bn + 16 // dtype_bytes
-    return STAGES * dtype_bytes * (BM * (bk + 8) + bk * a_pitch)
+    bn, bk = TILE
+    return (1024 + STAGES * 4 * (2 * BM * bk + bk * bn) + 2 * BM * bn
+            + 16 * STAGES)
 
 
 def threads(dtype_bytes: int = 4) -> int:
@@ -80,37 +100,40 @@ def threads(dtype_bytes: int = 4) -> int:
     return BF16_THREADS if dtype_bytes == 2 else THREADS
 
 
-def cluster_size(k: int) -> int:
-    """CTAs a cluster of the bf16 instance: the row blocks of Pi that share
-    a column tile of A, at most four."""
-    return max(1, min(-(-k // BM), BF16_CLUSTER_MAX))
+def cluster_shape(k: int, n: int, dtype_bytes: int = 4) -> tuple:
+    """(ck, cn): a cluster's CTAs along k (the row blocks of Pi that share
+    a column tile of A) and along n (the column tiles of A that share a
+    row block of Pi) for Pi (k, d) and A (d, n)."""
+    most_k, most_n = BF16_CLUSTER if dtype_bytes == 2 else F32_CLUSTER
+    return (max(1, min(-(-k // BM), most_k)),
+            max(1, min(-(-n // TILE[0]), most_n)))
 
 
 SMEM_BYTES = smem_bytes(4)
 
-#: Inputs that ``launch`` copied for the bf16 instance's TMA (each copied
-#: tensor counts one).
+#: Inputs that ``launch`` copied for TMA (each copied tensor counts one).
 ALIGNED_COPIES = 0
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_ENTRY = {torch.float32: "sketch_fused_f32", torch.bfloat16: "sketch_fused_bf16"}
 
 
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the argument and result types of the library's entry points."""
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
+    lib.sketch_fused_f32.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P]
+    lib.sketch_fused_bf16.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
+    lib.sketch_fused_pi_small.argtypes = [_P, _P, _I64, _P]
+    lib.sketch_fused_clusters.argtypes = [_I64, ctypes.c_int]
+    for fn in (lib.sketch_fused_f32, lib.sketch_fused_bf16,
+               lib.sketch_fused_pi_small, lib.sketch_fused_clusters):
         fn.restype = ctypes.c_int
-    lib.sketch_fused_bf16_clusters.argtypes = [_I64]
-    lib.sketch_fused_bf16_clusters.restype = ctypes.c_int
 
 
-def cluster_slots(lib: ctypes.CDLL, k: int) -> int:
-    """Clusters of the bf16 instance (``cluster_size(k)`` CTAs each) that
-    the current card holds at once."""
-    slots = lib.sketch_fused_bf16_clusters(k)
+def cluster_slots(lib: ctypes.CDLL, k: int, dtype_bytes: int = 4) -> int:
+    """Clusters of the instance for ``dtype_bytes`` (``cluster_shape(k, n)``
+    CTAs each, n at least two column tiles) that the current card holds at
+    once."""
+    slots = lib.sketch_fused_clusters(k, dtype_bytes)
     if slots < 0:
         raise RuntimeError(f"sketch_fused: cluster occupancy query failed "
                            f"with CUDA error {-slots}")
@@ -119,42 +142,71 @@ def cluster_slots(lib: ctypes.CDLL, k: int) -> int:
 
 def _tma_rows(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when its base is 16-byte aligned and its rows are a
-    multiple of 8 bf16 long, else a zero-padded copy whose rows are
-    rounded up to 8 elements (the pitch the bf16 entry reads)."""
+    multiple of 16 bytes long, else a zero-padded copy whose rows are
+    rounded up to 16 bytes (the pitch the entries read)."""
     global ALIGNED_COPIES
-    cols = x.shape[1]
-    if x.data_ptr() % 16 == 0 and cols % 8 == 0:
+    cols, per = x.shape[1], 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and cols % per == 0:
         return x
     ALIGNED_COPIES += 1
-    padded = torch.zeros((x.shape[0], -(-cols // 8) * 8), dtype=x.dtype,
+    padded = torch.zeros((x.shape[0], -(-cols // per) * per), dtype=x.dtype,
                          device=x.device)
     padded[:, :cols] = x
     return padded
+
+
+def pi_small_plain(Pi: torch.Tensor) -> torch.Tensor:
+    """The float32 prologue's function in PyTorch: ``Pi - trunc(Pi)``, with
+    trunc keeping the top 19 bits of each float32 (what the TF32 tensor
+    core reads)."""
+    trunc = (Pi.view(torch.int32) & -0x2000).view(torch.float32)
+    return Pi - trunc
+
+
+def pi_small_launch(lib: ctypes.CDLL, Pi: torch.Tensor) -> torch.Tensor:
+    """The float32 prologue alone on a CUDA float32 Pi, contiguous, 16-byte
+    aligned, its size a multiple of 4: ``pi_small_plain(Pi)`` on the
+    current stream without synchronising."""
+    small = torch.empty_like(Pi)
+    err = lib.sketch_fused_pi_small(
+        Pi.data_ptr(), small.data_ptr(), Pi.numel(),
+        torch.cuda.current_stream(Pi.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"sketch_fused prologue: launch failed with CUDA "
+                           f"error {err}")
+    return small
 
 
 def launch(lib: ctypes.CDLL, Pi: torch.Tensor, A: torch.Tensor):
     """Run the kernel on CUDA tensors Pi (k, d) and A (d, n) of one dtype,
     float32 or bfloat16, both contiguous, with k, d and n all positive.
     Returns (Pi @ A, squared norms), float32, on the current stream without
-    synchronising. bf16 inputs that TMA cannot read in place are copied
-    first (``ALIGNED_COPIES``)."""
+    synchronising. Inputs that TMA cannot read in place are copied first
+    (``ALIGNED_COPIES``). float32 also allocates the prologue's scratch for
+    Pi's small parts: the prologue and the kernel are one call here."""
     k, d = Pi.shape
     n = A.shape[1]
-    if A.dtype == torch.bfloat16:
-        Pi, A = _tma_rows(Pi), _tma_rows(A)
+    Pi, A = _tma_rows(Pi), _tma_rows(A)
     out = torch.empty((k, n), dtype=torch.float32, device=A.device)
     norm2 = torch.empty((n,), dtype=torch.float32, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = getattr(lib, _ENTRY[A.dtype])(
-        Pi.data_ptr(), A.data_ptr(), out.data_ptr(), norm2.data_ptr(),
-        k, d, n, stream)
+    if A.dtype == torch.bfloat16:
+        err = lib.sketch_fused_bf16(Pi.data_ptr(), A.data_ptr(),
+                                    out.data_ptr(), norm2.data_ptr(), k, d,
+                                    n, stream)
+    else:
+        small = torch.empty_like(Pi)
+        err = lib.sketch_fused_f32(Pi.data_ptr(), A.data_ptr(),
+                                   small.data_ptr(), out.data_ptr(),
+                                   norm2.data_ptr(), k, d, n, stream)
     if err:
         raise RuntimeError(f"sketch_fused: kernel launch failed with CUDA "
                            f"error {err}")
     return out, norm2
 
 
-__all__ = ["plain", "bind", "launch", "smem_bytes", "threads", "cluster_size",
-           "cluster_slots", "SOURCE", "REPLACES", "BM", "TILE", "THREADS",
-           "STAGES", "CTAS_PER_SM", "PASSES", "SMEM_BYTES", "BF16_THREADS",
-           "BF16_STAGES", "BF16_CLUSTER_MAX", "ALIGNED_COPIES"]
+__all__ = ["plain", "pi_small_plain", "pi_small_launch", "bind", "launch",
+           "smem_bytes", "threads", "cluster_shape", "cluster_slots", "SOURCE",
+           "REPLACES", "BM", "TILE", "BF16_TILE", "THREADS", "STAGES",
+           "CTAS_PER_SM", "PASSES", "SMEM_BYTES", "BF16_THREADS",
+           "BF16_STAGES", "F32_CLUSTER", "BF16_CLUSTER", "ALIGNED_COPIES"]

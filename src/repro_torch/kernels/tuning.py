@@ -32,7 +32,7 @@ inherit the caller's precision. The kernel names are the JAX package's
 
 >>> from repro_torch.kernels import tuning
 >>> tuning.lookup("sketch_fused", (64, 1024, 256), backend="cpu").block
-(128, 64)
+(128, 32)
 >>> cands = tuning.candidate_configs("flash_attention", (8, 1024, 128))
 >>> all(tuning.smem_bytes(c, (8, 1024, 128)) <= tuning.SMEM_BUDGET_BYTES
 ...     for c in cands)
@@ -153,9 +153,9 @@ class TuningSpec(NamedTuple):
     ``config_for`` returns it, or None (resolve through the table).
 
     >>> from repro_torch.kernels.tuning import KernelConfig, TuningSpec
-    >>> ts = TuningSpec((KernelConfig("sketch_fused", (128, 64)),))
+    >>> ts = TuningSpec((KernelConfig("sketch_fused", (128, 32)),))
     >>> ts.config_for("sketch_fused").block
-    (128, 64)
+    (128, 32)
     >>> ts.config_for("blocked_fwht") is None
     True
     """
@@ -564,9 +564,9 @@ class TuningTable:
     >>> from repro_torch.kernels.tuning import KernelConfig, TuningTable
     >>> t = TuningTable(backend="cpu")
     >>> t.put("sketch_fused", (64, 1000, 300),
-    ...       KernelConfig("sketch_fused", (128, 64)))
+    ...       KernelConfig("sketch_fused", (128, 32)))
     >>> t.get("sketch_fused", (64, 1024, 512)).block    # same pow2 bucket
-    (128, 64)
+    (128, 32)
     >>> t.get("sketch_fused", (64, 4096, 512)) is None  # unknown bucket
     True
     """

@@ -21,7 +21,8 @@ from repro_torch.kernels import (flash_attention, hadamard, ops, sketch_fused,
 pytestmark = pytest.mark.cuda
 
 # float32 sums over d in another order (sketch_fused: three split TF32
-# passes on the tensor cores, float32 class): sketch entries within 1e-5 of
+# passes on the tensor cores, chains into fresh accumulators, float32
+# class): sketch entries within 1e-5 of
 # the largest entry at these d, norms 1e-5 relative; Eq. 2 values within
 # 1e-5 of their nA * nB scale.
 RTOL = 1e-5
@@ -69,9 +70,9 @@ def _sketch_against_plain(Pi, A, per_column=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,d,n", [
-    (64, 1001, 203),    # d and n odd: element copies, bf16 rows 2-byte aligned
+    (64, 1001, 203),    # d and n odd: both inputs copied for TMA
     (96, 1002, 206),    # d and n even, not multiples of 4 or 8
-    (200, 100, 256),    # 16-byte copies; d not a multiple of BK; k of BM
+    (200, 100, 256),    # read in place; d not a multiple of a stage
     (128, 20, 264),     # d shorter than one stage
     (512, 64, 40_000),  # 1,252 tiles: more than one per persistent CTA
 ])
@@ -85,7 +86,7 @@ def test_sketch_fused_kernel_edges(card, k, d, n, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sketch_fused_kernel_unaligned_pointers(card, dtype):
     """Rows whose lengths are multiples of 16 bytes, but whose storage
-    starts one element past a 16-byte boundary: element copies."""
+    starts one element past a 16-byte boundary: copied for TMA."""
     gen = torch.Generator(device=card).manual_seed(3)
     k, d, n = 130, 512, 384
     flat = torch.randn(k * d + d * n + 2, generator=gen, device=card).to(dtype)
@@ -121,6 +122,73 @@ def test_sketch_fused_bf16_clusters_along_k(card, k):
     Pi = torch.randn(k, d, generator=gen, device=card).to(torch.bfloat16)
     A = torch.randn(d, n, generator=gen, device=card).to(torch.bfloat16)
     _sketch_against_plain(Pi, A)
+
+
+@pytest.mark.parametrize("k", [64, 128, 512, 640])
+def test_sketch_fused_f32_clusters(card, k):
+    """The float32 instance's clusters of two neighbouring column tiles,
+    each CTA's half of Pi's rows multicast into both, at one to five row
+    blocks of Pi (64 and 128: one; 640: a partial one, the tile's rows past
+    k zero-filled). n = 40,000: 313 column tiles, an odd count (the last
+    cluster's second tile lies past n) and more units than the card holds
+    clusters; d = 1,000 ends in a ragged stage."""
+    gen = torch.Generator(device=card).manual_seed(k + 1)
+    d, n = 1000, 40_000
+    Pi = torch.randn(k, d, generator=gen, device=card)
+    A = torch.randn(d, n, generator=gen, device=card)
+    _sketch_against_plain(Pi, A)
+
+
+def test_sketch_fused_f32_repeats_bit_for_bit(card):
+    """No atomics and fixed orders: two float32 calls on the same inputs
+    are equal bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    Pi = torch.randn(512, 3000, generator=gen, device=card)
+    A = torch.randn(3000, 5000, generator=gen, device=card)
+    out1, norm1 = ops.sketch_fused(Pi, A, squared=True)
+    out2, norm2 = ops.sketch_fused(Pi, A, squared=True)
+    assert torch.equal(out1, out2) and torch.equal(norm1, norm2)
+
+
+@pytest.mark.parametrize("k,d,n,offset,copies", [
+    (512, 2048, 1024, False, 0),   # TMA reads both in place
+    (64, 1001, 203, False, 2),     # rows of Pi and A not multiples of 4
+    (96, 1002, 206, False, 2),
+    (256, 3001, 515, False, 2),
+    (130, 16, 129, False, 1),      # only A's rows
+    (130, 512, 384, True, 2),      # bases one element past 16 bytes
+])
+def test_sketch_fused_f32_aligned_copies_are_counted(card, k, d, n, offset,
+                                                     copies):
+    """The float32 wrapper copies, zero-padded, an input whose base or row
+    pitch TMA cannot read, and counts each copy in ALIGNED_COPIES."""
+    gen = torch.Generator(device=card).manual_seed(k + d + n + 1)
+    if offset:
+        flat = torch.randn(k * d + d * n + 2, generator=gen, device=card)
+        Pi = flat[1:1 + k * d].view(k, d)
+        A = flat[2 + k * d:].view(d, n)
+    else:
+        Pi = torch.randn(k, d, generator=gen, device=card)
+        A = torch.randn(d, n, generator=gen, device=card)
+    before = sketch_fused.ALIGNED_COPIES
+    _sketch_against_plain(Pi, A)
+    assert sketch_fused.ALIGNED_COPIES == before + copies
+
+
+def test_sketch_fused_f32_prologue(card):
+    """The float32 call's prologue (Pi's small parts into the wrapper's
+    scratch) and its kernel count one launch; the prologue alone equals its
+    plain version bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    Pi = torch.randn(130, 516, generator=gen, device=card)
+    A = torch.randn(516, 300, generator=gen, device=card)
+    ops.reset_launch_counts()
+    ops.sketch_fused(Pi, A)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {"sketch_fused": 1, "sampled_rescaled_dot": 0,
+                            "blocked_fwht": 0, "flash_attention": 0}
+    small = sketch_fused.pi_small_launch(ops._library("sketch_fused"), Pi)
+    assert torch.equal(small, sketch_fused.pi_small_plain(Pi))
 
 
 def test_sketch_fused_bf16_repeats_bit_for_bit(card):

@@ -288,6 +288,118 @@ def test_two_level_accumulation_bounds_the_mma_truncation():
     assert _column_err(_accumulate(Pi, A, 8), exact) <= 1e-5
 
 
+# The float32 instance on wgmma (sketch_fused.cu since the TF32 wgmma
+# design) splits the other way: a raw float32 value is its own big part,
+# which the tensor core truncates to TF32 as it reads it, and small = x -
+# trunc(x) is truncated again; the three passes are A small x Pi big, A big
+# x Pi big and A big x Pi small, and a chain of F32_CHAIN_STAGES stages of
+# F32_BK rows goes into one fresh accumulator.
+
+
+def _truncating_split(x):
+    """(big, small) as the tensor core reads them: trunc(x) and
+    trunc(x - trunc(x)), the difference exact in float32."""
+    big = _tf32_truncated(x)
+    return big, _tf32_truncated(x - big)
+
+
+def _chain_k8_steps():
+    """k8 steps a chain of sketch_fused.cu's float32 instance covers."""
+    import pathlib
+    import re
+    text = (pathlib.Path(__file__).resolve().parents[1]
+            / "src/repro_torch/kernels/csrc/sketch_fused.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+    return const("F32_CHAIN_STAGES") * const("F32_BK") // 8
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_truncating_split_meets_the_sketch_tolerance_only_in_three_passes(
+        passes):
+    """At the slice's d = 50,000, the truncating split's three passes stay
+    within 1e-5 of each column's largest entry of the float64 product (5.5e-7
+    on this pair); one TF32 pass is off by more than the kernel's 1e-4
+    (1.1e-3). Sums in float64: only the operands' rounding is measured."""
+    Pi, A = _planted_operands(64, 50_000, 64)
+    exact = Pi.astype(np.float64) @ A.astype(np.float64)
+    (Pb, Ps), (Ab, As) = _truncating_split(Pi), _truncating_split(A)
+    f64 = lambda x: x.astype(np.float64)  # noqa: E731
+    got = f64(Pb) @ f64(Ab)
+    if passes == 3:
+        got = f64(Pb) @ f64(As) + got + f64(Ps) @ f64(Ab)
+        assert _column_err(got, exact) <= 1e-5
+    else:
+        assert _column_err(got, exact) > 1e-4
+
+
+def _accumulate_truncating(Pi, A, steps_per_fresh):
+    """The float32 instance's sum: the three passes of each k8 step, in its
+    order, added into a float32 accumulator that rounds toward zero, as a
+    wgmma adds; every ``steps_per_fresh`` k8 steps the accumulator is added
+    to a float32 sum with round to nearest (None: the accumulator is the
+    sum)."""
+    (Pb, Ps), (Ab, As) = _truncating_split(Pi), _truncating_split(A)
+    total = np.zeros((Pi.shape[0], A.shape[1]), np.float32)
+    frag = np.zeros_like(total)
+    for step, d0 in enumerate(range(0, Pi.shape[1], 8), start=1):
+        cols = slice(d0, d0 + 8)
+        for a, b in ((Pb, As), (Pb, Ab), (Ps, Ab)):
+            prod = a[:, cols].astype(np.float64) @ b[cols].astype(np.float64)
+            frag = _round_toward_zero(frag.astype(np.float64) + prod)
+        if steps_per_fresh and step % steps_per_fresh == 0:
+            total, frag = total + frag, np.zeros_like(frag)
+    return total + frag
+
+
+@pytest.mark.parametrize("chained", [True, False])
+def test_truncating_split_needs_the_chains(chained):
+    """The truncating split summed as the float32 instance sums it, at
+    d = 50,000: chains of the kernel's length (8 stages of 32 rows, 32 k8
+    steps) into a fresh accumulator keep every column within 1e-5 of its
+    largest entry (3.6e-6 on this pair), under the card's 1e-4; one
+    accumulator over all of d drifts past 1e-4 (6.8e-4)."""
+    Pi, A = _planted_operands(16, 50_000, 16, seed=1)
+    exact = Pi.astype(np.float64) @ A.astype(np.float64)
+    if chained:
+        assert _chain_k8_steps() == 32
+        err = _column_err(_accumulate_truncating(Pi, A, _chain_k8_steps()),
+                          exact)
+        assert err <= 1e-5
+    else:
+        assert _column_err(_accumulate_truncating(Pi, A, None), exact) > 1e-4
+
+
+def test_pi_small_plain_is_the_truncating_split():
+    """The float32 prologue's plain version gives Pi - trunc(Pi): exact, so
+    that trunc(Pi) + small == Pi, and equal to the emulation's."""
+    from repro_torch.kernels import sketch_fused
+    rng = np.random.default_rng(4)
+    Pi = rng.standard_normal((33, 517)).astype(np.float32)
+    Pi[0, :4] = (0.0, -0.0, 1e-30, -3.5)
+    small = sketch_fused.pi_small_plain(torch.from_numpy(Pi)).numpy()
+    np.testing.assert_array_equal(small, Pi - _tf32_truncated(Pi))
+    np.testing.assert_array_equal(_tf32_truncated(Pi) + small, Pi)
+
+
+@pytest.mark.parametrize("dtype,cols,copied", [
+    (torch.float32, 8, False), (torch.float32, 4, False),
+    (torch.float32, 6, True), (torch.float32, 1, True),
+    (torch.bfloat16, 8, False), (torch.bfloat16, 12, True)])
+def test_tma_rows_pads_rows_to_16_bytes(dtype, cols, copied):
+    """TMA reads rows at pitches of 16 bytes: ``_tma_rows`` keeps such a
+    tensor and copies any other, zero-padded, counting the copy."""
+    from repro_torch.kernels import sketch_fused
+    x = torch.arange(3 * cols, dtype=torch.float32).reshape(3, cols).to(dtype)
+    before = sketch_fused.ALIGNED_COPIES
+    got = sketch_fused._tma_rows(x)
+    assert sketch_fused.ALIGNED_COPIES == before + copied
+    assert (got is x) == (not copied)
+    assert got.shape[1] * got.element_size() % 16 == 0
+    assert torch.equal(got[:, :cols], x) and not got[:, cols:].any()
+
+
 def test_probe_edits_apply_to_the_kernel_source():
     """tools/sketch_fused_probe.py builds its variants by editing
     sketch_fused.cu's text; each edit must still find what it replaces."""
@@ -299,8 +411,19 @@ def test_probe_edits_apply_to_the_kernel_source():
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
     text = (root / "src/repro_torch/kernels/csrc/sketch_fused.cu").read_text()
-    for variant in (probe.one_level, probe.no_copies, probe.no_mma):
+    for variant in (probe.one_level, probe.no_copies, probe.no_mma,
+                    probe.along_k, probe.n4, probe.k4n2, probe.stages3,
+                    probe.no_small):
         edited = variant(text)
         assert edited != text
-    assert "mma(part" not in probe.no_mma(text)
-    assert "mma(acc[i][j]" in probe.one_level(text)
+    assert "wgmma_tf32_n128(part" not in probe.no_mma(text)
+    assert "wgmma_m64n128k16(part" not in probe.no_mma(text)
+    assert "fresh = step + 1 == n_steps;" in probe.one_level(text)
+    assert probe.ISSUE not in probe.no_copies(text)
+    assert "step >= F32_STAGES" in probe.no_copies(text)
+    # the earlier float32 design the probe and chip_smoke.py time in turns
+    with open(probe.MMA_SYNC_SOURCE) as f:
+        yardstick = f.read()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in yardstick
+    assert 'extern "C" int sketch_fused_f32(const float* Pi, const float* A,' \
+        ' float* out,' in yardstick

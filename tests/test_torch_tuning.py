@@ -90,8 +90,12 @@ def test_menus_are_the_tiles_the_sources_compile():
         text = (CSRC / src).read_text()
         return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
 
+    # sketch_fused: its float32 instance's (BN, F32_BK); the bf16 instance's
+    # stages are BF16_TILE's
     assert tuning.TILE_MENUS["sketch_fused"] == (
-        (const("sketch_fused.cu", "BN"), const("sketch_fused.cu", "BK")),)
+        (const("sketch_fused.cu", "BN"), const("sketch_fused.cu", "F32_BK")),)
+    assert sketch_fused.BF16_TILE == (const("sketch_fused.cu", "BN"),
+                                      const("sketch_fused.cu", "BK"))
     assert tuning.TILE_MENUS["blocked_fwht"] == (
         (1 << const("blocked_fwht.cu", "MAX_LOG_RADIX"),
          const("blocked_fwht.cu", "COLS")),)
@@ -128,7 +132,7 @@ def test_menus_are_the_tiles_the_sources_compile():
     assert flash_attention.WGMMA_DH == 128
     assert flash_attention.WGMMA_TILES == ((128, 32),)
     assert "!(DH == W_DH && std::is_same<T, float>::value)" in flash_src
-    assert DEFAULTS["sketch_fused"].block == (128, 64)
+    assert DEFAULTS["sketch_fused"].block == (128, 32)
     assert DEFAULTS["blocked_fwht"].block == (256, 32)
     assert DEFAULTS["sampled_dot"].block == ()
     assert DEFAULTS["flash_attention"].block in \
@@ -144,27 +148,46 @@ def test_sketch_fused_constants_are_the_sources():
         return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
 
     assert sketch_fused.BM == const("BM")
-    assert sketch_fused.STAGES == const("STAGES")
-    assert sketch_fused.THREADS == 32 * const("WARPS_M") * const("WARPS_N")
-    assert sketch_fused.CTAS_PER_SM == const("MIN_BLOCKS")
-    assert "constexpr int PI_PITCH = BK + 8;" in text
-    assert "A_PITCH = BN + 16 / (int)sizeof(T);" in text
+    # the float32 instance: TMA and wgmma, two consumer warpgroups and a
+    # producer warp, a ring of Pi's tile, its small part's and A's tile
+    assert sketch_fused.STAGES == const("F32_STAGES")
+    assert "constexpr int F32_THREADS = 32 * (F32_CONSUMER_WARPS + 1);" \
+        in text
+    assert sketch_fused.THREADS == 32 * (const("F32_CONSUMER_WARPS") + 1)
+    assert ("__launch_bounds__(F32_THREADS, 1)" in text
+            and sketch_fused.CTAS_PER_SM == 1)
+    assert sketch_fused.F32_CLUSTER == (const("F32_CLUSTER_MAX"),
+                                        const("F32_CLUSTER_N"))
+    assert sketch_fused.BF16_CLUSTER == (const("BF16_CLUSTER_MAX"), 1)
+    assert ("constexpr int F32_SMEM = 1024 + F32_STAGES * F32_STAGE_BYTES +\n"
+            "                         F32_SUM_BYTES + 2 * 8 * F32_STAGES;") \
+        in text
+    assert "constexpr int F32_SUM_BYTES = BM * BN * 2;" in text
+    assert ("constexpr int F32_STAGE_BYTES = 2 * F32_PI_BYTES + F32_A_BYTES;"
+            in text)
     bn, bk = sketch_fused.TILE
-    assert sketch_fused.smem_bytes(4) == const("STAGES") * 4 * (
-        const("BM") * (bk + 8) + bk * (bn + 4))
+    assert sketch_fused.smem_bytes(4) == 1024 + const("F32_STAGES") * 4 * (
+        2 * const("BM") * bk + bk * bn) + 2 * const("BM") * bn + 16 * const(
+            "F32_STAGES") == 230_464
     assert tuning.smem_bytes(_sk(), SHAPES["sketch_fused"]) == \
         sketch_fused.SMEM_BYTES <= tuning.SMEM_BUDGET_BYTES
+    assert [sketch_fused.cluster_shape(k, n, 2) for k, n in (
+        (1, 1), (130, 5000), (512, 100_000), (1024, 1))] == \
+        [(1, 1), (2, 1), (4, 1), (4, 1)]
+    assert [sketch_fused.cluster_shape(k, n) for k, n in (
+        (1, 1), (512, 128), (512, 129), (512, 100_000))] == \
+        [(1, 1), (1, 1), (1, 2), (1, 2)]
+    # no mma.sync instance left
+    assert "mma.sync" not in text.split("namespace {", 1)[1]
     # the bf16 instance's own layout: TMA tiles without padding, a
     # 1,024-byte aligned ring, two barriers a stage
     assert sketch_fused.BF16_STAGES == const("BF16_STAGES")
-    assert sketch_fused.BF16_CLUSTER_MAX == const("BF16_CLUSTER_MAX")
-    assert [sketch_fused.cluster_size(k) for k in (1, 130, 512, 1024)] == \
-        [1, 2, 4, 4]
     assert sketch_fused.BF16_THREADS == 32 * (const("BF16_CONSUMER_WARPS")
                                               + 4)
     assert ("constexpr int BF16_SMEM = 1024 + BF16_STAGES * STAGE_BYTES +\n"
             "                          2 * 8 * BF16_STAGES;") in text
     assert "constexpr int STAGE_BYTES = PI_TILE_BYTES + A_TILE_BYTES;" in text
+    bn, bk = sketch_fused.BF16_TILE
     assert sketch_fused.smem_bytes(2) == 1024 + const("BF16_STAGES") * 2 * (
         const("BM") * bk + bk * bn) + 16 * const("BF16_STAGES")
     assert tuning.smem_bytes(_sk(precision="bf16"), SHAPES["sketch_fused"]) \
