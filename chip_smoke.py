@@ -14,18 +14,20 @@ fails; nothing is caught:
    which must be positive in kernel 4's ``mma.sync`` instances and absent
    from kernel 1, ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads), which
    must be positive in both of kernel 1's instances and in kernel 4's
-   float32 Dh 128 one (``flash_fwd_wgmma``; the prologues
-   ``sketch_pi_small`` and ``flash_vt`` have neither), kernel 1's float32
-   instance's registers, spills and shared memory beside the clusters of
-   each of its instances the card holds, kernel 4's registers and spills
-   per instance, the registers
+   float32 Dh 64, 96 and 128 ones (``flash_fwd_wgmma<Dh>``; the prologues
+   ``sketch_pi_small`` and ``flash_vt<Dh>`` have neither), kernel 1's
+   float32 instance's registers, spills and shared memory beside the
+   clusters of each of its instances the card holds, kernel 4's registers
+   and spills per instance, the registers
    within the tuner's ``flash_attention.REGISTERS``, no spill at its
-   default tile nor in any Dh 16 or 256 instance (46 ``mma.sync``
+   default tile nor in any Dh 16 or 256 instance (38 ``mma.sync``
    instances: 2 bq x 2 bk x Dh 16, 32, 64, 96, 112 and 128, and (64, 32)
-   at Dh 256, x 2 dtypes, but float32 at Dh 128), the wgmma instance and
-   its prologue at ``flash_attention.WGMMA_REGISTERS`` and without a
-   spill, the build's seconds, and the tile each kernel resolves to
-   through ``tuning.lookup`` (Dh 256: its own (64, 32));
+   at Dh 256, x 2 dtypes, but float32 at Dh 64, 96 and 128), each wgmma
+   instance and its prologue at ``flash_attention.WGMMA_REGISTERS`` and
+   without a spill, with its form and shared memory, no ``wgmma``
+   serialised (ptxas's C7511, C7512, C7517, C7518), the build's seconds,
+   and the tile each kernel resolves to through ``tuning.lookup`` (Dh 256:
+   its own (64, 32));
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
    50,000 and k = 512 on a column slice, in float32 and bf16, and on a
    ragged shape, and kernel 1's float32 prologue (Pi's small parts) equal
@@ -171,8 +173,10 @@ fails; nothing is caught:
     this design's two TF32 passes beside it; the same at S = 32,768 at the
     tile ``tuning.lookup`` resolves for phi3-mini-3.8b's 32 heads of 96,
     kimi-k2-1t-a32b's 64 query and 8 KV heads of 112, recurrentgemma-9b's
-    16 over 1 of 256 (tile (64, 32)) and the reduced configs' 4 heads of
-    16;
+    16 over 1 of 256 (tile (64, 32)), the reduced configs' 4 heads of
+    16 and whisper-small's 12 of 64; at phi3's and whisper's widths (the
+    float32 ``wgmma`` instances at Dh 96 and 64) the prologue alone too,
+    equal to ``vt_plain``, its time and the instance's shared memory;
 15. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
@@ -727,22 +731,26 @@ def sass_counts(ops, lib) -> dict:
 
 def flash_resources(lib) -> dict:
     """{(bq, bk, Dh, dtype): (registers, spilled bytes)} of each
-    ``flash_fwd`` instance, and under "wgmma" and "vt" those of
-    ``flash_fwd_wgmma`` and its prologue ``flash_vt``, from the ``-Xptxas
-    -v`` report kept beside the library."""
+    ``flash_fwd`` instance, under ("wgmma", Dh) and ("vt", Dh) those of
+    each ``flash_fwd_wgmma`` instance and its prologue ``flash_vt``, and
+    under "serialised" ptxas's notes that it serialised ``wgmma`` (C7511,
+    C7512, C7518) or injected a wait (C7517), from the ``-Xptxas -v``
+    report kept beside the library."""
     log = lib.with_name(lib.name + ".log").read_text()
-    out, inst = {}, None
+    notes = re.findall(r"\((C751[1278])\).*?function '\w*?(flash_\w+?)E",
+                       log)
+    out, inst = {"serialised": [" ".join(n) for n in notes]}, None
     for line in log.splitlines():
         m = re.search(r"flash_fwdILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E",
                       line)
+        w = re.search(r"(flash_fwd_wgmma|flash_vt)ILi(\d+)E", line)
         if "Compiling entry function" in line:
             inst = None if m is None else (
                 int(m[1]), int(m[2]), int(m[3]),
                 "float32" if m[4] == "f" else "bfloat16")
-            if "flash_fwd_wgmma" in line:
-                inst = "wgmma"
-            elif "flash_vt" in line:
-                inst = "vt"
+            if w is not None:
+                inst = ("wgmma" if w[1] == "flash_fwd_wgmma" else "vt",
+                        int(w[2]))
         elif inst is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
             out[inst] = (None, spill)
@@ -4293,11 +4301,13 @@ def main(argv=None) -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     # both of sketch_fused's instances on wgmma (HGMMA) fed by TMA
     # (UTMALDG), after the float32 one's prologue (elementwise: no MMA);
-    # flash_attention's float32 Dh 128 instance on wgmma fed by TMA, after
-    # its prologue (a copy: no MMA), the others on mma.sync
+    # flash_attention's float32 Dh 64, 96 and 128 instances on wgmma fed by
+    # TMA, each after its prologue (a copy: no MMA), the others on mma.sync
+    fa = ops.KERNELS["flash_attention"]
     for name, tma_tags, prologue in (
             ("sketch_fused", ("f32_kernel", "bf16_kernel"), "sketch_pi_small"),
-            ("flash_attention", ("flash_fwd_wgmma",), "flash_vt")):
+            ("flash_attention", tuple(f"flash_fwd_wgmmaILi{dh}E"
+                                      for dh in fa.WGMMA_DH), "flash_vt")):
         sass = sass_counts(ops, paths[name])
         for fn, count in sass.items():
             print(f"  {name} SASS {fn}: " + ", ".join(
@@ -4328,23 +4338,29 @@ def main(argv=None) -> int:
           f"serialised: {sk_res}")
     flash_default = tuning.DEFAULTS["flash_attention"].block
     spills = flash_resources(paths["flash_attention"])
+    serialised = spills.pop("serialised")
     for inst, (regs, spill) in spills.items():
         print(f"  flash_attention instance bq,bk,Dh,dtype={inst}: {regs} "
               f"registers, {spill} bytes spilled", flush=True)
-    fa = ops.KERNELS["flash_attention"]
-    # the wgmma instance (float32 at Dh 128) and its prologue: no spill,
-    # the launch's registers those the tuner models
-    wg_regs, wg_spill = spills.pop("wgmma")
-    vt_regs, vt_spill = spills.pop("vt")
-    print(f"flash_attention wgmma instance: {wg_regs} registers, {wg_spill} "
-          f"bytes spilled; prologue {vt_regs} registers, {vt_spill} bytes "
-          f"spilled; {fa.smem_bytes(128, 32, 128)} bytes of shared memory",
-          flush=True)
-    check(wg_spill == 0 and vt_spill == 0
-          and wg_regs == fa.WGMMA_REGISTERS,
-          f"flash_attention wgmma instance: {wg_regs} registers (the "
-          f"tuner's {fa.WGMMA_REGISTERS}), {wg_spill} and {vt_spill} bytes "
-          f"spilled")
+    # the wgmma instances (float32 at Dh 64, 96 and 128) and their
+    # prologues: no spill, the launch's registers those the tuner models,
+    # no wgmma serialised
+    for dh in fa.WGMMA_DH:
+        wg_regs, wg_spill = spills.pop(("wgmma", dh))
+        vt_regs, vt_spill = spills.pop(("vt", dh))
+        print(f"flash_attention wgmma instance Dh {dh}: {wg_regs} registers, "
+              f"{wg_spill} bytes spilled; prologue {vt_regs} registers, "
+              f"{vt_spill} bytes spilled; (stages, sets) "
+              f"{fa.WGMMA_FORMS[dh]}, {fa.smem_bytes(128, 32, dh)} bytes of "
+              f"shared memory",
+              flush=True)
+        check(wg_spill == 0 and vt_spill == 0
+              and wg_regs == fa.WGMMA_REGISTERS,
+              f"flash_attention wgmma instance Dh {dh}: {wg_regs} registers "
+              f"(the tuner's {fa.WGMMA_REGISTERS}), {wg_spill} and "
+              f"{vt_spill} bytes spilled")
+    check(not serialised,
+          f"flash_attention: no wgmma serialised: {serialised}")
     table = fa.REGISTERS
     check(all(regs <= table[inst[2]] for inst, (regs, _) in spills.items()),
           f"flash_attention: registers within the tuner's table {table}")
@@ -4920,8 +4936,8 @@ def main(argv=None) -> int:
                   f"{str(dtype).split('.')[-1]}: {ms:.3f} ms", flush=True)
         del qd, kd, vd
     # the float32 Dh 128 instance's prologue alone (V^T in the P fragment's
-    # key order, which every call of that instance runs first): equal to its
-    # plain version, its time, and the instance's shared memory
+    # key order, which every call of a wgmma instance runs first): equal to
+    # its plain version, its time, and the instance's shared memory
     fa_lib = ops._library("flash_attention")
     vt = fa.vt_launch(fa_lib, v)
     check(torch.equal(vt, fa.vt_plain(v)),
@@ -4943,10 +4959,27 @@ def main(argv=None) -> int:
             timing["flash_attention"] = t
     del q, kk, v
     torch.cuda.empty_cache()
-    # the other head widths at S_FULL, one sequence, at the default tile
+    # the other head widths at S_FULL, one sequence, at the default tile;
+    # at a float32 wgmma width (phi3's 96, whisper's 64) its prologue alone
+    # too, equal to its plain version
     for arch, heads, kv_heads, dh, _ in WIDTH_LAYOUTS:
         q, kk, v = attention_inputs(gen, S_FULL, heads, kv_heads, dh, dev)
         flash_timings(ops, q, kk, v, 1, f" {arch} Dh {dh}")
+        if fa.on_wgmma(dh):
+            vt = fa.vt_launch(fa_lib, v)
+            check(torch.equal(vt, fa.vt_plain(v)),
+                  f"flash_attention prologue Dh {dh}: V^T as vt_plain gives "
+                  f"it")
+            del vt
+            vt_ms = cuda_ms(lambda: fa.vt_launch(fa_lib, v), 5)
+            vt_bytes = 2 * v.numel() * v.element_size()
+            print(f"flash_attention wgmma instance {arch} Dh {dh} "
+                  f"S={S_FULL} [{card}]: prologue {vt_ms:.4f} ms "
+                  f"({vt_bytes / 1e6:.1f} MB read and written, "
+                  f"{vt_bytes / vt_ms / 1e6:.1f} GB/s; bound "
+                  f"{bound(0.0, vt_bytes, PEAK_TF32_FLOPS)[0]:.4f} ms), "
+                  f"{fa.WGMMA_FORMS[dh]} (stages, sets), shared memory "
+                  f"{fa.smem_bytes(128, 32, dh)} bytes a CTA", flush=True)
         del q, kk, v
         torch.cuda.empty_cache()
 

@@ -110,8 +110,8 @@
 //    67,584 bytes, two K/V stages 134,144, the exchange 16,384 (8 warps x 16
 //    x 32 float32): 218,112 of 232,448.
 //  * Tiles compiled: BQ in {64, 128} (128 or 256 threads), BK in {32, 64},
-//    at Dh in {16, 32, 64, 96, 112, 128} (float32 at Dh 128: the wgmma
-//    instance's (128, 32) alone, below); at Dh 256 (64, 32) only
+//    at Dh in {16, 32, 64, 96, 112, 128} (float32 at Dh 64, 96 and 128: the
+//    wgmma instances' (128, 32) alone, below); at Dh 256 (64, 32) only
 //    (WIDE_BQ, WIDE_BK): (64, 64) takes 268,288 bytes of shared memory in
 //    float32 before the exchange and 235,520 in bf16 with it, over 232,448,
 //    and doubles S and P's registers, which already spill at BK 64 and
@@ -125,29 +125,34 @@
 //    Dh 256 is windowed, which neither this kernel nor the TPU kernel has:
 //    its model path stays on the plain route; this kernel takes its head
 //    layout unwindowed.
-//  * float32 at Dh 128 (every Dh 128 LM prefill: granite-3-8b,
-//    moonshot-v1-16b-a3b, starcoder2-15b, llama-3.2-vision-11b) has its own
-//    design for Hopper, flash_fwd_wgmma, and no mma.sync instance; the
-//    other instances stay as above. flash_attention_f32_wgmma is its entry.
+//  * float32 at Dh 64, 96 and 128 (every Dh 128 LM prefill: granite-3-8b,
+//    moonshot-v1-16b-a3b, starcoder2-15b, llama-3.2-vision-11b; phi3-mini's
+//    at Dh 96, whisper-small's at Dh 64; and the float32 widths padded to
+//    them, 33 to 128 but 97 to 112) has its own design for Hopper,
+//    flash_fwd_wgmma<Dh>, and no mma.sync instance; the other instances
+//    (bf16 at every width, float32 at Dh 16, 32, 112 and 256) stay as
+//    above. flash_attention_f32_wgmma is its entry, wgmma_width the widths.
 //    - Products: wgmma.mma_async m64nNk8 .tf32, float32 sums. QK^T: A is
 //      the scaled Q tile, K-major in shared memory; B is K's tile, K-major
 //      as row-major K lies (N = BK = 32). PV: A is P from registers, B is
-//      V^T's tile (N = 128). Three passes a product (small*big, big*big,
-//      then big*small), one wgmma a pass and k8 step: 48 into S's
-//      accumulator over Dh, 12 into a fresh PV accumulator a k-tile.
+//      V^T's tile (N = Dh: m64n128k8, m64n96k8, m64n64k8). Three passes a
+//      product (small*big, big*big, then big*small), one wgmma a pass and
+//      k8 step: 3 Dh / 8 (48, 36, 24) into S's accumulator over Dh, 12 into
+//      a fresh PV accumulator a k-tile.
 //    - V^T: TF32 wgmma reads B from shared memory K-major only, and for PV
 //      the K dimension is the keys: row-major V is N-major. A prologue
-//      (flash_vt) writes V once a call as (B, Hkv, 128, S) into scratch the
-//      wrapper allocates, each group of 8 keys in the order the P fragment
+//      (flash_vt<Dh>) writes V once a call as (B, Hkv, Dh, S) into scratch
+//      the wrapper allocates, each group of 8 keys in the order the P fragment
 //      feeds the product (slot p: key 2p for p < 4, 2(p - 4) + 1 after),
 //      so the S accumulator's registers are P's A fragment as they are
 //      (a0..a3 = s0, s2, s1, s3). At granite's 8 KV heads and S = 32,768
 //      the copy is 134 MB read and 134 MB written, about 0.08 ms at HBM
 //      rate; the wrapper counts the prologue and the kernel as one call.
-//    - TMA: K's (32, 128) tile as four 32-column boxes of a 4-D map over
-//      its strides (GQA read in place), V^T's (128, 32) as one box, into a
-//      ring of W_STAGES stages on mbarriers, 128-byte swizzle (32 float32 a
-//      swizzle row); the wgmma descriptors name the same swizzle.
+//    - TMA: K's (32, Dh) tile as Dh / 32 boxes of 32 columns of a 4-D map
+//      over its strides (GQA read in place), V^T's (Dh, 32) as one box,
+//      into a ring of WForm<Dh>::STAGES stages on mbarriers, 128-byte
+//      swizzle (32 float32 a swizzle row); the wgmma descriptors name the
+//      same swizzle.
 //    - The split: a raw float32 operand is its own big part: the tensor
 //      core reads its top 19 bits, which truncates it to TF32. small =
 //      x - trunc(x) is exact in float32 and truncated again as it is read
@@ -156,26 +161,32 @@
 //      them start at once, and only the small parts are written.
 //    - Warp specialisation, 384 threads: warpgroup 0 is the producer
 //      (setmaxnreg 56): lane 0 of warp 0 issues the loads; warps 1-3 write
-//      each landed tile's small part once a CTA (K's as soon as both
-//      consumers have read the last K small part, then V^T's once they
-//      have released the last stage). Warpgroups 1 and 2 (setmaxnreg 224)
-//      own 64 query rows each (BQ 128) and split their Q rows once. Every
-//      barrier takes one arrival a warp. A consumer issues each product's
-//      passes on the raw tile, then waits for the small part and issues
-//      the last pass. (Tried and slower on the card, at granite's layer
-//      by tools/flash_attention_probe.py: issuing the next tile's QK^T
-//      before this tile's softmax, 114.75 ms against this design's 90.73;
-//      the two consumers taking turns at issuing their QK^T through named
-//      barriers, 221.09; PERF.md.)
-//    - Registers (a consumer thread): O 64, the fresh PV accumulator 64, S
-//      16, P's big and small parts 16 each.
-//    - Shared memory binds (232,448 bytes a CTA). Every float32 operand of
-//      a three-pass product needs its big and small part there: Q's two
-//      parts 131,072, the ring (raw K and V^T tiles) 2 x 32,768,
-//      one tile's small parts 32,768, 1,024 to align the swizzle and the
-//      barriers: 230,456 (W_SMEM). BK 64 or a third stage would not fit;
-//      nor would a second set of small parts, so the splitters wait for
-//      both consumers to release the last one.
+//      each landed tile's small part once a CTA into set kt % SETS (K's as
+//      soon as both consumers have read the set's last K small part, then
+//      V^T's once they have released the stage that last read the set).
+//      Warpgroups 1 and 2 (setmaxnreg 224) own 64 query rows each (BQ 128)
+//      and split their Q rows once. Every barrier takes one arrival a warp.
+//      A consumer issues each product's passes on the raw tile, then waits
+//      for the small part and issues the last pass. (Tried and slower on
+//      the card, at granite's layer by tools/flash_attention_probe.py:
+//      issuing the next tile's QK^T before this tile's softmax, 114.75 ms
+//      against this design's 90.73; the two consumers taking turns at
+//      issuing their QK^T through named barriers, 221.09; PERF.md.)
+//    - Registers (a consumer thread): O Dh / 2, the fresh PV accumulator
+//      Dh / 2, S 16, P's big and small parts 16 each (at Dh 128: 64 + 64 +
+//      16 + 32).
+//    - Shared memory (232,448 bytes a CTA; WTile<Dh>). Every float32
+//      operand of a three-pass product needs its big and small part there:
+//      Q's two parts 8 Dh x 128 bytes (131,072 at Dh 128), the ring (raw K
+//      and V^T tiles) STAGES x 256 Dh bytes, one tile's small parts 256 Dh
+//      (SETS sets), 1,024 to align the swizzle and the barriers. At Dh 128
+//      two stages and one set take 230,456: BK 64, a third stage or a
+//      second set of small parts would not fit, so there the splitters wait
+//      for both consumers to release the last small part. Dh 96 and 64 have
+//      room for more (WForm): Dh 96 keeps two stages and two sets of small
+//      parts (197,712), so its splitters write tile kt's while the
+//      consumers still read tile kt - 1's; Dh 64 three stages and one set
+//      (132,168).
 // The other instances: not wgmma or TMA yet. PERF.md has the kernel's times
 // against its bound and what holds it back (tools/flash_attention_probe.py).
 
@@ -554,36 +565,58 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
 }
 
 // ---------------------------------------------------------------------------
-// The float32 instance at Dh 128: TMA, TF32 wgmma, warp specialisation (see
-// the header).
+// The float32 instances at Dh 64, 96 and 128: TMA, TF32 wgmma, warp
+// specialisation (see the header).
 
-constexpr int W_DH = 128, W_BQ = 128, W_BK = 32;
-constexpr int W_STAGES = 2;           // K and V^T tiles in the TMA ring
+constexpr int W_BQ = 128, W_BK = 32;
 constexpr int W_THREADS = 384;        // three warpgroups
 constexpr int W_SPLITTERS = 96;       // warps 1-3: the K and V^T splits
 constexpr int W_CONSUMERS = 256;      // warpgroups 1 and 2: 64 query rows each
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // setmaxnreg
 constexpr int ROW_BYTES = 128;        // a row of the 128-byte swizzle
 constexpr int Q_CHUNK = W_BQ * ROW_BYTES;     // 32 columns of Q's tile
-constexpr int Q_BYTES = 4 * Q_CHUNK;          // 65,536: big, and small again
 constexpr int K_CHUNK = W_BK * ROW_BYTES;     // 32 columns of K's tile
-constexpr int K_BYTES = 4 * K_CHUNK;          // 16,384
-constexpr int VT_BYTES = W_DH * ROW_BYTES;    // 16,384: 128 rows of 32 keys
-constexpr int W_STAGE = K_BYTES + VT_BYTES;   // 32,768
-// offsets from the 1,024-byte boundary the swizzle repeats on
-constexpr int OFF_QBIG = 0;
-constexpr int OFF_QSMALL = OFF_QBIG + Q_BYTES;
-constexpr int OFF_RING = OFF_QSMALL + Q_BYTES;
-constexpr int OFF_KSMALL = OFF_RING + W_STAGES * W_STAGE;
-constexpr int OFF_VSMALL = OFF_KSMALL + K_BYTES;
-constexpr int OFF_BARS = OFF_VSMALL + VT_BYTES;
-constexpr int W_BARRIERS = 2 * W_STAGES + 3;
-constexpr int W_SMEM = 1024 + OFF_BARS + 8 * W_BARRIERS;  // 230,456
 // the prologue's tile of keys
 constexpr int VT_KEYS = 64;
-static_assert(W_BK * 4 == ROW_BYTES && W_DH == 4 * 32,
-              "a K row is four swizzle rows, a V^T row one");
-static_assert(W_SMEM <= 232448, "shared memory of one CTA");
+
+// The widths that run flash_fwd_wgmma, and each one's form: the stages of
+// its TMA ring (K and V^T tiles) and its sets of small parts. Each form is
+// the fastest of those ptxas compiles without serialising the wgmma
+// (C7511, "insufficient register resources"; a serialised instance runs
+// 1.75 to 1.85 x slower): at Dh 96 only two stages and two sets, at Dh 64
+// three stages and one set or two, at Dh 128 the only one that fits
+// (tools/flash_attention_probe.py times and reports each; PERF.md).
+constexpr bool wgmma_width(int DH) {
+  return DH == 64 || DH == 96 || DH == 128;
+}
+template <int DH> struct WForm;
+template <> struct WForm<64> { static constexpr int STAGES = 3, SETS = 1; };
+template <> struct WForm<96> { static constexpr int STAGES = 2, SETS = 2; };
+template <> struct WForm<128> { static constexpr int STAGES = 2, SETS = 1; };
+
+// The shared-memory layout at width DH: offsets from the 1,024-byte
+// boundary the swizzle repeats on.
+template <int DH>
+struct WTile {
+  static constexpr int STAGES = WForm<DH>::STAGES, SETS = WForm<DH>::SETS;
+  static constexpr int CHUNKS = DH / 32;             // 32-column chunks of d
+  static constexpr int Q_BYTES = CHUNKS * Q_CHUNK;   // big, and small again
+  static constexpr int K_BYTES = CHUNKS * K_CHUNK;
+  static constexpr int VT_BYTES = DH * ROW_BYTES;    // DH rows of 32 keys
+  static constexpr int STAGE = K_BYTES + VT_BYTES;   // a set of small parts too
+  static constexpr int OFF_QBIG = 0;
+  static constexpr int OFF_QSMALL = OFF_QBIG + Q_BYTES;
+  static constexpr int OFF_RING = OFF_QSMALL + Q_BYTES;
+  static constexpr int OFF_SMALL = OFF_RING + STAGES * STAGE;
+  static constexpr int OFF_BARS = OFF_SMALL + SETS * STAGE;
+  static constexpr int BARRIERS = 2 * STAGES + 3 * SETS;
+  // Dh 128: 230,456; Dh 96: 197,712; Dh 64: 132,168
+  static constexpr int SMEM = 1024 + OFF_BARS + 8 * BARRIERS;
+  static_assert(W_BK * 4 == ROW_BYTES && DH % 32 == 0,
+                "a K row is DH / 32 swizzle rows, a V^T row one");
+  static_assert(SETS <= STAGES, "a set of small parts outlives its stage");
+  static_assert(SMEM <= 232448, "shared memory of one CTA");
+};
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
@@ -674,7 +707,8 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a,
 }
 
 // d = (accumulate ? d : 0) + a b: a the 64 x 8 A fragment in registers
-// (TF32 bit patterns), b 8 x 128 K-major in shared memory; float32 sums.
+// (TF32 bit patterns), b 8 x N K-major in shared memory; float32 sums. The
+// PV product at N = Dh: 128, 96 or 64.
 __device__ __forceinline__ void wgmma_n128(float (&d)[64],
                                            const uint32_t (&a)[4], uint64_t b,
                                            int accumulate) {
@@ -710,6 +744,67 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64],
         "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_n96(float (&d)[48],
+                                          const uint32_t (&a)[4], uint64_t b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4], uint64_t b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 128) wgmma_n128(d, a, b, accumulate);
+  else if constexpr (N == 96) wgmma_n96(d, a, b, accumulate);
+  else wgmma_n64(d, a, b, accumulate);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -730,6 +825,16 @@ template <int N>
 __device__ __forceinline__ void reg_fence(uint32_t (&v)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(v[i])::"memory");
+}
+
+// x, opaque to the compiler from here on: a wgmma descriptor made from it
+// is computed next to the wgmma that reads it (the asm statements keep
+// their order), not hoisted out of the k-tile loop, where Q's Dh / 4
+// descriptors would hold Dh / 2 registers across it (at Dh 128 ptxas then
+// spilled 80 bytes).
+__device__ __forceinline__ uint32_t pinned(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // The wgmma instance's split: big is x itself, of which the tensor core
@@ -761,27 +866,28 @@ __device__ __forceinline__ void split_tile(const float4* big, float4* small,
   }
 }
 
-// The prologue: V (B, S, Hkv, 128) through its strides into V^T
-// (B, Hkv, 128, S), contiguous, each group of 8 keys in the order the P
+// The prologue: V (B, S, Hkv, DH) through its strides into V^T
+// (B, Hkv, DH, S), contiguous, each group of 8 keys in the order the P
 // fragment feeds the PV product: slot p holds key 2p for p < 4 and key
 // 2(p - 4) + 1 for p >= 4. One CTA a (b, g) and VT_KEYS keys.
+template <int DH>
 __global__ void __launch_bounds__(256)
 flash_vt(const float* __restrict__ V, float* __restrict__ Vt, Params p) {
-  __shared__ float tile[VT_KEYS][W_DH + 1];
+  __shared__ float tile[VT_KEYS][DH + 1];
   const int tid = threadIdx.x;
   const int64_t bg = blockIdx.y;
   const int64_t s0 = (int64_t)blockIdx.x * VT_KEYS;
   const float* src = V + (bg / p.Hkv) * p.svb + (bg % p.Hkv) * p.svh +
                      s0 * p.svs;
-  for (int i = tid; i < VT_KEYS * W_DH / 4; i += 256) {
-    const int r = i / (W_DH / 4), c = 4 * (i % (W_DH / 4));
+  for (int i = tid; i < VT_KEYS * DH / 4; i += 256) {
+    const int r = i / (DH / 4), c = 4 * (i % (DH / 4));
     const float4 x = load4(src + r * p.svs + c);
     tile[r][c] = x.x; tile[r][c + 1] = x.y;
     tile[r][c + 2] = x.z; tile[r][c + 3] = x.w;
   }
   __syncthreads();
-  float* dst = Vt + bg * W_DH * p.S + s0;
-  for (int i = tid; i < W_DH * VT_KEYS / 4; i += 256) {
+  float* dst = Vt + bg * DH * p.S + s0;
+  for (int i = tid; i < DH * VT_KEYS / 4; i += 256) {
     // float4 u of row d: slots 4 (u % 2) .. + 3 of key group u / 2, that
     // is its keys of parity u % 2
     const int d = i / (VT_KEYS / 4), u = i % (VT_KEYS / 4);
@@ -792,22 +898,29 @@ flash_vt(const float* __restrict__ V, float* __restrict__ Vt, Params p) {
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap vt_map,
                 const float* __restrict__ Q, float* __restrict__ O,
                 Params p) {
+  using Wt = WTile<DH>;
+  constexpr int STAGES = Wt::STAGES, SETS = Wt::SETS, STAGE = Wt::STAGE;
+  constexpr int K_BYTES = Wt::K_BYTES, VT_BYTES = Wt::VT_BYTES;
+  constexpr int ACC = DH / 2;   // a consumer thread's share of O, and of PV
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   unsigned char* const base = smem_raw + (1024u - raw % 1024u) % 1024u;
   const uint32_t base_s = smem_addr(base);
-  uint64_t* const bars = reinterpret_cast<uint64_t*>(base + OFF_BARS);
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(base + Wt::OFF_BARS);
   uint64_t* const full = bars;                 // a stage's tiles landed
-  // the consumers are done with a stage, and so with V^T's small part
-  uint64_t* const empty = bars + W_STAGES;
-  uint64_t* const k_ready = bars + 2 * W_STAGES;  // K's small part written
-  uint64_t* const k_free = k_ready + 1;        // K's small part read
-  uint64_t* const v_ready = k_ready + 2;       // V^T's small part written
+  // the consumers are done with a stage, and so with the V^T small part
+  // of its set
+  uint64_t* const empty = bars + STAGES;
+  // by set of small parts: K's written, K's read, V^T's written
+  uint64_t* const k_ready = bars + 2 * STAGES;
+  uint64_t* const k_free = k_ready + SETS;
+  uint64_t* const v_ready = k_ready + 2 * SETS;
 
   const int tid = threadIdx.x;
   // a shuffle tells the compiler the role is uniform across the warp
@@ -824,13 +937,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
 
   if (tid == 0) {
     // one arrival a warp: the splitters' 3, the consumers' 8
-    for (int s = 0; s < W_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], W_CONSUMERS / 32);
     }
-    mbar_init(k_ready, W_SPLITTERS / 32);
-    mbar_init(k_free, W_CONSUMERS / 32);
-    mbar_init(v_ready, W_SPLITTERS / 32);
+    for (int s = 0; s < SETS; ++s) {
+      mbar_init(&k_ready[s], W_SPLITTERS / 32);
+      mbar_init(&k_free[s], W_CONSUMERS / 32);
+      mbar_init(&v_ready[s], W_SPLITTERS / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -839,49 +954,52 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
     // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
     if (warp == 0) {
-      // one thread keeps the ring full: K's tile as four 32-column boxes,
-      // V^T's as one
+      // one thread keeps the ring full: K's tile as DH / 32 boxes of 32
+      // columns, V^T's as one
       if (lane == 0) {
-        const int row_vt = (int)((b * p.Hkv + kvh) * W_DH);
+        const int row_vt = (int)((b * p.Hkv + kvh) * DH);
         for (int64_t kt = 0; kt < n_kt; ++kt) {
-          const int slot = (int)(kt % W_STAGES);
-          const uint32_t use = (uint32_t)(kt / W_STAGES);
+          const int slot = (int)(kt % STAGES);
+          const uint32_t use = (uint32_t)(kt / STAGES);
           mbar_wait(&empty[slot], (use & 1u) ^ 1u);
-          mbar_expect(&full[slot], W_STAGE);
-          const uint32_t stage = base_s + OFF_RING + slot * W_STAGE;
+          mbar_expect(&full[slot], STAGE);
+          const uint32_t stage = base_s + Wt::OFF_RING + slot * STAGE;
           const int k0 = (int)(kt * W_BK);
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
+          for (int c = 0; c < Wt::CHUNKS; ++c)
             tma_load_4d(&k_map, &full[slot], stage + c * K_CHUNK, 32 * c, k0,
                         (int)kvh, (int)b);
           tma_load_2d(&vt_map, &full[slot], stage + K_BYTES, k0, row_vt);
         }
       }
     } else {
-      // the splitters: each landed tile's small part, K's as soon as both
-      // consumers are done with the last one, then V^T's. The raw tile is
-      // the big part; the small part has its swizzled layout, so the split
-      // goes float4 by float4.
+      // the splitters: each landed tile's small part into set kt % SETS,
+      // K's as soon as both consumers are done with the set's last one,
+      // then V^T's once they have released the set's last stage. The raw
+      // tile is the big part; the small part has its swizzled layout, so
+      // the split goes float4 by float4.
       const int st = tid - 32;
-      float4* const k_small = reinterpret_cast<float4*>(base + OFF_KSMALL);
-      float4* const v_small = reinterpret_cast<float4*>(base + OFF_VSMALL);
       for (int64_t kt = 0; kt < n_kt; ++kt) {
-        const int slot = (int)(kt % W_STAGES);
-        const uint32_t use = (uint32_t)(kt / W_STAGES);
-        const uint32_t turn = (uint32_t)(kt & 1);
-        const float4* const k_big =
-            reinterpret_cast<const float4*>(base + OFF_RING + slot * W_STAGE);
+        const int slot = (int)(kt % STAGES);
+        const uint32_t use = (uint32_t)(kt / STAGES);
+        const int set = (int)(kt % SETS);
+        const uint32_t turn = (uint32_t)(kt / SETS) & 1u;
+        float4* const k_small =
+            reinterpret_cast<float4*>(base + Wt::OFF_SMALL + set * STAGE);
+        const float4* const k_big = reinterpret_cast<const float4*>(
+            base + Wt::OFF_RING + slot * STAGE);
         mbar_wait(&full[slot], use & 1u);
-        mbar_wait(k_free, turn ^ 1u);
+        mbar_wait(&k_free[set], turn ^ 1u);
         split_tile<K_BYTES / 16>(k_big, k_small, st);
         fence_proxy_async();
-        warp_arrive(k_ready);
-        if (kt > 0)
-          mbar_wait(&empty[(kt - 1) % W_STAGES],
-                    (uint32_t)((kt - 1) / W_STAGES) & 1u);
-        split_tile<VT_BYTES / 16>(k_big + K_BYTES / 16, v_small, st);
+        warp_arrive(&k_ready[set]);
+        if (kt >= SETS)
+          mbar_wait(&empty[(kt - SETS) % STAGES],
+                    (uint32_t)((kt - SETS) / STAGES) & 1u);
+        split_tile<VT_BYTES / 16>(k_big + K_BYTES / 16, k_small + K_BYTES / 16,
+                                  st);
         fence_proxy_async();
-        warp_arrive(v_ready);
+        warp_arrive(&v_ready[set]);
       }
     }
   } else {
@@ -892,65 +1010,68 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
     const int g = lane / 4, t = lane % 4;
     // Q's rows, scaled, and their small parts, into the swizzled tiles
     {
+      constexpr int ROW4 = DH / 4;           // float4s a row
       const float* Qb = Q + b * p.sqb + h * p.sqh + (q0 + 64 * wg) * p.sqs;
 #pragma unroll 4
-      for (int i = ct; i < 64 * 32; i += 128) {
-        const int r = i / 32, c4 = i % 32;   // row, float4 along d
+      for (int i = ct; i < 64 * ROW4; i += 128) {
+        const int r = i / ROW4, c4 = i % ROW4;   // row, float4 along d
         float4 x = load4(Qb + r * p.sqs + 4 * c4);
         x.x *= p.scale; x.y *= p.scale; x.z *= p.scale; x.w *= p.scale;
         const int row = 64 * wg + r;
         const int off = (c4 / 8) * Q_CHUNK + row * ROW_BYTES +
                         (((c4 % 8) ^ (row % 8)) << 4);
-        *reinterpret_cast<float4*>(base + OFF_QBIG + off) = x;
-        *reinterpret_cast<float4*>(base + OFF_QSMALL + off) = small_part(x);
+        *reinterpret_cast<float4*>(base + Wt::OFF_QBIG + off) = x;
+        *reinterpret_cast<float4*>(base + Wt::OFF_QSMALL + off) =
+            small_part(x);
       }
       fence_proxy_async();
       asm volatile("bar.sync %0, 128;" :: "r"(1 + wg) : "memory");
     }
-    const uint32_t q_big = base_s + OFF_QBIG + wg * 64 * ROW_BYTES;
-    const uint32_t q_small = base_s + OFF_QSMALL + wg * 64 * ROW_BYTES;
-    const uint32_t k_small = base_s + OFF_KSMALL;
-    const uint32_t v_small = base_s + OFF_VSMALL;
+    const uint32_t q_big = base_s + Wt::OFF_QBIG + wg * 64 * ROW_BYTES;
+    const uint32_t q_small = base_s + Wt::OFF_QSMALL + wg * 64 * ROW_BYTES;
     // this thread's rows: r0 and r0 + 8 of the tile (hh = 0, 1 below)
     const int r0 = 64 * wg + 16 * (warp % 4) + g;
     const int64_t warp_first = q0 + 64 * wg + 16 * (warp % 4);
     // the accumulators' layout: register 4 j + 2 hh + e holds row
     // r0 + 8 hh, column 8 j + 2 t + e
-    float o[64], part[64], s[16], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float o[ACC], part[ACC], s[16], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < ACC; ++i) o[i] = 0.f;
 
     for (int64_t kt = 0; kt < n_kt; ++kt) {
-      const int slot = (int)(kt % W_STAGES);
-      const uint32_t use = (uint32_t)(kt / W_STAGES);
-      const uint32_t turn = (uint32_t)(kt & 1);
-      const uint32_t k_big = base_s + OFF_RING + slot * W_STAGE;
+      const int slot = (int)(kt % STAGES);
+      const uint32_t use = (uint32_t)(kt / STAGES);
+      const int set = (int)(kt % SETS);
+      const uint32_t turn = (uint32_t)(kt / SETS) & 1u;
+      const uint32_t k_big = base_s + Wt::OFF_RING + slot * STAGE;
       const uint32_t v_big = k_big + K_BYTES;
+      const uint32_t k_small = base_s + Wt::OFF_SMALL + set * STAGE;
+      const uint32_t v_small = k_small + K_BYTES;
       const int64_t k0 = kt * W_BK;
 
-      // s = (scale q) k^T, 16 k8 steps of d: the two passes on K's raw
+      // s = (scale q) k^T, DH / 8 k8 steps of d: the two passes on K's raw
       // tile as soon as it lands, the pass on its small part once split
       mbar_wait(&full[slot], use & 1u);
       reg_fence(s);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < W_DH / 8; ++kk) {
+      for (int kk = 0; kk < DH / 8; ++kk) {
         const uint32_t qo = (kk / 4) * Q_CHUNK + (kk % 4) * 32;
         const uint32_t ko = (kk / 4) * K_CHUNK + (kk % 4) * 32;
-        wgmma_n32(s, sw128(q_small + qo), sw128(k_big + ko), kk > 0);
-        wgmma_n32(s, sw128(q_big + qo), sw128(k_big + ko), 1);
+        wgmma_n32(s, sw128(pinned(q_small) + qo), sw128(k_big + ko), kk > 0);
+        wgmma_n32(s, sw128(pinned(q_big) + qo), sw128(k_big + ko), 1);
       }
-      mbar_wait(k_ready, turn);
+      mbar_wait(&k_ready[set], turn);
 #pragma unroll
-      for (int kk = 0; kk < W_DH / 8; ++kk) {
+      for (int kk = 0; kk < DH / 8; ++kk) {
         const uint32_t qo = (kk / 4) * Q_CHUNK + (kk % 4) * 32;
         const uint32_t ko = (kk / 4) * K_CHUNK + (kk % 4) * 32;
-        wgmma_n32(s, sw128(q_big + qo), sw128(k_small + ko), 1);
+        wgmma_n32(s, sw128(pinned(q_big) + qo), sw128(k_small + ko), 1);
       }
       wgmma_commit();
       wgmma_wait();
       reg_fence(s);
-      warp_arrive(k_free);
+      warp_arrive(&k_free[set]);
 
       if (p.causal && k0 + W_BK - 1 > warp_first) {
 #pragma unroll
@@ -1008,15 +1129,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
                                    p_big[4 * j + 2], p_big[4 * j + 3]};
         const uint32_t a_small[4] = {p_small[4 * j], p_small[4 * j + 1],
                                      p_small[4 * j + 2], p_small[4 * j + 3]};
-        wgmma_n128(part, a_small, sw128(v_big + 32 * j), j > 0);
-        wgmma_n128(part, a_big, sw128(v_big + 32 * j), 1);
+        wgmma_pv<DH>(part, a_small, sw128(v_big + 32 * j), j > 0);
+        wgmma_pv<DH>(part, a_big, sw128(v_big + 32 * j), 1);
       }
-      mbar_wait(v_ready, turn);
+      mbar_wait(&v_ready[set], turn);
 #pragma unroll
       for (int j = 0; j < W_BK / 8; ++j) {
         const uint32_t a_big[4] = {p_big[4 * j], p_big[4 * j + 1],
                                    p_big[4 * j + 2], p_big[4 * j + 3]};
-        wgmma_n128(part, a_big, sw128(v_small + 32 * j), 1);
+        wgmma_pv<DH>(part, a_big, sw128(v_small + 32 * j), 1);
       }
       wgmma_commit();
       wgmma_wait();
@@ -1025,7 +1146,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
       reg_fence(p_small);
       warp_arrive(&empty[slot]);
 #pragma unroll
-      for (int i = 0; i < 64; ++i)
+      for (int i = 0; i < ACC; ++i)
         o[i] = fmaf(o[i], corr[(i >> 1) & 1], part[i]);
     }
 
@@ -1036,9 +1157,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
       li += __shfl_xor_sync(FULL, li, 2);
       const float denom = fmaxf(li, 1e-30f);
       const int64_t row = q0 + r0 + 8 * hh;
-      float* orow = O + ((b * p.S + row) * p.H + h) * W_DH + 2 * t;
+      float* orow = O + ((b * p.S + row) * p.H + h) * DH + 2 * t;
 #pragma unroll
-      for (int j = 0; j < W_DH / 8; ++j)
+      for (int j = 0; j < DH / 8; ++j)
         store2(orow + 8 * j, o[4 * j + 2 * hh] / denom,
                o[4 * j + 2 * hh + 1] / denom);
     }
@@ -1086,8 +1207,9 @@ bool encode_f32(CUtensorMap* map, const void* base, cuuint32_t rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The prologue: V (p's S, Hkv and V strides) into vt, B * Hkv * 128 * S
+// The prologue: V (p's S, Hkv and V strides) into vt, B * Hkv * DH * S
 // float32.
+template <int DH>
 int launch_vt(const float* v, float* vt, const Params& p, int64_t B,
               cudaStream_t s) {
   if (B <= 0 || p.Hkv <= 0 || p.S <= 0 || p.S % VT_KEYS ||
@@ -1095,48 +1217,50 @@ int launch_vt(const float* v, float* vt, const Params& p, int64_t B,
       (uintptr_t)v % 16 || (uintptr_t)vt % 16 || p.svb % 4 || p.svs % 4 ||
       p.svh % 4)
     return (int)cudaErrorInvalidValue;
-  flash_vt<<<dim3((unsigned)(p.S / VT_KEYS), (unsigned)(B * p.Hkv)), 256, 0,
-             s>>>(v, vt, p);
+  flash_vt<DH><<<dim3((unsigned)(p.S / VT_KEYS), (unsigned)(B * p.Hkv)), 256,
+                 0, s>>>(v, vt, p);
   return (int)cudaGetLastError();
 }
 
-// The prologue, then the kernel. vt: the caller's scratch of B * Hkv * 128
+// The prologue, then the kernel. vt: the caller's scratch of B * Hkv * DH
 // * S float32 for V^T.
+template <int DH>
 int run_wgmma(const float* q, const float* k, const float* v, float* vt,
               float* o, const Params& p, int64_t B, cudaStream_t s) {
+  using Wt = WTile<DH>;
   if (p.S % W_BQ || p.S >= (1LL << 31) || B >= (1LL << 31) ||
       (uintptr_t)k % 16 || (uintptr_t)q % 16 || p.sks % 4 || p.skh % 4 ||
       p.skb % 4 || p.sqs % 4 || p.sqh % 4 || p.sqb % 4)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = (cudaError_t)launch_vt(v, vt, p, B, s);
+  cudaError_t err = (cudaError_t)launch_vt<DH>(v, vt, p, B, s);
   if (err != cudaSuccess) return (int)err;
   const int64_t kv_heads = B * p.Hkv;
 
   // K as (Dh, S, Hkv, B) through its strides (a stride of a dimension of
   // one is never stepped: a multiple of 16 bytes stands in for it); V^T as
-  // (S, B Hkv 128)
+  // (S, B Hkv Dh)
   CUtensorMap k_map, vt_map;
-  const cuuint64_t k_dims[4] = {(cuuint64_t)W_DH, (cuuint64_t)p.S,
+  const cuuint64_t k_dims[4] = {(cuuint64_t)DH, (cuuint64_t)p.S,
                                 (cuuint64_t)p.Hkv, (cuuint64_t)B};
   const cuuint64_t k_strides[3] = {
-      (cuuint64_t)p.sks * 4, (cuuint64_t)(p.Hkv > 1 ? p.skh : W_DH) * 4,
+      (cuuint64_t)p.sks * 4, (cuuint64_t)(p.Hkv > 1 ? p.skh : DH) * 4,
       (cuuint64_t)(B > 1 ? p.skb : p.S * p.sks) * 4};
   const cuuint32_t k_box[4] = {32, W_BK, 1, 1};
   const cuuint64_t vt_dims[2] = {(cuuint64_t)p.S,
-                                 (cuuint64_t)(kv_heads * W_DH)};
+                                 (cuuint64_t)(kv_heads * DH)};
   const cuuint64_t vt_strides[1] = {(cuuint64_t)p.S * 4};
-  const cuuint32_t vt_box[2] = {W_BK, W_DH};
+  const cuuint32_t vt_box[2] = {W_BK, DH};
   if (!encode_f32(&k_map, k, 4, k_dims, k_strides, k_box) ||
       !encode_f32(&vt_map, vt, 2, vt_dims, vt_strides, vt_box))
     return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma,
+  err = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             W_SMEM);
+                             Wt::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (p.S / W_BQ) * p.BH;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_fwd_wgmma<<<(unsigned)blocks, W_THREADS, W_SMEM, s>>>(k_map, vt_map,
-                                                              q, o, p);
+  flash_fwd_wgmma<DH><<<(unsigned)blocks, W_THREADS, Wt::SMEM, s>>>(
+      k_map, vt_map, q, o, p);
   return (int)cudaGetLastError();
 }
 
@@ -1158,9 +1282,10 @@ int launch_tile(const T* q, const T* k, const T* v, T* o, const Params& p,
 template <int BQ, int BK, int DH, typename T>
 int launch_width(const T* q, const T* k, const T* v, T* o, const Params& p,
                  cudaStream_t s) {
-  // float32 at Dh 128 runs flash_fwd_wgmma (flash_attention_f32_wgmma)
+  // float32 at the wgmma widths runs flash_fwd_wgmma
+  // (flash_attention_f32_wgmma)
   if constexpr (compiled(BQ, BK, DH) &&
-                !(DH == W_DH && std::is_same<T, float>::value))
+                !(wgmma_width(DH) && std::is_same<T, float>::value))
     return launch_tile<BQ, BK, DH, T>(q, k, v, o, p, s);
   else
     return (int)cudaErrorInvalidValue;
@@ -1231,10 +1356,11 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                     bk, stream);
 }
 
-// float32 at Dh 128 (flash_fwd_wgmma), the arguments of flash_attention_f32
-// and ``vt``: scratch of B * Hkv * 128 * S float32, 16-byte aligned, which
-// the prologue fills with V^T. S a multiple of 128, (bq, bk) = (128, 32),
-// every stride a multiple of 4 elements and q, k, v 16-byte aligned.
+// float32 at Dh 64, 96 or 128 (flash_fwd_wgmma), the arguments of
+// flash_attention_f32 and ``vt``: scratch of B * Hkv * Dh * S float32,
+// 16-byte aligned, which the prologue fills with V^T. S a multiple of 128,
+// (bq, bk) = (128, 32), every stride a multiple of 4 elements and q, k, v
+// 16-byte aligned.
 extern "C" int flash_attention_f32_wgmma(const float* q, const float* k,
                                          const float* v, float* vt, float* o,
                                          int64_t B, int64_t S, int64_t H,
@@ -1242,8 +1368,8 @@ extern "C" int flash_attention_f32_wgmma(const float* q, const float* k,
                                          const int64_t* strides, float scale,
                                          int64_t causal, int64_t bq,
                                          int64_t bk, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Dh != W_DH ||
-      bq != W_BQ || bk != W_BK)
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || bq != W_BQ ||
+      bk != W_BK)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.S = S; p.H = H; p.Hkv = Hkv; p.BH = B * H;
@@ -1252,19 +1378,31 @@ extern "C" int flash_attention_f32_wgmma(const float* q, const float* k,
   p.svb = strides[6]; p.svs = strides[7]; p.svh = strides[8];
   p.scale = scale;
   p.causal = causal ? 1 : 0;
-  return run_wgmma(q, k, v, vt, o, p, B, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return run_wgmma<64>(q, k, v, vt, o, p, B, s);
+    case 96: return run_wgmma<96>(q, k, v, vt, o, p, B, s);
+    case 128: return run_wgmma<128>(q, k, v, vt, o, p, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The prologue alone (what flash_attention_f32_wgmma runs first): v
-// (B, S, Hkv, 128) through its (batch, sequence, head) strides ``strides``
-// into vt (B, Hkv, 128, S), S a multiple of 64.
+// (B, S, Hkv, Dh), Dh 64, 96 or 128, through its (batch, sequence, head)
+// strides ``strides`` into vt (B, Hkv, Dh, S), S a multiple of 64.
 extern "C" int flash_attention_vt(const float* v, float* vt, int64_t B,
-                                  int64_t S, int64_t Hkv,
+                                  int64_t S, int64_t Hkv, int64_t Dh,
                                   const int64_t* strides, void* stream) {
   Params p = {};
   p.S = S; p.Hkv = Hkv;
   p.svb = strides[0]; p.svs = strides[1]; p.svh = strides[2];
-  return launch_vt(v, vt, p, B, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return launch_vt<64>(v, vt, p, B, s);
+    case 96: return launch_vt<96>(v, vt, p, B, s);
+    case 128: return launch_vt<128>(v, vt, p, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,

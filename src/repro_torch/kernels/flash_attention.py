@@ -29,16 +29,20 @@ tensor cores truncate inside a product. It reads q, k and v in place
 through their strides, so GQA costs no repeated copy, and under ``causal``
 stops at the diagonal tile, which is exact.
 
-Two designs. float32 at Dh 128 (``on_wgmma``; every Dh 128 LM prefill)
-runs Hopper's ``wgmma`` m64nNk8 TF32 fed by TMA, one (128, 32) tile
-(``WGMMA_TILES``): a producer warpgroup (one thread issuing the loads of
-K's tile and of V^T's into a ring of ``STAGES``, three warps splitting each
-landed tile once a CTA) and two consumer warpgroups of 64 query rows. TF32
-``wgmma`` reads B from shared memory K-major only, so a prologue in the
-same launch writes V^T (B, Hkv, Dh, S), each group of 8 keys in the P
-fragment's order, into scratch that ``launch`` allocates. Every other
-instance runs ``mma.sync`` m16n8k8 TF32, 16 query rows a warp, K and V
-tiles through a ring of two ``cp.async`` stages.
+Two designs. float32 at Dh 64, 96 and 128 (``WGMMA_DH``, ``on_wgmma``:
+every Dh 128 LM prefill, phi3-mini-3.8b's at Dh 96, whisper-small's at Dh
+64, and the float32 widths that pad to them) runs Hopper's ``wgmma``
+m64nNk8 TF32 fed by TMA, one (128, 32) tile (``WGMMA_TILES``): a producer
+warpgroup (one thread issuing the loads of K's tile and of V^T's into a
+ring of ``WGMMA_FORMS[Dh][0]`` stages, three warps splitting each landed
+tile once a CTA into one of ``WGMMA_FORMS[Dh][1]`` sets of small parts)
+and two consumer warpgroups of 64 query rows. TF32 ``wgmma`` reads B from
+shared memory K-major only, so a prologue in the same launch writes V^T
+(B, Hkv, Dh, S), each group of 8 keys in the P fragment's order, into
+scratch that ``launch`` allocates. Every other instance (bf16 at every
+width, float32 at Dh 16, 32, 112 and 256) runs ``mma.sync`` m16n8k8 TF32,
+16 query rows a warp, K and V tiles through a ring of two ``cp.async``
+stages.
 
 Head widths: instances are compiled at ``HEAD_DIMS`` (16 to 256); any
 width 1 <= Dh <= ``MAX_HEAD_DIM`` runs on the instance of
@@ -90,12 +94,14 @@ PASSES = {4: 3, 2: 2}
 #: and holds it to this table). At Dh 128 that is the bf16 instances.
 REGISTERS = {16: 128, 32: 166, 64: 255, 96: 255, 112: 255, 128: 255,
              256: 255}
-#: The ``wgmma`` instance (float32 at Dh 128): its width, tiles, threads
-#: (a producer and two consumer warpgroups) and the registers a thread has
-#: at launch (``__launch_bounds__(384, 1)``: 65,536 / 384 rounded down to
-#: 8), which ``setmaxnreg`` then moves from the producer (56) to the
-#: consumers (224).
-WGMMA_DH = 128
+#: The ``wgmma`` instances (float32 at these widths), each width's form
+#: (``WForm`` in the source): the stages of K and V^T tiles in its TMA ring
+#: and its sets of small parts; their one tile, threads (a producer and two
+#: consumer warpgroups) and the registers a thread has at launch
+#: (``__launch_bounds__(384, 1)``: 65,536 / 384 rounded down to 8), which
+#: ``setmaxnreg`` then moves from the producer (56) to the consumers (224).
+WGMMA_FORMS = {64: (3, 1), 96: (2, 2), 128: (2, 1)}
+WGMMA_DH = tuple(WGMMA_FORMS)
 WGMMA_TILES = ((128, 32),)
 WGMMA_THREADS = 384
 WGMMA_REGISTERS = 168
@@ -124,10 +130,10 @@ def tile_width(dh: int) -> int:
 
 
 def on_wgmma(dh: int, dtype_bytes: int = 4) -> bool:
-    """Whether width ``dh`` with inputs of ``dtype_bytes`` runs the
-    ``wgmma`` instance (float32 at the compiled width 128)."""
+    """Whether width ``dh`` with inputs of ``dtype_bytes`` runs a
+    ``wgmma`` instance (float32 at a compiled width in ``WGMMA_DH``)."""
     return dtype_bytes == 4 and 1 <= dh <= MAX_HEAD_DIM and \
-        tile_width(dh) == WGMMA_DH
+        tile_width(dh) in WGMMA_DH
 
 
 def tiles(dh: int, dtype_bytes: int = 4) -> tuple:
@@ -153,14 +159,16 @@ def smem_bytes(bq: int, bk: int, dh: int, dtype_bytes: int = 4) -> int:
     ``mma.sync`` instances (``Tile``): the scaled float32 Q tile at a
     pitch of D + 8, ``STAGES`` K/V tiles in the input dtype, K rows at
     D + 8 elements, V rows at D + 16 bytes, and at D 256 the warp pairs'
-    exchange, a 16 x bk float32 fragment a warp. The ``wgmma`` instance
-    (``W_SMEM``): 1,024 bytes to align the swizzle, Q's big and small
-    parts, ``STAGES`` raw K and V^T tiles, the small parts of one K and one
-    V^T tile, and its seven ``mbarrier``s."""
+    exchange, a 16 x bk float32 fragment a warp. The ``wgmma`` instances
+    (``WTile::SMEM``): 1,024 bytes to align the swizzle, Q's big and small
+    parts, and by ``WGMMA_FORMS[D]`` its stages of raw K and V^T tiles,
+    its sets of K and V^T small parts and their ``mbarrier``s, two a stage
+    and three a set."""
     d = tile_width(dh)
     if on_wgmma(dh, dtype_bytes):
-        return 1024 + 2 * 4 * bq * d + (STAGES + 1) * 2 * 4 * bk * d + \
-            8 * (2 * STAGES + 3)
+        stages, sets = WGMMA_FORMS[d]
+        return 1024 + 2 * 4 * bq * d + (stages + sets) * 2 * 4 * bk * d + \
+            8 * (2 * stages + 3 * sets)
     ldk, ldv = d + 8, d + 16 // dtype_bytes
     xch = 4 * (threads(bq, dh) // 32) * 16 * bk if split(dh) > 1 else 0
     return 4 * bq * (d + 8) + STAGES * bk * (ldk + ldv) * dtype_bytes + xch
@@ -220,14 +228,15 @@ def vt_plain(v: torch.Tensor) -> torch.Tensor:
 
 
 def vt_launch(lib: ctypes.CDLL, v: torch.Tensor) -> torch.Tensor:
-    """The prologue alone on a CUDA float32 v (B, S, Hkv, 128), S a
-    multiple of 64, strides multiples of 4 elements: V^T as ``vt_plain``
-    gives it, on the current stream without synchronising."""
+    """The prologue alone on a CUDA float32 v (B, S, Hkv, Dh), Dh in
+    ``WGMMA_DH``, S a multiple of 64, strides multiples of 4 elements: V^T
+    as ``vt_plain`` gives it, on the current stream without
+    synchronising."""
     B, S, Hkv, Dh = v.shape
     vt = torch.empty((B, Hkv, Dh, S), dtype=torch.float32, device=v.device)
     strides = (ctypes.c_int64 * 3)(*v.stride()[:3])
     err = lib.flash_attention_vt(
-        v.data_ptr(), vt.data_ptr(), B, S, Hkv,
+        v.data_ptr(), vt.data_ptr(), B, S, Hkv, Dh,
         ctypes.cast(strides, ctypes.c_void_p),
         torch.cuda.current_stream(v.device).cuda_stream)
     if err:
@@ -275,7 +284,8 @@ def bind(lib: ctypes.CDLL) -> None:
     fn = getattr(lib, _WGMMA_ENTRY)
     fn.argtypes = [_P, _P, _P, _P, _P, *rest]      # q, k, v, vt, o, ...
     fn.restype = ctypes.c_int
-    lib.flash_attention_vt.argtypes = [_P, _P, _I64, _I64, _I64, _P, _P]
+    lib.flash_attention_vt.argtypes = [_P, _P, _I64, _I64, _I64, _I64, _P,
+                                       _P]
     lib.flash_attention_vt.restype = ctypes.c_int
 
 
@@ -289,7 +299,7 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     the tile compiled at Dh. The scale is 1/sqrt(``scale_dh``), the width
     before any zero padding (default Dh). Returns o (B, S, H, Dh),
     contiguous, in q's dtype, on the current stream without synchronising.
-    On the ``wgmma`` instance it also allocates the prologue's V^T
+    On a ``wgmma`` instance it also allocates the prologue's V^T
     scratch, (B, Hkv, Dh, S) float32: the prologue and the kernel are one
     call here."""
     B, S, H, Dh = q.shape
@@ -318,5 +328,6 @@ __all__ = ["plain", "vt_plain", "vt_launch", "bind", "launch", "check_tile",
            "tile_width", "tiles", "on_wgmma", "split", "smem_bytes",
            "threads", "ctas_per_sm", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS",
            "MAX_HEAD_DIM", "WIDE_TILES", "SPLIT_ABOVE", "STAGES", "PASSES",
-           "REGISTERS", "WGMMA_DH", "WGMMA_TILES", "WGMMA_THREADS",
-           "WGMMA_REGISTERS", "VT_ORDER", "SOURCE", "REPLACES"]
+           "REGISTERS", "WGMMA_FORMS", "WGMMA_DH", "WGMMA_TILES",
+           "WGMMA_THREADS", "WGMMA_REGISTERS", "VT_ORDER", "SOURCE",
+           "REPLACES"]

@@ -439,7 +439,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: {H} query heads is not a multiple "
                          f"of {Hkv} KV heads")
     # resolved by the dtype the kernel reads: float32 and bf16 compile other
-    # tiles at Dh 128 (flash_attention.tiles)
+    # tiles at Dh 64, 96 and 128 (flash_attention.tiles)
     cfg = _resolved("flash_attention", (B * H, S, Dh), q, config,
                     dtype=_kernel_dtype(q, k, v, precision=config and
                                         config.precision))

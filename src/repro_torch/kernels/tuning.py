@@ -82,8 +82,8 @@ GRID_ORDERS: Dict[str, Tuple[str, ...]] = {
 #: The tiles each source compiles: ``block`` must be one of these.
 #: flash_attention's are those of its ``mma.sync`` widths up to 128; a
 #: width's own menu is ``flash_attention.tiles(Dh, dtype_bytes)`` (float32
-#: at Dh 128: the ``wgmma`` instance's one tile), and candidates and
-#: lookups keep to it.
+#: at Dh 64, 96 and 128: the ``wgmma`` instances' one tile), and
+#: candidates and lookups keep to it.
 TILE_MENUS: Dict[str, Tuple[Tuple[int, ...], ...]] = {
     "sketch_fused": (_sketch_fused.TILE,),
     "blocked_fwht": (_hadamard.TILE,),

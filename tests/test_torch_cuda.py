@@ -737,25 +737,28 @@ def test_flash_kernel_matches_plain(card, bq, bk, dh):
                                        atol=FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("B,S,H,Hkv,causal", [
     (B, S, H, Hkv, causal)
     for B, S in ((1, 128), (2, 4096))        # one tile; B = 2
     for H, Hkv in ((4, 1), (4, 4))           # GQA 4:1 and MHA
     for causal in (True, False)] + [
     (1, 300, 8, 2, True), (2, 1000, 4, 4, True),   # S flash_prefill pads
+    (1, 256, 32, 32, True),                  # phi3-mini-3.8b's heads, MHA
+    (2, 384, 12, 12, True),                  # whisper-small's heads, MHA
 ])
-def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal):
-    """float32 at Dh 128, the wgmma instance: q, k and v as strided views of
-    one (B, S, (H + 2 Hkv) Dh) projection, as the LM makes them, through
-    ``ops.flash_attention`` at its one tile (a multiple of 128 rows) or,
-    for an S it pads, ``attention.flash_prefill`` (causal only): one
-    launch, within FLASH_TOL of the plain version. Its prologue alone
-    writes V^T equal to ``vt_plain``."""
+def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal, dh):
+    """float32 at Dh 64, 96 and 128, the wgmma instances: q, k and v as
+    strided views of one (B, S, (H + 2 Hkv) Dh) projection, as the LM makes
+    them, through ``ops.flash_attention`` at its one tile (a multiple of
+    128 rows) or, for an S it pads, ``attention.flash_prefill`` (causal
+    only): one launch, within FLASH_TOL of the plain version. Its prologue
+    alone writes V^T equal to ``vt_plain``."""
     from repro_torch.models import attention as attn
-    gen = torch.Generator(device=card).manual_seed(S + H + Hkv)
-    proj = torch.randn(B, S, (H + 2 * Hkv) * 128, generator=gen,
+    gen = torch.Generator(device=card).manual_seed(S + H + Hkv + dh)
+    proj = torch.randn(B, S, (H + 2 * Hkv) * dh, generator=gen,
                        device=card)
-    qkv = proj.view(B, S, H + 2 * Hkv, 128)
+    qkv = proj.view(B, S, H + 2 * Hkv, dh)
     q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
     before = ops.LAUNCHES["flash_attention"]
     if S % 128:
@@ -764,7 +767,7 @@ def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal):
         out = ops.flash_attention(q, k, v, causal=causal)
     assert ops.LAUNCHES["flash_attention"] == before + 1
     ref = flash_attention.plain(q, k, v, causal)
-    assert out.shape == (B, S, H, 128) and out.dtype == torch.float32
+    assert out.shape == (B, S, H, dh) and out.dtype == torch.float32
     torch.testing.assert_close(out, ref, rtol=FLASH_TOL[torch.float32],
                                atol=FLASH_TOL[torch.float32])
     if S % 64 == 0:
@@ -776,9 +779,10 @@ def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal):
 def test_head_widths_between_compiled_ones_launch_once(card, dh):
     """Widths between the compiled ones run on a copy zero-padded to the
     next wider instance (48 and 50 on Dh 64's, 80 on 96's, 200 on 256's,
-    13 on 16's), 256 on its warp pairs: one launch a call, the scale of the
-    true Dh, within FLASH_TOL of the plain version, causal and not, float32
-    and bf16, GQA 4 over 2 at the tile ``tuning.lookup`` resolves."""
+    13 on 16's; in float32 48, 50 and 80 on the wgmma instances), 256 on
+    its warp pairs: one launch a call, the scale of the true Dh, within
+    FLASH_TOL of the plain version, causal and not, float32 and bf16, GQA 4
+    over 2 at the tile ``tuning.lookup`` resolves."""
     gen = torch.Generator(device=card).manual_seed(dh)
     B, S, H, Hkv = 1, 256, 4, 2
     q = torch.randn(B, S, H, dh, generator=gen, device=card)
@@ -811,12 +815,15 @@ def test_uncompiled_head_width_raises_before_a_launch(card, dh):
 
 def test_flash_block_shape_independence(card):
     gen = torch.Generator(device=card).manual_seed(3)
-    q, k, v = torch.randn(3, 2, 512, 2, 64, generator=gen, device=card)
+    # float32 at Dh 32, whose mma.sync instances compile all four tiles
+    # (float32 at Dh 64 runs the wgmma instance's one)
+    q, k, v = torch.randn(3, 2, 512, 2, 32, generator=gen, device=card)
     o1 = ops.flash_attention(q, k, v, config=tuning.KernelConfig(
         "flash_attention", (128, 64)))
     o2 = ops.flash_attention(q, k, v, config=tuning.KernelConfig(
         "flash_attention", (64, 32)))
     torch.testing.assert_close(o1, o2, rtol=1e-5, atol=1e-5)
+    q, k, v = torch.randn(3, 2, 512, 2, 64, generator=gen, device=card)
     # 48 of the 64 columns, zero-padded back to 64 in a copy, on Dh 64's
     # instance
     o3 = ops.flash_attention(q[..., :48], k[..., :48], v[..., :48])

@@ -9,6 +9,7 @@ its plain version on CPU tensors.
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -305,23 +306,29 @@ def _wgmma_operands(x):
     return [(ls, rb), (lb, rb)], [(lb, rs)]
 
 
-def _wgmma_sum(first, last):
-    """sum_k a[:, k] b[k, :] as the wgmma instance adds it into one fresh
+def _wgmma_sum(first, last, issued=None):
+    """sum_k a[:, k] b[k, :] as a wgmma instance adds it into one fresh
     accumulator: one instruction a pass and k8 step, each adding its exact
     k8 products and rounding toward zero; the passes of ``first`` at every
-    k8 step, then those of ``last``."""
+    k8 step, then those of ``last``. ``issued``: a list to which the count
+    of instructions is appended."""
     n = first[0][0].shape[1]
     frag = np.zeros((first[0][0].shape[0], first[0][1].shape[1]), np.float32)
+    count = 0
     for pairs in (first, last):
         for k0 in range(0, n, 8):
             for a, b in pairs:
                 prod = a[:, k0:k0 + 8].astype(np.float64) @ \
                     b[k0:k0 + 8].astype(np.float64)
                 frag = _round_toward_zero(frag.astype(np.float64) + prod)
+                count += 1
+    if issued is not None:
+        issued.append(count)
     return frag
 
 
-def _emulated_attention(q, k, v, passes, bk=32, halves=1, wgmma=False):
+def _emulated_attention(q, k, v, passes, bk=32, halves=1, wgmma=False,
+                        issued=None):
     """flash_attention.cu's arithmetic for one causal head at its default
     k-tile: q (S, Dh) scaled in float32; QK^T straight into its fragment
     over Dh, or with ``halves=2`` (the Dh 256 warp pair) into one fragment
@@ -330,9 +337,10 @@ def _emulated_attention(q, k, v, passes, bk=32, halves=1, wgmma=False):
     per k-tile, added to O with one rounding (the kernel's FFMA). A k-tile
     changes nothing for the rows before it (their p is exactly 0), so
     those rows are skipped, as the kernel skips the tiles past its
-    diagonal. ``wgmma``: the float32 Dh 128 instance's split and order of
+    diagonal. ``wgmma``: the float32 wgmma instances' split and order of
     passes (``_wgmma_operands``, ``_wgmma_sum``); ``passes`` is then
-    (3, 3)."""
+    (3, 3), and ``issued`` (a dict) collects the instructions of each
+    k-tile's QK^T ("qk") and PV ("pv") product."""
     S, Dh = q.shape
     qs = (q * np.float32(1 / np.sqrt(Dh))).astype(np.float32)
     m = np.full((S, 1), -1e30, np.float32)
@@ -344,8 +352,9 @@ def _emulated_attention(q, k, v, passes, bk=32, halves=1, wgmma=False):
         s = np.zeros((S - k0, bk), np.float32)
         for c in range(0, Dh, w):
             x = (qs[r, c:c + w], k[k0:k0 + bk, c:c + w].T)
-            s = s + (_wgmma_sum(*_wgmma_operands(x)) if wgmma else
-                     _mma_sum(_operands(x, passes[0])))
+            s = s + (_wgmma_sum(*_wgmma_operands(x),
+                                issued=issued["qk"] if issued else None)
+                     if wgmma else _mma_sum(_operands(x, passes[0])))
         s[k0 + np.arange(bk)[None, :] > np.arange(k0, S)[:, None]] = -1e30
         mn = np.maximum(m[r], s.max(1, keepdims=True))
         corr = np.exp(m[r] - mn)
@@ -353,8 +362,9 @@ def _emulated_attention(q, k, v, passes, bk=32, halves=1, wgmma=False):
         lsum[r] = lsum[r] * corr + p.sum(1, keepdims=True, dtype=np.float32)
         m[r] = mn
         x = (p, v[k0:k0 + bk])
-        part = (_wgmma_sum(*_wgmma_operands(x)) if wgmma else
-                _mma_sum(_operands(x, passes[1])))
+        part = (_wgmma_sum(*_wgmma_operands(x),
+                           issued=issued["pv"] if issued else None)
+                if wgmma else _mma_sum(_operands(x, passes[1])))
         o[r] = (o[r].astype(np.float64) * corr + part).astype(np.float32)
     return o / np.maximum(lsum, np.float32(1e-30))
 
@@ -400,20 +410,36 @@ def test_split_tf32_passes_meet_the_flash_tolerance(head):
     assert _excess(one, exact, tol) > tol
 
 
-def test_wgmma_instance_passes_meet_the_flash_tolerance(head):
-    """The float32 Dh 128 instance on wgmma: its split (the raw value as
-    big, which the tensor core truncates to TF32; small = x - trunc(x),
-    truncated again), one instruction a pass and k8 step, each rounded
-    toward zero into its accumulator in the order the kernel issues them
-    (QK^T: 48 into one over Dh; PV: 12 into a fresh one a 32-key tile),
-    meets the float32 FLASH_TOL against float64 with room to spare, as
-    the mma.sync design's emulation does. Without the small parts (one
-    pass, truncated) it misses."""
-    q, k, v, exact = head
+@pytest.fixture(scope="module", params=[64, 96, 128])
+def wgmma_head(request):
+    """One causal head at each width of the float32 wgmma instances (64,
+    96 and 128) at S = 2,048 from a numpy seed, and its float64 attention
+    (Dh 128 the ``head`` fixture's)."""
+    dh = request.param
+    rng = np.random.default_rng(16 if dh == 128 else dh)
+    q, k, v = (rng.standard_normal((2048, dh)).astype(np.float32)
+               for _ in range(3))
+    return q, k, v, _exact_attention(q, k, v)
+
+
+def test_wgmma_instance_passes_meet_the_flash_tolerance(wgmma_head):
+    """The float32 instances on wgmma (Dh 64, 96 and 128): their split (the
+    raw value as big, which the tensor core truncates to TF32; small = x -
+    trunc(x), truncated again), one instruction a pass and k8 step, each
+    rounded toward zero into its accumulator in the order the kernel
+    issues them (QK^T: 3 Dh / 8, 24, 36 or 48, into one over Dh; PV: 12
+    into a fresh one a 32-key tile), meet the float32 FLASH_TOL against
+    float64 with room to spare, as the mma.sync design's emulation does.
+    Without the small parts (one pass, truncated) it misses."""
+    q, k, v, exact = wgmma_head
     tol = TOL[torch.float32]
-    wgmma = _excess(_emulated_attention(q, k, v, (3, 3), wgmma=True),
-                    exact, tol)
+    issued = {"qk": [], "pv": []}
+    wgmma = _excess(_emulated_attention(q, k, v, (3, 3), wgmma=True,
+                                        issued=issued), exact, tol)
     assert wgmma <= tol / 10
+    assert set(issued["qk"]) == {3 * q.shape[1] // 8}
+    assert set(issued["pv"]) == {12}
+    assert len(issued["qk"]) == len(issued["pv"]) == q.shape[0] // 32
     S, Dh = q.shape
     qs = (q * np.float32(1 / np.sqrt(Dh))).astype(np.float32)
     one = [(_tf32_truncated(qs), _tf32_truncated(k.T))]
@@ -520,16 +546,18 @@ def test_fragment_key_order_gives_the_plain_product(product):
     np.testing.assert_allclose(A @ B, left @ right, rtol=1e-12, atol=1e-12)
 
 
-def test_vt_plain_is_v_transposed_in_the_fragment_key_order():
+@pytest.mark.parametrize("dh", [16, 64, 96])
+def test_vt_plain_is_v_transposed_in_the_fragment_key_order(dh):
     """The prologue's function (``vt_plain``) on a strided view, as the LM
     makes v: V^T[b, g, d, 8 c + p] = v[b, 8 c + VT_ORDER[p], g, d], and
-    the order lists slots t and t + 4 as keys 2t and 2t + 1."""
-    rng = np.random.default_rng(8)
+    the order lists slots t and t + 4 as keys 2t and 2t + 1; at whisper's
+    and phi3's widths (64, 96) too."""
+    rng = np.random.default_rng(8 + dh)
     packed = torch.from_numpy(
-        rng.standard_normal((2, 64, 7, 16)).astype(np.float32))
+        rng.standard_normal((2, 64, 7, dh)).astype(np.float32))
     v = packed[:, :, 5:7]
     vt = flash_attention.vt_plain(v)
-    assert vt.shape == (2, 2, 16, 64) and vt.is_contiguous()
+    assert vt.shape == (2, 2, dh, 64) and vt.is_contiguous()
     order = flash_attention.VT_ORDER
     assert [order[t] for t in range(4)] == [0, 2, 4, 6]
     assert [order[t + 4] for t in range(4)] == [1, 3, 5, 7]
@@ -539,13 +567,14 @@ def test_vt_plain_is_v_transposed_in_the_fragment_key_order():
                                v[:, 8 * c + order[p]])
 
 
+@pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("block", [(64, 32), (64, 64), (128, 32),
                                    (128, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dh128_resolves_and_checks_tiles_by_the_kernel_dtype(
-        monkeypatch, block, dtype):
-    """At Dh 128 float32 runs the wgmma instance, whose one tile is
-    (128, 32), and bf16 the mma.sync instances' four: the card's path
+        monkeypatch, block, dtype, dh):
+    """At Dh 64, 96 and 128 float32 runs a wgmma instance, whose one tile
+    is (128, 32), and bf16 the mma.sync instances' four: the card's path
     through ``ops.flash_attention`` (the launch stood in for by the
     kernel's function) refuses a float32 tile off that menu before a
     launch, takes the bf16 ones, and resolves no config to a tile the
@@ -560,10 +589,10 @@ def test_dh128_resolves_and_checks_tiles_by_the_kernel_dtype(
     monkeypatch.setattr(ops, "_library", lambda name: None)
     monkeypatch.setattr(flash_attention, "launch", launch)
     q, k, v = (torch.from_numpy(x).to(dtype)
-               for x in _qkv(1, 128, 2, 1, 128, seed=128))
+               for x in _qkv(1, 128, 2, 1, dh, seed=dh))
     cfg = tuning.KernelConfig("flash_attention", block)
     size = torch.empty((), dtype=dtype).element_size()
-    if block in flash_attention.tiles(128, size):
+    if block in flash_attention.tiles(dh, size):
         ops.flash_attention(q, k, v, config=cfg)
         assert calls == [(dtype, *block)]
     else:
@@ -571,15 +600,15 @@ def test_dh128_resolves_and_checks_tiles_by_the_kernel_dtype(
         with pytest.raises(ValueError, match="compiled"):
             ops.flash_attention(q, k, v, config=cfg)
         assert calls == []
-    assert (block in flash_attention.tiles(128, size)) == \
+    assert (block in flash_attention.tiles(dh, size)) == \
         (dtype == torch.bfloat16 or block == (128, 32))
-    got = tuning.lookup("flash_attention", (8, 4096, 128), dtype_bytes=size,
+    got = tuning.lookup("flash_attention", (8, 4096, dh), dtype_bytes=size,
                         backend="cpu")
-    assert got.block in flash_attention.tiles(128, size)
+    assert got.block in flash_attention.tiles(dh, size)
     assert {c.block for c in tuning.candidate_configs(
-        "flash_attention", (8, 4096, 128),
+        "flash_attention", (8, 4096, dh),
         precision=None if size == 4 else "bf16")} == \
-        set(flash_attention.tiles(128, size))
+        set(flash_attention.tiles(dh, size))
 
 
 def test_probe_edits_apply_to_the_kernel_source():
@@ -597,6 +626,28 @@ def test_probe_edits_apply_to_the_kernel_source():
     assert probe.REFILL not in probe.no_copies(text)
     assert "0x1000u" not in probe.no_split(text)
     assert probe.SMALL_PART not in probe.no_split(text)
-    # the wgmma instance's TMA loads and wgmma instructions
+    # the wgmma instances' TMA loads and wgmma instructions: QK^T's
+    # m64n32k8 and PV's at each width, m64n128k8, m64n96k8 and m64n64k8
     assert probe.TMA_EXPECT not in probe.no_copies(text)
+    assert all(op in text for op in probe.WGMMA_OPS)
     assert not any(op in probe.no_mma(text) for op in probe.WGMMA_OPS)
+    assert [f"m64n{n}k8" in op for n, op in
+            zip((32, 128, 96, 64), probe.WGMMA_OPS)] == [True] * 4
+    # the forms of the Dh 64 and 96 instances: each edits both widths'
+    # WForm and leaves Dh 128's; the baseline's widths from its source
+    forms = probe.form_variants(text)
+    assert forms and all(name.startswith("stages") for name in forms)
+    for name, variant in forms.items():
+        stages, sets = (int(x) for x in name[len("stages"):].split("_sets"))
+        for dh in (64, 96):
+            assert probe.FORM.format(dh=dh, stages=stages, sets=sets) in \
+                variant
+        assert probe.fits(stages, sets, 96)
+        assert variant.count("struct WForm<128>") == 1
+        assert re.search(r"struct WForm<128> .*", variant)[0] == \
+            re.search(r"struct WForm<128> .*", text)[0]
+    assert not probe.fits(4, 2, 96) and probe.fits(4, 2, 64)
+    assert probe.wgmma_widths(text) == flash_attention.WGMMA_DH
+    assert probe.wgmma_widths("constexpr int W_DH = 128, W_BQ = 128; "
+                              "flash_attention_f32_wgmma") == (128,)
+    assert probe.wgmma_widths("flash_attention_f32(") == ()

@@ -125,13 +125,24 @@ def test_menus_are_the_tiles_the_sources_compile():
                 else flash_attention.WIDE_TILES)
         assert flash_attention.tiles(dh, 2) == want
         assert flash_attention.tiles(dh, 4) == (
-            flash_attention.WGMMA_TILES if dh == 128 else want)
-    # the wgmma instance: float32 at Dh 128, its one tile, and no mma.sync
-    # instance of its own width and dtype
-    assert "constexpr int W_DH = 128, W_BQ = 128, W_BK = 32;" in flash_src
-    assert flash_attention.WGMMA_DH == 128
+            flash_attention.WGMMA_TILES if dh in (64, 96, 128) else want)
+    # the wgmma instances: float32 at Dh 64, 96 and 128, their one tile,
+    # each width's stages as the source's WForm, the entries' switches, and
+    # no mma.sync instance of those widths in float32
+    assert "constexpr int W_BQ = 128, W_BK = 32;" in flash_src
+    assert flash_attention.WGMMA_DH == (64, 96, 128)
     assert flash_attention.WGMMA_TILES == ((128, 32),)
-    assert "!(DH == W_DH && std::is_same<T, float>::value)" in flash_src
+    widths = re.search(r"bool wgmma_width\(int DH\) \{\s*return ([^;]*);",
+                       flash_src)[1]
+    assert tuple(int(w) for w in re.findall(r"DH == (\d+)", widths)) == \
+        flash_attention.WGMMA_DH
+    for dh, (stages, sets) in flash_attention.WGMMA_FORMS.items():
+        assert f"struct WForm<{dh}> {{ static constexpr int STAGES = " \
+            f"{stages}, SETS = {sets}; }};" in flash_src, dh
+    assert cases("flash_attention_f32_wgmma") == \
+        cases("flash_attention_vt") == flash_attention.WGMMA_DH
+    assert "!(wgmma_width(DH) && std::is_same<T, float>::value)" in \
+        flash_src
     assert DEFAULTS["sketch_fused"].block == (128, 32)
     assert DEFAULTS["blocked_fwht"].block == (256, 32)
     assert DEFAULTS["sampled_dot"].block == ()
@@ -298,22 +309,41 @@ def test_flash_attention_constants_are_the_sources():
         assert flash_attention.smem_bytes(bq, bk, dh, size) == \
             4 * bq * (dh + 8) + 2 * bk * (ldk + ldv) * size
         assert flash_attention.threads(bq, dh, size) == 32 * bq // 16
-    # float32 at Dh 128, the wgmma instance: Q big and small, two raw K and
-    # V^T stages, one tile's small parts, seven barriers, 1,024 bytes of
-    # alignment: 230,456 bytes (W_SMEM); three warpgroups, whose registers
-    # setmaxnreg moves from the producer to the consumers
-    for line in ("constexpr int W_STAGES = 2;",
+    # float32 at Dh 64, 96 and 128, the wgmma instances (WTile): Q big and
+    # small, the width's raw K and V^T stages and sets of small parts, two
+    # barriers a stage and three a set, 1,024 bytes of alignment; three
+    # warpgroups, whose registers setmaxnreg moves from the producer to the
+    # consumers. Dh 128 keeps two stages and one set: 230,456 bytes; a
+    # third stage or a second set would not fit.
+    for line in ("static constexpr int SMEM = 1024 + OFF_BARS + 8 * BARRIERS;",
+                 "static constexpr int STAGE = K_BYTES + VT_BYTES;",
+                 "static constexpr int OFF_SMALL = OFF_RING + STAGES * STAGE;",
+                 "static constexpr int OFF_BARS = OFF_SMALL + SETS * STAGE;",
+                 "static constexpr int BARRIERS = 2 * STAGES + 3 * SETS;",
+                 "static constexpr int Q_BYTES = CHUNKS * Q_CHUNK;",
                  "constexpr int W_THREADS = 384;",
-                 "constexpr int W_SMEM = 1024 + OFF_BARS + 8 * W_BARRIERS;"
-                 "  // 230,456",
-                 "constexpr int W_BARRIERS = 2 * W_STAGES + 3;",
                  "constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;"):
         assert line in text, line
-    assert flash_attention.smem_bytes(128, 32, 128, 4) == 230_456 == \
-        1024 + 2 * 4 * 128 * 128 + 3 * 2 * 4 * 32 * 128 + 8 * 7
+    assert flash_attention.WGMMA_FORMS[128] == (2, 1)
+    for dh in flash_attention.WGMMA_DH:
+        stages, sets = flash_attention.WGMMA_FORMS[dh]
+        got = flash_attention.smem_bytes(128, 32, dh, 4)
+        assert got == 1024 + 2 * 4 * 128 * dh + (stages + sets) * 2 * 4 * 32 \
+            * dh + 8 * (2 * stages + 3 * sets) <= 232_448
+        # the source's layout, reckoned per width: two, three or four
+        # stages, one or two sets
+        assert got == {128: {(2, 1): 230_456},
+                       96: {(2, 1): 173_112, (3, 1): 197_704,
+                            (4, 1): 222_296, (2, 2): 197_712,
+                            (3, 2): 222_304},
+                       64: {(2, 1): 115_768, (3, 1): 132_168,
+                            (4, 1): 148_568, (2, 2): 132_176,
+                            (3, 2): 148_576}}[dh][stages, sets]
+        assert flash_attention.threads(128, dh) == \
+            flash_attention.WGMMA_THREADS == 384
     assert flash_attention.smem_bytes(128, 32, 120) == 230_456
-    assert flash_attention.threads(128, 128) == \
-        flash_attention.WGMMA_THREADS == 384
+    assert flash_attention.smem_bytes(128, 32, 80) == \
+        flash_attention.smem_bytes(128, 32, 96)
     assert 128 * 56 + 256 * 224 == 384 * flash_attention.WGMMA_REGISTERS
     assert flash_attention.WGMMA_REGISTERS == 65_536 // 384 // 8 * 8
     # Dh 256: a warp pair a 16 rows and the exchange, 16 x bk float32 a
@@ -327,6 +357,8 @@ def test_flash_attention_constants_are_the_sources():
     # a width between compiled ones takes its instance's layout
     assert flash_attention.smem_bytes(128, 32, 48) == \
         flash_attention.smem_bytes(128, 32, 64)
+    assert flash_attention.smem_bytes(128, 32, 24, 4) == \
+        flash_attention.smem_bytes(128, 32, 32, 4)
     assert flash_attention.smem_bytes(64, 32, 200) == 218_112
     cfg = KernelConfig("flash_attention", (128, 32), precision="bf16")
     assert smem_bytes(cfg, (32, 4096, 128)) == \
@@ -368,15 +400,22 @@ def test_candidates_respect_smem_budget_and_menu(kernel):
 def test_flash_candidates_follow_the_sequence_length():
     """Blocks larger than S or not dividing it are no candidates; a head
     width takes its own menu (a width between compiled ones its instance's;
+    float32 at the wgmma widths, and those padded to them, (128, 32) alone;
     Dh 256 (64, 32) alone), and one no instance runs leaves only the
     default."""
-    assert candidate_configs("flash_attention", (4, 96, 64)) == \
+    assert candidate_configs("flash_attention", (4, 96, 32)) == \
         [DEFAULTS["flash_attention"]]
-    got = {c.block for c in candidate_configs("flash_attention", (4, 192, 64))}
+    got = {c.block for c in candidate_configs("flash_attention", (4, 192, 32))}
+    assert got == {(64, 32), (64, 64)}
+    got = {c.block for c in candidate_configs("flash_attention", (4, 192, 64),
+                                              precision="bf16")}
     assert got == {(64, 32), (64, 64)}
     assert {c.block for c in candidate_configs(
-        "flash_attention", (4, 256, 48))} == \
+        "flash_attention", (4, 256, 24))} == \
         set(tuning.TILE_MENUS["flash_attention"])
+    for dh in (48, 64, 80, 96):
+        assert candidate_configs("flash_attention", (4, 256, dh)) == \
+            [KernelConfig("flash_attention", (128, 32))]
     for dh in (200, 256):
         assert candidate_configs("flash_attention", (4, 256, dh)) == \
             [KernelConfig("flash_attention", (64, 32))]

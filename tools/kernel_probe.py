@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -28,8 +29,9 @@ def edit(text: str, old: str, new: str, *, source: str) -> str:
 
 def build(variants: dict, prefix: str) -> dict:
     """Compile each variant's source text, one ``nvcc`` each, all started
-    together, into ``build/repro_torch/probe/<prefix><name>.so``; return
-    the loaded libraries by name."""
+    together, into ``build/repro_torch/probe/<prefix><name>.so``, the
+    compiler's report (``-Xptxas -v``) beside it as ``<prefix><name>.log``;
+    return the loaded libraries by name."""
     out = ops.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -43,10 +45,19 @@ def build(variants: dict, prefix: str) -> dict:
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
+        (out / f"{prefix}{name}.log").write_text(log)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(out / f"{prefix}{name}.so"))
     return libs
+
+
+def relabelled(text: str) -> str:
+    """SASS with its branch labels (``.L_x_<i>``, numbered across the
+    file) renumbered in the order they first appear in the function."""
+    order: dict = {}
+    return re.sub(r"\.L_x_\d+",
+                  lambda m: f".L{order.setdefault(m[0], len(order))}", text)
 
 
 def cuda_ms(fn, reps: int) -> float:

@@ -61,7 +61,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tools")]
 
-from kernel_probe import build, card, cuda_ms, edit as _edit  # noqa: E402
+from kernel_probe import (build, card, cuda_ms, edit as _edit,  # noqa: E402
+                          relabelled)
 from repro_torch.kernels import ops, sketch_fused  # noqa: E402
 
 MMA_SYNC_SOURCE = os.path.join(ROOT, "tools", "sketch_fused_mma_sync.cu")
@@ -193,15 +194,7 @@ def sass_by_function(lib) -> dict:
             out[fn] = []
         elif fn is not None:
             out[fn].append(" ".join(line.split()))   # the dump's padding
-    return {f: _relabelled("\n".join(lines)) for f, lines in out.items()}
-
-
-def _relabelled(text: str) -> str:
-    """SASS with its branch labels (``.L_x_<i>``, numbered across the
-    file) renumbered in the order they first appear in the function."""
-    order: dict = {}
-    return re.sub(r"\.L_x_\d+",
-                  lambda m: f".L{order.setdefault(m[0], len(order))}", text)
+    return {f: relabelled("\n".join(lines)) for f, lines in out.items()}
 
 
 def in_turns(first, second, reps: int = 3) -> dict:
