@@ -14,18 +14,19 @@ fails; nothing is caught:
    which must be positive in kernel 4's ``mma.sync`` instances and absent
    from kernel 1, ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads), which
    must be positive in both of kernel 1's instances and in kernel 4's
-   float32 Dh 64, 96 and 128 ones (``flash_fwd_wgmma<Dh>``; the prologues
-   ``sketch_pi_small`` and ``flash_vt<Dh>`` have neither), kernel 1's
-   float32 instance's registers, spills and shared memory beside the
-   clusters of each of its instances the card holds, kernel 4's registers
-   and spills per instance, the registers
+   float32 and bf16 Dh 64, 96 and 128 ones (``flash_fwd_wgmma<Dh>`` and
+   ``flash_fwd_wgmma_bf16<Dh>``; the prologues ``sketch_pi_small`` and
+   ``flash_vt<Dh>`` have neither), kernel 1's float32 instance's
+   registers, spills and shared memory beside the clusters of each of its
+   instances the card holds, kernel 4's registers and spills per
+   instance, the registers
    within the tuner's ``flash_attention.REGISTERS``, no spill at its
-   default tile nor in any Dh 16 or 256 instance (38 ``mma.sync``
-   instances: 2 bq x 2 bk x Dh 16, 32, 64, 96, 112 and 128, and (64, 32)
-   at Dh 256, x 2 dtypes, but float32 at Dh 64, 96 and 128), each wgmma
-   instance and its prologue at ``flash_attention.WGMMA_REGISTERS`` and
-   without a spill, with its form and shared memory, no ``wgmma``
-   serialised (ptxas's C7511, C7512, C7517, C7518), the build's seconds,
+   default tile nor in any Dh 16 or 256 instance (26 ``mma.sync``
+   instances: 2 bq x 2 bk x Dh 16, 32 and 112, and (64, 32) at Dh 256, x
+   2 dtypes), each wgmma instance (and each float32 one's prologue) at
+   ``flash_attention.WGMMA_REGISTERS`` and without a spill, with its form
+   and shared memory, no ``wgmma`` serialised (ptxas's C7511, C7512,
+   C7517, C7518), the build's seconds,
    and the tile each kernel resolves to through ``tuning.lookup`` (Dh 256:
    its own (64, 32));
 3. kernel 1 (``sketch_fused``) against its plain PyTorch version at d =
@@ -146,8 +147,9 @@ fails; nothing is caught:
     in the steady cells, shed rate, no build in the steady state);
     a trace of one warm serving flush; ``serve ...`` and ``trace ...``
     lines;
-12. kernel 4 (``flash_attention``, on the TF32 tensor cores; float32 at
-    Dh 128 on ``wgmma`` fed by TMA) against its
+12. kernel 4 (``flash_attention``: at Dh 64, 96 and 128 on ``wgmma`` fed
+    by TMA, TF32 for float32, bf16 for bf16; at the other widths on
+    ``mma.sync`` TF32) against its
     plain version on the JAX test shapes and the CPU tests' Dh 96, 112, 16
     and 256 shapes (causal and not, float32 and bf16, every tile compiled
     at the width) and at S = 4,096 with granite-3-8b's 32 query and 8 KV
@@ -156,27 +158,36 @@ fails; nothing is caught:
     16 query heads over 1 KV head of 256 and the reduced configs' 4 heads
     of 16, and at Dh 48, 200 and 50 (8 over 2 heads; widths between
     compiled ones, on a copy zero-padded to the next) with one launch a
-    call, all at ``FLASH_TOL``; Dh 264 and 320 refused before a launch;
+    call, all at ``FLASH_TOL``; each bf16 call on a ``wgmma`` instance
+    also within one bf16 ulp (plus the float32 ``FLASH_TOL``) of the plain
+    version's bf16 output and equal to it on all but
+    ``flash_attention.BF16_DIFFER_MAX`` of the entries; Dh 264 and 320
+    refused before a launch; with phase 13, the largest bf16 and float32
+    errors and the bf16 ``wgmma`` calls' largest share of entries that
+    differ;
 13. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
     read after it), against the plain version on every row, then bf16 and
     non-causal the same way;
 14. kernel 4's timings: every compiled tile at S = 32,768, float32 and
-    bf16 (float32 at Dh 128: the ``wgmma`` instance's one tile); that
-    instance's prologue alone (V^T, equal to ``flash_attention.vt_plain``),
-    its time and bytes, and the instance's shared memory; at S = 32,768
-    and 4,096, float32 and bf16, beside its plain
-    version, ``scaled_dot_product_attention`` and its bound: float32 on the
-    TF32 tensor cores (three split passes per product), with the float32
-    FMA units' figure beside it; bf16 at the bf16 tensor cores' rate, with
-    this design's two TF32 passes beside it; the same at S = 32,768 at the
-    tile ``tuning.lookup`` resolves for phi3-mini-3.8b's 32 heads of 96,
-    kimi-k2-1t-a32b's 64 query and 8 KV heads of 112, recurrentgemma-9b's
-    16 over 1 of 256 (tile (64, 32)), the reduced configs' 4 heads of
-    16 and whisper-small's 12 of 64; at phi3's and whisper's widths (the
-    float32 ``wgmma`` instances at Dh 96 and 64) the prologue alone too,
-    equal to ``vt_plain``, its time and the instance's shared memory;
+    bf16 (at Dh 128 each dtype's ``wgmma`` instance's one tile); the
+    float32 instance's prologue alone (V^T, equal to
+    ``flash_attention.vt_plain``), its time and bytes, and the instance's
+    shared memory; at S = 32,768 and 4,096, float32 and bf16, beside its
+    plain version, ``scaled_dot_product_attention`` and its bound: float32
+    on the TF32 tensor cores (three split passes per product), with the
+    float32 FMA units' figure beside it; bf16 at the bf16 tensor cores'
+    rate, with its design's floor beside it (the bf16 ``wgmma`` instance's
+    one bf16 pass on QK^T and two on PV; ``mma.sync``'s two TF32 passes a
+    product); the same at S = 32,768 at the tile ``tuning.lookup``
+    resolves for phi3-mini-3.8b's 32 heads of 96, kimi-k2-1t-a32b's 64
+    query and 8 KV heads of 112, recurrentgemma-9b's 16 over 1 of 256
+    (tile (64, 32)), the reduced configs' 4 heads of 16 and
+    whisper-small's 12 of 64; at phi3's and whisper's widths (the
+    ``wgmma`` instances at Dh 96 and 64) the float32 prologue alone too,
+    equal to ``vt_plain``, its time and the float32 instance's shared
+    memory, and the bf16 instance's form and shared memory;
 15. the kernel tuner: ``tuning.autotune(..., measure_top=3)`` on the card
     for all four kernels at ``benchmarks/run.py::kernel_sweep``'s shapes and
     the attention's full width, launch counters set to 0 before and read
@@ -390,6 +401,12 @@ BF16_HELD_COLUMNS = 4096
 # S = 32,768: the kernel's and the plain version's float32 sums of 32,768
 # terms differ by a few ulps of outputs that are at most max |v|.
 FLASH_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# flash_check's largest error by dtype since phase 12 began, and its bf16
+# wgmma calls' largest share of entries that differ from the plain
+# version's and largest excess over one bf16 ulp (flash_attention.
+# bf16_agreement)
+FLASH_MAX_ERR: dict = {}
+FLASH_BF16_AGREEMENT = {"share": 0.0, "excess": float("-inf")}
 # The estimation-engine phase at full width: 16 held-out probes (the middle
 # probe count of benchmarks/run.py::error_sweep: 4, 16, 64) and a co-sketch
 # of s = 2r = 10, the value of the JAX benchmark's refinement sweep
@@ -732,8 +749,9 @@ def sass_counts(ops, lib) -> dict:
 def flash_resources(lib) -> dict:
     """{(bq, bk, Dh, dtype): (registers, spilled bytes)} of each
     ``flash_fwd`` instance, under ("wgmma", Dh) and ("vt", Dh) those of
-    each ``flash_fwd_wgmma`` instance and its prologue ``flash_vt``, and
-    under "serialised" ptxas's notes that it serialised ``wgmma`` (C7511,
+    each float32 ``flash_fwd_wgmma`` instance and its prologue
+    ``flash_vt``, under ("wgmma_bf16", Dh) those of each
+    ``flash_fwd_wgmma_bf16`` instance, and under "serialised" ptxas's notes that it serialised ``wgmma`` (C7511,
     C7512, C7518) or injected a wait (C7517), from the ``-Xptxas -v``
     report kept beside the library."""
     log = lib.with_name(lib.name + ".log").read_text()
@@ -743,13 +761,15 @@ def flash_resources(lib) -> dict:
     for line in log.splitlines():
         m = re.search(r"flash_fwdILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E",
                       line)
-        w = re.search(r"(flash_fwd_wgmma|flash_vt)ILi(\d+)E", line)
+        w = re.search(r"(flash_fwd_wgmma_bf16|flash_fwd_wgmma|flash_vt)"
+                      r"ILi(\d+)E", line)
         if "Compiling entry function" in line:
             inst = None if m is None else (
                 int(m[1]), int(m[2]), int(m[3]),
                 "float32" if m[4] == "f" else "bfloat16")
             if w is not None:
-                inst = ("wgmma" if w[1] == "flash_fwd_wgmma" else "vt",
+                inst = ({"flash_fwd_wgmma": "wgmma", "flash_vt": "vt",
+                         "flash_fwd_wgmma_bf16": "wgmma_bf16"}[w[1]],
                         int(w[2]))
         elif inst is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
@@ -1244,10 +1264,31 @@ def flash_check(ops, q, k, v, causal, label, config=None, out=None):
     tol = FLASH_TOL[q.dtype]
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
+    FLASH_MAX_ERR[q.dtype] = max(FLASH_MAX_ERR.get(q.dtype, 0.0), err)
     excess = float((diff - tol * ref.float().abs()).max())
+    del diff
+    fa = ops.KERNELS["flash_attention"]
+    rounded = ""
+    if q.dtype == torch.bfloat16 and fa.design(q.shape[3], 2) == "wgmma":
+        # the design's float32 result rounded once: the plain version's
+        # bf16 output but for a few entries, each within one bf16 ulp
+        share, ulp_excess = fa.bf16_agreement(out, ref,
+                                              FLASH_TOL[torch.float32])
+        FLASH_BF16_AGREEMENT["share"] = max(FLASH_BF16_AGREEMENT["share"],
+                                            share)
+        FLASH_BF16_AGREEMENT["excess"] = max(
+            FLASH_BF16_AGREEMENT["excess"], ulp_excess)
+        rounded = (f"; differs from the plain version's bf16 on {share:.3e}"
+                   f" of entries (at most {fa.BF16_DIFFER_MAX}), excess "
+                   f"over 1 ulp + {FLASH_TOL[torch.float32]:.0e} "
+                   f"{ulp_excess:.3e} (at most 0)")
+        check(share <= fa.BF16_DIFFER_MAX and ulp_excess <= 0,
+              f"flash_attention {label}: bf16 differs on {share} of "
+              f"entries, {ulp_excess} past one ulp")
     print(f"flash_attention check {label} {tuple(q.shape)}/{tuple(k.shape)} "
           f"{str(q.dtype).split('.')[-1]} causal={causal}: max_abs_err="
-          f"{err:.3e} (tol {tol:.0e} + {tol:.0e} |ref|)", flush=True)
+          f"{err:.3e} (tol {tol:.0e} + {tol:.0e} |ref|){rounded}",
+          flush=True)
     check(excess <= tol, f"flash_attention {label}: err {err}")
     return err
 
@@ -1255,7 +1296,10 @@ def flash_check(ops, q, k, v, causal, label, config=None, out=None):
 def flash_timings(ops, q, kk, v, reps, label) -> dict:
     """Kernel 4 on (q, kk, v), causal at the tile ``tuning.lookup``
     resolves, in float32 and bf16: its time in turns with its plain
-    version, the library's (``sdpa_call``) and its bound; a ``timing
+    version, the library's (``sdpa_call``) in turns with it
+    (``kernel_ms_beside_library``: the kernel's in those turns), its
+    bound and its design's
+    floor (its tensor-core passes, ``flash_attention.PASSES``); a ``timing
     flash_attention{label}`` line a dtype. Returns the float32 record."""
     from repro_torch.kernels import tuning
     fa = ops.KERNELS["flash_attention"]
@@ -1270,28 +1314,37 @@ def flash_timings(ops, q, kk, v, reps, label) -> dict:
         k4_ms, k4_plain = turns(lambda: fa.plain(qd, kd, vd, True),
                                 lambda: ops.flash_attention(qd, kd, vd),
                                 reps=reps)
+        # the library in turns with the kernel, after a warm-up each, at
+        # least two calls a turn
         lib = sdpa_call(qd, kd, vd)
-        library_ms = cuda_ms(lib, reps=reps)
-        tf32_ms = bound(fa.PASSES[size] * flops, size * elems,
-                        PEAK_TF32_FLOPS)
+        k4_beside_lib, library_ms = turns(
+            lib, lambda: ops.flash_attention(qd, kd, vd), reps=max(reps, 2))
+        # the design's floor: its passes of each product at their type's
+        # rate
+        design = fa.design(Dh, size)
+        qk, pv, kind = fa.PASSES[design, size]
+        floor = bound((qk + pv) / 2 * flops, size * elems,
+                      PEAK_BF16_FLOPS if kind == "bf16" else PEAK_TF32_FLOPS)
         if size == 4:
             # float32-accurate: three split passes on the TF32 tensor
             # cores; the FMA units alone beside it
-            (k4_bound, k4_by), extra = tf32_ms, dict(
-                tf32_passes=fa.PASSES[4],
+            (k4_bound, k4_by), extra = floor, dict(
+                tf32_passes=qk,
                 fma_units_ms=bound(flops, size * elems, PEAK_F32_FLOPS)[0])
         else:
-            # bf16 inputs: the bf16 tensor cores' rate; this design's two
-            # TF32 passes beside it
+            # bf16 inputs: the bf16 tensor cores' rate; this design's
+            # floor beside it (wgmma: one bf16 pass on QK^T and two on PV;
+            # mma.sync: two TF32 passes a product)
             k4_bound, k4_by = bound(flops, size * elems, PEAK_BF16_FLOPS)
-            extra = dict(tf32_two_pass_ms=tf32_ms[0])
+            extra = dict(design=design, passes=[qk, pv, kind],
+                         floor_ms=floor[0])
         tile = tuning.lookup("flash_attention", (B * H, S, Dh),
                              dtype_bytes=size,
                              backend=tuning.backend_of(q.device)).block
         t = dict(S=S, heads=H, kv_heads=kk.shape[2], head_dim=Dh,
                  tile=list(tile), kernel_ms=k4_ms, plain_ms=k4_plain,
-                 library_ms=library_ms, bound_ms=k4_bound,
-                 bound_by=k4_by, **extra)
+                 library_ms=library_ms, kernel_ms_beside_library=k4_beside_lib,
+                 bound_ms=k4_bound, bound_by=k4_by, **extra)
         tag = label if dtype == torch.float32 else label + " bf16"
         print(f"timing flash_attention{tag} " + json.dumps(t), flush=True)
         if dtype == torch.float32:
@@ -2903,7 +2956,8 @@ def attention_bound_ms(cfg, B, P, fa, kv_len=None) -> float:
     flops = (2.0 if kv_len is None else 4.0) * B * cfg.n_heads * P * kv \
         * cfg.head_dim_
     elems = B * (2 * P * cfg.n_heads + 2 * kv * cfg.n_kv_heads) * cfg.head_dim_
-    return bound(fa.PASSES[4] * flops, 4 * elems, PEAK_TF32_FLOPS)[0]
+    qk, pv, _ = fa.PASSES["wgmma", 4]
+    return bound((qk + pv) / 2 * flops, 4 * elems, PEAK_TF32_FLOPS)[0]
 
 
 def prefill_bound(model, params, B, P, fa) -> dict:
@@ -4301,12 +4355,14 @@ def main(argv=None) -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     # both of sketch_fused's instances on wgmma (HGMMA) fed by TMA
     # (UTMALDG), after the float32 one's prologue (elementwise: no MMA);
-    # flash_attention's float32 Dh 64, 96 and 128 instances on wgmma fed by
-    # TMA, each after its prologue (a copy: no MMA), the others on mma.sync
+    # flash_attention's float32 and bf16 Dh 64, 96 and 128 instances on
+    # wgmma fed by TMA (the float32 ones each after its prologue, a copy:
+    # no MMA), the others on mma.sync
     fa = ops.KERNELS["flash_attention"]
     for name, tma_tags, prologue in (
             ("sketch_fused", ("f32_kernel", "bf16_kernel"), "sketch_pi_small"),
-            ("flash_attention", tuple(f"flash_fwd_wgmmaILi{dh}E"
+            ("flash_attention", tuple(f"flash_fwd_wgmma{kind}ILi{dh}E"
+                                      for kind in ("", "_bf16")
                                       for dh in fa.WGMMA_DH), "flash_vt")):
         sass = sass_counts(ops, paths[name])
         for fn, count in sass.items():
@@ -4342,23 +4398,35 @@ def main(argv=None) -> int:
     for inst, (regs, spill) in spills.items():
         print(f"  flash_attention instance bq,bk,Dh,dtype={inst}: {regs} "
               f"registers, {spill} bytes spilled", flush=True)
-    # the wgmma instances (float32 at Dh 64, 96 and 128) and their
-    # prologues: no spill, the launch's registers those the tuner models,
-    # no wgmma serialised
+    # the wgmma instances (float32 and bf16 at Dh 64, 96 and 128) and the
+    # float32 ones' prologues: no spill, the launch's registers those the
+    # tuner models, no wgmma serialised
     for dh in fa.WGMMA_DH:
         wg_regs, wg_spill = spills.pop(("wgmma", dh))
         vt_regs, vt_spill = spills.pop(("vt", dh))
+        form = fa.WGMMA_FORMS[4, dh]
         print(f"flash_attention wgmma instance Dh {dh}: {wg_regs} registers, "
               f"{wg_spill} bytes spilled; prologue {vt_regs} registers, "
               f"{vt_spill} bytes spilled; (stages, sets) "
-              f"{fa.WGMMA_FORMS[dh]}, {fa.smem_bytes(128, 32, dh)} bytes of "
-              f"shared memory",
+              f"{(form.stages, form.sets)}, {fa.smem_bytes(128, 32, dh)} "
+              f"bytes of shared memory",
               flush=True)
         check(wg_spill == 0 and vt_spill == 0
               and wg_regs == fa.WGMMA_REGISTERS,
               f"flash_attention wgmma instance Dh {dh}: {wg_regs} registers "
               f"(the tuner's {fa.WGMMA_REGISTERS}), {wg_spill} and "
               f"{vt_spill} bytes spilled")
+        bf_regs, bf_spill = spills.pop(("wgmma_bf16", dh))
+        form = fa.WGMMA_FORMS[2, dh]
+        print(f"flash_attention bf16 wgmma instance Dh {dh}: {bf_regs} "
+              f"registers, {bf_spill} bytes spilled; (bk, stages, swizzle) "
+              f"{(form.bk, form.stages, form.swizzle)}, "
+              f"{fa.smem_bytes(128, form.bk, dh, 2)} bytes of shared memory",
+              flush=True)
+        check(bf_spill == 0 and bf_regs == fa.WGMMA_REGISTERS,
+              f"flash_attention bf16 wgmma instance Dh {dh}: {bf_regs} "
+              f"registers (the tuner's {fa.WGMMA_REGISTERS}), {bf_spill} "
+              f"bytes spilled")
     check(not serialised,
           f"flash_attention: no wgmma serialised: {serialised}")
     table = fa.REGISTERS
@@ -4846,6 +4914,8 @@ def main(argv=None) -> int:
     # tests/kernels/test_flash_attention.py's shapes, then the Dh 96, 112,
     # 16 and 256 ones of tests/test_torch_flash_attention.py, at every tile
     # their width compiles
+    FLASH_MAX_ERR.clear()
+    FLASH_BF16_AGREEMENT.update(share=0.0, excess=float("-inf"))
     for shape in ((1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 2, 1, 128),
                   (1, 384, 3, 3, 64), (1, 256, 4, 2, 96), (1, 384, 2, 1, 112),
                   (1, 128, 4, 4, 16), (1, 256, 4, 1, 256)):
@@ -4922,6 +4992,14 @@ def main(argv=None) -> int:
     flash_check(ops, q, kk, v, False, "full width")
     flash_check(ops, q.to(torch.bfloat16), kk.to(torch.bfloat16),
                 v.to(torch.bfloat16), False, "full width")
+    print(f"flash_attention phases 12 and 13 [{card}]: largest error bf16 "
+          f"{FLASH_MAX_ERR[torch.bfloat16]:.3e} (tol "
+          f"{FLASH_TOL[torch.bfloat16]:.0e} + {FLASH_TOL[torch.bfloat16]:.0e}"
+          f" |ref|), float32 {FLASH_MAX_ERR[torch.float32]:.3e}; the bf16 "
+          f"wgmma calls differ from the plain version's bf16 on at most "
+          f"{FLASH_BF16_AGREEMENT['share']:.3e} of entries (limit "
+          f"{fa.BF16_DIFFER_MAX}), largest excess over 1 ulp "
+          f"{FLASH_BF16_AGREEMENT['excess']:.3e}", flush=True)
 
     # 14. kernel 4's timings ------------------------------------------------
     # every compiled tile at the full width, float32 and bf16, one call each
@@ -4965,6 +5043,13 @@ def main(argv=None) -> int:
     for arch, heads, kv_heads, dh, _ in WIDTH_LAYOUTS:
         q, kk, v = attention_inputs(gen, S_FULL, heads, kv_heads, dh, dev)
         flash_timings(ops, q, kk, v, 1, f" {arch} Dh {dh}")
+        if fa.on_wgmma(dh, 2):
+            form = fa.wgmma_form(dh, 2)
+            print(f"flash_attention bf16 wgmma instance {arch} Dh {dh}: "
+                  f"(bk, stages, swizzle) "
+                  f"{(form.bk, form.stages, form.swizzle)}, shared memory "
+                  f"{fa.smem_bytes(128, form.bk, dh, 2)} bytes a CTA, no "
+                  f"prologue", flush=True)
         if fa.on_wgmma(dh):
             vt = fa.vt_launch(fa_lib, v)
             check(torch.equal(vt, fa.vt_plain(v)),
@@ -4978,8 +5063,9 @@ def main(argv=None) -> int:
                   f"({vt_bytes / 1e6:.1f} MB read and written, "
                   f"{vt_bytes / vt_ms / 1e6:.1f} GB/s; bound "
                   f"{bound(0.0, vt_bytes, PEAK_TF32_FLOPS)[0]:.4f} ms), "
-                  f"{fa.WGMMA_FORMS[dh]} (stages, sets), shared memory "
-                  f"{fa.smem_bytes(128, 32, dh)} bytes a CTA", flush=True)
+                  f"{fa.WGMMA_FORMS[4, dh][1:3]} (stages, sets), shared "
+                  f"memory {fa.smem_bytes(128, 32, dh)} bytes a CTA",
+                  flush=True)
         del q, kk, v
         torch.cuda.empty_cache()
 

@@ -20,11 +20,14 @@
 // FLOP per head (QK^T and PV, half the square each): 8.80e12 at S = 32,768
 // with 32 heads of 128. float32-accurate on the TF32 tensor cores that is
 // three passes of each product (below), 26.4e12 FLOP, 53.3 ms at
-// 495 TFLOP/s; bf16 inputs take two passes, 35.6 ms. Its bytes take 0.4 ms,
-// its S^2 / 2 exponentials per head about 4 ms on the special-function
-// units; the float32 FMA units alone would take 131 ms.
+// 495 TFLOP/s; bf16 inputs on the bf16 tensor cores take one pass on QK^T
+// and two on PV (below), 13.3 ms at 989 TFLOP/s (the bound, one pass each,
+// 8.9 ms). Its bytes take 0.4 ms, its S^2 / 2 exponentials per head about
+// 4 ms on the special-function units; the float32 FMA units alone would
+// take 131 ms.
 //
-// Design:
+// Design of the mma.sync instances (Dh 16, 32, 112 and 256, float32 and
+// bf16; Dh 64, 96 and 128 have the wgmma designs at the end):
 //  * The TPU grid walks the k-blocks in order and carries the running max,
 //    denominator and accumulator in scratch from one grid step to the next.
 //    Blocks on a GPU run in parallel and in no order, so here one CTA owns
@@ -110,8 +113,8 @@
 //    67,584 bytes, two K/V stages 134,144, the exchange 16,384 (8 warps x 16
 //    x 32 float32): 218,112 of 232,448.
 //  * Tiles compiled: BQ in {64, 128} (128 or 256 threads), BK in {32, 64},
-//    at Dh in {16, 32, 64, 96, 112, 128} (float32 at Dh 64, 96 and 128: the
-//    wgmma instances' (128, 32) alone, below); at Dh 256 (64, 32) only
+//    at Dh in {16, 32, 112} (Dh 64, 96 and 128: the wgmma instances' one
+//    tile a dtype alone, below); at Dh 256 (64, 32) only
 //    (WIDE_BQ, WIDE_BK): (64, 64) takes 268,288 bytes of shared memory in
 //    float32 before the exchange and 235,520 in bf16 with it, over 232,448,
 //    and doubles S and P's registers, which already spill at BK 64 and
@@ -129,9 +132,10 @@
 //    moonshot-v1-16b-a3b, starcoder2-15b, llama-3.2-vision-11b; phi3-mini's
 //    at Dh 96, whisper-small's at Dh 64; and the float32 widths padded to
 //    them, 33 to 128 but 97 to 112) has its own design for Hopper,
-//    flash_fwd_wgmma<Dh>, and no mma.sync instance; the other instances
-//    (bf16 at every width, float32 at Dh 16, 32, 112 and 256) stay as
-//    above. flash_attention_f32_wgmma is its entry, wgmma_width the widths.
+//    flash_fwd_wgmma<Dh>, and no mma.sync instance; so has bf16 at those
+//    widths (flash_fwd_wgmma_bf16<Dh>, the next bullet); the other
+//    instances (float32 and bf16 at Dh 16, 32, 112 and 256) stay as above.
+//    flash_attention_f32_wgmma is its entry, wgmma_width the widths.
 //    - Products: wgmma.mma_async m64nNk8 .tf32, float32 sums. QK^T: A is
 //      the scaled Q tile, K-major in shared memory; B is K's tile, K-major
 //      as row-major K lies (N = BK = 32). PV: A is P from registers, B is
@@ -187,8 +191,53 @@
 //      parts (197,712), so its splitters write tile kt's while the
 //      consumers still read tile kt - 1's; Dh 64 three stages and one set
 //      (132,168).
-// The other instances: not wgmma or TMA yet. PERF.md has the kernel's times
-// against its bound and what holds it back (tools/flash_attention_probe.py).
+//  * bf16 at Dh 64, 96 and 128 (and the bf16 widths padded to them) has a
+//    design of its own, flash_fwd_wgmma_bf16<Dh>, entry
+//    flash_attention_bf16_wgmma: the float32 one's shape without its
+//    splits, its small parts and its prologue.
+//    - QK^T in one pass: wgmma.mma_async m64nBKk16 .bf16, float32 sums. A
+//      is Q's tile, K-major as row-major Q lies, loaded once a CTA by TMA;
+//      B is K's tile from the ring, K-major as row-major K lies. Products
+//      of bf16 values are exact in float32, so no split is needed. The
+//      scale goes on the float32 S (the TPU kernel scales q first: one
+//      float32 rounding in another place).
+//    - PV with P in two bf16 parts: hi = bf16(p), lo = bf16(p - hi) (p - hi
+//      is exact), about 2^-18 relative on P, float32 class
+//      (tests/test_torch_flash_attention.py emulates it against float64;
+//      one part misses the float32 tolerance, a third is not needed): two
+//      m64nDhk16 a k16 step, hi V and lo V, into a fresh accumulator a
+//      k-tile, added to O with one FFMA, as above. P comes from registers:
+//      the accumulator registers of 16 consecutive keys, packed into bf16
+//      pairs, are a k16 step's A fragment as they stand, keys in their
+//      natural order.
+//    - V read MN-major, no prologue: bf16 wgmma reads B from shared memory
+//      MN-major too (the transpose flag), so V's row-major (keys x Dh)
+//      tile serves as it lands: its descriptor steps 64- or 32-column
+//      chunks of Dh by the leading byte offset (BK rows of the swizzle a
+//      chunk) and 8-key groups by the stride byte offset. No V^T scratch;
+//      a call is one launch.
+//    - TMA: Q's, K's and V's tiles as boxes of one swizzle row's columns
+//      of 4-D maps over their strides (GQA read in place). The 128-byte
+//      swizzle holds 64 bf16 columns a row: Dh 128 is two boxes, Dh 64
+//      one. Dh 96 lies in the 64-byte swizzle, three boxes of 32 columns,
+//      so every chunk is whole (BForm's SWIZZLE; the wgmma descriptors
+//      name the same swizzle). K and V tiles fill a ring of
+//      BForm<Dh>::STAGES stages of BForm<Dh>::BK keys on mbarriers.
+//    - Warps, 384 threads: warpgroup 0 is the producer (setmaxnreg 40),
+//      lane 0 of warp 0 issuing the loads, no splitters; warpgroups 1 and
+//      2 (setmaxnreg 232) own 64 query rows each. The online softmax in
+//      the fragment layout, the causal stop at the diagonal tile with the
+//      mask in registers and the heaviest query tiles first are as above;
+//      the output is rounded to bf16 once.
+//    - Registers (a consumer thread): O Dh / 2, the fresh PV accumulator
+//      Dh / 2, S BK / 2, P's two parts BK / 4 each (at Dh 128, BK 128: 64
+//      + 64 + 64, S's dead once P is split, + 64).
+//    - Shared memory (BTile): 1,024 bytes to align the swizzle, Q's tile
+//      256 Dh bytes, each stage 4 BK Dh, two barriers a stage and Q's one:
+//      at Dh 128, BK 128, three stages 230,456 bytes.
+// The mma.sync instances: not wgmma or TMA yet. PERF.md has the kernel's
+// times against its bound and what holds it back
+// (tools/flash_attention_probe.py).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through
                    // the runtime's entry-point query (no libcuda link)
@@ -196,6 +245,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
 #include <type_traits>
 
 namespace {
@@ -1166,6 +1216,439 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instances at Dh 64, 96 and 128: TMA, bf16 wgmma, warp
+// specialisation (see the header).
+
+constexpr int B_PRODUCER_REGS = 40, B_CONSUMER_REGS = 232;  // setmaxnreg
+
+// Each bf16 width's form: the keys of its k-tile (BK, the N of QK^T), the
+// stages of its TMA ring (a K and a V tile each) and the swizzle its tiles
+// lie in, in bytes a swizzle row (128 holds 64 bf16 columns, 64 holds 32).
+// ptxas compiles every form the probe tries without serialising the wgmma;
+// each width takes its fastest in turns (tools/flash_attention_probe.py;
+// PERF.md): BK 64 runs 8% to 19% slower at Dh 64 and 128; the stage
+// counts lie within the noise of the forms below. Dh 96 lies in the
+// 64-byte swizzle, whose 32 columns divide it, so a PV step is one wgmma
+// (the 128-byte swizzle, chunks of 64 and 32 columns and a wgmma a chunk,
+// measured no faster).
+template <int DH> struct BForm;
+template <> struct BForm<64> { static constexpr int BK = 128, STAGES = 4, SWIZZLE = 128; };
+template <> struct BForm<96> { static constexpr int BK = 128, STAGES = 3, SWIZZLE = 64; };
+template <> struct BForm<128> { static constexpr int BK = 128, STAGES = 3, SWIZZLE = 128; };
+
+// The bf16 shared-memory layout at width DH: offsets from the 1,024-byte
+// boundary the swizzle repeats on. Each tile lies in DH / COLS chunks of
+// COLS columns, a chunk's rows SW bytes apart, as TMA writes a box of COLS
+// columns: Q's 128 rows, then the ring of K and V tiles.
+template <int DH>
+struct BTile {
+  static constexpr int BK = BForm<DH>::BK, STAGES = BForm<DH>::STAGES;
+  static constexpr int SW = BForm<DH>::SWIZZLE;
+  static constexpr int COLS = SW / 2;                // bf16 columns a chunk
+  static constexpr int CHUNKS = DH / COLS;
+  static constexpr int Q_CHUNK = W_BQ * SW;
+  static constexpr int KV_CHUNK = BK * SW;
+  static constexpr int Q_BYTES = CHUNKS * Q_CHUNK;
+  static constexpr int K_BYTES = CHUNKS * KV_CHUNK;  // and V's
+  static constexpr int STAGE = 2 * K_BYTES;
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_RING = OFF_Q + Q_BYTES;
+  static constexpr int OFF_BARS = OFF_RING + STAGES * STAGE;
+  static constexpr int BARRIERS = 2 * STAGES + 1;
+  static constexpr int SMEM = 1024 + OFF_BARS + 8 * BARRIERS;
+  static_assert((SW == 128 || SW == 64) && DH % COLS == 0,
+                "a row of a tile is CHUNKS whole swizzle rows");
+  static_assert((BK == 64 || BK == 128) && W_BQ % 64 == 0,
+                "QK^T is one m64nBKk16 a k16 step");
+  static_assert(SMEM <= 232448, "shared memory of one CTA");
+};
+
+// A wgmma descriptor of a tile in the SW-byte swizzle: rows of SW bytes,
+// 8-row groups 8 SW bytes apart; ``lbo`` bytes between chunks of columns
+// (an MN-major operand's N; a K-major one reads one chunk a wgmma).
+template <int SW>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(8 * SW >> 4) << 32 | (uint64_t)(SW == 128 ? 1 : 2) << 62;
+}
+
+// d = (accumulate ? d : 0) + a b: a 64 x 16 and b 16 x N, bf16, both
+// K-major in shared memory; float32 sums. QK^T at N = BK.
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d = (accumulate ? d : 0) + a b: a the 64 x 16 A fragment in registers
+// (bf16 pairs), b 16 x N MN-major in shared memory (the transpose flag);
+// float32 sums. PV at N = Dh.
+template <int N>
+__device__ __forceinline__ void wgmma_pv_bf16(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_pv_bf16<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv_bf16<96>(float (&d)[48],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv_bf16<128>(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// x and y rounded to the nearest bf16, x in the low half
+__device__ __forceinline__ uint32_t bf16_pair(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_fwd_wgmma_bf16(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     __nv_bfloat16* __restrict__ O, Params p) {
+  using Bt = BTile<DH>;
+  constexpr int BK = Bt::BK, STAGES = Bt::STAGES, STAGE = Bt::STAGE;
+  constexpr int SW = Bt::SW, COLS = Bt::COLS, K_BYTES = Bt::K_BYTES;
+  constexpr int ACC = DH / 2;   // a consumer thread's share of O, and of PV
+  constexpr int S_ACC = BK / 2;  // and of S
+  // its own name for the dynamic shared memory: a use of smem_raw here
+  // changes the code the compiler emits for the float32 wgmma kernels,
+  // which find their 1,024-byte boundary in it the same way
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  const uint32_t raw = smem_addr(smem_bf16);
+  unsigned char* const base = smem_bf16 + (1024u - raw % 1024u) % 1024u;
+  const uint32_t base_s = smem_addr(base);
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(base + Bt::OFF_BARS);
+  uint64_t* const full = bars;                  // a stage's tiles landed
+  uint64_t* const empty = bars + STAGES;        // the consumers are done
+  uint64_t* const q_full = bars + 2 * STAGES;   // Q's tile landed
+
+  const int tid = threadIdx.x;
+  // a shuffle tells the compiler the role is uniform across the warp
+  const int warp = __shfl_sync(FULL, tid / 32, 0);
+  const int lane = tid % 32;
+  const int64_t nqt = p.S / W_BQ;
+  const int64_t qt = nqt - 1 - (int64_t)blockIdx.x / p.BH;  // heaviest first
+  const int64_t bh = (int64_t)blockIdx.x % p.BH;
+  const int64_t b = bh / p.H;
+  const int64_t h = bh % p.H;
+  const int64_t kvh = h / (p.H / p.Hkv);
+  const int64_t q0 = qt * W_BQ;
+  const int64_t n_kt = p.causal ? (q0 + W_BQ - 1) / BK + 1 : p.S / BK;
+
+  if (tid == 0) {
+    // one arrival a warp: the consumers' 8
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W_CONSUMERS / 32);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // the producer warpgroup: one thread loads Q's tile once, then keeps
+    // the ring full, each tile as DH / COLS boxes of COLS columns
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(B_PRODUCER_REGS));
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_expect(q_full, Bt::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < Bt::CHUNKS; ++c)
+          tma_load_4d(&q_map, q_full, base_s + Bt::OFF_Q + c * Bt::Q_CHUNK,
+                      COLS * c, (int)q0, (int)h, (int)b);
+        for (int64_t kt = 0; kt < n_kt; ++kt) {
+          const int slot = (int)(kt % STAGES);
+          const uint32_t use = (uint32_t)(kt / STAGES);
+          mbar_wait(&empty[slot], (use & 1u) ^ 1u);
+          mbar_expect(&full[slot], STAGE);
+          const uint32_t stage = base_s + Bt::OFF_RING + slot * STAGE;
+          const int k0 = (int)(kt * BK);
+#pragma unroll
+          for (int c = 0; c < Bt::CHUNKS; ++c) {
+            tma_load_4d(&k_map, &full[slot], stage + c * Bt::KV_CHUNK,
+                        COLS * c, k0, (int)kvh, (int)b);
+            tma_load_4d(&v_map, &full[slot],
+                        stage + K_BYTES + c * Bt::KV_CHUNK, COLS * c, k0,
+                        (int)kvh, (int)b);
+          }
+        }
+      }
+    }
+  } else {
+    // the consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(B_CONSUMER_REGS));
+    const int wg = warp / 4 - 1;
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t q_s = base_s + Bt::OFF_Q + wg * 64 * SW;
+    // this thread's rows: r0 and r0 + 8 of the tile (hh = 0, 1 below)
+    const int r0 = 64 * wg + 16 * (warp % 4) + g;
+    const int64_t warp_first = q0 + 64 * wg + 16 * (warp % 4);
+    // the accumulators' layout: register 4 j + 2 hh + e holds row
+    // r0 + 8 hh, column 8 j + 2 t + e
+    float o[ACC], part[ACC], s[S_ACC], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    // P's bf16 parts as the PV product's A fragments: k16 step j is
+    // registers 4 j .. 4 j + 3
+    uint32_t p_hi[S_ACC / 2], p_lo[S_ACC / 2];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) o[i] = 0.f;
+    mbar_wait(q_full, 0u);
+
+    // acc = q k^T of tile kt once it lands, DH / 16 k16 steps of d in one
+    // bf16 pass (the products of bf16 values are exact in float32),
+    // issued and committed
+    auto issue_qk = [&](float (&acc)[S_ACC], int64_t kt) {
+      const int slot = (int)(kt % STAGES);
+      const uint32_t k_s = base_s + Bt::OFF_RING + slot * STAGE;
+      mbar_wait(&full[slot], (uint32_t)(kt / STAGES) & 1u);
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        // chunk c of d, 32 bytes a k16 step along its rows
+        const int c = kk / (COLS / 16), off = (kk % (COLS / 16)) * 32;
+        wgmma_qk<BK>(acc,
+                     sw_desc<SW>(pinned(q_s) + c * Bt::Q_CHUNK + off, 16),
+                     sw_desc<SW>(k_s + c * Bt::KV_CHUNK + off, 16), kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    for (int64_t kt = 0; kt < n_kt; ++kt) {
+      const int slot = (int)(kt % STAGES);
+      const uint32_t v_s = base_s + Bt::OFF_RING + slot * STAGE + K_BYTES;
+      const int64_t k0 = kt * BK;
+
+      // s = q k^T, then the scale in float32
+      issue_qk(s, kt);
+      wgmma_wait();
+      reg_fence(s);
+#pragma unroll
+      for (int i = 0; i < S_ACC; ++i) s[i] *= p.scale;
+
+      if (p.causal && k0 + BK - 1 > warp_first) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * t + (e & 1) > q0 + r0 + 8 * (e >> 1))
+              s[4 * j + e] = NEG;
+      }
+      // online softmax: new running max, correction, probabilities
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = fmaxf(s[2 * hh], s[2 * hh + 1]);
+#pragma unroll
+        for (int j = 1; j < BK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float mn = fmaxf(m[hh], mx);
+        corr[hh] = expf(m[hh] - mn);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          s[4 * j + 2 * hh] = expf(s[4 * j + 2 * hh] - mn);
+          s[4 * j + 2 * hh + 1] = expf(s[4 * j + 2 * hh + 1] - mn);
+          sum += s[4 * j + 2 * hh] + s[4 * j + 2 * hh + 1];
+        }
+        l[hh] = l[hh] * corr[hh] + sum;
+        m[hh] = mn;
+      }
+      // P in two bf16 parts, hi = bf16(p) and lo = bf16(p - hi) (p - hi is
+      // exact): the registers of 16 consecutive keys, paired, are a k16
+      // step's A fragment as they stand
+#pragma unroll
+      for (int i = 0; i < S_ACC / 2; ++i) {
+        p_hi[i] = bf16_pair(s[2 * i], s[2 * i + 1]);
+        p_lo[i] = bf16_pair(s[2 * i] - __uint_as_float(p_hi[i] << 16),
+                            s[2 * i + 1] -
+                                __uint_as_float(p_hi[i] & 0xffff0000u));
+      }
+
+      // part = P V over this k-tile into a fresh accumulator, hi and lo on
+      // the same V descriptor a k16 step; then o = o * corr + part
+      reg_fence(part);
+      reg_fence(p_hi);
+      reg_fence(p_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        const uint32_t a_hi[4] = {p_hi[4 * j], p_hi[4 * j + 1],
+                                  p_hi[4 * j + 2], p_hi[4 * j + 3]};
+        const uint32_t a_lo[4] = {p_lo[4 * j], p_lo[4 * j + 1],
+                                  p_lo[4 * j + 2], p_lo[4 * j + 3]};
+        const uint32_t v_j = v_s + j * 16 * SW;
+        const uint64_t v_desc = sw_desc<SW>(v_j, Bt::KV_CHUNK);
+        wgmma_pv_bf16<DH>(part, a_hi, v_desc, j > 0);
+        wgmma_pv_bf16<DH>(part, a_lo, v_desc, 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(part);
+      reg_fence(p_hi);
+      reg_fence(p_lo);
+      warp_arrive(&empty[slot]);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i)
+        o[i] = fmaf(o[i], corr[(i >> 1) & 1], part[i]);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float li = l[hh];
+      li += __shfl_xor_sync(FULL, li, 1);
+      li += __shfl_xor_sync(FULL, li, 2);
+      const float denom = fmaxf(li, 1e-30f);
+      const int64_t row = q0 + r0 + 8 * hh;
+      __nv_bfloat16* orow = O + ((b * p.S + row) * p.H + h) * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        store2(orow + 8 * j, o[4 * j + 2 * hh] / denom,
+               o[4 * j + 2 * hh + 1] / denom);
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -1264,6 +1747,71 @@ int run_wgmma(const float* q, const float* k, const float* v, float* vt,
   return (int)cudaGetLastError();
 }
 
+// A bf16 tensor of four dimensions (dims[0] contiguous, the others
+// `strides` bytes apart), in boxes of `box`, in the swizzle of `sw` bytes.
+bool encode_bf16(CUtensorMap* map, const void* base, const cuuint64_t* dims,
+                 const cuuint64_t* strides, const cuuint32_t* box, int sw) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 kernel at width DH: one launch, no prologue.
+template <int DH>
+int run_wgmma_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                   const __nv_bfloat16* v, __nv_bfloat16* o, const Params& p,
+                   int64_t B, cudaStream_t s) {
+  using Bt = BTile<DH>;
+  if (p.S % W_BQ || p.S % Bt::BK || p.S >= (1LL << 31) || B >= (1LL << 31) ||
+      p.H >= (1LL << 31) || (uintptr_t)q % 16 || (uintptr_t)k % 16 ||
+      (uintptr_t)v % 16 || p.sqb % 8 || p.sqs % 8 || p.sqh % 8 ||
+      p.skb % 8 || p.sks % 8 || p.skh % 8 || p.svb % 8 || p.svs % 8 ||
+      p.svh % 8)
+    return (int)cudaErrorInvalidValue;
+  // q, k and v each as (Dh, S, heads, B) through its strides (a stride of
+  // a dimension of one is never stepped: a multiple of 16 bytes stands in
+  // for it), Q's tile as DH / COLS boxes of 128 rows, K's and V's of BK
+  auto dims_of = [&](int64_t heads) {
+    return std::array<cuuint64_t, 4>{(cuuint64_t)DH, (cuuint64_t)p.S,
+                                     (cuuint64_t)heads, (cuuint64_t)B};
+  };
+  auto strides_of = [&](int64_t sb, int64_t ss, int64_t sh, int64_t heads) {
+    return std::array<cuuint64_t, 3>{
+        (cuuint64_t)ss * 2, (cuuint64_t)(heads > 1 ? sh : DH) * 2,
+        (cuuint64_t)(B > 1 ? sb : p.S * ss) * 2};
+  };
+  const auto q_dims = dims_of(p.H), kv_dims = dims_of(p.Hkv);
+  const auto q_strides = strides_of(p.sqb, p.sqs, p.sqh, p.H);
+  const auto k_strides = strides_of(p.skb, p.sks, p.skh, p.Hkv);
+  const auto v_strides = strides_of(p.svb, p.svs, p.svh, p.Hkv);
+  const cuuint32_t q_box[4] = {Bt::COLS, W_BQ, 1, 1};
+  const cuuint32_t kv_box[4] = {Bt::COLS, Bt::BK, 1, 1};
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_bf16(&q_map, q, q_dims.data(), q_strides.data(), q_box,
+                   Bt::SW) ||
+      !encode_bf16(&k_map, k, kv_dims.data(), k_strides.data(), kv_box,
+                   Bt::SW) ||
+      !encode_bf16(&v_map, v, kv_dims.data(), v_strides.data(), kv_box,
+                   Bt::SW))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Bt::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (p.S / W_BQ) * p.BH;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  flash_fwd_wgmma_bf16<DH><<<(unsigned)blocks, W_THREADS, Bt::SMEM, s>>>(
+      q_map, k_map, v_map, o, p);
+  return (int)cudaGetLastError();
+}
+
 template <int BQ, int BK, int DH, typename T>
 int launch_tile(const T* q, const T* k, const T* v, T* o, const Params& p,
                 cudaStream_t s) {
@@ -1282,10 +1830,9 @@ int launch_tile(const T* q, const T* k, const T* v, T* o, const Params& p,
 template <int BQ, int BK, int DH, typename T>
 int launch_width(const T* q, const T* k, const T* v, T* o, const Params& p,
                  cudaStream_t s) {
-  // float32 at the wgmma widths runs flash_fwd_wgmma
-  // (flash_attention_f32_wgmma)
-  if constexpr (compiled(BQ, BK, DH) &&
-                !(wgmma_width(DH) && std::is_same<T, float>::value))
+  // the wgmma widths run flash_fwd_wgmma (flash_attention_f32_wgmma) and
+  // flash_fwd_wgmma_bf16 (flash_attention_bf16_wgmma)
+  if constexpr (compiled(BQ, BK, DH) && !wgmma_width(DH))
     return launch_tile<BQ, BK, DH, T>(q, k, v, o, p, s);
   else
     return (int)cudaErrorInvalidValue;
@@ -1316,13 +1863,10 @@ int launch_bk(int64_t bk, int64_t dh, const T* q, const T* k, const T* v,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int run(const T* q, const T* k, const T* v, T* o, int64_t B, int64_t S,
-        int64_t H, int64_t Hkv, int64_t Dh, const int64_t* strides, float scale,
-        int64_t causal, int64_t bq, int64_t bk, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || bq <= 0 || bk <= 0 ||
-      H % Hkv || S % bq || S % bk)
-    return (int)cudaErrorInvalidValue;
+// The kernels' parameters: ``strides`` the (batch, sequence, head) strides
+// of q, k and v in elements.
+Params params(int64_t B, int64_t S, int64_t H, int64_t Hkv,
+              const int64_t* strides, float scale, int64_t causal) {
   Params p;
   p.S = S; p.H = H; p.Hkv = Hkv; p.BH = B * H;
   p.sqb = strides[0]; p.sqs = strides[1]; p.sqh = strides[2];
@@ -1330,6 +1874,17 @@ int run(const T* q, const T* k, const T* v, T* o, int64_t B, int64_t S,
   p.svb = strides[6]; p.svs = strides[7]; p.svh = strides[8];
   p.scale = scale;
   p.causal = causal ? 1 : 0;
+  return p;
+}
+
+template <typename T>
+int run(const T* q, const T* k, const T* v, T* o, int64_t B, int64_t S,
+        int64_t H, int64_t Hkv, int64_t Dh, const int64_t* strides, float scale,
+        int64_t causal, int64_t bq, int64_t bk, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || bq <= 0 || bk <= 0 ||
+      H % Hkv || S % bq || S % bk)
+    return (int)cudaErrorInvalidValue;
+  const Params p = params(B, S, H, Hkv, strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bq) {
     case 64: return launch_bk<64, T>(bk, Dh, q, k, v, o, p, s);
@@ -1371,13 +1926,7 @@ extern "C" int flash_attention_f32_wgmma(const float* q, const float* k,
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || bq != W_BQ ||
       bk != W_BK)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.S = S; p.H = H; p.Hkv = Hkv; p.BH = B * H;
-  p.sqb = strides[0]; p.sqs = strides[1]; p.sqh = strides[2];
-  p.skb = strides[3]; p.sks = strides[4]; p.skh = strides[5];
-  p.svb = strides[6]; p.svs = strides[7]; p.svh = strides[8];
-  p.scale = scale;
-  p.causal = causal ? 1 : 0;
+  const Params p = params(B, S, H, Hkv, strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 64: return run_wgmma<64>(q, k, v, vt, o, p, B, s);
@@ -1415,4 +1964,32 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     void* stream) {
   return run<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, Dh, strides, scale,
                             causal, bq, bk, stream);
+}
+
+// bf16 at Dh 64, 96 or 128 (flash_fwd_wgmma_bf16), the arguments of
+// flash_attention_bf16: one launch, no scratch. S a multiple of 128 and
+// of the width's BK, (bq, bk) = (128, BK), every stride a multiple of 8
+// elements and q, k, v 16-byte aligned.
+extern "C" int flash_attention_bf16_wgmma(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    __nv_bfloat16* o, int64_t B, int64_t S, int64_t H, int64_t Hkv,
+    int64_t Dh, const int64_t* strides, float scale, int64_t causal,
+    int64_t bq, int64_t bk, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || bq != W_BQ)
+    return (int)cudaErrorInvalidValue;
+  const Params p = params(B, S, H, Hkv, strides, scale, causal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      if (bk == BForm<64>::BK) return run_wgmma_bf16<64>(q, k, v, o, p, B, s);
+      break;
+    case 96:
+      if (bk == BForm<96>::BK) return run_wgmma_bf16<96>(q, k, v, o, p, B, s);
+      break;
+    case 128:
+      if (bk == BForm<128>::BK)
+        return run_wgmma_bf16<128>(q, k, v, o, p, B, s);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
 }

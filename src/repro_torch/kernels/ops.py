@@ -399,10 +399,10 @@ def srht_sketch_kernel(key: torch.Tensor, X: torch.Tensor, k: int
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the flash kernel reads it: unit stride along the last axis,
-    the other strides multiples of 4 elements, 16-byte aligned; a
-    contiguous copy otherwise."""
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
-            or t.data_ptr() % 16:
+    the other strides multiples of 16 bytes (TMA's rule), 16-byte aligned;
+    a contiguous copy otherwise."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+            any(s * t.element_size() % 16 for s in t.stride()[:-1]):
         return t.contiguous()
     return t
 
@@ -420,6 +420,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``flash_attention.tile_width``) in a copy of q, k and v, run with the
     scale of the true Dh, and the output sliced back.
     Blocks are ``min(block, S)`` of the resolved config and must divide S.
+    On the card the ``wgmma`` widths (Dh 64, 96 and 128 and the widths
+    padded to them, float32 and bf16) compile one tile of 128 query rows,
+    so there S must be a multiple of 128, else the call raises
+    ValueError: the kernel has no key-length mask, so only a causal call
+    can be padded (``models.attention.flash_prefill`` pads it).
     The kernel reads float32 or bf16 (a config's ``precision``, else bf16
     when q, k and v all are); the arithmetic is float32. It is forward
     only: with grad mode on and an input that requires grad it raises,

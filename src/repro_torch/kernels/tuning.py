@@ -8,14 +8,16 @@ kernels: the port of ``repro.kernels.tuning``.
   that are legal at a shape and fit the shared-memory budget of one CTA.
   The compiled tile menus take the place of the TPU's lane/sublane
   alignment: ``sketch_fused`` and ``blocked_fwht`` compile one tile each
-  today, ``flash_attention`` four.
+  today, ``flash_attention`` four at a width on ``mma.sync`` and one at a
+  width and dtype on ``wgmma``.
 * ``roofline_cost`` / ``rank_candidates``: a static cost model in the terms
   of ``repro_torch.roofline.analysis`` (bytes at ``HBM_BW``; FLOP at
   ``PEAK_TF32_FLOPS`` times the split passes for ``sketch_fused`` and
   ``flash_attention``, which run on the tensor cores, at
-  ``PEAK_BF16_FLOPS`` for ``sketch_fused``'s bf16 instance, and at
-  ``PEAK_F32_FLOPS`` for the others; stretched by the tail wave over 132
-  SMs), so the ranking is deterministic on any machine.
+  ``PEAK_BF16_FLOPS`` for ``sketch_fused``'s bf16 instance and
+  ``flash_attention``'s bf16 ``wgmma`` ones, and at ``PEAK_F32_FLOPS`` for
+  the others; stretched by the tail wave over 132 SMs), so the ranking is
+  deterministic on any machine.
 * ``autotune`` measures the best-ranked candidates on the card
   (``measure_config``, CUDA events) and records winners in a versioned JSON
   ``TuningTable`` (``kernels/tunings/<backend>.json``) keyed by
@@ -80,16 +82,19 @@ GRID_ORDERS: Dict[str, Tuple[str, ...]] = {
 }
 
 #: The tiles each source compiles: ``block`` must be one of these.
-#: flash_attention's are those of its ``mma.sync`` widths up to 128; a
-#: width's own menu is ``flash_attention.tiles(Dh, dtype_bytes)`` (float32
-#: at Dh 64, 96 and 128: the ``wgmma`` instances' one tile), and
-#: candidates and lookups keep to it.
+#: flash_attention's are those of its ``mma.sync`` widths up to 128, then
+#: those of its ``wgmma`` instances that are not among them; a width's own
+#: menu is ``flash_attention.tiles(Dh, dtype_bytes)`` (at Dh 64, 96 and
+#: 128: the ``wgmma`` instance's one tile for the dtype), and candidates
+#: and lookups keep to it.
 TILE_MENUS: Dict[str, Tuple[Tuple[int, ...], ...]] = {
     "sketch_fused": (_sketch_fused.TILE,),
     "blocked_fwht": (_hadamard.TILE,),
     "sampled_dot": ((),),
-    "flash_attention": tuple((bq, bk) for bq in _flash.BLOCK_Q
-                             for bk in _flash.BLOCK_K),
+    "flash_attention": tuple(dict.fromkeys(
+        [(bq, bk) for bq in _flash.BLOCK_Q for bk in _flash.BLOCK_K]
+        + [(_flash.WGMMA_BQ, form.bk)
+           for form in _flash.WGMMA_FORMS.values()])),
 }
 
 
@@ -291,8 +296,10 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
     """The static model the ranking runs on: the bytes and FLOP of the
     kernel as its source does the work: the tensor-core passes of
     ``sketch_fused`` (three for float32 inputs at the TF32 rate, one for
-    bf16 at the bf16 rate) and of ``flash_attention`` (three, or two for
-    bf16) at the TF32 rate, the
+    bf16 at the bf16 rate) and of ``flash_attention`` (its ``PASSES`` by
+    design: three TF32 passes a product for float32; for bf16 one on QK^T
+    and two on PV at the bf16 rate on ``wgmma``, two TF32 passes a product
+    on ``mma.sync``), the
     other kernels' float32 arithmetic at the FMA rate, whatever they read.
     CTAs resident per SM count threads and shared memory, and registers
     where a kernel's launch bounds let it take up to 255 a thread
@@ -361,12 +368,14 @@ def roofline_cost(cfg: KernelConfig, shape: Tuple[int, ...], *,
         # all at the compiled width (ops.flash_attention zero-pads to it)
         width = _flash.tile_width(Dh) if Dh <= _flash.MAX_HEAD_DIM else Dh
         hbm = 2 * BH * S * width * ds + 2 * BH * tiles * bk * width * ds
-        if _flash.on_wgmma(Dh, ds):
-            # its prologue: V read, V^T written
+        if _flash.on_wgmma(Dh, ds) and ds == 4:
+            # the float32 instance's prologue: V read, V^T written
             hbm += 2 * BH * S * width * ds
-        flops = _flash.PASSES[ds] * 4.0 * BH * tiles * bq * bk * width
+        qk, pv, kind = _flash.PASSES[_flash.design(Dh, ds), ds]
+        flops = (qk + pv) * 2.0 * BH * tiles * bq * bk * width
         ctas = BH * (S // bq)
     peak = (PEAK_BF16_FLOPS if cfg.kernel == "sketch_fused" and ds == 2
+            or cfg.kernel == "flash_attention" and kind == "bf16"
             else PEAK_TF32_FLOPS
             if cfg.kernel in ("sketch_fused", "flash_attention")
             else PEAK_F32_FLOPS)

@@ -713,10 +713,10 @@ def test_binomial_sampler_on_the_card_matches_the_cpu(card):
                                 + flash_attention.tiles(dh, 2))])
 def test_flash_kernel_matches_plain(card, bq, bk, dh):
     """Every compiled (tile, head width), causal and not, in each of float32
-    and bf16 that compiles the tile (at Dh 128 float32 has the wgmma
-    instance's (128, 32) alone), with GQA (4 query heads on 2 KV heads)
-    and q, k and v read in place from one packed (B, S, H + 2 Hkv, Dh)
-    tensor."""
+    and bf16 that compiles the tile (at Dh 64, 96 and 128 each dtype has
+    its wgmma instance's one tile alone), with GQA (4 query heads on 2 KV
+    heads) and q, k and v read in place from one packed (B, S, H + 2 Hkv,
+    Dh) tensor."""
     gen = torch.Generator(device=card).manual_seed(bq + bk + dh)
     B, S, H, Hkv = 2, 256, 4, 2
     packed = torch.randn(B, S, H + 2 * Hkv, dh, generator=gen, device=card)
@@ -737,7 +737,8 @@ def test_flash_kernel_matches_plain(card, bq, bk, dh):
                                        atol=FLASH_TOL[dtype])
 
 
-@pytest.mark.parametrize("dh", [64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 96, 128, 48, 120])
 @pytest.mark.parametrize("B,S,H,Hkv,causal", [
     (B, S, H, Hkv, causal)
     for B, S in ((1, 128), (2, 4096))        # one tile; B = 2
@@ -746,40 +747,95 @@ def test_flash_kernel_matches_plain(card, bq, bk, dh):
     (1, 300, 8, 2, True), (2, 1000, 4, 4, True),   # S flash_prefill pads
     (1, 256, 32, 32, True),                  # phi3-mini-3.8b's heads, MHA
     (2, 384, 12, 12, True),                  # whisper-small's heads, MHA
+    (1, 512, 12, 1, True), (1, 512, 12, 1, False),   # GQA 12:1
 ])
-def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal, dh):
-    """float32 at Dh 64, 96 and 128, the wgmma instances: q, k and v as
-    strided views of one (B, S, (H + 2 Hkv) Dh) projection, as the LM makes
-    them, through ``ops.flash_attention`` at its one tile (a multiple of
-    128 rows) or, for an S it pads, ``attention.flash_prefill`` (causal
-    only): one launch, within FLASH_TOL of the plain version. Its prologue
-    alone writes V^T equal to ``vt_plain``."""
+def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal, dh,
+                                            dtype):
+    """The wgmma instances, float32 and bf16 at Dh 64, 96 and 128 and at
+    the widths 48 and 120 padded to them: q, k and v as strided views of
+    one (B, S, (H + 2 Hkv) Dh) projection, as the LM makes them, through
+    ``ops.flash_attention`` at its one tile (a multiple of 128 rows) or,
+    for an S it pads, ``attention.flash_prefill`` (causal only): one
+    launch, within FLASH_TOL of the plain version. bf16 is held tighter
+    too (``flash_attention.bf16_agreement``): within one bf16 ulp, plus the
+    float32 FLASH_TOL, of the plain version's bf16 output everywhere, and
+    equal to it on all but ``BF16_DIFFER_MAX`` of the entries, which P
+    rounded once to bf16 would miss. At a compiled width the call
+    allocates its output and, in float32, the prologue's V^T (which the
+    prologue alone writes equal to ``vt_plain``); in bf16 nothing else."""
     from repro_torch.models import attention as attn
     gen = torch.Generator(device=card).manual_seed(S + H + Hkv + dh)
     proj = torch.randn(B, S, (H + 2 * Hkv) * dh, generator=gen,
-                       device=card)
+                       device=card).to(dtype)
     qkv = proj.view(B, S, H + 2 * Hkv, dh)
     q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
     before = ops.LAUNCHES["flash_attention"]
+    allocs = torch.cuda.memory_stats(card)["allocation.all.allocated"]
     if S % 128:
         out = attn.flash_prefill(q, k, v)
     else:
         out = ops.flash_attention(q, k, v, causal=causal)
+    allocated = torch.cuda.memory_stats(card)["allocation.all.allocated"] - \
+        allocs
     assert ops.LAUNCHES["flash_attention"] == before + 1
     ref = flash_attention.plain(q, k, v, causal)
-    assert out.shape == (B, S, H, dh) and out.dtype == torch.float32
-    torch.testing.assert_close(out, ref, rtol=FLASH_TOL[torch.float32],
-                               atol=FLASH_TOL[torch.float32])
-    if S % 64 == 0:
-        vt = flash_attention.vt_launch(ops._library("flash_attention"), v)
-        assert torch.equal(vt, flash_attention.vt_plain(v))
+    assert out.shape == (B, S, H, dh) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        share, excess = flash_attention.bf16_agreement(
+            out, ref, FLASH_TOL[torch.float32])
+        assert excess <= 0 and share <= flash_attention.BF16_DIFFER_MAX, \
+            (share, excess)
+    if dh in flash_attention.WGMMA_DH and S % 128 == 0:
+        assert allocated == (2 if dtype == torch.float32 else 1)
+        if dtype == torch.float32:
+            vt = flash_attention.vt_launch(ops._library("flash_attention"), v)
+            assert torch.equal(vt, flash_attention.vt_plain(v))
+
+
+@pytest.mark.parametrize("dh", [64, 96, 128])
+def test_flash_bf16_wgmma_reads_v_by_key_and_column(card, dh):
+    """bf16 at Dh 64, 96 and 128 reads V's tile MN-major as TMA lands it:
+    each query attends to one key alone (q_i is 32 k_pi(i), its score tens
+    above every other key's), so its output row is that key's V row.
+    With V's entries the key's index, and again the column's, both exact
+    in bf16, a V read transposed, from another key or from another column
+    (a swizzle undone wrongly) cannot give back either, across GQA 2:1 and
+    the k-tiles of S = 256 (keys up to 256 are exact in bf16)."""
+    gen = torch.Generator(device=card).manual_seed(dh)
+    B, S, H, Hkv = 1, 256, 4, 2
+    k = torch.randn(B, S, Hkv, dh, generator=gen, device=card).bfloat16()
+    pi = torch.randperm(S, generator=gen, device=card)
+    q = (32 * k[:, pi]).repeat_interleave(H // Hkv, dim=2)
+    keys = torch.arange(S, device=card, dtype=torch.float32)
+    cols = torch.arange(dh, device=card, dtype=torch.float32)
+    v_key = keys[None, :, None, None].expand(B, S, Hkv, dh).bfloat16()
+    v_col = cols.expand(B, S, Hkv, dh).bfloat16()
+    out_key = ops.flash_attention(q, k, v_key.contiguous(), causal=False)
+    out_col = ops.flash_attention(q, k, v_col.contiguous(), causal=False)
+    assert torch.equal(out_key.float(),
+                       pi.float()[None, :, None, None].expand(B, S, H, dh))
+    assert torch.equal(out_col.float(), cols.expand(B, S, H, dh))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 96, 128])
+def test_flash_bf16_wgmma_repeats_bit_for_bit(card, dh, causal):
+    """Two calls of a bf16 wgmma instance on the same inputs give the same
+    bits: a CTA's sums run in one fixed order."""
+    gen = torch.Generator(device=card).manual_seed(7 * dh)
+    q, k, v = (torch.randn(2, 1024, h, dh, generator=gen,
+                           device=card).bfloat16() for h in (8, 2, 2))
+    first = ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(first, ops.flash_attention(q, k, v, causal=causal))
 
 
 @pytest.mark.parametrize("dh", [48, 80, 200, 256, 50, 13])
 def test_head_widths_between_compiled_ones_launch_once(card, dh):
     """Widths between the compiled ones run on a copy zero-padded to the
     next wider instance (48 and 50 on Dh 64's, 80 on 96's, 200 on 256's,
-    13 on 16's; in float32 48, 50 and 80 on the wgmma instances), 256 on
+    13 on 16's; 48, 50 and 80 on the wgmma instances of either dtype), 256 on
     its warp pairs: one launch a call, the scale of the true Dh, within
     FLASH_TOL of the plain version, causal and not, float32 and bf16, GQA 4
     over 2 at the tile ``tuning.lookup`` resolves."""

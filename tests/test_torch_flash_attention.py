@@ -450,6 +450,111 @@ def test_wgmma_instance_passes_meet_the_flash_tolerance(wgmma_head):
     assert _excess(rough, exact, tol) > tol
 
 
+def _bf16(x):
+    """x rounded to the nearest bf16, as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16() \
+        .float().numpy()
+
+
+def _bf16_wgmma_sum(pairs, issued=None):
+    """sum_k a[:, k] b[k, :] as the bf16 wgmma instance adds it into one
+    fresh accumulator: one instruction a k16 step and pair (a step's pairs
+    in the order given), each adding its products of bf16 values, exact in
+    float32, summed exactly, and rounding toward zero. ``issued``: a list
+    to which the count of instructions is appended."""
+    frag = np.zeros((pairs[0][0].shape[0], pairs[0][1].shape[1]), np.float32)
+    count = 0
+    for k0 in range(0, pairs[0][0].shape[1], 16):
+        for a, b in pairs:
+            prod = a[:, k0:k0 + 16].astype(np.float64) @ \
+                b[k0:k0 + 16].astype(np.float64)
+            frag = _round_toward_zero(frag.astype(np.float64) + prod)
+            count += 1
+    if issued is not None:
+        issued.append(count)
+    return frag
+
+
+def _bf16_wgmma_attention(q, k, v, parts, bk=128, issued=None):
+    """flash_attention.cu's bf16 wgmma instance for one causal head on
+    bf16-valued q, k and v, before the output's rounding to bf16: QK^T in
+    one bf16 pass (Dh / 16 instructions into one fresh accumulator), the
+    scale applied to the float32 S; the online softmax in float32 per
+    k-tile of ``bk`` keys; P in ``parts`` bf16 parts (hi = bf16(p), lo =
+    bf16(p - hi), each remainder exact in float32); PV one instruction a
+    k16 step and part into a fresh accumulator a k-tile, added to O with
+    one rounding (the kernel's FFMA). ``issued`` (a dict) collects the
+    instructions of each k-tile's QK^T ("qk") and PV ("pv")."""
+    S, Dh = q.shape
+    scale = np.float32(1 / np.sqrt(Dh))
+    m = np.full((S, 1), -1e30, np.float32)
+    lsum = np.zeros((S, 1), np.float32)
+    o = np.zeros((S, Dh), np.float32)
+    for k0 in range(0, S, bk):
+        r = slice(k0, S)
+        s = _bf16_wgmma_sum([(q[r], k[k0:k0 + bk].T)],
+                            issued["qk"] if issued else None) * scale
+        s[k0 + np.arange(bk)[None, :] > np.arange(k0, S)[:, None]] = -1e30
+        mn = np.maximum(m[r], s.max(1, keepdims=True))
+        corr = np.exp(m[r] - mn)
+        p = np.exp(s - mn)
+        lsum[r] = lsum[r] * corr + p.sum(1, keepdims=True, dtype=np.float32)
+        m[r] = mn
+        split, rest = [], p
+        for _ in range(parts):
+            split.append(_bf16(rest))
+            rest = rest - split[-1]
+        part = _bf16_wgmma_sum([(x, v[k0:k0 + bk]) for x in split],
+                               issued["pv"] if issued else None)
+        o[r] = (o[r].astype(np.float64) * corr + part).astype(np.float32)
+    return o / np.maximum(lsum, np.float32(1e-30))
+
+
+def test_bf16_wgmma_passes_meet_the_flash_tolerance(wgmma_head):
+    """The bf16 instances on wgmma (Dh 64, 96 and 128) on bf16 q, k and v:
+    QK^T exact in one bf16 pass with the scale after, P in two bf16 parts
+    on the same V (one instruction a k16 step and part into a fresh
+    accumulator a 128-key tile), meet the float32 FLASH_TOL against
+    float64 before the output's rounding to bf16, so the output is the
+    reference's function rounded once. P in one bf16 part (2^-9 relative a
+    weight, as a flash kernel that rounds P to bf16 computes) misses it."""
+    q, k, v = (_bf16(x) for x in wgmma_head[:3])
+    exact = _exact_attention(q, k, v)
+    tol = TOL[torch.float32]
+    issued = {"qk": [], "pv": []}
+    two = _excess(_bf16_wgmma_attention(q, k, v, 2, issued=issued), exact, tol)
+    assert two <= tol / 10
+    S, Dh = q.shape
+    assert set(issued["qk"]) == {Dh // 16}
+    assert set(issued["pv"]) == {2 * 128 // 16}
+    assert len(issued["qk"]) == len(issued["pv"]) == S // 128
+    one = _excess(_bf16_wgmma_attention(q, k, v, 1), exact, tol)
+    assert one > tol
+
+
+def test_bf16_wgmma_rounds_as_the_plain_version(wgmma_head):
+    """The card tests' hold on the bf16 wgmma instances
+    (``flash_attention.bf16_agreement``): the design's output, rounded once
+    to bf16, is within one bf16 ulp (plus the float32 FLASH_TOL) of the
+    plain version's bf16 output on the same inputs everywhere and equal to
+    it on all but at most ``BF16_DIFFER_MAX`` of the entries. P in one
+    bf16 part fails both: it differs on tens of percent of the entries,
+    some by more than an ulp."""
+    q, k, v = (_bf16(x) for x in wgmma_head[:3])
+    ref = flash_attention.plain(*(torch.from_numpy(x)[None, :, None]
+                                  .bfloat16() for x in (q, k, v)), True)
+    tol = TOL[torch.float32]
+    got = {}
+    for parts in (2, 1):
+        out = torch.from_numpy(_bf16_wgmma_attention(q, k, v, parts))
+        got[parts] = flash_attention.bf16_agreement(
+            out[None, :, None].bfloat16(), ref, tol)
+    assert got[2][0] <= flash_attention.BF16_DIFFER_MAX / 2
+    assert got[2][1] <= 0
+    assert got[1][0] > 10 * flash_attention.BF16_DIFFER_MAX
+    assert got[1][1] > 0
+
+
 @pytest.fixture(scope="module")
 def wide_head():
     """One causal head of Dh = 256 at S = 1,024 from a numpy seed, and its
@@ -569,16 +674,16 @@ def test_vt_plain_is_v_transposed_in_the_fragment_key_order(dh):
 
 @pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("block", [(64, 32), (64, 64), (128, 32),
-                                   (128, 64)])
+                                   (128, 64), (128, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dh128_resolves_and_checks_tiles_by_the_kernel_dtype(
         monkeypatch, block, dtype, dh):
-    """At Dh 64, 96 and 128 float32 runs a wgmma instance, whose one tile
-    is (128, 32), and bf16 the mma.sync instances' four: the card's path
-    through ``ops.flash_attention`` (the launch stood in for by the
-    kernel's function) refuses a float32 tile off that menu before a
-    launch, takes the bf16 ones, and resolves no config to a tile the
-    kernel's dtype lacks."""
+    """At Dh 64, 96 and 128 each dtype runs a wgmma instance, whose one
+    tile is (128, bk) with the form's bk (float32 32, bf16 128): the card's
+    path through ``ops.flash_attention`` (the launch stood in for by the
+    kernel's function) refuses a tile off that menu before a launch, takes
+    the one on it, and resolves no config to a tile the kernel's dtype
+    lacks."""
     calls = []
 
     def launch(lib, q, k, v, causal, bq, bk, scale_dh=None):
@@ -592,23 +697,54 @@ def test_dh128_resolves_and_checks_tiles_by_the_kernel_dtype(
                for x in _qkv(1, 128, 2, 1, dh, seed=dh))
     cfg = tuning.KernelConfig("flash_attention", block)
     size = torch.empty((), dtype=dtype).element_size()
+    wgmma_tile = (128, {4: 32, 2: 128}[size])
     if block in flash_attention.tiles(dh, size):
         ops.flash_attention(q, k, v, config=cfg)
         assert calls == [(dtype, *block)]
     else:
-        assert dtype == torch.float32
         with pytest.raises(ValueError, match="compiled"):
             ops.flash_attention(q, k, v, config=cfg)
         assert calls == []
-    assert (block in flash_attention.tiles(dh, size)) == \
-        (dtype == torch.bfloat16 or block == (128, 32))
+    assert (block in flash_attention.tiles(dh, size)) == (block == wgmma_tile)
     got = tuning.lookup("flash_attention", (8, 4096, dh), dtype_bytes=size,
                         backend="cpu")
-    assert got.block in flash_attention.tiles(dh, size)
+    assert got.block == wgmma_tile
     assert {c.block for c in tuning.candidate_configs(
         "flash_attention", (8, 4096, dh),
-        precision=None if size == 4 else "bf16")} == \
-        set(flash_attention.tiles(dh, size))
+        precision=None if size == 4 else "bf16")} == {wgmma_tile}
+
+
+@pytest.mark.parametrize("dh", range(1, 257))
+def test_every_bf16_width_maps_to_its_instance(dh):
+    """Every bf16 width from 1 to 256: its compiled width, whether it runs
+    the bf16 wgmma instance (33 to 96 and 113 to 128: the widths that pad
+    to 64, 96 or 128) or an mma.sync one, its tiles, threads, shared memory
+    within the 232,448 bytes of a CTA and passes, as the float32 width does
+    where both run mma.sync."""
+    width = flash_attention.tile_width(dh)
+    wgmma = 33 <= dh <= 96 or 113 <= dh <= 128
+    assert flash_attention.on_wgmma(dh, 2) == wgmma
+    assert flash_attention.on_wgmma(dh, 4) == wgmma
+    assert flash_attention.design(dh, 2) == ("wgmma" if wgmma else
+                                             "mma.sync")
+    menu = flash_attention.tiles(dh, 2)
+    for bq, bk in menu:
+        assert flash_attention.smem_bytes(bq, bk, dh, 2) <= 232_448
+    if wgmma:
+        form = flash_attention.wgmma_form(dh, 2)
+        assert width in (64, 96, 128) and menu == ((128, form.bk),)
+        assert form.sets == 0 and form.swizzle == (64 if width == 96 else 128)
+        assert flash_attention.threads(128, dh, 2) == 384
+        assert flash_attention.PASSES["wgmma", 2] == (1, 2, "bf16")
+        assert flash_attention.ctas_per_sm(128, dh, 2) == 1
+    else:
+        assert menu == flash_attention.tiles(dh, 4) == \
+            flash_attention.tiles(width, 2)
+        assert all(flash_attention.threads(bq, dh, 2) ==
+                   flash_attention.threads(bq, dh, 4) == 2 * bq * (
+                       2 if width == 256 else 1) for bq, _ in menu)
+    bq, bk = tuning.default_config("flash_attention", (1, 4096, dh), 2).block
+    flash_attention.check_tile(bq, bk, dh, 2)
 
 
 def test_probe_edits_apply_to_the_kernel_source():
@@ -620,7 +756,8 @@ def test_probe_edits_apply_to_the_kernel_source():
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
     text = (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
-    for variant in (probe.no_copies, probe.no_mma, probe.no_split):
+    for variant in (probe.no_copies, probe.no_mma, probe.no_split,
+                    probe.p_once, probe.qk_ahead):
         assert variant(text) != text
     assert probe.MMA_ASM not in probe.no_mma(text)
     assert probe.REFILL not in probe.no_copies(text)
@@ -651,3 +788,44 @@ def test_probe_edits_apply_to_the_kernel_source():
     assert probe.wgmma_widths("constexpr int W_DH = 128, W_BQ = 128; "
                               "flash_attention_f32_wgmma") == (128,)
     assert probe.wgmma_widths("flash_attention_f32(") == ()
+    # the bf16 wgmma instances: their m64nNk16 instructions (QK^T's at N =
+    # BK, PV's at N = Dh), the second PV pass p_once drops, the QK^T of
+    # the next tile that qk_ahead issues before this tile's softmax, and
+    # their forms, each as the wrapper's WGMMA_FORMS
+    assert probe.wgmma_widths(text, torch.bfloat16) == \
+        flash_attention.WGMMA_DH
+    assert probe.wgmma_widths(text.replace("flash_attention_bf16_wgmma", ""),
+                              torch.bfloat16) == ()
+    assert all(op in text for op in probe.BF16_WGMMA_OPS)
+    assert not any(op in probe.no_mma(text) for op in probe.BF16_WGMMA_OPS)
+    assert probe.PV_LO not in probe.p_once(text)
+    assert "(part, a_hi, v_desc, j > 0);" in probe.p_once(text)
+    ahead = probe.qk_ahead(text)
+    assert probe.QK_NOW not in ahead
+    assert ahead.count("issue_qk(s_next, kt + 1);") == 1
+    assert ahead.count("s[i] = s_next[i];") == 1
+    # the float32 wgmma kernel's body is left as it is
+    f32 = slice(text.index("flash_fwd_wgmma("),
+                text.index("flash_fwd_wgmma_bf16("))
+    assert ahead[f32] == text[f32]
+    assert probe.bf16_forms(text) == {
+        dh: (form.bk, form.stages, form.swizzle)
+        for (size, dh), form in flash_attention.WGMMA_FORMS.items()
+        if size == 2}
+    bf16_forms = probe.bf16_form_variants(text)
+    assert bf16_forms and all(name.startswith("bf16_bk") for name in
+                              bf16_forms)
+    for name, variant in bf16_forms.items():
+        bk, stages = (int(x) for x in name[len("bf16_bk"):].split("_stages"))
+        got = probe.bf16_forms(variant)
+        for dh, (b, s, sw) in got.items():
+            assert sw == probe.bf16_forms(text)[dh][2]
+            assert ((b, s) == (bk, stages)) == probe.fits_bf16(bk, stages, dh)
+            assert probe.fits_bf16(b, s, dh)
+        assert probe.form_variants(variant).keys() == forms.keys()
+    assert probe.fits_bf16(128, 3, 128) and not probe.fits_bf16(128, 4, 128)
+    assert probe.fits_bf16(128, 4, 96) and not probe.fits_bf16(128, 5, 96)
+    for (size, dh), form in flash_attention.WGMMA_FORMS.items():
+        if size == 2:
+            assert probe.fits_bf16(form.bk, form.stages, dh)
+            assert flash_attention.smem_bytes(128, form.bk, dh, 2) <= 232_448

@@ -120,28 +120,41 @@ def test_menus_are_the_tiles_the_sources_compile():
         flash_src
     assert "SPLIT = DH > 128 ? 2 : 1;" in flash_src
     assert flash_attention.SPLIT_ABOVE == 128
+    mma_tiles = tuple((bq, bk) for bq in flash_attention.BLOCK_Q
+                      for bk in flash_attention.BLOCK_K)
+    assert tuning.TILE_MENUS["flash_attention"][:4] == mma_tiles
     for dh in flash_attention.HEAD_DIMS:
-        want = (tuning.TILE_MENUS["flash_attention"] if dh <= 128
-                else flash_attention.WIDE_TILES)
-        assert flash_attention.tiles(dh, 2) == want
-        assert flash_attention.tiles(dh, 4) == (
-            flash_attention.WGMMA_TILES if dh in (64, 96, 128) else want)
-    # the wgmma instances: float32 at Dh 64, 96 and 128, their one tile,
-    # each width's stages as the source's WForm, the entries' switches, and
-    # no mma.sync instance of those widths in float32
+        want = mma_tiles if dh <= 128 else flash_attention.WIDE_TILES
+        for size in (4, 2):
+            assert flash_attention.tiles(dh, size) == (
+                ((128, flash_attention.WGMMA_FORMS[size, dh].bk),)
+                if dh in (64, 96, 128) else want)
+            assert set(flash_attention.tiles(dh, size)) <= \
+                set(tuning.TILE_MENUS["flash_attention"])
+    # the wgmma instances: float32 and bf16 at Dh 64, 96 and 128, their one
+    # tile, each width's form as the source's WForm and BForm, the entries'
+    # switches, and no mma.sync instance of those widths
     assert "constexpr int W_BQ = 128, W_BK = 32;" in flash_src
     assert flash_attention.WGMMA_DH == (64, 96, 128)
-    assert flash_attention.WGMMA_TILES == ((128, 32),)
+    assert flash_attention.WGMMA_BQ == 128
     widths = re.search(r"bool wgmma_width\(int DH\) \{\s*return ([^;]*);",
                        flash_src)[1]
     assert tuple(int(w) for w in re.findall(r"DH == (\d+)", widths)) == \
         flash_attention.WGMMA_DH
-    for dh, (stages, sets) in flash_attention.WGMMA_FORMS.items():
-        assert f"struct WForm<{dh}> {{ static constexpr int STAGES = " \
-            f"{stages}, SETS = {sets}; }};" in flash_src, dh
+    for (size, dh), form in flash_attention.WGMMA_FORMS.items():
+        if size == 4:
+            assert form.bk == 32 and form.swizzle == 128
+            assert f"struct WForm<{dh}> {{ static constexpr int STAGES = " \
+                f"{form.stages}, SETS = {form.sets}; }};" in flash_src, dh
+        else:
+            assert form.sets == 0
+            assert f"struct BForm<{dh}> {{ static constexpr int BK = " \
+                f"{form.bk}, STAGES = {form.stages}, SWIZZLE = " \
+                f"{form.swizzle}; }};" in flash_src, dh
     assert cases("flash_attention_f32_wgmma") == \
+        cases("flash_attention_bf16_wgmma") == \
         cases("flash_attention_vt") == flash_attention.WGMMA_DH
-    assert "!(wgmma_width(DH) && std::is_same<T, float>::value)" in \
+    assert "if constexpr (compiled(BQ, BK, DH) && !wgmma_width(DH))" in \
         flash_src
     assert DEFAULTS["sketch_fused"].block == (128, 32)
     assert DEFAULTS["blocked_fwht"].block == (256, 32)
@@ -294,7 +307,9 @@ def test_flash_attention_constants_are_the_sources():
     text = (CSRC / "flash_attention.cu").read_text()
     assert f"constexpr int STAGES = {flash_attention.STAGES};" in text
     assert "std::is_same<T, float>::value ? 3 : 2;" in text
-    assert flash_attention.PASSES == {4: 3, 2: 2}
+    assert flash_attention.PASSES == {
+        ("mma.sync", 4): (3, 3, "tf32"), ("mma.sync", 2): (2, 2, "tf32"),
+        ("wgmma", 4): (3, 3, "tf32"), ("wgmma", 2): (1, 2, "bf16")}
     for line in ("LDQ = DH + 8;", "LDK = DH + 8;",
                  "LDV = DH + 16 / (int)sizeof(T);",
                  "BQ * LDQ * (int)sizeof(float) + STAGES * STAGE_ELEMS",
@@ -303,7 +318,7 @@ def test_flash_attention_constants_are_the_sources():
                  "XCH_FLOATS = SPLIT > 1 ? WARPS * 16 * BK : 0;",
                  "+ XCH_FLOATS * (int)sizeof(float);"):
         assert line in text, line
-    for bq, bk, dh, size in ((128, 32, 128, 2), (64, 64, 32, 2),
+    for bq, bk, dh, size in ((128, 32, 112, 2), (64, 64, 32, 2),
                              (64, 32, 16, 4), (128, 64, 16, 2)):
         ldk, ldv = dh + 8, dh + 16 // size
         assert flash_attention.smem_bytes(bq, bk, dh, size) == \
@@ -324,9 +339,9 @@ def test_flash_attention_constants_are_the_sources():
                  "constexpr int W_THREADS = 384;",
                  "constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;"):
         assert line in text, line
-    assert flash_attention.WGMMA_FORMS[128] == (2, 1)
+    assert flash_attention.WGMMA_FORMS[4, 128][1:3] == (2, 1)
     for dh in flash_attention.WGMMA_DH:
-        stages, sets = flash_attention.WGMMA_FORMS[dh]
+        _, stages, sets, _ = flash_attention.WGMMA_FORMS[4, dh]
         got = flash_attention.smem_bytes(128, 32, dh, 4)
         assert got == 1024 + 2 * 4 * 128 * dh + (stages + sets) * 2 * 4 * 32 \
             * dh + 8 * (2 * stages + 3 * sets) <= 232_448
@@ -363,6 +378,27 @@ def test_flash_attention_constants_are_the_sources():
     cfg = KernelConfig("flash_attention", (128, 32), precision="bf16")
     assert smem_bytes(cfg, (32, 4096, 128)) == \
         flash_attention.smem_bytes(128, 32, 128, 2)
+    # bf16 at Dh 64, 96 and 128, the bf16 wgmma instances (BTile): Q's tile
+    # and the form's stages of K and V tiles, each in Dh / COLS whole
+    # chunks of the swizzle's columns, two barriers a stage and Q's one,
+    # 1,024 bytes of alignment; no small parts, no V^T
+    for line in ("static constexpr int SMEM = 1024 + OFF_BARS + 8 * BARRIERS;",
+                 "static constexpr int STAGE = 2 * K_BYTES;",
+                 "static constexpr int OFF_BARS = OFF_RING + STAGES * STAGE;",
+                 "static constexpr int BARRIERS = 2 * STAGES + 1;",
+                 "static constexpr int CHUNKS = DH / COLS;",
+                 "static constexpr int Q_CHUNK = W_BQ * SW;",
+                 "static constexpr int KV_CHUNK = BK * SW;",
+                 "constexpr int B_PRODUCER_REGS = 40, B_CONSUMER_REGS = 232;"):
+        assert line in text, line
+    assert 128 * 40 + 256 * 232 <= 65_536
+    for dh in flash_attention.WGMMA_DH:
+        bk, stages, _, sw = flash_attention.WGMMA_FORMS[2, dh]
+        assert dh % (sw // 2) == 0
+        got = flash_attention.smem_bytes(128, bk, dh, 2)
+        assert got == 1024 + 2 * 128 * dh + stages * 2 * 2 * bk * dh + \
+            8 * (2 * stages + 1) <= 232_448
+        assert flash_attention.threads(128, dh, 2) == 384
 
 
 @pytest.mark.parametrize("precision,passes", [(None, 3), ("bf16", 1)])
@@ -392,9 +428,10 @@ def test_candidates_respect_smem_budget_and_menu(kernel):
         validate_config(cfg)
         assert smem_bytes(cfg, shape) <= tuning.SMEM_BUDGET_BYTES
     if kernel == "flash_attention":
-        # float32 at Dh 128: the wgmma instance's one tile; bf16 four
+        # at Dh 128 both dtypes run a wgmma instance, with its one tile
         assert [c.block for c in cands] == [DEFAULTS[kernel].block]
-        assert len(candidate_configs(kernel, shape, precision="bf16")) == 4
+        assert [c.block for c in candidate_configs(
+            kernel, shape, precision="bf16")] == [(128, 128)]
 
 
 def test_flash_candidates_follow_the_sequence_length():
@@ -407,15 +444,25 @@ def test_flash_candidates_follow_the_sequence_length():
         [DEFAULTS["flash_attention"]]
     got = {c.block for c in candidate_configs("flash_attention", (4, 192, 32))}
     assert got == {(64, 32), (64, 64)}
-    got = {c.block for c in candidate_configs("flash_attention", (4, 192, 64),
+    got = {c.block for c in candidate_configs("flash_attention", (4, 192, 32),
                                               precision="bf16")}
     assert got == {(64, 32), (64, 64)}
     assert {c.block for c in candidate_configs(
         "flash_attention", (4, 256, 24))} == \
-        set(tuning.TILE_MENUS["flash_attention"])
+        set(tuning.TILE_MENUS["flash_attention"][:4])
     for dh in (48, 64, 80, 96):
         assert candidate_configs("flash_attention", (4, 256, dh)) == \
             [KernelConfig("flash_attention", (128, 32))]
+        assert candidate_configs("flash_attention", (4, 256, dh),
+                                 precision="bf16") == \
+            [KernelConfig("flash_attention", (128, 128), precision="bf16")]
+    # the wgmma widths' one tile has 128 query rows: at S = 192 no tile
+    # of either dtype divides S there, so such a call raises before a
+    # launch (bf16 on mma.sync compiled (64, 32) and (64, 64) at Dh 64)
+    for precision in (None, "bf16"):
+        (cfg,) = candidate_configs("flash_attention", (4, 192, 64),
+                                   precision=precision)
+        assert 192 % cfg.block[0]
     for dh in (200, 256):
         assert candidate_configs("flash_attention", (4, 256, dh)) == \
             [KernelConfig("flash_attention", (64, 32))]
@@ -446,7 +493,9 @@ def test_roofline_cost_counts_the_causal_work():
     tiles the operations bound it; 64-row tiles read K and V twice as often,
     and the model's bytes (every K/V re-read counted) then outweigh them."""
     BH, S, Dh = SHAPES["flash_attention"]
-    exact = 2.0 * BH * S * S * Dh * flash_attention.PASSES[4]
+    qk, pv, kind = flash_attention.PASSES["wgmma", 4]
+    assert kind == "tf32"
+    exact = BH * S * S * Dh * (qk + pv)
     for cfg in candidate_configs("flash_attention", (BH, S, Dh)):
         bq, bk = cfg.block
         cost = tuning.roofline_cost(cfg, (BH, S, Dh))
@@ -458,36 +507,48 @@ def test_roofline_cost_counts_the_causal_work():
 
 
 def test_flash_cost_counts_two_passes_for_bf16():
-    """bf16 inputs: two TF32 passes per product (k and v are exact in
-    TF32), two thirds of float32's FLOP: 35.5 ms at the full width, plus
-    the masked halves of the diagonal tiles."""
+    """bf16 inputs on ``mma.sync`` (Dh 112): two TF32 passes per product (k
+    and v are exact in TF32), two thirds of float32's FLOP. On the bf16
+    ``wgmma`` instance (Dh 128): one bf16 pass on QK^T and two on PV, at
+    the bf16 rate: 13.3 ms at the full width, plus the masked halves of
+    the diagonal tiles, and no prologue's bytes."""
+    BH, S, _ = SHAPES["flash_attention"]
     cfg = KernelConfig("flash_attention", (128, 32))
-    f32 = tuning.roofline_cost(cfg, SHAPES["flash_attention"])
-    bf16 = tuning.roofline_cost(cfg._replace(precision="bf16"),
-                                SHAPES["flash_attention"])
+    f32 = tuning.roofline_cost(cfg, (BH, S, 112))
+    bf16 = tuning.roofline_cost(cfg._replace(precision="bf16"), (BH, S, 112))
     assert bf16.flops == pytest.approx(f32.flops * 2 / 3)
-    BH, S, Dh = SHAPES["flash_attention"]
+    assert bf16.t_compute == pytest.approx(bf16.flops / 495e12)
+    assert bf16.hbm_bytes == pytest.approx(f32.hbm_bytes / 2)
+    Dh = 128
+    cfg = KernelConfig("flash_attention", (128, 128), precision="bf16")
+    bf16 = tuning.roofline_cost(cfg, (BH, S, Dh))
+    assert flash_attention.PASSES["wgmma", 2] == (1, 2, "bf16")
+    assert bf16.t_compute == pytest.approx(bf16.flops / 989e12)
     assert bf16.t_compute == pytest.approx(
-        2 * 2.0 * BH * S * S * Dh / 495e12, rel=2 * 128 / S)
-    # float32's wgmma instance also reads V and writes V^T in its prologue
-    prologue = 2 * BH * S * Dh * 4
-    assert bf16.hbm_bytes == pytest.approx((f32.hbm_bytes - prologue) / 2)
+        3 * BH * S * S * Dh / 989e12, rel=2 * 128 / S)
+    assert bf16.t_compute == pytest.approx(13.3e-3, rel=1e-2)
+    # q in and o out once, K and V once a k-tile of each query tile
+    tiles = sum((qt * 128 + 127) // 128 + 1 for qt in range(S // 128))
+    assert bf16.hbm_bytes == 2 * BH * S * Dh * 2 + 2 * BH * tiles * 128 * \
+        Dh * 2
 
 
 def test_flash_cost_caps_ctas_by_registers():
     """The flash kernel's launch bounds let a thread take up to 255
     registers, so registers, not threads or shared memory, cap its CTAs
     per SM: one 128-row CTA at every head width, two 64-row ones at
-    Dh = 64, 96, 112 and 128, three at Dh = 32."""
+    Dh = 112, three at Dh = 32; the wgmma instances at Dh 64, 96 and 128,
+    in either dtype, one."""
     assert all(r <= 255 for r in flash_attention.REGISTERS.values())
-    assert sorted(flash_attention.REGISTERS) == \
-        sorted(flash_attention.HEAD_DIMS)
+    assert sorted(flash_attention.REGISTERS) == sorted(
+        set(flash_attention.HEAD_DIMS) - set(flash_attention.WGMMA_DH))
     assert [flash_attention.ctas_per_sm(128, dh)
             for dh in (32, 64, 96, 112, 128)] == [1, 1, 1, 1, 1]
     assert [flash_attention.ctas_per_sm(64, dh, 2)
-            for dh in (32, 64, 96, 112, 128)] == [3, 2, 2, 2, 2]
-    # the wgmma instance: 384 threads at 168 registers, one CTA an SM
-    assert flash_attention.ctas_per_sm(128, 128, 4) == 1
+            for dh in (32, 64, 96, 112, 128)] == [3, 1, 1, 2, 1]
+    # the wgmma instances: 384 threads at 168 registers, one CTA an SM
+    for size in (4, 2):
+        assert flash_attention.ctas_per_sm(128, 128, size) == 1
     # Dh 256's 64-row CTA is 8 warps at up to 255 registers: one an SM
     assert flash_attention.ctas_per_sm(64, 256) == 1
     assert flash_attention.ctas_per_sm(64, 200) == 1
@@ -502,17 +563,21 @@ def test_flash_cost_caps_ctas_by_registers():
 @pytest.mark.parametrize("precision", [None, "bf16"])
 def test_flash_model_ranks_a_128_row_tile_first_at_full_width(precision):
     """At granite-3-8b's layer (S = 32,768) the 128-row tiles were
-    measured fastest and (64, 64) slowest; the model's head is the
-    default, and (64, 64) is not first."""
+    measured fastest on the mma.sync design; both dtypes now run a wgmma
+    instance there, whose one 128-row tile the model ranks alone and
+    first."""
     ranked = rank_candidates("flash_attention", SHAPES["flash_attention"],
                              precision=precision,
                              dtype_bytes=2 if precision else 4)
-    assert ranked[0].block == DEFAULTS["flash_attention"].block
+    size = 2 if precision else 4
+    # both dtypes run a wgmma instance there, whose one tile is the
+    # default float32 keeps and bf16 resolves
+    assert ranked[0].block == flash_attention.tiles(128, size)[0] == \
+        tuning.default_config("flash_attention", SHAPES["flash_attention"],
+                              size).block
+    assert len(ranked) == 1
     if precision is None:
-        # float32 runs the wgmma instance, whose one tile is the default
-        assert len(ranked) == 1
-    else:
-        assert ranked[-1].block[0] == 64 and ranked[0].block != (64, 64)
+        assert ranked[0].block == DEFAULTS["flash_attention"].block
 
 
 def test_autotune_static_mode_returns_ranking_head():
