@@ -14,13 +14,14 @@ fails; nothing is caught:
    which must be positive in kernel 4's ``mma.sync`` instances and absent
    from kernel 1, ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA loads), which
    must be positive in both of kernel 1's instances and in kernel 4's
-   float32 and bf16 Dh 64, 96 and 128 ones (``flash_fwd_wgmma<Dh>`` and
-   ``flash_fwd_wgmma_bf16<Dh>``; the prologues ``sketch_pi_small`` and
-   ``flash_vt<Dh>`` have neither), kernel 1's float32 instance's
-   registers, spills and shared memory beside the clusters of each of its
-   instances the card holds, kernel 4's registers and spills per
-   instance, the registers
-   within the tuner's ``flash_attention.REGISTERS``, no spill at its
+   float32 and bf16 Dh 64, 96 and 128 ones (``flash_fwd_wgmma<Dh, M>``
+   and ``flash_fwd_wgmma_bf16<Dh, M>``, M true for the masked twin that
+   a call with ``kv_len`` below S runs; the prologues
+   ``sketch_pi_small`` and ``flash_vt<Dh>`` have neither), kernel 1's
+   float32 instance's registers, spills and shared memory beside the
+   clusters of each of its instances the card holds, kernel 4's
+   registers and spills per instance, the registers within the tuner's
+   ``flash_attention.REGISTERS``, no spill at its
    default tile nor in any Dh 16 or 256 instance (26 ``mma.sync``
    instances: 2 bq x 2 bk x Dh 16, 32 and 112, and (64, 32) at Dh 256, x
    2 dtypes), each wgmma instance (and each float32 one's prologue) at
@@ -162,9 +163,14 @@ fails; nothing is caught:
     also within one bf16 ulp (plus the float32 ``FLASH_TOL``) of the plain
     version's bf16 output and equal to it on all but
     ``flash_attention.BF16_DIFFER_MAX`` of the entries; Dh 264 and 320
-    refused before a launch; with phase 13, the largest bf16 and float32
-    errors and the bf16 ``wgmma`` calls' largest share of entries that
-    differ;
+    refused before a launch; the short sequences (``flash_short_s``): S =
+    1, 48, 100 and 127 at every compiled width, float32 and bf16, causal
+    and not, one launch a call on a copy zero-padded along S, held as
+    above against the plain version at S, direct launches with ``kv_len``
+    below S at every tile against the plain version with the same
+    ``kv_len``, and S = 160 refused before a launch (``flash_attention
+    short S`` line); with phase 13, the largest bf16 and float32 errors
+    and the bf16 ``wgmma`` calls' largest share of entries that differ;
 13. the attention path at full width: one granite-3-8b attention layer at
     ``prefill_32k``'s S = 32,768 (one sequence), causal, float32, through
     ``ops.flash_attention`` (launch counters set to 0 before the call and
@@ -183,8 +189,8 @@ fails; nothing is caught:
     product); the same at S = 32,768 at the tile ``tuning.lookup``
     resolves for phi3-mini-3.8b's 32 heads of 96, kimi-k2-1t-a32b's 64
     query and 8 KV heads of 112, recurrentgemma-9b's 16 over 1 of 256
-    (tile (64, 32)), the reduced configs' 4 heads of 16 and
-    whisper-small's 12 of 64; at phi3's and whisper's widths (the
+    (tile (64, 32)), the reduced configs' 4 heads of 16, 4 heads of 32
+    over 4 and whisper-small's 12 of 64; at phi3's and whisper's widths (the
     ``wgmma`` instances at Dh 96 and 64) the float32 prologue alone too,
     equal to ``vt_plain``, its time and the float32 instance's shared
     memory, and the bf16 instance's form and shared memory;
@@ -669,6 +675,7 @@ WIDTH_LAYOUTS = (("phi3-mini-3.8b", 32, 32, 96, 4),
                  ("kimi-k2-1t-a32b", 64, 8, 112, 1),
                  ("recurrentgemma-9b", 16, 1, 256, 1),
                  ("reduced", 4, 4, 16, 1),
+                 ("4-over-4", 4, 4, 32, 1),
                  ("whisper-small", 12, 12, 64, 4))
 # widths between compiled ones, which ops.flash_attention zero-pads in a
 # copy to the next compiled one (64, 256 and 64), 8 query heads over 2,
@@ -676,6 +683,13 @@ WIDTH_LAYOUTS = (("phi3-mini-3.8b", 32, 32, 96, 4),
 BETWEEN_WIDTHS = (48, 200, 50)
 # widths past 256, which no instance runs: refused before a launch
 REFUSED_WIDTHS = (264, 320)
+# S below 128, which the JAX wrapper runs as one block of S rows and the
+# card on a copy zero-padded along S with the keys past S masked; key
+# lengths of direct launches on 128 rows; one on 256 rows, whose mask falls
+# past the first tile; an S from 128 on that the reference refuses
+SHORT_S = (1, 48, 100, 127)
+DIRECT_KV = ((128, 1), (128, 100), (256, 200))
+REFUSED_S = 160
 # benchmarks/run.py::kernel_sweep's shapes (not the smoke ones), and the
 # attention's full width as (B * H, S, Dh).
 TUNE_SHAPES = {
@@ -751,26 +765,28 @@ def flash_resources(lib) -> dict:
     ``flash_fwd`` instance, under ("wgmma", Dh) and ("vt", Dh) those of
     each float32 ``flash_fwd_wgmma`` instance and its prologue
     ``flash_vt``, under ("wgmma_bf16", Dh) those of each
-    ``flash_fwd_wgmma_bf16`` instance, and under "serialised" ptxas's notes that it serialised ``wgmma`` (C7511,
-    C7512, C7518) or injected a wait (C7517), from the ``-Xptxas -v``
-    report kept beside the library."""
+    ``flash_fwd_wgmma_bf16`` instance ("wgmma_kv" and "wgmma_bf16_kv" the
+    masked instances that a call with ``kv_len`` below S runs), and under
+    "serialised" ptxas's notes that it serialised ``wgmma`` (C7511, C7512,
+    C7518) or injected a wait (C7517), from the ``-Xptxas -v`` report kept
+    beside the library."""
     log = lib.with_name(lib.name + ".log").read_text()
-    notes = re.findall(r"\((C751[1278])\).*?function '\w*?(flash_\w+?)E",
-                       log)
+    notes = re.findall(r"\((C751[1278])\).*?function '\w*?"
+                       r"(flash_\w+?E(?:Lb[01]E)?)", log)
     out, inst = {"serialised": [" ".join(n) for n in notes]}, None
     for line in log.splitlines():
         m = re.search(r"flash_fwdILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E",
                       line)
         w = re.search(r"(flash_fwd_wgmma_bf16|flash_fwd_wgmma|flash_vt)"
-                      r"ILi(\d+)E", line)
+                      r"ILi(\d+)E(Lb1E)?", line)
         if "Compiling entry function" in line:
             inst = None if m is None else (
                 int(m[1]), int(m[2]), int(m[3]),
                 "float32" if m[4] == "f" else "bfloat16")
             if w is not None:
                 inst = ({"flash_fwd_wgmma": "wgmma", "flash_vt": "vt",
-                         "flash_fwd_wgmma_bf16": "wgmma_bf16"}[w[1]],
-                        int(w[2]))
+                         "flash_fwd_wgmma_bf16": "wgmma_bf16"}[w[1]]
+                        + ("_kv" if w[3] else ""), int(w[2]))
         elif inst is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
             out[inst] = (None, spill)
@@ -1250,14 +1266,16 @@ def held_flash(ops, calls, label):
     return max(errs, default=0.0)
 
 
-def flash_check(ops, q, k, v, causal, label, config=None, out=None):
+def flash_check(ops, q, k, v, causal, label, config=None, out=None,
+                kv_len=None, verbose=True):
     """Kernel 4 against its plain version on every row (``out``: the
-    kernel's output if it ran already); returns the max abs err. Fails
-    unless |out - ref| <= tol + tol |ref| everywhere, the JAX test's
-    ``assert_allclose(rtol=tol, atol=tol)``."""
+    kernel's output if it ran already; ``kv_len``: the keys it saw, the
+    plain version's too); returns the max abs err. Fails unless |out -
+    ref| <= tol + tol |ref| everywhere, the JAX test's
+    ``assert_allclose(rtol=tol, atol=tol)``. ``verbose``: print a line."""
     if out is None:
         out = ops.flash_attention(q, k, v, causal=causal, config=config)
-    ref = ops.KERNELS["flash_attention"].plain(q, k, v, causal)
+    ref = ops.KERNELS["flash_attention"].plain(q, k, v, causal, kv_len)
     torch.cuda.synchronize()
     check(out.shape == ref.shape and out.dtype == ref.dtype,
           f"flash_attention {label} shape/dtype")
@@ -1285,12 +1303,94 @@ def flash_check(ops, q, k, v, causal, label, config=None, out=None):
         check(share <= fa.BF16_DIFFER_MAX and ulp_excess <= 0,
               f"flash_attention {label}: bf16 differs on {share} of "
               f"entries, {ulp_excess} past one ulp")
-    print(f"flash_attention check {label} {tuple(q.shape)}/{tuple(k.shape)} "
-          f"{str(q.dtype).split('.')[-1]} causal={causal}: max_abs_err="
-          f"{err:.3e} (tol {tol:.0e} + {tol:.0e} |ref|){rounded}",
-          flush=True)
-    check(excess <= tol, f"flash_attention {label}: err {err}")
+    if verbose:
+        print(f"flash_attention check {label} {tuple(q.shape)}/"
+              f"{tuple(k.shape)} {str(q.dtype).split('.')[-1]} causal="
+              f"{causal}: max_abs_err={err:.3e} (tol {tol:.0e} + {tol:.0e} "
+              f"|ref|){rounded}", flush=True)
+    check(excess <= tol, f"flash_attention {label} {tuple(q.shape)} "
+          f"{q.dtype} causal={causal} kv_len={kv_len}: err {err}")
     return err
+
+
+def flash_short_s(ops, gen, dev, card) -> None:
+    """Phase 12's short sequences. ``ops.flash_attention`` at each S of
+    ``SHORT_S`` (B = 2, 4 query heads over 2), every compiled width,
+    float32 and bf16, causal and not: one launch a call, held by
+    ``flash_check`` against the plain version at S (the bf16 ``wgmma``
+    calls also by ``bf16_agreement``). Then ``flash_attention.launch``
+    itself with ``kv_len`` below S (``DIRECT_KV``) at every tile compiled
+    at each width, on inputs random in every row, against the plain
+    version with the same ``kv_len``; and S = ``REFUSED_S`` refused before
+    a launch at every width. One ``flash_attention short S`` line."""
+    from repro_torch.kernels import tuning
+    fa = ops.KERNELS["flash_attention"]
+    lib = ops._library("flash_attention")
+    t0 = time.perf_counter()
+    calls = direct = 0
+    errs: dict = {}
+    # the bf16 wgmma calls' agreement over this block alone, merged back
+    # into the phase's after
+    before_block = dict(FLASH_BF16_AGREEMENT)
+    FLASH_BF16_AGREEMENT.update(share=0.0, excess=float("-inf"))
+    for dh in fa.HEAD_DIMS:
+        for S in SHORT_S:
+            q, kk, v = attention_inputs(gen, S, 4, 2, dh, dev, batch=2)
+            for dtype in (torch.float32, torch.bfloat16):
+                qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
+                for causal in (True, False):
+                    before = ops.LAUNCHES["flash_attention"]
+                    out = ops.flash_attention(qd, kd, vd, causal=causal)
+                    check(ops.LAUNCHES["flash_attention"] == before + 1,
+                          f"flash_attention S={S} Dh {dh}: one launch")
+                    err = flash_check(ops, qd, kd, vd, causal, f"S={S}",
+                                      out=out, verbose=False)
+                    errs[dtype] = max(errs.get(dtype, 0.0), err)
+                    calls += 1
+        for S, kv_len in DIRECT_KV:
+            q, kk, v = attention_inputs(gen, S, 4, 2, dh, dev, batch=2)
+            for dtype in (torch.float32, torch.bfloat16):
+                qd, kd, vd = (x.to(dtype) for x in (q, kk, v))
+                for bq, bk in fa.tiles(dh, dtype.itemsize):
+                    for causal in (True, False):
+                        out = fa.launch(lib, qd, kd, vd, causal, bq, bk,
+                                        kv_len=kv_len)
+                        err = flash_check(
+                            ops, qd, kd, vd, causal, f"kv_len={kv_len} tile "
+                            f"{(bq, bk)}", out=out, kv_len=kv_len,
+                            verbose=False)
+                        errs["direct"] = max(errs.get("direct", 0.0), err)
+                        direct += 1
+        q = torch.randn(1, REFUSED_S, 2, dh, generator=gen, device=dev)
+        before = ops.LAUNCHES["flash_attention"]
+        try:
+            ops.flash_attention(q, q, q)
+        except ValueError:
+            pass
+        else:
+            check(False, f"flash_attention refuses S={REFUSED_S} at Dh {dh}")
+        check(ops.LAUNCHES["flash_attention"] == before,
+              f"flash_attention S={REFUSED_S} Dh {dh}: no launch")
+    torch.cuda.synchronize()
+    tiles = {str(dtype).split(".")[-1]: {
+        dh: tuning.lookup("flash_attention", (8, SHORT_S[1], dh),
+                          dtype_bytes=dtype.itemsize,
+                          backend=tuning.backend_of(dev)).block
+        for dh in fa.HEAD_DIMS} for dtype in (torch.float32, torch.bfloat16)}
+    print(f"flash_attention short S [{card}] " + json.dumps(dict(
+        S=list(SHORT_S), widths=list(fa.HEAD_DIMS), calls=calls,
+        launches_a_call=1, tiles=tiles,
+        max_abs_err_f32=errs[torch.float32],
+        max_abs_err_bf16=errs[torch.bfloat16],
+        bf16_differ_share_max=FLASH_BF16_AGREEMENT["share"],
+        bf16_ulp_excess_max=FLASH_BF16_AGREEMENT["excess"],
+        direct_launches=direct, direct_kv=[list(x) for x in DIRECT_KV],
+        direct_max_abs_err=errs["direct"],
+        refused_S=REFUSED_S, refused_widths=list(fa.HEAD_DIMS),
+        phase_s=time.perf_counter() - t0)), flush=True)
+    for key in ("share", "excess"):
+        FLASH_BF16_AGREEMENT[key] = max(FLASH_BF16_AGREEMENT[key],
+                                        before_block[key])
 
 
 def flash_timings(ops, q, kk, v, reps, label) -> dict:
@@ -4361,9 +4461,10 @@ def main(argv=None) -> int:
     fa = ops.KERNELS["flash_attention"]
     for name, tma_tags, prologue in (
             ("sketch_fused", ("f32_kernel", "bf16_kernel"), "sketch_pi_small"),
-            ("flash_attention", tuple(f"flash_fwd_wgmma{kind}ILi{dh}E"
+            ("flash_attention", tuple(f"flash_fwd_wgmma{kind}ILi{dh}ELb{m}E"
                                       for kind in ("", "_bf16")
-                                      for dh in fa.WGMMA_DH), "flash_vt")):
+                                      for dh in fa.WGMMA_DH
+                                      for m in (0, 1)), "flash_vt")):
         sass = sass_counts(ops, paths[name])
         for fn, count in sass.items():
             print(f"  {name} SASS {fn}: " + ", ".join(
@@ -4398,35 +4499,37 @@ def main(argv=None) -> int:
     for inst, (regs, spill) in spills.items():
         print(f"  flash_attention instance bq,bk,Dh,dtype={inst}: {regs} "
               f"registers, {spill} bytes spilled", flush=True)
-    # the wgmma instances (float32 and bf16 at Dh 64, 96 and 128) and the
+    # the wgmma instances (float32 and bf16 at Dh 64, 96 and 128, each
+    # with its masked twin, "_kv", for calls with kv_len below S) and the
     # float32 ones' prologues: no spill, the launch's registers those the
     # tuner models, no wgmma serialised
     for dh in fa.WGMMA_DH:
-        wg_regs, wg_spill = spills.pop(("wgmma", dh))
         vt_regs, vt_spill = spills.pop(("vt", dh))
-        form = fa.WGMMA_FORMS[4, dh]
-        print(f"flash_attention wgmma instance Dh {dh}: {wg_regs} registers, "
-              f"{wg_spill} bytes spilled; prologue {vt_regs} registers, "
-              f"{vt_spill} bytes spilled; (stages, sets) "
-              f"{(form.stages, form.sets)}, {fa.smem_bytes(128, 32, dh)} "
-              f"bytes of shared memory",
-              flush=True)
-        check(wg_spill == 0 and vt_spill == 0
-              and wg_regs == fa.WGMMA_REGISTERS,
-              f"flash_attention wgmma instance Dh {dh}: {wg_regs} registers "
-              f"(the tuner's {fa.WGMMA_REGISTERS}), {wg_spill} and "
-              f"{vt_spill} bytes spilled")
-        bf_regs, bf_spill = spills.pop(("wgmma_bf16", dh))
-        form = fa.WGMMA_FORMS[2, dh]
-        print(f"flash_attention bf16 wgmma instance Dh {dh}: {bf_regs} "
-              f"registers, {bf_spill} bytes spilled; (bk, stages, swizzle) "
-              f"{(form.bk, form.stages, form.swizzle)}, "
-              f"{fa.smem_bytes(128, form.bk, dh, 2)} bytes of shared memory",
-              flush=True)
-        check(bf_spill == 0 and bf_regs == fa.WGMMA_REGISTERS,
-              f"flash_attention bf16 wgmma instance Dh {dh}: {bf_regs} "
-              f"registers (the tuner's {fa.WGMMA_REGISTERS}), {bf_spill} "
-              f"bytes spilled")
+        for kv in ("", "_kv"):
+            wg_regs, wg_spill = spills.pop(("wgmma" + kv, dh))
+            form = fa.WGMMA_FORMS[4, dh]
+            print(f"flash_attention wgmma{kv} instance Dh {dh}: {wg_regs} "
+                  f"registers, {wg_spill} bytes spilled; prologue "
+                  f"{vt_regs} registers, {vt_spill} bytes spilled; (stages, "
+                  f"sets) {(form.stages, form.sets)}, "
+                  f"{fa.smem_bytes(128, 32, dh)} bytes of shared memory",
+                  flush=True)
+            check(wg_spill == 0 and vt_spill == 0
+                  and wg_regs == fa.WGMMA_REGISTERS,
+                  f"flash_attention wgmma{kv} instance Dh {dh}: {wg_regs} "
+                  f"registers (the tuner's {fa.WGMMA_REGISTERS}), "
+                  f"{wg_spill} and {vt_spill} bytes spilled")
+            bf_regs, bf_spill = spills.pop(("wgmma_bf16" + kv, dh))
+            form = fa.WGMMA_FORMS[2, dh]
+            print(f"flash_attention bf16 wgmma{kv} instance Dh {dh}: "
+                  f"{bf_regs} registers, {bf_spill} bytes spilled; (bk, "
+                  f"stages, swizzle) {(form.bk, form.stages, form.swizzle)}, "
+                  f"{fa.smem_bytes(128, form.bk, dh, 2)} bytes of shared "
+                  f"memory", flush=True)
+            check(bf_spill == 0 and bf_regs == fa.WGMMA_REGISTERS,
+                  f"flash_attention bf16 wgmma{kv} instance Dh {dh}: "
+                  f"{bf_regs} registers (the tuner's {fa.WGMMA_REGISTERS}), "
+                  f"{bf_spill} bytes spilled")
     check(not serialised,
           f"flash_attention: no wgmma serialised: {serialised}")
     table = fa.REGISTERS
@@ -4945,6 +5048,7 @@ def main(argv=None) -> int:
             check(False, f"flash_attention refuses Dh {dh}")
         check(ops.LAUNCHES["flash_attention"] == before,
               f"flash_attention Dh {dh}: no launch")
+    flash_short_s(ops, gen, dev, card)
     for arch, heads, kv_heads, dh, batch in WIDTH_LAYOUTS:
         q, kk, v = attention_inputs(gen, S_TRAIN, heads, kv_heads, dh, dev,
                                     batch=batch)

@@ -87,6 +87,26 @@
 //    products of a diagonal tile that lies wholly past its rows, for the
 //    same reason. CTAs are numbered heaviest query tile first, so the short
 //    tiles fill the last wave.
+//  * Key length: a call may have fewer keys than S rows (kv_len, 1 to S).
+//    kernels/ops.py runs an S below 128, which the compiled tiles do not
+//    divide, on a copy of q, k and v zero-padded along S to a multiple of
+//    the tile, with kv_len the true S, and slices O back. Every design stops
+//    its key loop at the tile that holds key kv_len - 1 (key_tiles, beside
+//    the causal stop), and on that tile alone, where kv_len is not a
+//    multiple of BK, gives the keys from kv_len on the causal mask's -1e30:
+//    a branch uniform over the CTA, never taken when kv_len == S. Key 0
+//    is valid for every row, padded ones included, so no row is wholly
+//    masked and its running sum stays positive; the padded V rows are
+//    zeros, and their P is exactly 0. The mma.sync instances take the
+//    branch at run time. The wgmma designs compile each width twice
+//    (MASKED): the full-length instance, the design as it was, and a
+//    masked twin that the calls with kv_len below S run. Any key-length
+//    code in the full-length loop made ptxas serialise the float32 wgmma
+//    (C7511) at some widths; bf16 is split the same way, so that every
+//    full-length instance keeps its code. The float32 twin computes its
+//    lane's limit before the key loop or in it, width by width
+//    (limit_hoisted), the forms ptxas compiles without serialising
+//    (tools/flash_attention_probe.py; PERF.md).
 //  * Shared-memory pitches keep the fragment loads off shared banks: Q and
 //    K rows Dh + 8 elements, V rows Dh + 16 bytes. At every compiled Dh a
 //    float32 Q or K row starts 8 or 24 banks (mod 32) past the one before,
@@ -294,7 +314,20 @@ struct Params {
   int64_t sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;
   float scale;
   int causal;
+  // the keys a query sees, 1 to S: keys from kv_len on are masked (last,
+  // so that the other fields keep their offsets)
+  int64_t kv_len;
 };
+
+// Key tiles of BK keys a query tile at q0 of BQ rows runs: under causal,
+// up to the tile that holds its diagonal; never past the tile that holds
+// key kv_len - 1.
+template <int BQ, int BK>
+__device__ __forceinline__ int64_t key_tiles(const Params& p, int64_t q0) {
+  const int64_t diag = p.causal ? (q0 + BQ - 1) / BK + 1 : p.S / BK;
+  const int64_t keys = (p.kv_len + BK - 1) / BK;
+  return diag < keys ? diag : keys;
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -467,7 +500,7 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
-  const int64_t n_kt = p.causal ? (q0 + BQ - 1) / BK + 1 : p.S / BK;
+  const int64_t n_kt = key_tiles<BQ, BK>(p, q0);
   for (int64_t kt = 0; kt < n_kt; ++kt) {
     // tile kt has landed for everyone, and every warp is done with the slot
     // refilled below
@@ -530,6 +563,17 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
         for (int e = 0; e < 4; ++e)
           if (k0 + 8 * j + 2 * t + (e & 1) > q0 + r0 + 8 * (e >> 1))
             s[j][e] = NEG;
+    }
+    if (k0 + BK > p.kv_len) {
+      // the last key tile, where the keys end inside it: keys from kv_len
+      // on are masked (at Dh 256 both warps of a pair, on the same S);
+      // lim, this lane's first masked key less 8 j + e, is below BK
+      const int lim = (int)(p.kv_len - k0) - 2 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + (e & 1) >= lim) s[j][e] = NEG;
     }
 
     // online softmax: new running max, correction, probabilities
@@ -643,6 +687,11 @@ template <int DH> struct WForm;
 template <> struct WForm<64> { static constexpr int STAGES = 3, SETS = 1; };
 template <> struct WForm<96> { static constexpr int STAGES = 2, SETS = 2; };
 template <> struct WForm<128> { static constexpr int STAGES = 2, SETS = 1; };
+// A masked instance (a call with kv_len below S) computes its lane's key
+// limit before the key loop at these widths and inside it at Dh 96: of
+// the forms of its mask tried, the only ones ptxas compiles without
+// serialising the wgmma, width by width (PERF.md).
+__host__ __device__ constexpr bool limit_hoisted(int DH) { return DH != 96; }
 
 // The shared-memory layout at width DH: offsets from the 1,024-byte
 // boundary the swizzle repeats on.
@@ -948,7 +997,7 @@ flash_vt(const float* __restrict__ V, float* __restrict__ Vt, Params p) {
   }
 }
 
-template <int DH>
+template <int DH, bool MASKED>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap vt_map,
@@ -983,7 +1032,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
   const int64_t h = bh % p.H;
   const int64_t kvh = h / (p.H / p.Hkv);
   const int64_t q0 = qt * W_BQ;
-  const int64_t n_kt = p.causal ? (q0 + W_BQ - 1) / W_BK + 1 : p.S / W_BK;
+  // MASKED: the instance of the calls with kv_len < S (key_tiles and the
+  // mask below); the other is the full-length design as it was
+  const int kv_last = (int)p.kv_len - 2 * (threadIdx.x % 4);
+  const int64_t n_kt =
+      MASKED ? key_tiles<W_BQ, W_BK>(p, q0)
+             : p.causal ? (q0 + W_BQ - 1) / W_BK + 1 : p.S / W_BK;
 
   if (tid == 0) {
     // one arrival a warp: the splitters' 3, the consumers' 8
@@ -1130,6 +1184,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
           for (int e = 0; e < 4; ++e)
             if (k0 + 8 * j + 2 * t + (e & 1) > q0 + r0 + 8 * (e >> 1))
               s[4 * j + e] = NEG;
+      }
+      if constexpr (MASKED) {
+        if (k0 + W_BK > p.kv_len) {
+          // the last key tile, where the keys end inside it: keys from
+          // kv_len on are masked, each register by its key (S's natural
+          // order; P's slots are reordered after); lim as in flash_fwd,
+          // from kv_last, the lane's limit before the loop, where hoisted
+          const int lim = limit_hoisted(DH) ? kv_last - (int)k0
+                                            : (int)(p.kv_len - k0) - 2 * t;
+#pragma unroll
+          for (int j = 0; j < W_BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * j + (e & 1) >= lim) s[4 * j + e] = NEG;
+        }
       }
       // online softmax: new running max, correction, probabilities
       float corr[2];
@@ -1437,7 +1506,7 @@ __device__ __forceinline__ uint32_t bf16_pair(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int DH>
+template <int DH, bool MASKED>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_fwd_wgmma_bf16(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
@@ -1471,7 +1540,10 @@ flash_fwd_wgmma_bf16(const __grid_constant__ CUtensorMap q_map,
   const int64_t h = bh % p.H;
   const int64_t kvh = h / (p.H / p.Hkv);
   const int64_t q0 = qt * W_BQ;
-  const int64_t n_kt = p.causal ? (q0 + W_BQ - 1) / BK + 1 : p.S / BK;
+  // MASKED: as in flash_fwd_wgmma
+  const int64_t n_kt =
+      MASKED ? key_tiles<W_BQ, BK>(p, q0)
+             : p.causal ? (q0 + W_BQ - 1) / BK + 1 : p.S / BK;
 
   if (tid == 0) {
     // one arrival a warp: the consumers' 8
@@ -1571,6 +1643,18 @@ flash_fwd_wgmma_bf16(const __grid_constant__ CUtensorMap q_map,
           for (int e = 0; e < 4; ++e)
             if (k0 + 8 * j + 2 * t + (e & 1) > q0 + r0 + 8 * (e >> 1))
               s[4 * j + e] = NEG;
+      }
+      if constexpr (MASKED) {
+        if (k0 + BK > p.kv_len) {
+          // the last key tile, where the keys end inside it: keys from
+          // kv_len on are masked; lim as in flash_fwd
+          const int lim = (int)(p.kv_len - k0) - 2 * t;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * j + (e & 1) >= lim) s[4 * j + e] = NEG;
+        }
       }
       // online softmax: new running max, correction, probabilities
       float corr[2];
@@ -1736,14 +1820,17 @@ int run_wgmma(const float* q, const float* k, const float* v, float* vt,
   if (!encode_f32(&k_map, k, 4, k_dims, k_strides, k_box) ||
       !encode_f32(&vt_map, vt, 2, vt_dims, vt_strides, vt_box))
     return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
+  // the masked instance only where the keys end before S
+  const auto kernel = p.kv_len < p.S ? flash_fwd_wgmma<DH, true>
+                                     : flash_fwd_wgmma<DH, false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Wt::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (p.S / W_BQ) * p.BH;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_fwd_wgmma<DH><<<(unsigned)blocks, W_THREADS, Wt::SMEM, s>>>(
-      k_map, vt_map, q, o, p);
+  kernel<<<(unsigned)blocks, W_THREADS, Wt::SMEM, s>>>(k_map, vt_map, q, o,
+                                                       p);
   return (int)cudaGetLastError();
 }
 
@@ -1801,14 +1888,16 @@ int run_wgmma_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
       !encode_bf16(&v_map, v, kv_dims.data(), v_strides.data(), kv_box,
                    Bt::SW))
     return (int)cudaErrorInvalidValue;
+  // the masked instance only where the keys end before S
+  const auto kernel = p.kv_len < p.S ? flash_fwd_wgmma_bf16<DH, true>
+                                     : flash_fwd_wgmma_bf16<DH, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Bt::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bt::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (p.S / W_BQ) * p.BH;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_fwd_wgmma_bf16<DH><<<(unsigned)blocks, W_THREADS, Bt::SMEM, s>>>(
-      q_map, k_map, v_map, o, p);
+  kernel<<<(unsigned)blocks, W_THREADS, Bt::SMEM, s>>>(q_map, k_map, v_map, o,
+                                                       p);
   return (int)cudaGetLastError();
 }
 
@@ -1865,7 +1954,7 @@ int launch_bk(int64_t bk, int64_t dh, const T* q, const T* k, const T* v,
 
 // The kernels' parameters: ``strides`` the (batch, sequence, head) strides
 // of q, k and v in elements.
-Params params(int64_t B, int64_t S, int64_t H, int64_t Hkv,
+Params params(int64_t B, int64_t S, int64_t kv_len, int64_t H, int64_t Hkv,
               const int64_t* strides, float scale, int64_t causal) {
   Params p;
   p.S = S; p.H = H; p.Hkv = Hkv; p.BH = B * H;
@@ -1874,17 +1963,19 @@ Params params(int64_t B, int64_t S, int64_t H, int64_t Hkv,
   p.svb = strides[6]; p.svs = strides[7]; p.svh = strides[8];
   p.scale = scale;
   p.causal = causal ? 1 : 0;
+  p.kv_len = kv_len;
   return p;
 }
 
 template <typename T>
 int run(const T* q, const T* k, const T* v, T* o, int64_t B, int64_t S,
-        int64_t H, int64_t Hkv, int64_t Dh, const int64_t* strides, float scale,
-        int64_t causal, int64_t bq, int64_t bk, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || bq <= 0 || bk <= 0 ||
-      H % Hkv || S % bq || S % bk)
+        int64_t kv_len, int64_t H, int64_t Hkv, int64_t Dh,
+        const int64_t* strides, float scale, int64_t causal, int64_t bq,
+        int64_t bk, void* stream) {
+  if (B <= 0 || S <= 0 || kv_len < 1 || kv_len > S || H <= 0 || Hkv <= 0 ||
+      bq <= 0 || bk <= 0 || H % Hkv || S % bq || S % bk)
     return (int)cudaErrorInvalidValue;
-  const Params p = params(B, S, H, Hkv, strides, scale, causal);
+  const Params p = params(B, S, kv_len, H, Hkv, strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bq) {
     case 64: return launch_bk<64, T>(bk, Dh, q, k, v, o, p, s);
@@ -1898,17 +1989,21 @@ int run(const T* q, const T* k, const T* v, T* o, int64_t B, int64_t S,
 // Plain C entry points for ctypes. ``strides`` holds the (batch, sequence,
 // head) strides of q, k and v in elements, nine int64 values on the host;
 // Dh is a compiled width, ``scale`` 1/sqrt of the width the caller's
-// attention has (the wrapper's Dh before any zero padding). Each returns the cudaError_t of its launch (0 on success,
-// and cudaErrorInvalidValue for a shape or tile that is not compiled); it
+// attention has (the wrapper's Dh before any zero padding); ``kv_len``,
+// 1 to S, the keys every query sees (S but for a call the wrapper padded
+// along S: there the rows past kv_len are zeros it adds and drops). Each
+// returns the cudaError_t of its launch (0 on success, and
+// cudaErrorInvalidValue for a shape or tile that is not compiled); it
 // neither synchronises nor allocates.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int64_t B,
-                                   int64_t S, int64_t H, int64_t Hkv,
-                                   int64_t Dh, const int64_t* strides,
-                                   float scale, int64_t causal, int64_t bq,
-                                   int64_t bk, void* stream) {
-  return run<float>(q, k, v, o, B, S, H, Hkv, Dh, strides, scale, causal, bq,
-                    bk, stream);
+                                   int64_t S, int64_t kv_len, int64_t H,
+                                   int64_t Hkv, int64_t Dh,
+                                   const int64_t* strides, float scale,
+                                   int64_t causal, int64_t bq, int64_t bk,
+                                   void* stream) {
+  return run<float>(q, k, v, o, B, S, kv_len, H, Hkv, Dh, strides, scale,
+                    causal, bq, bk, stream);
 }
 
 // float32 at Dh 64, 96 or 128 (flash_fwd_wgmma), the arguments of
@@ -1918,15 +2013,15 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
 // 16-byte aligned.
 extern "C" int flash_attention_f32_wgmma(const float* q, const float* k,
                                          const float* v, float* vt, float* o,
-                                         int64_t B, int64_t S, int64_t H,
-                                         int64_t Hkv, int64_t Dh,
+                                         int64_t B, int64_t S, int64_t kv_len,
+                                         int64_t H, int64_t Hkv, int64_t Dh,
                                          const int64_t* strides, float scale,
                                          int64_t causal, int64_t bq,
                                          int64_t bk, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || bq != W_BQ ||
-      bk != W_BK)
+  if (B <= 0 || S <= 0 || kv_len < 1 || kv_len > S || H <= 0 || Hkv <= 0 ||
+      H % Hkv || bq != W_BQ || bk != W_BK)
     return (int)cudaErrorInvalidValue;
-  const Params p = params(B, S, H, Hkv, strides, scale, causal);
+  const Params p = params(B, S, kv_len, H, Hkv, strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 64: return run_wgmma<64>(q, k, v, vt, o, p, B, s);
@@ -1957,13 +2052,13 @@ extern "C" int flash_attention_vt(const float* v, float* vt, int64_t B,
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, __nv_bfloat16* o,
-                                    int64_t B, int64_t S, int64_t H,
-                                    int64_t Hkv, int64_t Dh,
+                                    int64_t B, int64_t S, int64_t kv_len,
+                                    int64_t H, int64_t Hkv, int64_t Dh,
                                     const int64_t* strides, float scale,
                                     int64_t causal, int64_t bq, int64_t bk,
                                     void* stream) {
-  return run<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, Dh, strides, scale,
-                            causal, bq, bk, stream);
+  return run<__nv_bfloat16>(q, k, v, o, B, S, kv_len, H, Hkv, Dh, strides,
+                            scale, causal, bq, bk, stream);
 }
 
 // bf16 at Dh 64, 96 or 128 (flash_fwd_wgmma_bf16), the arguments of
@@ -1972,12 +2067,13 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
 // elements and q, k, v 16-byte aligned.
 extern "C" int flash_attention_bf16_wgmma(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    __nv_bfloat16* o, int64_t B, int64_t S, int64_t H, int64_t Hkv,
-    int64_t Dh, const int64_t* strides, float scale, int64_t causal,
-    int64_t bq, int64_t bk, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || bq != W_BQ)
+    __nv_bfloat16* o, int64_t B, int64_t S, int64_t kv_len, int64_t H,
+    int64_t Hkv, int64_t Dh, const int64_t* strides, float scale,
+    int64_t causal, int64_t bq, int64_t bk, void* stream) {
+  if (B <= 0 || S <= 0 || kv_len < 1 || kv_len > S || H <= 0 || Hkv <= 0 ||
+      H % Hkv || bq != W_BQ)
     return (int)cudaErrorInvalidValue;
-  const Params p = params(B, S, H, Hkv, strides, scale, causal);
+  const Params p = params(B, S, kv_len, H, Hkv, strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 64:

@@ -56,6 +56,14 @@ query rows over a pair of warps, one for each half of d and of O, which
 add their partial scores through shared memory; it compiles the tile
 (64, 32) only (``tiles``).
 
+Sequence lengths: an S the tile divides runs as it is. An S below
+``SHORT_S``, which the reference runs as one block of S rows, runs on a
+copy zero-padded along S (``seq_padding``) with ``kv_len`` = S: every
+design stops its key loop at the tile holding key S - 1 and masks the keys
+from S on to -1e30 on that tile, as the causal mask does (the ``wgmma``
+designs in a masked twin of each instance, so that the full-length ones
+keep their code).
+
 ``plain`` is the PyTorch version of the same function; ``kernels/ops.py``
 chooses between the two and counts launches.
 """
@@ -79,6 +87,9 @@ REPLACES = "src/repro/kernels/flash_attention.py:78"
 BLOCK_Q = (64, 128)
 BLOCK_K = (32, 64)
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
+#: Below this S the reference runs one block of S rows (its default block,
+#: (128, 128), clamped to S), and the card a copy zero-padded along S.
+SHORT_S = 128
 #: The widest head the kernel takes; ``tile_width`` maps a width to the
 #: smallest compiled one at least as wide.
 MAX_HEAD_DIM = 256
@@ -247,16 +258,25 @@ def check_tile(bq: int, bk: int, dh: int, dtype_bytes: int = 4) -> None:
             f"{tiles(dh, dtype_bytes)})")
 
 
+def seq_padding(S: int, block: tuple) -> int:
+    """Zero rows the card's path adds along S to a call at S with the
+    tile ``block`` (bq, bk): up to the next multiple of its larger block
+    where S is below ``SHORT_S`` (128 on a ``wgmma`` instance, 64 or 128 on
+    an ``mma.sync`` one), none from there on, where the tile divides S."""
+    return -S % max(block) if S < SHORT_S else 0
+
+
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          causal: bool = True) -> torch.Tensor:
+          causal: bool = True, kv_len: int | None = None) -> torch.Tensor:
     """The plain version on the kernel's layout: repeat the KV heads for
-    GQA, fold (B, H), ``ref.flash_attention_ref``, unfold."""
+    GQA, fold (B, H), ``ref.flash_attention_ref`` (keys from ``kv_len`` on,
+    default S, take no weight), unfold."""
     B, S, H, Dh = q.shape
     rep = H // k.shape[2]
     fold = lambda t: t.transpose(1, 2).reshape(B * H, S, Dh)
     out = flash_attention_ref(fold(q), fold(k.repeat_interleave(rep, dim=2)),
                               fold(v.repeat_interleave(rep, dim=2)),
-                              causal=causal)
+                              causal=causal, kv_len=kv_len)
     return out.reshape(B, H, S, Dh).transpose(1, 2)
 
 
@@ -343,8 +363,9 @@ def trace_cost(q, k, v, causal: bool):
 
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the argument and result types of the library's entry points."""
-    rest = [_I64, _I64, _I64, _I64, _I64, _P, ctypes.c_float, _I64, _I64,
-            _I64, _P]
+    # B, S, kv_len, H, Hkv, Dh, strides, scale, causal, bq, bk, stream
+    rest = [_I64, _I64, _I64, _I64, _I64, _I64, _P, ctypes.c_float, _I64,
+            _I64, _I64, _P]
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P, *rest]
@@ -362,14 +383,17 @@ def bind(lib: ctypes.CDLL) -> None:
 
 def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, causal: bool, bq: int, bk: int,
-           scale_dh: int | None = None) -> torch.Tensor:
+           scale_dh: int | None = None,
+           kv_len: int | None = None) -> torch.Tensor:
     """Run the kernel on CUDA tensors of one dtype (float32 or bfloat16):
     q (B, S, H, Dh), k and v (B, S, Hkv, Dh), Dh in ``HEAD_DIMS``, unit
     stride along Dh, every other stride a multiple of 16 bytes and every
     pointer 16-byte aligned; H % Hkv == 0, S divisible by bq and bk, and
     the tile compiled at Dh. The scale is 1/sqrt(``scale_dh``), the width
-    before any zero padding (default Dh). Returns o (B, S, H, Dh),
-    contiguous, in q's dtype, on the current stream without synchronising.
+    before any zero padding (default Dh); every query sees keys 0 to
+    ``kv_len`` - 1 (1 <= kv_len <= S, default S), the rest masked. Returns
+    o (B, S, H, Dh), contiguous, in q's dtype, on the current stream
+    without synchronising.
     On a float32 ``wgmma`` instance it also allocates the prologue's V^T
     scratch, (B, Hkv, Dh, S) float32: the prologue and the kernel are one
     call here. A bf16 ``wgmma`` instance is one launch and takes no
@@ -379,7 +403,8 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tail = (B, S, H, k.shape[2], Dh, ctypes.cast(strides, ctypes.c_void_p),
+    tail = (B, S, S if kv_len is None else kv_len, H, k.shape[2], Dh,
+            ctypes.cast(strides, ctypes.c_void_p),
             1.0 / math.sqrt(scale_dh or Dh), int(causal), bq, bk, stream)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     entry = _ENTRY[q.dtype]
@@ -396,11 +421,11 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     return o
 
 
-__all__ = ["plain", "bf16_agreement", "vt_plain", "vt_launch", "bind",
-           "launch", "check_tile", "tile_width", "tiles", "on_wgmma",
+__all__ = ["plain", "seq_padding", "bf16_agreement", "vt_plain", "vt_launch",
+           "bind", "launch", "check_tile", "tile_width", "tiles", "on_wgmma",
            "design", "wgmma_form", "split", "smem_bytes", "threads",
-           "ctas_per_sm", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "MAX_HEAD_DIM",
-           "WIDE_TILES", "SPLIT_ABOVE", "STAGES", "PASSES", "REGISTERS",
-           "WForm", "WGMMA_FORMS", "WGMMA_DH", "WGMMA_BQ", "WGMMA_THREADS",
-           "WGMMA_REGISTERS", "BF16_DIFFER_MAX", "VT_ORDER", "SOURCE",
-           "REPLACES"]
+           "ctas_per_sm", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "SHORT_S",
+           "MAX_HEAD_DIM", "WIDE_TILES", "SPLIT_ABOVE", "STAGES", "PASSES",
+           "REGISTERS", "WForm", "WGMMA_FORMS", "WGMMA_DH", "WGMMA_BQ",
+           "WGMMA_THREADS", "WGMMA_REGISTERS", "BF16_DIFFER_MAX", "VT_ORDER",
+           "SOURCE", "REPLACES"]

@@ -419,12 +419,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     that is not compiled is zero-padded to the next compiled width
     (``flash_attention.tile_width``) in a copy of q, k and v, run with the
     scale of the true Dh, and the output sliced back.
-    Blocks are ``min(block, S)`` of the resolved config and must divide S.
-    On the card the ``wgmma`` widths (Dh 64, 96 and 128 and the widths
-    padded to them, float32 and bf16) compile one tile of 128 query rows,
-    so there S must be a multiple of 128, else the call raises
-    ValueError: the kernel has no key-length mask, so only a causal call
-    can be padded (``models.attention.flash_prefill`` pads it).
+    S is what the JAX wrapper takes: any S from 1 to 127 (the reference
+    runs it as one block of S rows), and from 128 on an S that the
+    resolved config's blocks, ``min(block, S)``, divide; any other S
+    raises ValueError before a launch. On the card an S below 128 runs on
+    one copy of q, k and v zero-padded along S to a multiple of the tile's
+    larger block (``flash_attention.seq_padding``; with the width's zero
+    padding, if any, in the same copy), with the keys past S masked in the
+    kernel, and the output's first S rows come back: one launch.
     The kernel reads float32 or bf16 (a config's ``precision``, else bf16
     when q, k and v all are); the arithmetic is float32. It is forward
     only: with grad mode on and an input that requires grad it raises,
@@ -448,24 +450,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cfg = _resolved("flash_attention", (B * H, S, Dh), q, config,
                     dtype=_kernel_dtype(q, k, v, precision=config and
                                         config.precision))
+    # from SHORT_S on the blocks divide S, as the reference's must; below
+    # it the card runs the tile itself on a copy padded along S
     bq, bk = (min(b, S) for b in cfg.block)
-    if S == 0 or S % bq or S % bk:
+    if S == 0 or (S >= _flash.SHORT_S and (S % bq or S % bk)):
         raise ValueError(f"flash_attention: S={S} not divisible by blocks "
                          f"(bq={bq}, bk={bk})")
     dtype = _kernel_dtype(q, k, v, precision=cfg.precision)
     qc, kc, vc = (t.to(dtype) for t in (q, k, v))
     if _on_cpu(q, k, v):
         return _flash.plain(qc, kc, vc, causal).to(q.dtype)
+    if S < _flash.SHORT_S:
+        bq, bk = cfg.block
     _flash.check_tile(bq, bk, Dh, dtype.itemsize)
     if q.numel() == 0:
         return torch.empty_like(q)
     pad = _flash.tile_width(Dh) - Dh
-    if pad:
-        qc, kc, vc = (F.pad(t, (0, pad)) for t in (qc, kc, vc))
+    pad_s = _flash.seq_padding(S, (bq, bk))
+    if pad or pad_s:
+        qc, kc, vc = (F.pad(t, (0, pad, 0, 0, 0, pad_s))
+                      for t in (qc, kc, vc))
     lib = _library("flash_attention")
     out = _flash.launch(lib, _aligned(qc), _aligned(kc), _aligned(vc),
-                        causal, bq, bk, scale_dh=Dh)
+                        causal, bq, bk, scale_dh=Dh, kv_len=S)
     LAUNCHES["flash_attention"] += 1
-    if pad:
-        out = out[..., :Dh].contiguous()
+    if pad or pad_s:
+        out = out[:, :S, :, :Dh].contiguous()
     return out.to(q.dtype)

@@ -76,22 +76,32 @@ def sampled_rescaled_dot_ref(As_rows: torch.Tensor, Bs_rows: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        kv_len: int | None = None) -> torch.Tensor:
     """Naive softmax attention over folded heads, q/k/v (BH, S, Dh): float32
     scores ``q k^T / sqrt(Dh)``, keys after the query masked to -1e30 when
     ``causal``, softmax, then the product with v; the output in q's dtype.
-    Every query row is independent, so the rows go in chunks of at most
-    ``_SCORE_CHUNK`` scores: the same numbers at any S, in bounded memory."""
+    Keys from ``kv_len`` on (default S) get no weight: the kernel masks
+    them to -1e30, whose exponential is an exact 0, and here they are left
+    out of the scores, which gives the same numbers. Every query row is
+    independent, so the rows go in chunks of at most ``_SCORE_CHUNK``
+    scores, the chunks' length set by ``kv_len``: the same numbers at any
+    S, in bounded memory, and rows 0 to ``kv_len`` - 1 of a call on inputs
+    zero-padded past ``kv_len`` are the call at ``kv_len`` bit for bit."""
     BH, S, Dh = q.shape
+    n = S if kv_len is None else kv_len
+    if S and not 1 <= n <= S:
+        raise ValueError(f"flash_attention_ref: kv_len={kv_len} outside 1 to "
+                         f"S={S}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    rows = max(1, min(S, _SCORE_CHUNK // max(S, 1)))
+    rows = max(1, min(n, _SCORE_CHUNK // max(n, 1)))
     pos = torch.arange(S, device=q.device)
     for b in range(BH):
-        kb, vb = k[b].float(), v[b].float()
+        kb, vb = k[b, :n].float(), v[b, :n].float()
         for r0 in range(0, S, rows):
             s = q[b, r0:r0 + rows].float() @ kb.T / math.sqrt(Dh)
             if causal:
-                keep = pos[r0:r0 + rows, None] >= pos[None, :]
+                keep = pos[r0:r0 + rows, None] >= pos[None, :n]
                 s = torch.where(keep, s, torch.full_like(s, -1e30))
             out[b, r0:r0 + rows] = (torch.softmax(s, dim=-1) @ vb).to(q.dtype)
     return out

@@ -794,6 +794,51 @@ def test_flash_wgmma_instance_matches_plain(card, B, S, H, Hkv, causal, dh,
             assert torch.equal(vt, flash_attention.vt_plain(v))
 
 
+@pytest.mark.parametrize("dh", [*flash_attention.HEAD_DIMS, 50])
+@pytest.mark.parametrize("S", [1, 48, 100, 127])
+def test_flash_short_s_matches_plain(card, S, dh):
+    """An S below 128, which the JAX wrapper runs as one block: one launch
+    on a copy zero-padded along S with the keys past S masked, at every
+    compiled width and the padded width 50, float32 and bf16, causal and
+    not, GQA (4 query heads over 2), within FLASH_TOL of the plain version
+    at S; a bf16 call on a wgmma instance also by ``bf16_agreement``. A
+    direct launch on 128 random rows with ``kv_len`` = S matches the plain
+    version with the same ``kv_len``."""
+    gen = torch.Generator(device=card).manual_seed(S + dh)
+    q = torch.randn(2, S, 4, dh, generator=gen, device=card)
+    k, v = (torch.randn(2, S, 2, dh, generator=gen, device=card)
+            for _ in range(2))
+    lib = ops._library("flash_attention")
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        for causal in (True, False):
+            before = ops.LAUNCHES["flash_attention"]
+            out = ops.flash_attention(qd, kd, vd, causal=causal)
+            assert ops.LAUNCHES["flash_attention"] == before + 1
+            ref = flash_attention.plain(qd, kd, vd, causal)
+            assert out.shape == qd.shape and out.dtype == dtype
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       rtol=FLASH_TOL[dtype],
+                                       atol=FLASH_TOL[dtype])
+            if dtype == torch.bfloat16 and flash_attention.on_wgmma(dh, 2):
+                share, excess = flash_attention.bf16_agreement(
+                    out, ref, FLASH_TOL[torch.float32])
+                assert excess <= 0 and \
+                    share <= flash_attention.BF16_DIFFER_MAX, (share, excess)
+        if dh not in flash_attention.HEAD_DIMS:
+            continue
+        rows = (torch.randn(2, 128, h, dh, generator=gen, device=card)
+                .to(dtype) for h in (4, 2, 2))
+        qp, kp, vp = rows
+        bq, bk = flash_attention.tiles(dh, dtype.itemsize)[0]
+        out = flash_attention.launch(lib, qp, kp, vp, False, bq, bk,
+                                     kv_len=S)
+        ref = flash_attention.plain(qp, kp, vp, False, kv_len=S)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   rtol=FLASH_TOL[dtype],
+                                   atol=FLASH_TOL[dtype])
+
+
 @pytest.mark.parametrize("dh", [64, 96, 128])
 def test_flash_bf16_wgmma_reads_v_by_key_and_column(card, dh):
     """bf16 at Dh 64, 96 and 128 reads V's tile MN-major as TMA lands it:

@@ -29,6 +29,15 @@ TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
+# S below 128, which the JAX wrapper runs as one block of S rows and the
+# card on a copy zero-padded along S with the keys past S masked; every
+# compiled width and the padded width 50; GQA (4 query heads over 2) and
+# MHA (2 over 2)
+SHORT_S = (1, 48, 80, 100, 127)
+SHORT_WIDTHS = (16, 32, 64, 96, 112, 128, 256, 50)
+SHORT_LAYOUTS = ((4, 2), (2, 2))
+
+
 def _qkv(B, S, H, Hkv, Dh, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((B, S, H, Dh)).astype(np.float32),
@@ -49,7 +58,8 @@ def _qkv(B, S, H, Hkv, Dh, seed):
     (1, 128, 4, 2, 200),    # to 256,
     (1, 128, 2, 1, 50),     # and to 64 from a width not a multiple of 4
     (1, 256, 4, 1, 256),    # recurrentgemma-9b's width, MQA
-])
+] + [(1, S, H, Hkv, Dh) for S in SHORT_S for Dh in SHORT_WIDTHS
+     for H, Hkv in SHORT_LAYOUTS])
 def test_flash_matches_jax(B, S, H, Hkv, Dh, causal, dtype):
     q, k, v = _qkv(B, S, H, Hkv, Dh, seed=S + H)
     want = jax_ops.flash_attention(
@@ -75,7 +85,7 @@ def test_plain_attention_chunks_rows_without_changing_them(monkeypatch):
 
 
 def test_flash_shape_errors():
-    q = torch.zeros(1, 100, 2, 32)
+    q = torch.zeros(1, 160, 2, 32)
     with pytest.raises(ValueError, match="divisible"):
         ops.flash_attention(q, q, q, config=tuning.KernelConfig(
             "flash_attention", (64, 64)))
@@ -141,7 +151,7 @@ def test_uncompiled_width_is_zero_padded_to_the_next_compiled_one(
     the output sliced back to the attention of width ``dh``."""
     calls = []
 
-    def launch(lib, q, k, v, causal, bq, bk, scale_dh=None):
+    def launch(lib, q, k, v, causal, bq, bk, scale_dh=None, kv_len=None):
         calls.append((q.shape[-1], k.shape[-1], v.shape[-1], scale_dh))
         stretch = (q.shape[-1] / (scale_dh or q.shape[-1])) ** 0.5
         return flash_attention.plain(q * stretch, k, v, causal)
@@ -158,6 +168,112 @@ def test_uncompiled_width_is_zero_padded_to_the_next_compiled_one(
     assert got.shape == q.shape and got.is_contiguous()
     torch.testing.assert_close(got, flash_attention.plain(q, k, v, True),
                                rtol=1e-5, atol=1e-5)
+
+
+def _card_path(monkeypatch, calls):
+    """``ops.flash_attention``'s card path with the launch stood in for by
+    the kernel's function (attention at the width it is given, with the
+    scale and the key length it is passed); each launch's (q's shape, bq,
+    bk, scale width, kv_len) goes into ``calls``."""
+    def launch(lib, q, k, v, causal, bq, bk, scale_dh=None, kv_len=None):
+        calls.append((tuple(q.shape), bq, bk, scale_dh, kv_len))
+        stretch = (q.shape[-1] / (scale_dh or q.shape[-1])) ** 0.5
+        return flash_attention.plain(q * stretch, k, v, causal, kv_len)
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(ops, "_library", lambda name: None)
+    monkeypatch.setattr(flash_attention, "launch", launch)
+    monkeypatch.setitem(ops.LAUNCHES, "flash_attention", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 50, 64, 112, 256])
+@pytest.mark.parametrize("S", [1, 48, 100, 127])
+def test_short_s_runs_one_launch_on_a_copy_padded_along_s(monkeypatch, S, dh,
+                                                           dtype):
+    """The card's path at an S below 128, which no compiled tile divides:
+    one launch on one copy of q, k and v zero-padded along S to a multiple
+    of the resolved tile's larger block (``seq_padding``: 128 on a
+    ``wgmma`` instance, 64 or 128 on an ``mma.sync`` one; Dh padded to its
+    compiled width in the same copy), at that tile, with ``kv_len`` = S,
+    and the output's first S rows, contiguous: the plain version at S."""
+    calls = []
+    _card_path(monkeypatch, calls)
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv(2, S, 4, 2, dh, seed=S + dh))
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert got.shape == q.shape and got.dtype == dtype and \
+            got.is_contiguous()
+        torch.testing.assert_close(
+            got.float(), flash_attention.plain(q, k, v, causal).float(),
+            rtol=1e-5 if dtype == torch.float32 else 1e-2,
+            atol=1e-5 if dtype == torch.float32 else 1e-2)
+    tile = tuning.lookup("flash_attention", (8, S, dh),
+                         dtype_bytes=dtype.itemsize, backend="cpu").block
+    padded = S + flash_attention.seq_padding(S, tile)
+    assert padded % max(tile) == 0 and padded - S < max(tile)
+    width = flash_attention.tile_width(dh)
+    assert calls == [((2, padded, 4, width), *tile, dh, S)] * 2
+    assert ops.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("dh", [16, 64, 256])
+@pytest.mark.parametrize("S", [160, 200])
+def test_s_the_jax_wrapper_refuses_is_refused_before_a_launch(
+        monkeypatch, S, dh):
+    """An S of 128 or more that is not a multiple of 128 raises ValueError
+    in both wrappers, and on the card's path before any launch, though the
+    kernel's key-length mask could run it: the reference has no such
+    call."""
+    q, k, v = _qkv(1, S, 2, 1, dh, seed=S)
+    with pytest.raises(ValueError, match="divisible"):
+        jax_ops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)))
+    with pytest.raises(ValueError, match="divisible"):
+        ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    calls = []
+    _card_path(monkeypatch, calls)
+    with pytest.raises(ValueError, match="divisible"):
+        ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert calls == [] and ops.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", SHORT_WIDTHS)
+@pytest.mark.parametrize("S", SHORT_S)
+def test_padding_plan_with_kv_len_is_the_plain_version_at_s(S, dh, dtype):
+    """The card's plan for an S below 128 in the plain version: q, k and v
+    zero-padded along S by ``seq_padding`` at every tile compiled at the
+    width, the plain version with ``kv_len`` = S, then its first S rows,
+    equal the plain version at S bit for bit, causal and not, GQA and MHA.
+    Without the mask a non-causal call gives the zero keys past S weight
+    (a causal row never sees them)."""
+    for H, Hkv in SHORT_LAYOUTS:
+        q, k, v = (torch.from_numpy(x).to(dtype)
+                   for x in _qkv(2, S, H, Hkv, dh, seed=S + dh + H))
+        for causal in (True, False):
+            want = flash_attention.plain(q, k, v, causal)
+            for tile in flash_attention.tiles(dh, dtype.itemsize):
+                pad = flash_attention.seq_padding(S, tile)
+                assert pad > 0 and (S + pad) % max(tile) == 0
+                qp, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                              for t in (q, k, v))
+                got = flash_attention.plain(qp, kp, vp, causal, kv_len=S)
+                assert torch.equal(got[:, :S], want)
+                if not causal:
+                    unmasked = flash_attention.plain(qp, kp, vp, causal)
+                    assert not torch.equal(unmasked[:, :S], want)
+
+
+def test_seq_padding_leaves_s_from_128_on_as_it_is():
+    """From 128 on the tile divides S and nothing is padded; below it S
+    goes up to the next multiple of the tile's larger block."""
+    for tile in ((128, 32), (64, 32), (128, 128), (64, 64)):
+        for S in (128, 256, 4096):
+            assert flash_attention.seq_padding(S, tile) == 0
+        assert [S + flash_attention.seq_padding(S, tile)
+                for S in (1, 64, 65, 127)] == \
+            [max(tile), max(tile), 128, 128]
 
 
 @pytest.mark.parametrize("dh", [0, 257, 264, 320])
@@ -686,7 +802,7 @@ def test_dh128_resolves_and_checks_tiles_by_the_kernel_dtype(
     lacks."""
     calls = []
 
-    def launch(lib, q, k, v, causal, bq, bk, scale_dh=None):
+    def launch(lib, q, k, v, causal, bq, bk, scale_dh=None, kv_len=None):
         calls.append((q.dtype, bq, bk))
         return flash_attention.plain(q, k, v, causal)
 

@@ -5,7 +5,7 @@ the card's ``mma.sync`` TF32 instruction alone.
 
     python3 tools/flash_attention_probe.py [--seed 0] [--tile 128 32]
         [--layout 32 8 128 [--layout 32 32 96 ...]] [--dtype both]
-        [--baseline OTHER/flash_attention.cu]
+        [--baseline OTHER/flash_attention.cu [--turns N]] [--only VARIANT ...]
 
 Each variant edits every design: the ``mma.sync`` instances and the
 ``wgmma`` ones (float32 and bf16 at Dh 64, 96 and 128, ``flash_fwd_wgmma``
@@ -41,7 +41,8 @@ and ``flash_fwd_wgmma_bf16``).
 Each build's ``wgmma_ptxas`` line gives each ``wgmma`` instance's
 registers, spilled bytes and ptxas's notes that it serialised the
 ``wgmma`` (C7511, C7512, C7518) or injected a wait (C7517), by dtype and
-width ("f32_128", "bf16_96").
+width ("f32_128", "bf16_96"; "f32_128_kv" the masked instance that a
+call with ``kv_len`` below S runs).
 
 Each variant is checked against the plain version at S = 4,096 (in bf16
 also the share of output entries that differ from the plain version's
@@ -60,15 +61,22 @@ the parent commit's, unpacked with ``git archive``) and times it in turns
 with the kernel and the variants of each dtype (float32: baseline, kernel,
 its forms; bf16: baseline, kernel, ``no_copies``, ``no_mma``, ``p_once``,
 ``qk_ahead``, its forms; then the same backwards; its own line a layout):
-the cost of a change to the source, within one call on one card; its
+the cost of a change to the source, within one call on one card
+(``--turns`` repeats the whole alternation and adds each one's median
+and interquartile range); its
 ``sass_vs_baseline`` line names the ``flash_fwd`` instances (bq, bk, Dh,
 dtype) and the ``wgmma`` ones ("wgmma", Dh) and ("wgmma_bf16", Dh) whose
 SASS differs from the baseline's, instruction for instruction
-(``cuobjdump -sass``, branch labels renumbered). A source is called
+(``cuobjdump -sass``, branch labels renumbered), and its
+``resources_vs_baseline`` line gives every instance's registers, spilled
+bytes and ``HMMA``, ``HGMMA`` and ``UTMALDG`` counts, and ptxas's
+serialisation notes, in both builds. ``--only`` builds and times the
+variants named (``kernel`` always, and the baseline). A source is called
 through its ``wgmma`` entry for a dtype at the widths it runs there (its
 ``wgmma_width``, or its one ``W_DH``, in float32; its ``BForm`` widths in
 bf16), and through ``flash_attention_f32`` or ``flash_attention_bf16`` at
-every other width and dtype, as that source took them. ``mma_sync_peak``
+every other width and dtype, as that source took them (with ``kv_len``
+or, a source from before it, without). ``mma_sync_peak``
 times a kernel of independent ``mma.sync.m16n8k8`` TF32 MMAs on every SM,
 the rate the ``mma.sync`` design can reach at most. One JSON line per variant; needs a CUDA card
 and ``nvcc``. Builds go to ``build/repro_torch/probe/``.
@@ -81,8 +89,11 @@ import functools
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
+
+import numpy
 
 import torch
 
@@ -273,29 +284,39 @@ def wgmma_widths(text: str, dtype=torch.float32) -> tuple:
     return (int(re.search(r"constexpr int W_DH = (\d+)", text)[1]),)
 
 
-WGMMA_NAME = r"flash_fwd_wgmma(_bf16)?(?:ILi(\d+)E)?"
+WGMMA_NAME = r"flash_fwd_wgmma(_bf16)?(?:ILi(\d+)E(Lb1E)?)?"
 
 
-def _wgmma_key(bf16, dh) -> str:
+def _wgmma_key(bf16, dh, masked=None) -> str:
     """"f32_<Dh>" or "bf16_<Dh>" of a ``WGMMA_NAME`` match's groups (a
-    source's untemplated float32 instance is its Dh 128)."""
-    return f"{'bf16' if bf16 else 'f32'}_{int(dh or 128)}"
+    source's untemplated float32 instance is its Dh 128), "_kv" after it
+    for the instance a call with ``kv_len`` < S runs."""
+    return f"{'bf16' if bf16 else 'f32'}_{int(dh or 128)}" + \
+        ("_kv" if masked else "")
+
+
+def _wgmma_inst(w) -> tuple:
+    """("wgmma" or "wgmma_bf16", "_kv" after it for the masked instance,
+    Dh) of a ``WGMMA_NAME`` match."""
+    return (("wgmma_bf16" if w[1] else "wgmma") + ("_kv" if w[3] else ""),
+            int(w[2] or 128))
 
 
 def wgmma_report(lib) -> dict:
-    """{"f32_<Dh>" or "bf16_<Dh>": {"registers", "spill_bytes", "notes"}}
-    of each ``wgmma`` instance, from the ``-Xptxas -v`` report kept beside
+    """{"f32_<Dh>" or "bf16_<Dh>" (and "_kv" after it for a masked
+    instance): {"registers", "spill_bytes", "notes"}} of each ``wgmma``
+    instance, from the ``-Xptxas -v`` report kept beside
     the library: ptxas's notes that it serialised ``wgmma`` (C7511, C7512,
     C7518) or injected a wait (C7517)."""
     log = open(re.sub(r"\.so$", ".log", lib._name)).read()
     out, key = {}, None
     for m in re.finditer(r"\((C751[1278])\).*?" + WGMMA_NAME, log):
-        out.setdefault(_wgmma_key(m[2], m[3]), {}).setdefault(
+        out.setdefault(_wgmma_key(m[2], m[3], m[4]), {}).setdefault(
             "notes", []).append(m[1])
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(WGMMA_NAME, line)
-            key = None if m is None else _wgmma_key(m[1], m[2])
+            key = None if m is None else _wgmma_key(m[1], m[2], m[3])
         elif key is not None and "spill stores" in line:
             out.setdefault(key, {})["spill_bytes"] = int(
                 re.search(r"(\d+) bytes spill stores", line)[1])
@@ -310,8 +331,9 @@ def sass_by_instance(lib) -> dict:
     """{(bq, bk, Dh, dtype): SASS text} of each ``flash_fwd`` instance in
     the loaded library, {("wgmma", Dh): SASS text} of each
     ``flash_fwd_wgmma`` one (a source's untemplated one is its Dh 128) and
-    {("wgmma_bf16", Dh): SASS text} of each ``flash_fwd_wgmma_bf16`` one,
-    from ``cuobjdump -sass``, branch labels renumbered."""
+    {("wgmma_bf16", Dh): SASS text} of each ``flash_fwd_wgmma_bf16`` one
+    ("wgmma_kv" and "wgmma_bf16_kv" the masked instances), from
+    ``cuobjdump -sass``, branch labels renumbered."""
     cuobjdump = os.path.join(os.path.dirname(ops._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True,
                           capture_output=True, text=True).stdout
@@ -323,8 +345,7 @@ def sass_by_instance(lib) -> dict:
             w = re.search(WGMMA_NAME, line)
             inst = (int(m[1]), int(m[2]), int(m[3]),
                     "float32" if m[4] == "f" else "bfloat16") if m else \
-                ("wgmma_bf16" if w[1] else "wgmma", int(w[2] or 128)) \
-                if w else None
+                _wgmma_inst(w) if w else None
             if inst is not None:
                 out[inst] = []
         elif inst is not None:
@@ -332,18 +353,61 @@ def sass_by_instance(lib) -> dict:
     return {i: relabelled("\n".join(lines)) for i, lines in out.items()}
 
 
-def legacy_launch(lib, q, k, v, causal, bq, bk):
-    """``flash_attention.launch`` of a source without the ``wgmma`` entry:
-    its own entry for the dtype, at any compiled width."""
+def resources(lib, sass: dict) -> dict:
+    """{instance: [registers, spilled bytes, HMMA, HGMMA, UTMALDG]} of
+    each instance of ``sass_by_instance`` (its keys) and of each float32
+    prologue (("vt", Dh): registers and spills), from the ``-Xptxas -v``
+    report kept beside the library and the instance's SASS; under
+    "serialised" ptxas's notes that it serialised ``wgmma`` (C7511, C7512,
+    C7518) or injected a wait (C7517), as (code, function) pairs."""
+    log = open(re.sub(r"\.so$", ".log", lib._name)).read()
+    out = {"serialised": [list(n) for n in re.findall(
+        r"\((C751[1278])\).*?function '\w*?(flash_\w+?E(?:Lb[01]E)?)",
+        log)]}
+    key = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_fwdILi(\d+)ELi(\d+)ELi(\d+)E"
+                          r"(f|13__nv_bfloat16)E", line)
+            w = re.search(WGMMA_NAME, line)
+            vt = re.search(r"flash_vtILi(\d+)E", line)
+            key = (int(m[1]), int(m[2]), int(m[3]),
+                   "float32" if m[4] == "f" else "bfloat16") if m else \
+                ("vt", int(vt[1])) if vt else \
+                _wgmma_inst(w) if w else None
+        elif key is not None and "spill stores" in line:
+            out[key] = [None, int(
+                re.search(r"(\d+) bytes spill stores", line)[1])]
+        elif key is not None and "Used" in line and key in out:
+            out[key][0] = int(re.search(r"Used (\d+) registers", line)[1])
+    for inst, text in sass.items():
+        out.setdefault(inst, [None, None])
+        out[inst] += [len(re.findall(rf"\b{op}\b", text))
+                      for op in ("HMMA", "HGMMA", "UTMALDG")]
+    return out
+
+
+def legacy_launch(lib, q, k, v, causal, bq, bk, wgmma):
+    """``flash_attention.launch`` of a source from before the key length
+    (``kv_len``): its ``wgmma`` entry for the dtype where ``wgmma`` (the
+    float32 one with the prologue's V^T scratch), else its entry for the
+    dtype, at any compiled width."""
     B, S, H, Dh = q.shape
     o = torch.empty_like(q)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
-    err = getattr(lib, flash_attention._ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-        k.shape[2], Dh, ctypes.cast(strides, ctypes.c_void_p),
-        1.0 / Dh ** 0.5, int(causal), bq, bk,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    entry = flash_attention._ENTRY[q.dtype]
+    if wgmma:
+        entry = flash_attention._WGMMA_ENTRY[q.dtype]
+        if q.dtype == torch.float32:
+            vt = torch.empty((B, k.shape[2], Dh, S), dtype=torch.float32,
+                             device=q.device)
+            ptrs.append(vt.data_ptr())
+    err = getattr(lib, entry)(
+        *ptrs, o.data_ptr(), B, S, H, k.shape[2], Dh,
+        ctypes.cast(strides, ctypes.c_void_p), 1.0 / Dh ** 0.5, int(causal),
+        bq, bk, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"baseline flash_attention: CUDA error {err}")
     return o
@@ -351,24 +415,29 @@ def legacy_launch(lib, q, k, v, causal, bq, bk):
 
 def bind_any(lib, text: str, tile: tuple):
     """Bind the entry points of a library built from source ``text``, one
-    from before the ``wgmma`` widths it has too; returns its launch
-    function and the tile it runs at a (dtype, Dh): the ``wgmma`` entry
-    (through ``flash_attention.launch``) at the widths the source runs
-    there for the dtype, at that instance's one tile, its entry for the
-    dtype at ``tile`` at every other width and dtype."""
-    rest = [ctypes.c_int64] * 5 + [ctypes.c_void_p, ctypes.c_float] + [
-        ctypes.c_int64] * 3 + [ctypes.c_void_p]
-    for name in flash_attention._ENTRY.values():
-        getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + rest
-        getattr(lib, name).restype = ctypes.c_int
+    from before the ``wgmma`` widths or the key length it has too; returns
+    its launch function and the tile it runs at a (dtype, Dh): the
+    ``wgmma`` entry at the widths the source runs there for the dtype, at
+    that instance's one tile, its entry for the dtype at ``tile`` at every
+    other width and dtype. A source with ``kv_len`` runs through
+    ``flash_attention.launch``, an older one through ``legacy_launch``."""
     widths = {dtype: wgmma_widths(text, dtype)
               for dtype in (torch.float32, torch.bfloat16)}
-    for dtype, n_ptrs in ((torch.float32, 5), (torch.bfloat16, 4)):
-        if widths[dtype]:
-            fn = getattr(lib, flash_attention._WGMMA_ENTRY[dtype])
-            fn.argtypes = [ctypes.c_void_p] * n_ptrs + rest
-            fn.restype = ctypes.c_int
     bk_bf16 = {dh: form[0] for dh, form in bf16_forms(text).items()}
+    current = "kv_len" in text
+    if current:
+        flash_attention.bind(lib)
+    else:
+        rest = [ctypes.c_int64] * 5 + [ctypes.c_void_p, ctypes.c_float] + [
+            ctypes.c_int64] * 3 + [ctypes.c_void_p]
+        for name in flash_attention._ENTRY.values():
+            getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + rest
+            getattr(lib, name).restype = ctypes.c_int
+        for dtype, n_ptrs in ((torch.float32, 5), (torch.bfloat16, 4)):
+            if widths[dtype]:
+                fn = getattr(lib, flash_attention._WGMMA_ENTRY[dtype])
+                fn.argtypes = [ctypes.c_void_p] * n_ptrs + rest
+                fn.restype = ctypes.c_int
 
     def tile_of(dtype, dh):
         width = flash_attention.tile_width(dh)
@@ -378,9 +447,11 @@ def bind_any(lib, text: str, tile: tuple):
 
     def launch(q, k, v, causal):
         bq, bk = tile_of(q.dtype, q.shape[3])
-        if flash_attention.tile_width(q.shape[3]) in widths[q.dtype]:
+        if current:
             return flash_attention.launch(lib, q, k, v, causal, bq, bk)
-        return legacy_launch(lib, q, k, v, causal, bq, bk)
+        return legacy_launch(lib, q, k, v, causal, bq, bk,
+                             flash_attention.tile_width(q.shape[3])
+                             in widths[q.dtype])
     return launch, tile_of
 
 
@@ -417,6 +488,13 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("both", *DTYPES), default="both")
     ap.add_argument("--baseline", default=None,
                     help="another flash_attention.cu, timed in turns")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="times to repeat the baseline's turns (each the "
+                         "order, then backwards), with medians and "
+                         "interquartile ranges past one")
+    ap.add_argument("--only", nargs="+", default=None, metavar="VARIANT",
+                    help="build and time these variants alone (and the "
+                         "baseline); 'kernel' is always kept")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_attention_probe: torch sees no CUDA device",
@@ -434,7 +512,8 @@ def main(argv=None) -> int:
                 **{n: (s, bf16) for n, s in bf16_form_variants(text).items()}}
     tags = both if args.dtype == "both" else (args.dtype,)
     variants = {name: (src, dts) for name, (src, dts) in variants.items()
-                if set(dts) & set(tags)}
+                if set(dts) & set(tags) and (
+                    args.only is None or name in ("kernel", *args.only))}
     sources = {name: src for name, (src, _) in variants.items()}
     if args.baseline:
         with open(args.baseline) as f:
@@ -449,6 +528,17 @@ def main(argv=None) -> int:
                 lib)}), flush=True)
     if base_lib is not None:
         mine, base = sass_by_instance(libs["kernel"]), sass_by_instance(base_lib)
+        res = {"kernel": resources(libs["kernel"], mine),
+               "baseline": resources(base_lib, base)}
+        print(json.dumps({
+            "variant": "resources_vs_baseline",
+            "fields": ["registers", "spill_bytes", "HMMA", "HGMMA",
+                       "UTMALDG"],
+            "serialised": {n: r.pop("serialised") for n, r in res.items()},
+            "instances": {",".join(map(str, i)): {
+                n: r.get(i) for n, r in res.items()} for i in sorted(
+                    set(res["kernel"]) | set(res["baseline"]), key=str)}}),
+            flush=True)
         shared = sorted(set(mine) & set(base), key=str)
         print(json.dumps({
             "variant": "sass_vs_baseline", "instances": len(mine),
@@ -517,14 +607,21 @@ def main(argv=None) -> int:
                     n for n in bound if n not in ("baseline", "kernel")
                     and tag in timed(n) and variants[n][1] != both)]
                 if tag == "bf16":
-                    order[2:2] = ["no_copies", "no_mma"]
+                    order[2:2] = [n for n in ("no_copies", "no_mma")
+                                  if n in bound]
                 qd, kd, vd = (x.to(DTYPES[tag]) for x in (q, k, v))
                 got = {name: [] for name in order}
-                for name in order + order[::-1]:
-                    got[name].append(cuda_ms(functools.partial(
-                        bound[name][0], qd, kd, vd, True), 2))
+                for _ in range(args.turns):
+                    for name in order + order[::-1]:
+                        got[name].append(cuda_ms(functools.partial(
+                            bound[name][0], qd, kd, vd, True), 2))
                 for name, ms in got.items():
                     turns[f"{name}_{tag}_ms"] = ms
+                    if args.turns > 1:
+                        turns[f"{name}_{tag}_median_ms"] = \
+                            statistics.median(ms)
+                        turns[f"{name}_{tag}_iqr_ms"] = float(
+                            numpy.subtract(*numpy.percentile(ms, [75, 25])))
             print(json.dumps({"variant": "baseline_turns",
                               "layout": [heads, kv_heads, dh],
                               "baseline": args.baseline, **turns}),
